@@ -1,0 +1,69 @@
+"""Architecture configuration: the dense-family fields of the reference's
+``ArchConfig`` (a copy, not an import) and the registry for the archs this
+port runs. Only smollm-360m is ported so far; the other families arrive
+with later slices (ROADMAP Queue 1)."""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # only 'dense' in this port so far
+    citation: str
+
+    num_layers: int = 12
+    d_model: int = 1024
+    num_heads: int = 8
+    num_kv_heads: int = 8
+    head_dim: Optional[int] = None   # default d_model // num_heads
+    d_ff: int = 4096
+    vocab_size: int = 32000
+    rope_theta: float = 10000.0
+
+    # numerics
+    dtype: str = "bfloat16"          # activation dtype
+    param_dtype: str = "float32"
+    norm_eps: float = 1e-6
+    attn_chunk: int = 512            # chunked-attention query block
+
+    @property
+    def head_dim_(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // self.num_heads
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def parameter_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+
+# public --arch ids → module names
+ARCH_ALIASES = {"smollm-360m": "smollm_360m"}
+
+
+def _module(arch: str):
+    if arch not in ARCH_ALIASES:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (this port runs "
+            f"{sorted(ARCH_ALIASES)}); the other families arrive with a "
+            "later slice (ROADMAP Queue 1)")
+    return importlib.import_module(
+        f"repro_torch.configs.{ARCH_ALIASES[arch]}")
+
+
+def get(arch: str) -> ArchConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke(arch: str) -> ArchConfig:
+    return _module(arch).smoke_config()

@@ -1,0 +1,179 @@
+// One-launch EF round for Hopper (sm_90a): the client uplink mega-kernel and
+// the downlink dequantize+add.
+//
+// ef21_sgdm_topk_quant replaces src/repro/kernels/fused_round.py::
+// ef21_sgdm_topk_quant (Pallas TPU kernel _fused_uplink_kernel): per row of
+// (rows, width) f32, the EF21-SGDM chain of ef_update.cu, then per-row
+// absmax quantization of the selected c,
+//     scale = max|c| * f32(1/qmax),  q = clip(rint(c / safe), -qmax, qmax)
+//     g'    = g + q*scale                      (the EF invariant)
+// returning (v', g', q, scales): q int8 (rows, width) for bits=8, packed
+// uint4 (rows, width/2) for bits=4 (+8 offset, high nibble first).
+// Bound: memory. 3 f32 reads + 2 f32 writes + bits/8 bytes of mantissa a
+// element + one f32 scale a row: about 21 bytes an element at bits=8.
+// Design: ef_update.cu's warp-per-row layout with the row in registers; the
+// quantization row IS the selection row, so the absmax is one more warp
+// reduction and nothing leaves registers between selection and codec.
+//
+// dequant_add replaces fused_round.py::dequant_add (_dequant_add_kernel):
+//     out = base + alpha*(q*scale)      (alpha applied only when != 1)
+// over a flat base of d values laid out as rows of `block`. Bound: memory,
+// a 4-byte read and a 4-byte write an element plus bits/8 bytes of mantissa.
+// Design: one CTA per row, threads striding over the row's columns.
+//
+// Arithmetic: IEEE division for c / safe (__fdiv_rn; never
+// --use_fast_math), rounding half to even (rintf), no contraction to FMA
+// (__fmul_rn/__fadd_rn), non-finite codec inputs become 0, and the scale
+// multiplies by the f32 reciprocal of qmax, which is what the reference's
+// `absmax / qmax` compiles to under XLA — what the plain PyTorch versions
+// in kernels/ref.py compute, bit for bit.
+#include "bisect.cuh"
+
+namespace efk {
+
+template <int PER, int BITS>
+__global__ void __launch_bounds__(kRowsPerBlock * kWarp)
+ef21_sgdm_topk_quant_kernel(const float* grad, const float* v, const float* g,
+                            float* v_out, float* g_out, uint8_t* q_out,
+                            float* s_out, long long rows, int width, float c1,
+                            float c2, int k) {
+  const int lane = threadIdx.x % kWarp;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
+  if (row >= rows) return;  // uniform across the warp
+  const long long base = row * width;
+  float d[PER], gv[PER];
+  momentum_delta<PER>(grad, v, g, v_out, base, lane, width, c1, c2, d, gv);
+  const float t = bisect_threshold<PER>(d, lane, width, k);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    float c = fabsf(d[i]) >= t ? d[i] : 0.f;
+    d[i] = isfinite(c) ? c : 0.f;  // codec guard: non-finite -> 0
+  }
+  constexpr float qmax = BITS == 8 ? 127.f : 7.f;
+  constexpr float qmax_recip = 1.f / qmax;   // rounded once, at compile time
+  const float scale = __fmul_rn(row_absmax<PER>(d, lane, width), qmax_recip);
+  const float safe = scale > 0.f ? scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int j = i * kWarp + lane;
+    float q = rintf(__fdiv_rn(d[i], safe));
+    q = fminf(fmaxf(q, -qmax), qmax);
+    if (j < width) g_out[base + j] = __fadd_rn(gv[i], __fmul_rn(q, scale));
+    const int qi = static_cast<int>(q);
+    if constexpr (BITS == 8) {
+      if (j < width)
+        q_out[base + j] = static_cast<uint8_t>(static_cast<int8_t>(qi));
+    } else {
+      // element j+1 lives on the next lane: pair them into one byte
+      const int u = qi + 8;
+      const int u_next = __shfl_down_sync(0xffffffffu, u, 1);
+      if (j < width && (lane % 2) == 0)
+        q_out[row * (width / 2) + j / 2] =
+            static_cast<uint8_t>((u << 4) | u_next);
+    }
+  }
+  if (lane == 0) s_out[row] = scale;
+}
+
+template <int BITS>
+__global__ void dequant_add_kernel(const uint8_t* q, const float* scales,
+                                   const float* base, float* out, long long d,
+                                   int block, float alpha, int apply_alpha) {
+  const long long r = blockIdx.x;
+  const float scale = scales[r];
+  for (int col = threadIdx.x; col < block; col += blockDim.x) {
+    const long long i = r * block + col;
+    if (i >= d) break;
+    float val;
+    if constexpr (BITS == 8) {
+      val = static_cast<float>(static_cast<int8_t>(q[i]));
+    } else {
+      const uint8_t p = q[r * (block / 2) + col / 2];
+      val = __fsub_rn(static_cast<float>((col % 2) ? (p & 0xF) : (p >> 4)),
+                      8.f);
+    }
+    float dec = __fmul_rn(val, scale);
+    if (apply_alpha) dec = __fmul_rn(alpha, dec);
+    out[i] = __fadd_rn(base[i], dec);
+  }
+}
+
+template <int PER, int BITS>
+static void launch_uplink(const float* grad, const float* v, const float* g,
+                          float* v_out, float* g_out, uint8_t* q_out,
+                          float* s_out, long long rows, int width, float c1,
+                          float c2, int k, cudaStream_t s) {
+  ef21_sgdm_topk_quant_kernel<PER, BITS>
+      <<<grid_for_rows(rows), kRowsPerBlock * kWarp, 0, s>>>(
+          grad, v, g, v_out, g_out, q_out, s_out, rows, width, c1, c2, k);
+}
+
+template <int BITS>
+static void launch_uplink_bits(const float* grad, const float* v,
+                               const float* g, float* v_out, float* g_out,
+                               uint8_t* q_out, float* s_out, long long rows,
+                               int width, float c1, float c2, int k,
+                               cudaStream_t s) {
+#define EFK_UPLINK(PER)                                                       \
+  launch_uplink<PER, BITS>(grad, v, g, v_out, g_out, q_out, s_out, rows,     \
+                           width, c1, c2, k, s)
+  if (width <= 32) EFK_UPLINK(1);
+  else if (width <= 64) EFK_UPLINK(2);
+  else if (width <= 128) EFK_UPLINK(4);
+  else if (width <= 256) EFK_UPLINK(8);
+  else if (width <= 512) EFK_UPLINK(16);
+  else EFK_UPLINK(32);
+#undef EFK_UPLINK
+}
+
+}  // namespace efk
+
+// Returns the cudaError_t of the launch (0 on success). v_out/g_out may
+// alias v/g (in-place EF state update).
+extern "C" int ef_launch_ef21_sgdm_topk_quant(
+    const void* grad, const void* v, const void* g, void* v_out, void* g_out,
+    void* q_out, void* s_out, long long rows, int width, float c1, float c2,
+    int k, int bits, void* stream) {
+  using namespace efk;
+  if (rows <= 0 || width <= 0 || width > kMaxWidth || k < 1 ||
+      (bits != 8 && bits != 4) || (bits == 4 && width % 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto gr = static_cast<const float*>(grad);
+  auto vv = static_cast<const float*>(v);
+  auto gg = static_cast<const float*>(g);
+  auto vo = static_cast<float*>(v_out);
+  auto go = static_cast<float*>(g_out);
+  auto qo = static_cast<uint8_t*>(q_out);
+  auto so = static_cast<float*>(s_out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bits == 8)
+    launch_uplink_bits<8>(gr, vv, gg, vo, go, qo, so, rows, width, c1, c2, k, s);
+  else
+    launch_uplink_bits<4>(gr, vv, gg, vo, go, qo, so, rows, width, c1, c2, k, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ef_launch_dequant_add(const void* q, const void* scales,
+                                     const void* base, void* out,
+                                     long long rows, long long d, int block,
+                                     int bits, float alpha, int apply_alpha,
+                                     void* stream) {
+  using namespace efk;
+  if (rows <= 0 || d <= 0 || block <= 0 || (bits != 8 && bits != 4) ||
+      (bits == 4 && block % 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = block < 256 ? ((block + 31) / 32) * 32 : 256;
+  auto qq = static_cast<const uint8_t*>(q);
+  auto ss = static_cast<const float*>(scales);
+  auto bb = static_cast<const float*>(base);
+  auto oo = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bits == 8)
+    dequant_add_kernel<8><<<static_cast<unsigned>(rows), threads, 0, s>>>(
+        qq, ss, bb, oo, d, block, alpha, apply_alpha);
+  else
+    dequant_add_kernel<4><<<static_cast<unsigned>(rows), threads, 0, s>>>(
+        qq, ss, bb, oo, d, block, alpha, apply_alpha);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,86 @@
+"""Transformer building blocks of the dense family (counterpart of
+src/repro/models/layers.py): RMSNorm, split-half RoPE, causal GQA chunked
+attention and the SwiGLU MLP, on the training path.
+
+Attention is plain PyTorch here, as it is plain JAX in the reference (the
+reference's flash-attention Pallas kernel has no production caller); its
+large products go to ``torch.einsum``. Sliding windows, soft caps and the
+decode path arrive with the serving slice.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """RMSNorm in f32 that scales by (1 + scale), back in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
+         ) -> torch.Tensor:
+    """Split-half rotary embedding. x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                          device=x.device) / hd))
+    ang = positions[..., None].float() * freqs              # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      chunk: int = 512) -> torch.Tensor:
+    """Causal GQA attention, one block of ``chunk`` queries at a time so the
+    live score tensor stays (B, KV, G, chunk, S). q: (B,S,H,hd); k, v:
+    (B,S,KV,hd). Scores and softmax in f32, probabilities in v's dtype."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    chunk = min(chunk, Sq)
+    kf = k.float()
+    kv_pos = torch.arange(Skv, device=q.device)
+    outs = []
+    for start in range(0, Sq, chunk):
+        qi = q[:, start:start + chunk]
+        cq = qi.shape[1]
+        qi = qi.reshape(B, cq, KV, G, hd).float() / (hd ** 0.5)
+        s = torch.einsum("bqngd,bknd->bngqk", qi, kf)
+        q_pos = start + torch.arange(cq, device=q.device)
+        bias = torch.where(kv_pos[None, :] <= q_pos[:, None], 0.0, -1e30)
+        p = torch.softmax(s + bias, dim=-1).to(v.dtype)
+        o = torch.einsum("bngqk,bknd->bqngd", p, v)
+        outs.append(o.reshape(B, cq, H, hd))
+    return torch.cat(outs, dim=1)
+
+
+def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+               positions: torch.Tensor, *, rope_theta: float, eps: float,
+               chunk: int) -> torch.Tensor:
+    """Pre-norm attention sub-block; returns the residual delta."""
+    h = rms_norm(x, p["norm"], eps)
+    q = torch.einsum("bsd,dnh->bsnh", h, p["wq"].to(h.dtype))
+    k = torch.einsum("bsd,dnh->bsnh", h, p["wk"].to(h.dtype))
+    v = torch.einsum("bsd,dnh->bsnh", h, p["wv"].to(h.dtype))
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    out = chunked_attention(q, k, v, chunk=chunk)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(out.dtype))
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float
+              ) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP; returns the residual delta."""
+    h = rms_norm(x, p["norm"], eps)
+    g = torch.einsum("bsd,df->bsf", h, p["w_gate"].to(h.dtype))
+    u = torch.einsum("bsd,df->bsf", h, p["w_up"].to(h.dtype))
+    out = F.silu(g) * u
+    return torch.einsum("bsf,fd->bsd", out, p["w_down"].to(out.dtype))

@@ -17,6 +17,10 @@ def pytest_configure(config):
         "markers",
         "tier1: fast PR-gating tier, auto-applied to every test not marked "
         "slow (never set it by hand)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand kernels have no CPU "
+        "mode); skips with a reason elsewhere")
 
 
 def pytest_collection_modifyitems(config, items):

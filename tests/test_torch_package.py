@@ -1,0 +1,74 @@
+"""Package-level guarantees of the PyTorch port: it imports neither JAX nor
+the reference package, its entry points run on cuda unless told otherwise,
+and its RunSpec reads the reference's spec files and refuses what this
+slice does not run."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.launch import session as pt_session
+from repro_torch.launch import spec as pt_spec
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
+
+_GUARD = r"""
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: F401  (its work runs under __main__ only)
+bad = sorted(n for n in sys.modules
+             if n in ("jax", "jaxlib", "repro") or n.startswith(("jax.", "repro.")))
+print(len([n for n in sys.modules if n.startswith("repro_torch")]), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {os.path.abspath(ROOT)!r}\n" + _GUARD],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) > 15          # every module was walked
+
+
+def test_session_defaults_to_cuda():
+    spec = pt_spec.RunSpec(smoke=True, seq_len=16)
+    if torch.cuda.is_available():
+        assert pt_session.Session(spec).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            pt_session.Session(spec)
+    assert pt_session.Session(spec, device="cpu").device.type == "cpu"
+
+
+def test_spec_reads_the_reference_golden_file():
+    with open(os.path.join(ROOT, "results", "specs",
+                           "fused_quickstart.json")) as f:
+        spec = pt_spec.RunSpec.from_json(f.read())
+    assert (spec.carrier, spec.eta, spec.compressor_kw) == (
+        "fused", 0.2, {"block": 1024, "k_per_block": 16})
+    assert pt_spec.RunSpec.from_json(spec.to_json()) == spec
+
+
+@pytest.mark.parametrize("bad", [
+    {"arch": "gemma2-9b"}, {"carrier": "sparse"}, {"method": "sgdm"},
+    {"mesh": "pod"}, {"optimizer": "adamw"}, {"overlap": True},
+    {"ef_state_dtype": "bfloat16"}, {"participation": {"mode": "sampled"}},
+    {"carrier": "fused", "compressor_kw": {"block": 2048}},
+    {"global_batch": 12},
+])
+def test_spec_rejects_what_this_slice_does_not_run(bad):
+    with pytest.raises(ValueError, match="invalid RunSpec"):
+        pt_spec.RunSpec(**bad)
+
+
+def test_spec_rejects_unknown_keys():
+    with pytest.raises(ValueError, match="unknown RunSpec keys"):
+        pt_spec.RunSpec.from_dict({"version": 5, "warp_speed": 9})
