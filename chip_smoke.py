@@ -7,19 +7,32 @@ H100: the quickest proof that the port still starts on the GPU.
 Phases, each of which ends the run with a non-zero exit when it fails:
   1. print the card's name and power limit; build the CUDA kernels from
      src/repro_torch/kernels/csrc with nvcc and print the build time;
-  2. hold each kernel (K2 ef21_sgdm_update, K3 ef21_sgdm_topk_quant at 8 and
-     4 bits, K4 dequant_add) against its plain PyTorch version at the shape
-     the main path gives it — the layers/mlp/w_up leaf, 8 clients folded
-     into rows of 1024 — exactly, and time kernel, plain version and bound;
-  3. check the path against a reference on a small input: a smoke-size
-     Session on the card and on the CPU (the CPU runs the plain versions,
-     which the CPU tests hold against the JAX package) agree for 2 steps;
-  4. the main path: full-width smollm-360m, 8 clients, EF21-SGDM with
-     Block-TopK, carrier fused_quant8 up and fused_quant4 down, 3 training
-     steps; losses finite, K3 and K4 launched once per leaf per step;
-  5. the same Session with carrier fused for 2 steps; K2 launched once per
-     leaf per step;
-then print a ``kernels`` JSON line, the card line, and the final
+  2. hold each kernel against its plain PyTorch version, exactly, and time
+     kernel, plain version, bound and (where one exists) a library call:
+     K2 ef21_sgdm_update, K3 ef21_sgdm_topk_quant at 8 and 4 bits and K4
+     dequant_add at the shapes the fused path gives them (the
+     layers/mlp/w_up leaf, 8 clients folded into rows of 1024); K5
+     block_quantize and K6 block_dequantize at 8 and 4 bits at every width
+     the quantized carriers give them (16, 51, 256, 1024 and one row of
+     2,359,296, with an all-zero row and inf/NaN inputs), timed at the
+     shapes of main paths A and B;
+  3. check the paths against a reference on a small input: smoke-size
+     Sessions on the card and on the CPU (the CPU runs the plain versions,
+     which the CPU tests hold against the JAX package) agree for 2 steps,
+     with fused_quant8/fused_quant4, with quant8/quant4, and with
+     quant8/quant4 under the identity compressor;
+  4. main path A: full-width smollm-360m, 8 clients, EF21-SGDM with
+     Block-TopK, carrier quant8 up and quant4 down (the sparse payload both
+     ways), 3 training steps;
+  5. main path B: the same with the identity compressor (the dense
+     payload, K4 on the downlink), 2 steps;
+  6. the fused paths: carrier fused_quant8 up and fused_quant4 down, 3
+     steps, and carrier fused, 2 steps.
+Each training path resets the launch counts just before it, checks that
+every kernel launched exactly as often per leaf and step as the path's
+code calls it (and the others not at all), that losses and parameters are
+finite, and prints step ms, peak memory and a step breakdown. Then the
+script prints a ``kernels`` JSON line, the card line, and the final
 ``{"ok": true, ...}`` line. Imports nothing of JAX or of src/repro.
 """
 import contextlib
@@ -41,6 +54,8 @@ HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (published)
 F32_OPS_S = 67e12              # H100 SXM f32 outside the tensor cores
 CLIENTS, BLOCK = 8, 1024
 W_UP = (32, 960, 2560)         # layers/mlp/w_up of full-width smollm-360m
+QBLOCK = 256                   # the quantized carriers' dense-payload row
+TOPK_EMBED_K = 2_359_296       # plain TopK's k at ratio 0.05 on the embed leaf
 
 
 def fail(msg: str) -> None:
@@ -182,36 +197,121 @@ def kernel_checks(ops, ref, results):
               f"{r['library_ms']} max_abs_err {r['max_abs_err']}", flush=True)
 
 
+def codec_checks(ops, ref, results):
+    """Phase 2, K5 and K6: bit-identical to their plain versions at every
+    width the quantized carriers give them, then timed where main paths A
+    and B run them."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    d = math.prod(W_UP)
+    err = {"block_quantize": 0.0, "block_dequantize": 0.0}
+    for rows, cols in ((CLIENTS * d // BLOCK, 16), (d // BLOCK, 51),
+                       (CLIENTS * d // QBLOCK, QBLOCK), (4096, BLOCK),
+                       (1, TOPK_EMBED_K)):
+        x = torch.randn(rows, cols, generator=gen, device="cuda")
+        x[0, 0], x[0, -1] = float("inf"), float("nan")
+        if rows > 1:
+            x[1] = 0.0                                  # an all-zero row
+        for bits in (8, 4):
+            got = ops.block_quantize(x, bits)
+            want = ref.block_quantize_plain(x, bits)
+            check_equal(f"block_quantize {rows}x{cols} bits={bits}", got, want)
+            err["block_quantize"] = max(err["block_quantize"],
+                                        max_abs_err(got, want))
+            dec = ops.block_dequantize(*got, bits, cols)
+            want = ref.block_dequantize_plain(*got, bits=bits, cols=cols)
+            check_equal(f"block_dequantize {rows}x{cols} bits={bits}", [dec],
+                        [want])
+            err["block_dequantize"] = max(err["block_dequantize"],
+                                          max_abs_err([dec], [want]))
+            del got, want, dec
+        print(f"codec {rows}x{cols}: K5 and K6 bit-identical at bits 8 and 4",
+              flush=True)
+        del x
+    shapes = [  # (label, rows, cols, bits): the w_up leaf on each path
+        ("A uplink sparse payload", CLIENTS * d // BLOCK, 16, 8),
+        ("A downlink sparse payload", d // BLOCK, 51, 4),
+        ("B uplink dense payload", CLIENTS * d // QBLOCK, QBLOCK, 8),
+        ("B downlink dense payload", d // QBLOCK, QBLOCK, 4)]
+    for label, rows, cols, bits in shapes:
+        x = torch.randn(rows, cols, generator=gen, device="cuda")
+        q, scales = ops.block_quantize(x, bits)
+        n = rows * cols
+        io = q.numel() + rows * 4 + n * 4          # mantissas, scales, f32
+        timed = {}
+        b_ms, b_by = bound(io, n * 6)               # abs, max, div, rint, clamp
+        timed["block_quantize"] = {
+            "max_abs_err": err["block_quantize"], "bound_ms": b_ms,
+            "bound_by": b_by,
+            "ms": time_ms(lambda: ops.block_quantize(x, bits), 20),
+            "plain_ms": time_ms(lambda: ref.block_quantize_plain(x, bits), 3),
+            "library_ms": None}
+        b_ms, b_by = bound(io, n * 2)               # unpack, multiply
+        lib = None
+        if bits == 8:          # int8 × f32 promotes to f32: one PyTorch call
+            lib = time_ms(lambda: torch.mul(q, scales[:, None]), 20)
+        timed["block_dequantize"] = {
+            "max_abs_err": err["block_dequantize"], "bound_ms": b_ms,
+            "bound_by": b_by,
+            "ms": time_ms(lambda: ops.block_dequantize(q, scales, bits, cols),
+                          20),
+            "plain_ms": time_ms(lambda: ref.block_dequantize_plain(
+                q, scales, bits=bits, cols=cols), 3),
+            "library_ms": lib}
+        for name, r in timed.items():
+            print(f"kernel {name} [{label}, {rows}x{cols}, bits {bits}]: ms "
+                  f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms "
+                  f"{r['library_ms']}", flush=True)
+        if label == shapes[0][0]:                   # main path A's uplink
+            results.update(timed)
+        del x, q, scales
+
+
 def load_spec(spec_lib, **overrides):
     with open(SPEC) as f:
         return spec_lib.RunSpec.from_dict(dict(json.load(f), **overrides))
 
 
+SMOKE_PATHS = [  # (label, spec overrides) for the card-vs-cpu check
+    ("fused_quant8/fused_quant4", {"carrier": "fused_quant8",
+                                   "downlink_carrier": "fused_quant4"}),
+    ("quant8/quant4", {"carrier": "quant8", "downlink_carrier": "quant4"}),
+    ("quant8/quant4 identity", {"carrier": "quant8",
+                                "downlink_carrier": "quant4",
+                                "compressor": "identity",
+                                "compressor_kw": {}}),
+]
+
+
 def reference_check(Session, spec_lib):
-    """Phase 3: the CUDA path against the CPU path on a small input."""
-    spec = load_spec(spec_lib, smoke=True, seq_len=64, carrier="fused_quant8",
-                     downlink_carrier="fused_quant4")
-    runs = {}
-    for device in ("cuda", "cpu"):
-        sess = Session(spec, device=device, dtype="float32")
-        runs[device] = sess.train(2, log_every=1)
-    for key in ("loss", "g_norm"):
-        a = [r[key] for r in runs["cuda"]]
-        b = [r[key] for r in runs["cpu"]]
-        print(f"smoke {key}: cuda {a} cpu {b}", flush=True)
-        if not all(math.isfinite(x) for x in a) or any(
-                abs(x - y) > 1e-3 * abs(y) for x, y in zip(a, b)):
-            fail(f"smoke {key} on cuda {a} != cpu {b} (rtol 1e-3)")
+    """Phase 3: the CUDA paths against the CPU paths on a small input."""
+    for label, overrides in SMOKE_PATHS:
+        spec = load_spec(spec_lib, smoke=True, seq_len=64, **overrides)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            sess = Session(spec, device=device, dtype="float32")
+            runs[device] = sess.train(2, log_every=1)
+        for key in ("loss", "g_norm"):
+            a = [r[key] for r in runs["cuda"]]
+            b = [r[key] for r in runs["cpu"]]
+            print(f"smoke {label} {key}: cuda {a} cpu {b}", flush=True)
+            if not all(math.isfinite(x) for x in a) or any(
+                    abs(x - y) > 1e-3 * abs(y) for x, y in zip(a, b)):
+                fail(f"smoke {label} {key} on cuda {a} != cpu {b} "
+                     "(rtol 1e-3)")
 
 
-def main_path(Session, spec_lib, ops, carrier, downlink, steps, counted):
-    """Phases 4-5: full-width smollm-360m through the port's Session."""
-    spec = load_spec(spec_lib, carrier=carrier, downlink_carrier=downlink)
+def main_path(Session, spec_lib, ops, steps, per_leaf_step, **overrides):
+    """Phases 4-6: full-width smollm-360m through the port's Session.
+    ``per_leaf_step`` names the launches each kernel makes per leaf and step
+    on this path; every other kernel must not launch."""
+    spec = load_spec(spec_lib, **overrides)
+    label = f"{spec.carrier}/{spec.downlink_carrier} {spec.compressor}"
     sess = Session(spec, device="cuda")
     t0 = time.time()
     n_leaves = len(sess.params)                     # builds the train state
     torch.cuda.synchronize()
-    print(f"{carrier}/{downlink}: {n_leaves} leaves, "
+    print(f"{label}: {n_leaves} leaves, {spec.clients} clients, "
           f"{sum(p.numel() for p in sess.params.values())} parameters, "
           f"state built in {time.time() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
@@ -229,22 +329,24 @@ def main_path(Session, spec_lib, ops, carrier, downlink, steps, counted):
             fail(f"non-finite loss/g_norm at step {sess.step - 1}")
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
-    print(f"{carrier}/{downlink}: step_ms {step_ms} max_memory_allocated "
-          f"{peak} launches {launches}", flush=True)
-    for name in counted:
-        if launches[name] != n_leaves * steps:
-            fail(f"{name} launched {launches[name]} times on the main path, "
-                 f"expected {n_leaves} leaves x {steps} steps")
+    print(f"{label}: step_ms {step_ms} max_memory_allocated {peak} "
+          f"launches {launches}", flush=True)
+    for name, count in launches.items():
+        want = per_leaf_step.get(name, 0) * n_leaves * steps
+        if count != want:
+            fail(f"{name} launched {count} times on the {label} path, "
+                 f"expected {per_leaf_step.get(name, 0)} a leaf and step x "
+                 f"{n_leaves} leaves x {steps} steps = {want}")
     if not all(bool(torch.isfinite(p).all()) for p in sess.params.values()):
         fail("non-finite parameters after training")
-    step_breakdown(sess, spec)
+    step_breakdown(sess, spec, label)
     del sess, m
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-def step_breakdown(sess, spec) -> None:
+def step_breakdown(sess, spec, label) -> None:
     """One more step, split by the host clock (each part ends in a
     synchronize) into client gradients, the EF round and the optimizer —
     run after the launch counts were read, from the same public functions
@@ -270,7 +372,7 @@ def step_breakdown(sess, spec) -> None:
     torch.cuda.synchronize()
     t.append(time.time())
     ms = [round((b - a) * 1e3, 1) for a, b in zip(t, t[1:])]
-    print(f"{spec.carrier}/{spec.downlink_carrier} step breakdown ms: "
+    print(f"{label} step breakdown ms: "
           f"client_grads {ms[0]} ef_round {ms[1]} optimizer {ms[2]}",
           flush=True)
 
@@ -301,16 +403,37 @@ def main() -> None:
     results = {}
     with phase("kernels against their plain versions"):
         kernel_checks(ops, ref, results)
+        gc.collect()
+        torch.cuda.empty_cache()
+        codec_checks(ops, ref, results)
     gc.collect()
     torch.cuda.empty_cache()
-    with phase("cuda path against the cpu path (smoke size)"):
+    with phase("cuda paths against the cpu paths (smoke size)"):
         reference_check(Session, spec_lib)
-    with phase("main path: fused_quant8 up, fused_quant4 down, 3 steps"):
-        up = main_path(Session, spec_lib, ops, "fused_quant8", "fused_quant4",
-                       3, ("ef21_sgdm_topk_quant", "dequant_add"))
+    # per leaf and step: quant8 up runs K5 to encode and K6 twice (the
+    # clients' local_c and the aggregate); quant4 down runs K5 to encode
+    # and, for the sparse payload, K6 to decode (h + decode), for the dense
+    # payload K4 (dequantize + add in one launch)
+    with phase("main path A: quant8 up, quant4 down, block_topk, 3 steps"):
+        path_a = main_path(Session, spec_lib, ops, 3,
+                           {"block_quantize": 2, "block_dequantize": 3},
+                           carrier="quant8", downlink_carrier="quant4")
+    with phase("main path B: quant8 up, quant4 down, identity, 2 steps"):
+        main_path(Session, spec_lib, ops, 2,
+                  {"block_quantize": 2, "block_dequantize": 2,
+                   "dequant_add": 1},
+                  carrier="quant8", downlink_carrier="quant4",
+                  compressor="identity", compressor_kw={})
+    # fused_quant8 up: K3, then K6 to mean the wire; fused_quant4 down: K5
+    # to encode, K4 to integrate
+    with phase("fused path: fused_quant8 up, fused_quant4 down, 3 steps"):
+        up = main_path(Session, spec_lib, ops, 3,
+                       {"ef21_sgdm_topk_quant": 1, "block_dequantize": 1,
+                        "block_quantize": 1, "dequant_add": 1},
+                       carrier="fused_quant8", downlink_carrier="fused_quant4")
     with phase("fused carrier, 2 steps"):
-        fused = main_path(Session, spec_lib, ops, "fused", "dense", 2,
-                          ("ef21_sgdm_update",))
+        fused = main_path(Session, spec_lib, ops, 2, {"ef21_sgdm_update": 1},
+                          carrier="fused", downlink_carrier="dense")
 
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
@@ -320,6 +443,10 @@ def main() -> None:
          f"{csrc}/fused_round.cu", "src/repro/kernels/fused_round.py:111", up),
         ("dequant_add", "dequant_add/4", f"{csrc}/fused_round.cu",
          "src/repro/kernels/fused_round.py:164", up),
+        ("block_quantize", "block_quantize", f"{csrc}/codec.cu",
+         "src/repro/kernels/quantize.py:92", path_a),
+        ("block_dequantize", "block_dequantize", f"{csrc}/codec.cu",
+         "src/repro/kernels/quantize.py:112", path_a),
     ]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **{

@@ -36,8 +36,11 @@ def _subtree(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
 
 def load_jax_npz(path: str, device="cpu") -> Tuple[Dict[str, Any], dict]:
     """Read a reference checkpoint. Returns (state, meta) where state holds
-    ``params`` (flat tree) and ``ef_state`` ({"clients": {"v", "g"},
-    "server", and "h" when the run had a downlink}), all on ``device``."""
+    ``params`` (flat tree) and ``ef_state``: ``clients`` maps each entry of
+    the method's client state to its flat tree, under the reference's names
+    (EF21's "v"/"g", EF21-SGD2M's second momentum "u", EF14's "e"; empty for
+    SGD), then ``server`` (for an absolute-mode method the last mean
+    message) and ``h`` when the run had a downlink; all on ``device``."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files if k != "__meta__"}
         meta = json.loads(bytes(z["__meta__"]).decode())

@@ -2,44 +2,56 @@
 compressed innovation c of one EF round travels, for the uplink (clients →
 server) and the downlink (server → clients) alike.
 
-This slice ports:
-
   DenseCarrier       ``dense``: c ships as a dense d-word tensor; the mean
                      over clients is ``sum(0)/n``.
+  SparseBlockCarrier ``sparse``: (values, block-local int32 indices) of the
+                     TopK family, 2·nb·kb words a client; the mean is a
+                     scatter-ADD over clients.
   FusedPallasCarrier ``fused``: dense wire, and the whole EF21-SGD(M) client
                      chain runs as one launch of the K2 kernel per leaf
                      (kernels/ops.py::ef21_sgdm_update).
+  QuantCarrier       ``quant8`` / ``quant4``: per-row absmax scale + int8 or
+                     packed-uint4 mantissas through the K5/K6 codec kernels
+                     (ops.block_quantize / block_dequantize). The TopK family
+                     ships its (nb, kb) selected values quantized with
+                     block-local indices (the sparse payload); every other
+                     deterministic compressor ships C(δ) quantized in rows of
+                     ``qblock`` (the dense payload). Aggregation dequantizes,
+                     then means: mantissas under different scales do not add.
   FusedQuantCarrier  ``fused_quant8`` / ``fused_quant4``: the one-launch
                      uplink (K3, ef21_sgdm_topk_quant) ships the block-dense
                      quantized innovation; on the downlink the same payload
-                     is integrated by the K4 kernel (dequant_add).
+                     is integrated by the K4 kernel (dequant_add). Where the
+                     mega-kernel does not apply it runs the unfused quantized
+                     wire of QuantCarrier.
 
-The carriers ``sparse``, ``quant8`` and ``quant4`` arrive with a later slice
-(ROADMAP Queue 1); naming one raises ``NotImplementedError``.
+Plans — ``carrier.plan(method, eta)``: 'dense' (the method's own update,
+then the dense mean), 'wire' (pre_compress, then per leaf encode → local_c →
+aggregate, then post_compress), 'fused' (K2) and 'fused_wire' (K3).
 
-Leaves with a leading client axis ("batched", the single-device runtime)
-fold the clients into kernel rows: each client's flat leaf is padded to
-whole blocks first, so client boundaries and row boundaries coincide and
-one launch covers one leaf for all clients. The fused carriers update the
-client EF state IN PLACE: the kernels write v' and g' over v and g (each
-element is read before its own lane writes it), which is what keeps the
-state of eight full-width clients inside one card's memory.
+Wires may carry a leading client axis: ``encode`` takes a flat (d,) leaf or
+an (n, d) stack of clients and folds the clients into kernel rows, so one
+K5 launch quantizes one leaf for all clients; ``decode`` keeps the leading
+axis and ``aggregate`` means over it. Each client's flat leaf is padded to
+whole blocks first, so client boundaries and row boundaries coincide. The
+fused carriers update the client EF state IN PLACE: the kernels write v' and
+g' over v and g (each element is read before its own lane writes it), which
+is what keeps the state of eight full-width clients inside one card's
+memory.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Dict, List, Tuple
 
 import torch
 
 from repro_torch.core import compressors as comp_lib
 from repro_torch.kernels import ops
-from repro_torch.kernels import ref as kref
 
 Tree = Dict[str, torch.Tensor]
-
-_LATER = ("sparse", "quant8", "quant4")
 
 
 def _pad_rows(x: torch.Tensor, dp: int, d: int, nb: int, block: int
@@ -51,6 +63,20 @@ def _pad_rows(x: torch.Tensor, dp: int, d: int, nb: int, block: int
     if pad == 0:
         return flat.reshape(dp * nb, block), False
     return torch.nn.functional.pad(flat, (0, pad)).reshape(dp * nb, block), True
+
+
+def _rows(x: torch.Tensor, nb: int, block: int) -> torch.Tensor:
+    """The contiguous (n·nb, block) f32 row view of a (..., d) tensor, each
+    of its n flat rows padded to nb·block."""
+    d = x.shape[-1]
+    n = x.numel() // d if d else 1
+    return _pad_rows(x.float(), n, d, nb, block)[0].contiguous()
+
+
+def _unrows(rows: torch.Tensor, lead: torch.Size, d: int) -> torch.Tensor:
+    """Inverse of :func:`_rows`: (*lead, d), the pad dropped."""
+    n = math.prod(lead)
+    return rows.reshape(n, -1)[:, :d].reshape(*lead, d)
 
 
 def _fused_leaves(method, grads: Tree, state: Dict[str, Tree], eta, launch):
@@ -83,13 +109,73 @@ def _fused_leaves(method, grads: Tree, state: Dict[str, Tree], eta, launch):
         yield key, grad, block, out[2:]
 
 
+# ---------------------------------------------------------------------------
+# the TopK-family block wire, shared by the sparse and quantized carriers
+# ---------------------------------------------------------------------------
+
+def sparse_geom(comp, d: int) -> Tuple[int, int, int]:
+    """(nb, block, kb) of the fixed-size TopK-family wire for a flat (d,)
+    leaf: BlockTopK's d-aware geometry; plain TopK is one block spanning the
+    leaf (exact global TopK)."""
+    if isinstance(comp, comp_lib.BlockTopK):
+        return comp.geom(d)
+    if isinstance(comp, comp_lib.TopK):
+        return 1, d, comp._k(d)
+    raise ValueError(f"no fixed-size sparse wire for {type(comp).__name__}")
+
+
+def sparse_select(comp, delta: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad each (d,) row of ``delta`` (d,) or (n, d) to whole blocks and take
+    the kb largest |·| per block. Returns (vals, idx), both (*lead, nb, kb),
+    idx block-LOCAL (int64) in ``lax.top_k`` order — not
+    ``BlockTopK.sparse``, whose indices are global."""
+    d, lead = delta.shape[-1], delta.shape[:-1]
+    nb, block, kb = sparse_geom(comp, d)
+    xb = _rows(delta, nb, block)
+    idx = comp_lib.top_order(xb.abs(), kb)
+    vals = torch.gather(xb, 1, idx)
+    return vals.reshape(*lead, nb, kb), idx.reshape(*lead, nb, kb)
+
+
+def scatter_blocks(vals: torch.Tensor, idx: torch.Tensor, *, nb: int,
+                   block: int, d: int, dtype) -> torch.Tensor:
+    """Scatter (*lead, nb, kb) block-wire values back to (*lead, d) — the
+    shared decode of the block-sparse wires. ``set`` semantics: indices are
+    unique within one wire (the mean over clients scatter-ADDs instead)."""
+    lead, kb = vals.shape[:-2], vals.shape[-1]
+    n = math.prod(lead)
+    buf = torch.zeros((n * nb, block), dtype=dtype, device=vals.device)
+    buf.scatter_(1, idx.reshape(n * nb, kb).long(),
+                 vals.reshape(n * nb, kb).to(dtype))
+    return _unrows(buf, lead, d)
+
+
+def _scatter_mean(vals: torch.Tensor, idx: torch.Tensor, *, nb: int,
+                  block: int, d: int, dtype) -> torch.Tensor:
+    """meanᵢ of the clients' (n, nb, kb) block wires as a flat (d,): one
+    scatter-add over all clients, then / n. On the CPU the adds run in index
+    order (client 0 first); on a card ``index_add_`` uses atomics, so the
+    f32 sum order of colliding slots varies from run to run."""
+    n = vals.shape[0]
+    base = torch.arange(nb, device=vals.device)[None, :, None] * block
+    buf = torch.zeros(nb * block, dtype=dtype, device=vals.device)
+    buf.index_add_(0, (idx.long() + base).reshape(-1),
+                   vals.reshape(-1).to(dtype))
+    return (buf / n)[:d]
+
+
+# ---------------------------------------------------------------------------
+# base
+# ---------------------------------------------------------------------------
+
 @dataclasses.dataclass(frozen=True)
 class Carrier:
     name: str = "abstract"
 
     def plan_with_reason(self, method, eta=None) -> Tuple[str, str]:
-        """(plan, reason): plan ∈ 'dense' | 'fused' | 'fused_wire'; the
-        reason is empty when the carrier's native plan runs."""
+        """(plan, reason): plan ∈ 'dense' | 'wire' | 'fused' | 'fused_wire';
+        the reason is empty when the carrier's native plan runs."""
         return "dense", "abstract base carrier has no wire format"
 
     def plan(self, method, eta=None) -> str:
@@ -101,7 +187,33 @@ class Carrier:
     def plan_down(self, comp) -> str:
         return self.plan_down_with_reason(comp)[0]
 
+    def encode(self, comp, delta: torch.Tensor):
+        """delta: flat (d,) or (n, d) clients. Returns the wire of C(delta)."""
+        raise NotImplementedError
+
+    def decode(self, comp, wire, *, d: int, dtype) -> torch.Tensor:
+        """The dense decode of a wire, (d,) or (n, d). ``local_c`` IS this
+        decode, so client state and server aggregate agree on exactly what
+        was shipped."""
+        raise NotImplementedError
+
+    def local_c(self, comp, delta: torch.Tensor, wire) -> torch.Tensor:
+        return self.decode(comp, wire, d=delta.shape[-1], dtype=delta.dtype)
+
+    def decode_add(self, comp, wire, base: torch.Tensor, *, d: int, dtype
+                   ) -> torch.Tensor:
+        """``base + decode(wire)`` for a flat (d,) base — the downlink's
+        h-integration."""
+        return base + self.decode(comp, wire, d=d, dtype=dtype)
+
+    def aggregate(self, comp, wire, *, d: int, dtype, dp: int
+                  ) -> torch.Tensor:
+        """meanᵢ(cᵢ), a flat (d,), from the wires of dp clients (leading
+        axis)."""
+        raise NotImplementedError
+
     def wire_words(self, comp, d: int) -> float:
+        """Words one client puts on the wire per message of dimension d."""
         raise NotImplementedError
 
 
@@ -123,6 +235,58 @@ class DenseCarrier(Carrier):
 
     def wire_words(self, comp, d):
         return float(d)
+
+
+# ---------------------------------------------------------------------------
+# sparse block
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SparseBlockCarrier(Carrier):
+    """Fixed-size (values, block-local int32 indices) wire for the TopK
+    family: 2·nb·kb words a client; the mean scatter-ADDs over clients."""
+
+    name: str = "sparse"
+
+    def plan_with_reason(self, method, eta=None):
+        if not method.wire_is_msg:
+            return "dense", (
+                f"method {method.name!r} transmits a transform of c "
+                "(wire_is_msg=False); a non-dense wire cannot ship it")
+        if not self.supports(method.compressor):
+            return "dense", (
+                f"compressor {type(method.compressor).__name__} has no "
+                "deterministic fixed-size (values, indices) wire")
+        return "wire", ""
+
+    def plan_down_with_reason(self, comp):
+        if not self.supports(comp):
+            return "dense", (
+                f"compressor {type(comp).__name__} has no deterministic "
+                "fixed-size (values, indices) wire")
+        return "wire", ""
+
+    def supports(self, comp) -> bool:
+        return (comp.has_sparse_carrier
+                and isinstance(comp, (comp_lib.TopK, comp_lib.BlockTopK)))
+
+    def encode(self, comp, delta):
+        vals, idx = sparse_select(comp, delta)
+        return vals.to(delta.dtype), idx.to(torch.int32)
+
+    def decode(self, comp, wire, *, d, dtype):
+        vals, idx = wire
+        nb, block, _ = sparse_geom(comp, d)
+        return scatter_blocks(vals, idx, nb=nb, block=block, d=d, dtype=dtype)
+
+    def aggregate(self, comp, wire, *, d, dtype, dp):
+        vals, idx = wire
+        nb, block, _ = sparse_geom(comp, d)
+        return _scatter_mean(vals, idx, nb=nb, block=block, d=d, dtype=dtype)
+
+    def wire_words(self, comp, d):
+        nb, _, kb = sparse_geom(comp, d)
+        return 2.0 * nb * kb                             # values + int32 idx
 
 
 # ---------------------------------------------------------------------------
@@ -176,27 +340,175 @@ class FusedPallasCarrier(DenseCarrier):
 
 
 # ---------------------------------------------------------------------------
+# quantized wires (K5 encode, K6 decode)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class QuantCarrier(Carrier):
+    """Block-quantized wire: per-row absmax scale (1 f32 word) + ``bits``-bit
+    mantissas, in one of two payloads:
+
+      sparse  for the TopK family: each block's kb selected values,
+              quantized against one scale, with block-local indices (int16
+              when the block fits, else int32) —
+              nb·(1 + kb·(bits/32 + idx_words)) words a client;
+      dense   for every other deterministic compressor: C(δ) quantized in
+              rows of ``qblock`` — nbq·(1 + qblock·bits/32) words a client.
+
+    ``local_c`` is the decode of the wire, so EF re-sends the quantization
+    error in later rounds. Encode launches K5 once per leaf with the clients
+    folded into rows; decode and aggregate launch K6; the dense payload's
+    ``decode_add`` runs K4 (dequantize + add in one launch)."""
+
+    name: str = "quant8"
+    bits: int = 8
+    qblock: int = 256          # dense-payload quantization row (even)
+
+    def plan_with_reason(self, method, eta=None):
+        if not method.wire_is_msg:
+            return "dense", (
+                f"method {method.name!r} transmits a transform of c "
+                "(wire_is_msg=False); a non-dense wire cannot ship it")
+        if method.compressor.needs_rng:
+            return "dense", (
+                f"compressor {type(method.compressor).__name__} draws "
+                "randomness inside encode; the quantized wire ships "
+                "deterministic compressors only")
+        return "wire", ""
+
+    def plan_down_with_reason(self, comp):
+        if comp.needs_rng:
+            return "dense", (
+                f"compressor {type(comp).__name__} draws randomness inside "
+                "encode; the quantized wire ships deterministic compressors "
+                "only")
+        return "wire", ""
+
+    def _sparse_ok(self, comp) -> bool:
+        return (comp.has_sparse_carrier
+                and isinstance(comp, (comp_lib.TopK, comp_lib.BlockTopK)))
+
+    @staticmethod
+    def _idx_dtype(block: int) -> torch.dtype:
+        return torch.int16 if block <= 2 ** 15 - 1 else torch.int32
+
+    def _dequantize(self, q, scales, cols: int) -> torch.Tensor:
+        """K6 on a wire's rows, clients folded in: (rows, cols) f32."""
+        return ops.block_dequantize(q.reshape(-1, q.shape[-1]),
+                                    scales.reshape(-1), self.bits, cols)
+
+    def _quantize_dense(self, comp, delta, nb: int, block: int):
+        """C(δ) per client, padded to nb rows of ``block``, through K5.
+        Returns (q (*lead, nb, ·), scales (*lead, nb))."""
+        d, lead = delta.shape[-1], delta.shape[:-1]
+        c = comp.batched(delta.reshape(-1, d))
+        q, scales = ops.block_quantize(_rows(c, nb, block), self.bits)
+        return q.reshape(*lead, nb, -1), scales.reshape(*lead, nb)
+
+    # -- wire ---------------------------------------------------------------
+    def encode(self, comp, delta):
+        d, lead = delta.shape[-1], delta.shape[:-1]
+        if self._sparse_ok(comp):
+            nb, block, kb = sparse_geom(comp, d)
+            vals, idx = sparse_select(comp, delta)
+            q, scales = ops.block_quantize(vals.reshape(-1, kb), self.bits)
+            return (q.reshape(*lead, nb, -1), scales.reshape(*lead, nb),
+                    idx.to(self._idx_dtype(block)))
+        return self._quantize_dense(comp, delta, -(-d // self.qblock),
+                                    self.qblock)
+
+    def decode(self, comp, wire, *, d, dtype):
+        if self._sparse_ok(comp):                        # sparse payload
+            q, scales, idx = wire
+            nb, block, kb = sparse_geom(comp, d)
+            vals = self._dequantize(q, scales, kb).reshape(idx.shape)
+            return scatter_blocks(vals, idx, nb=nb, block=block, d=d,
+                                  dtype=torch.float32).to(dtype)
+        q, scales = wire                                 # dense payload
+        vals = self._dequantize(q, scales, self.qblock)
+        return _unrows(vals, scales.shape[:-1], d).to(dtype)
+
+    def decode_add(self, comp, wire, base, *, d, dtype):
+        if self._sparse_ok(comp):      # the scatter decode has no fused add
+            return super().decode_add(comp, wire, base, d=d, dtype=dtype)
+        q, scales = wire               # dense payload: K4
+        out = ops.dequant_add(q, scales, base.float().contiguous(),
+                              block=self.qblock, bits=self.bits)
+        return out.to(dtype)
+
+    def aggregate(self, comp, wire, *, d, dtype, dp):
+        if self._sparse_ok(comp):
+            q, scales, idx = wire                        # (dp, nb, ·)
+            nb, block, kb = sparse_geom(comp, d)
+            vals = self._dequantize(q, scales, kb).reshape(idx.shape)
+            return _scatter_mean(vals, idx, nb=nb, block=block, d=d,
+                                 dtype=torch.float32).to(dtype)
+        q, scales = wire
+        vals = self._dequantize(q, scales, self.qblock)
+        return (_unrows(vals, scales.shape[:-1], d).sum(0) / dp).to(dtype)
+
+    # -- accounting ---------------------------------------------------------
+    def wire_words(self, comp, d):
+        frac = self.bits / 32.0                          # 4-bit = 1/8 word
+        if self._sparse_ok(comp):
+            nb, block, kb = sparse_geom(comp, d)
+            idx_words = 0.5 if block <= 2 ** 15 - 1 else 1.0
+            return nb * (1.0 + kb * (frac + idx_words))
+        nbq = -(-d // self.qblock)
+        return nbq * (1.0 + self.qblock * frac)
+
+    def quant_eps(self, comp, d: int) -> float:
+        """Relative per-message quantization error bound: B elements a scale
+        give ‖Q(x) − x‖² ≤ B/(4·qmax²)·‖x‖²."""
+        qmax = 2 ** (self.bits - 1) - 1
+        if self._sparse_ok(comp):
+            per_scale = sparse_geom(comp, d)[2]
+        else:
+            per_scale = min(self.qblock, d)
+        return per_scale / (4.0 * qmax * qmax)
+
+    def composed_err_factor(self, comp, d: int) -> float:
+        """Definition-1 constant of decode∘Q∘C: (√(1−α) + √ε)²."""
+        root = ((1.0 - comp.alpha(d)) ** 0.5
+                + self.quant_eps(comp, d) ** 0.5)
+        return root * root
+
+
+# ---------------------------------------------------------------------------
 # fused quantized wires (K3 up, K4 down)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class FusedQuantCarrier(Carrier):
+class FusedQuantCarrier(QuantCarrier):
     """Quantized wire + the whole uplink client round in one K3 launch.
 
-    Payload: the block-dense quantized innovation at the selection geometry,
-    q (nb, block·bits/8 bytes) + one f32 scale per selection block —
-    nb·(1 + block·bits/32) words per client. The quantization row IS the
-    selection block, so this payload decodes bit-identically to the sparse
-    (values, indices) payload. Aggregation dequantizes, then means over
-    clients in f32 (mantissas under different scales do not add)."""
+    Payload for the TopK family: the block-dense quantized innovation at the
+    selection geometry, q (nb, block·bits/8 bytes) + one f32 scale per
+    selection block — nb·(1 + block·bits/32) words per client. The
+    quantization row IS the selection block, so this payload decodes
+    bit-identically to the sparse (values, indices) payload. Other
+    compressors ship QuantCarrier's dense payload. Where the mega-kernel
+    does not apply (another method or compressor, an odd block at 4 bits)
+    the plan degrades to the unfused 'wire' plan."""
 
     name: str = "fused_quant8"
-    bits: int = 8
 
     def _fused_geom(self, comp, d: int) -> Tuple[int, int, int]:
-        return FusedPallasCarrier._kernel_geom(comp, d)
+        """The mega-kernel's launch geometry (FusedPallasCarrier._kernel_geom);
+        plain TopK is one block spanning the leaf, lane-rounded the same
+        way."""
+        if isinstance(comp, comp_lib.BlockTopK):
+            return FusedPallasCarrier._kernel_geom(comp, d)
+        nb, block, kb = sparse_geom(comp, d)
+        if nb == 1:
+            lanes = FusedPallasCarrier._LANES
+            block = -(-block // lanes) * lanes
+        return nb, block, kb
 
     def plan_with_reason(self, method, eta=None):
+        plan, reason = super().plan_with_reason(method, eta)
+        if plan != "wire":
+            return plan, reason                          # dense degradation
         if method.name not in ("ef21_sgdm", "ef21_sgd"):
             return "wire", (
                 f"the fused wire kernel implements the EF21-SGD(M) client "
@@ -212,32 +524,42 @@ class FusedQuantCarrier(Carrier):
                             "running the unfused quantized wire")
         return "fused_wire", ""
 
-    def plan_down_with_reason(self, comp):
-        return "wire", ""          # the broadcast IS the compressed innovation
-
-    # -- wire (block-dense payload at the BlockTopK selection geometry) -------
+    # -- wire (block-dense payload at the selection geometry) ---------------
     def encode(self, comp, delta):
-        nb, block, _ = self._fused_geom(comp, delta.numel())
-        c = comp(delta).float()                       # threshold-mask C(δ)
-        cb = torch.nn.functional.pad(c, (0, nb * block - c.numel()))
-        return kref.block_quantize_ref(cb.reshape(nb, block), self.bits)
+        if not self._sparse_ok(comp):
+            return super().encode(comp, delta)
+        nb, block, _ = self._fused_geom(comp, delta.shape[-1])
+        return self._quantize_dense(comp, delta, nb, block)  # threshold mask
 
     def decode(self, comp, wire, *, d, dtype):
+        if not self._sparse_ok(comp):
+            return super().decode(comp, wire, d=d, dtype=dtype)
         q, scales = wire
         _, block, _ = self._fused_geom(comp, d)
-        vals = kref.block_dequantize_ref(q, scales, bits=self.bits,
-                                         cols=block)
-        return vals.reshape(-1)[:d].to(dtype)
+        vals = self._dequantize(q, scales, block)
+        return _unrows(vals, scales.shape[:-1], d).to(dtype)
 
     def decode_add(self, comp, wire, base, *, d, dtype):
         """h + decode(wire) in one K4 launch (the plain version on CPU)."""
+        if not self._sparse_ok(comp):
+            return super().decode_add(comp, wire, base, d=d, dtype=dtype)
         q, scales = wire
         _, block, _ = self._fused_geom(comp, d)
         out = ops.dequant_add(q, scales, base.float().contiguous(),
                               block=block, bits=self.bits)
         return out.to(dtype)
 
+    def aggregate(self, comp, wire, *, d, dtype, dp):
+        if not self._sparse_ok(comp):
+            return super().aggregate(comp, wire, d=d, dtype=dtype, dp=dp)
+        q, scales = wire
+        _, block, _ = self._fused_geom(comp, d)
+        vals = self._dequantize(q, scales, block)
+        return (_unrows(vals, scales.shape[:-1], d).sum(0) / dp).to(dtype)
+
     def wire_words(self, comp, d):
+        if not self._sparse_ok(comp):
+            return super().wire_words(comp, d)
         nb, block, _ = self._fused_geom(comp, d)
         return nb * (1.0 + block * self.bits / 32.0)
 
@@ -246,18 +568,40 @@ class FusedQuantCarrier(Carrier):
                          *, eta=None) -> Tuple[Tree, Dict[str, Tree]]:
         """The 'fused_wire' plan on clients folded into rows: one K3 launch
         per leaf produces (v', g', wire) with g' = g + decode(wire), then
-        the wire is dequantized and meaned over clients. ``state`` is updated
-        in place and returned; returns (msg_mean_tree, state)."""
+        one K6 launch dequantizes the wire and the clients are meaned.
+        ``state`` is updated in place and returned; returns
+        (msg_mean_tree, state)."""
         msg: Tree = {}
         launch = functools.partial(ops.ef21_sgdm_topk_quant, bits=self.bits)
         for key, grad, block, (q, scales) in _fused_leaves(
                 method, grads, state, eta, launch):
             dp, d = grad.shape[0], grad[0].numel()
-            vals = kref.block_dequantize_ref(q, scales, bits=self.bits,
-                                             cols=block)
+            vals = ops.block_dequantize(q, scales, self.bits, block)
             msg[key] = (vals.reshape(dp, -1)[:, :d].sum(0) / dp).reshape(
                 grad.shape[1:]).to(grad.dtype)
         return msg, state
+
+
+# ---------------------------------------------------------------------------
+# the 'wire' plan
+# ---------------------------------------------------------------------------
+
+def wire_round_batched(carrier: Carrier, comp, deltas: Tree, dp: int
+                       ) -> Tuple[Tree, Tree]:
+    """encode → local_c → aggregate per leaf, the dp clients on a leading
+    axis folded into the codec's kernel rows. Returns (c_tree,
+    msg_mean_tree)."""
+    c_out: Tree = {}
+    agg_out: Tree = {}
+    for key in sorted(deltas):
+        leaf = deltas[key]
+        d = leaf[0].numel()
+        flat = leaf.reshape(dp, d)
+        wire = carrier.encode(comp, flat)
+        c_out[key] = carrier.local_c(comp, flat, wire).reshape(leaf.shape)
+        agg_out[key] = carrier.aggregate(comp, wire, d=d, dtype=leaf.dtype,
+                                         dp=dp).reshape(leaf.shape[1:])
+    return c_out, agg_out
 
 
 # ---------------------------------------------------------------------------
@@ -310,18 +654,18 @@ def downlink_words(carrier: Carrier, comp, d: int) -> float:
 
 REGISTRY = {
     "dense": DenseCarrier,
+    "sparse": SparseBlockCarrier,
     "fused": FusedPallasCarrier,
+    "quant8": lambda: QuantCarrier(name="quant8", bits=8),
+    "quant4": lambda: QuantCarrier(name="quant4", bits=4),
     "fused_quant8": lambda: FusedQuantCarrier(name="fused_quant8", bits=8),
     "fused_quant4": lambda: FusedQuantCarrier(name="fused_quant4", bits=4),
 }
 
 
-def make(name: str) -> Carrier:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"carrier {name!r} is not ported yet (this port runs "
-            f"{sorted(REGISTRY)}); it arrives with a later slice "
-            "(ROADMAP Queue 1)")
+def make(name) -> Carrier:
+    if isinstance(name, Carrier):
+        return name
     if name not in REGISTRY:
         raise ValueError(f"unknown carrier {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]()

@@ -4,9 +4,10 @@ runtime in src/repro/core/distributed.py).
 The paper's n clients are emulated on one device: per-client gradients carry
 a leading client axis, as in the reference's layout, and the carrier folds
 the clients into kernel rows. Plans: ``fused`` (K2), ``fused_wire`` (K3 up,
-K4 down) and ``dense``. The sharded multi-device runtime, the per-group
-schedule, partial participation and the two-tier hierarchy arrive with later
-slices (ROADMAP Queue 1).
+K4 down), ``wire`` (the unfused sparse and quantized wires, K5/K6) and
+``dense``. The sharded multi-device runtime, the per-group schedule, partial
+participation and the two-tier hierarchy arrive with later slices (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -36,11 +37,8 @@ class EFConfig:
         return self.down_carrier != "dense" or self.down_compressor is not None
 
     def down_comp(self) -> comp_lib.Compressor:
-        if self.down_compressor is None:
-            raise NotImplementedError(
-                "a downlink without a compressor broadcasts through the "
-                "identity compressor, which arrives with a later slice")
-        return self.down_compressor
+        return self.down_compressor if self.down_compressor is not None \
+            else comp_lib.Identity()
 
 
 def per_client_value_and_grad(loss_fn: Callable, params: Tree,
@@ -71,29 +69,55 @@ def per_client_value_and_grad(loss_fn: Callable, params: Tree,
 def init_ef_state(efc: EFConfig, params: Tree, dp: int,
                   init_grads: Optional[Tree] = None) -> Dict:
     """init_grads: optional per-client grads (dp leading) for Alg 1 line 2
-    (v⁰ = g⁰ = first gradients); the clients' v takes that tensor over."""
+    (v⁰ = g⁰ = first gradients); the clients' state takes that tensor
+    over."""
     method = efc.method
     if init_grads is None:
-        zeros = ef_lib.tree_map(
+        like = ef_lib.tree_map(
             lambda p: torch.zeros((dp, *p.shape), dtype=p.dtype,
                                   device=p.device), params)
-        clients = method.init(zeros)
-        server = ef_lib.server_init(params)
+        clients = method.init(like)
+        server = ef_lib.server_init(method, params)
     else:
-        clients = method.init(params, init_grads)
+        clients = method.init(init_grads, init_grads)
         server = ef_lib.server_init(
-            params, ef_lib.tree_map(lambda g: g.sum(0) / dp, init_grads))
+            method, params,
+            ef_lib.tree_map(lambda g: g.sum(0) / dp, init_grads))
     state = {"clients": clients, "server": server}
     if efc.has_downlink:
         state["h"] = ef_lib.downlink_init(server)
     return state
 
 
+def _wire_round(carrier, method, grads: Tree, clients: Dict[str, Tree],
+                eta) -> Tree:
+    """The 'wire' plan, one leaf at a time: pre_compress, then the carrier's
+    encode → local_c → aggregate (carriers.wire_round_batched), then
+    post_compress. Every method acts leaf by leaf, so this is the
+    reference's whole-tree round; going leaf by leaf keeps one leaf's
+    temporaries alive at a time, and each leaf's new client state replaces
+    the old IN PLACE in ``clients``. Returns the mean message."""
+    msg_mean: Tree = {}
+    for key in sorted(grads):
+        delta, ctx = method.pre_compress(
+            {key: grads[key]},
+            {name: {key: tree[key]} for name, tree in clients.items()},
+            eta=eta)
+        c, agg = carrier_lib.wire_round_batched(
+            carrier, method.compressor, delta, grads[key].shape[0])
+        del delta
+        msg_mean[key] = agg[key]
+        _, new = method.post_compress(c, ctx)
+        for name in clients:
+            clients[name][key] = new[name][key]
+    return msg_mean
+
+
 def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
              eta: Optional[float] = None) -> Tuple[Tree, Dict]:
     """One round on per-client grads (dp leading). Returns (the estimate
-    gᵗ⁺¹ the model steps with, the new ef_state). Under the fused plans the
-    client state is updated in place."""
+    gᵗ⁺¹ the model steps with, the new ef_state). Under the fused and wire
+    plans the client state is updated in place."""
     method = efc.method
     dp = next(iter(grads.values())).shape[0]
     clients, server = ef_state["clients"], ef_state["server"]
@@ -107,7 +131,10 @@ def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
     elif plan == "fused_wire":
         msg_mean, new_clients = carrier.fused_wire_round(method, grads,
                                                          clients, eta=eta)
-    elif plan == "dense":
+    elif plan == "wire":
+        msg_mean = _wire_round(carrier, method, grads, clients, eta)
+        new_clients = clients
+    else:
         outs = [method.update(ef_lib.tree_index(grads, i),
                               {name: ef_lib.tree_index(tree, i)
                                for name, tree in clients.items()}, eta=eta)
@@ -116,12 +143,8 @@ def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
                                    ef_lib.tree_stack([m for m, _ in outs]))
         new_clients = {name: ef_lib.tree_stack([s[name] for _, s in outs])
                        for name in clients}
-    else:
-        raise NotImplementedError(
-            f"carrier {efc.carrier!r} would run the {plan!r} plan for "
-            f"{method.name!r}, which arrives with a later slice")
 
-    new_server = ef_lib.server_step(server, msg_mean)
+    new_server = ef_lib.server_step(method, server, msg_mean)
     new_state = {"clients": new_clients, "server": new_server}
     if not efc.has_downlink:
         return new_server, new_state

@@ -22,7 +22,8 @@ from repro_torch.kernels import ref
 MAX_WIDTH = 1024
 
 launches: Dict[str, int] = {"ef21_sgdm_update": 0,
-                            "ef21_sgdm_topk_quant": 0, "dequant_add": 0}
+                            "ef21_sgdm_topk_quant": 0, "dequant_add": 0,
+                            "block_quantize": 0, "block_dequantize": 0}
 
 _lib_handle: Optional[ctypes.CDLL] = None
 
@@ -34,7 +35,11 @@ _SIGNATURES = {
     "ef_launch_ef21_sgdm_topk_quant":
         [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _I, _P],
     "ef_launch_dequant_add": [_P, _P, _P, _P, _L, _L, _I, _I, _F, _I, _P],
+    "ef_launch_block_quantize": [_P, _P, _P, _L, _I, _I, _P],
+    "ef_launch_block_dequantize": [_P, _P, _P, _L, _I, _I, _P],
 }
+# the launches take one CTA a row: gridDim.x caps the rows of one launch
+_MAX_ROWS = 2 ** 31 - 1
 
 
 def reset_launches() -> None:
@@ -81,6 +86,23 @@ def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def momentum_coeffs(eta: float) -> Tuple[float, float]:
+    """The f32 constants (1-η, η) every momentum update multiplies by — the
+    kernels' and the EF methods' alike."""
+    return ref._coeffs(eta)
+
+
+def _check_bits(bits: int) -> None:
+    if bits not in (8, 4):
+        raise ValueError(f"bits={bits}; the wire has 8- and 4-bit mantissas")
+
+
+def _codec_layout(bits: int, cols: int) -> Tuple[torch.dtype, int]:
+    """(dtype, columns) of the mantissas of a row of ``cols`` values: int8
+    at 8 bits, packed uint4 pairs at 4 (an odd row padded by one)."""
+    return (torch.int8, cols) if bits == 8 else (torch.uint8, (cols + 1) // 2)
 
 
 def _check_rows(grad, v, g, v_out, g_out, k: int) -> Tuple[int, int]:
@@ -142,8 +164,7 @@ def ef21_sgdm_topk_quant(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     (v', g', q, scales) with g' = g + dequantize(q, scales). ``v_out`` /
     ``g_out`` as for :func:`ef21_sgdm_update`."""
     rows, width = _check_rows(grad, v, g, v_out, g_out, k)
-    if bits not in (8, 4):
-        raise ValueError(f"bits={bits}; the wire has 8- and 4-bit mantissas")
+    _check_bits(bits)
     if bits == 4 and width % 2:
         raise ValueError("uint4 packing needs an even block")
     if not _on_cuda(grad, v, g, *_present(v_out, g_out)):
@@ -172,8 +193,7 @@ def dequant_add(q: torch.Tensor, scales: torch.Tensor, base: torch.Tensor, *,
     """K4, ``base + alpha * dequantize(q, scales)`` in one launch. ``base`` is
     a flat f32 (d,) holding the first d of q's rows*block decoded slots;
     returns a new (d,) f32 tensor."""
-    if bits not in (8, 4):
-        raise ValueError(f"bits={bits}; the wire has 8- and 4-bit mantissas")
+    _check_bits(bits)
     if bits == 4 and block % 2:
         raise ValueError("uint4 packing needs an even block")
     if q.dim() != 2 or base.dim() != 1:
@@ -196,4 +216,51 @@ def dequant_add(q: torch.Tensor, scales: torch.Tensor, base: torch.Tensor, *,
             base.data_ptr(), out.data_ptr(), rows, d, block, bits,
             float(alpha), int(alpha != 1.0))
     launches["dequant_add"] += 1
+    return out
+
+
+def block_quantize(x_rows: torch.Tensor, bits: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5, per-row absmax quantization of (rows, cols) f32: returns
+    (q, scales) — q int8 (rows, cols) at bits 8, packed uint4
+    (rows, ceil(cols/2)) at bits 4 — with scales f32 (rows,). Any width."""
+    _check_bits(bits)
+    if x_rows.dim() != 2 or x_rows.shape[1] < 1:
+        raise ValueError(f"x: expected (rows, cols >= 1), got "
+                         f"{tuple(x_rows.shape)}")
+    rows, cols = x_rows.shape
+    _check("x", x_rows, (rows, cols), torch.float32)
+    if not _on_cuda(x_rows):
+        return ref.block_quantize_plain(x_rows, bits)
+    if rows > _MAX_ROWS:
+        raise ValueError(f"{rows} rows > {_MAX_ROWS} in one launch")
+    qdtype, qcols = _codec_layout(bits, cols)
+    q = torch.empty((rows, qcols), dtype=qdtype, device=x_rows.device)
+    scales = torch.empty((rows,), dtype=torch.float32, device=x_rows.device)
+    _launch("ef_launch_block_quantize", x_rows.data_ptr(), q.data_ptr(),
+            scales.data_ptr(), rows, cols, bits)
+    launches["block_quantize"] += 1
+    return q, scales
+
+
+def block_dequantize(q: torch.Tensor, scales: torch.Tensor, bits: int,
+                     cols: int) -> torch.Tensor:
+    """K6, the inverse of :func:`block_quantize`: q*scale per row, f32
+    (rows, cols), the uint4 pad dropped."""
+    _check_bits(bits)
+    if q.dim() != 2 or cols < 1:
+        raise ValueError(f"q must be (rows, ·) and cols >= 1, got "
+                         f"{tuple(q.shape)} and cols={cols}")
+    rows = q.shape[0]
+    qdtype, qcols = _codec_layout(bits, cols)
+    _check("q", q, (rows, qcols), qdtype)
+    _check("scales", scales, (rows,), torch.float32)
+    if not _on_cuda(q, scales):
+        return ref.block_dequantize_plain(q, scales, bits=bits, cols=cols)
+    if rows > _MAX_ROWS:
+        raise ValueError(f"{rows} rows > {_MAX_ROWS} in one launch")
+    out = torch.empty((rows, cols), dtype=torch.float32, device=q.device)
+    _launch("ef_launch_block_dequantize", q.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), rows, cols, bits)
+    launches["block_dequantize"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the hand kernels, plus the wire-codec oracles.
+"""Plain PyTorch versions of the hand kernels.
 
 Each ``*_plain`` function repeats its Pallas body step by step — the same
 f32 operations in the same order, the 26-step threshold bisection included —
@@ -95,7 +95,7 @@ def dequant_add_plain(q: torch.Tensor, scales: torch.Tensor,
     ``base`` holds the first d of the nb*block decoded slots (flat layout);
     the result has base's shape and dtype."""
     nb, d = q.shape[0], base.numel()
-    dec = block_dequantize_ref(q, scales, bits=bits, cols=block)
+    dec = block_dequantize_plain(q, scales, bits=bits, cols=block)
     if alpha != 1.0:
         dec = alpha * dec
     bb = torch.nn.functional.pad(base.reshape(-1).float(),
@@ -104,7 +104,7 @@ def dequant_add_plain(q: torch.Tensor, scales: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# wire codec oracles (kernels/ref.py::block_quantize_ref / _dequantize_ref)
+# wire codec (kernels/quantize.py::block_quantize / block_dequantize, K5/K6)
 # ---------------------------------------------------------------------------
 
 def _pack(q: torch.Tensor, bits: int) -> torch.Tensor:
@@ -116,13 +116,15 @@ def _pack(q: torch.Tensor, bits: int) -> torch.Tensor:
     return (u[:, :, 0] << 4) | u[:, :, 1]
 
 
-def block_quantize_ref(x: torch.Tensor, bits: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row absmax quantization of a (rows, cols) array: scale =
-    absmax * f32(1/qmax) with qmax = 2^(bits-1)-1 (``qmax_recip``),
-    q = round(x/scale) in [-qmax, qmax]; non-finite
-    inputs count as 0 and an all-zero row gets scale 0. Returns (q, scales)
-    in the layout of ``_pack``."""
+def block_quantize_plain(x: torch.Tensor, bits: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kernels/quantize.py::_quant_kernel (and the oracle
+    kernels/ref.py::block_quantize_ref) — per-row absmax quantization of a
+    (rows, cols) array: scale = absmax * f32(1/qmax) with
+    qmax = 2^(bits-1)-1 (``qmax_recip``), q = round(x/scale) in
+    [-qmax, qmax]; non-finite inputs count as 0 and an all-zero row gets
+    scale 0. Returns (q, scales) in the layout of ``_pack`` (an odd row is
+    padded with one zero mantissa at 4 bits)."""
     x = x.float()
     x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
     qmax = float(2 ** (bits - 1) - 1)
@@ -132,10 +134,10 @@ def block_quantize_ref(x: torch.Tensor, bits: int
     return _pack(q, bits), scale
 
 
-def block_dequantize_ref(q: torch.Tensor, scales: torch.Tensor, *, bits: int,
-                         cols: int) -> torch.Tensor:
-    """Inverse of :func:`block_quantize_ref`: q*scale per row, f32
-    (rows, cols)."""
+def block_dequantize_plain(q: torch.Tensor, scales: torch.Tensor, *,
+                           bits: int, cols: int) -> torch.Tensor:
+    """kernels/quantize.py::_dequant_kernel — the inverse of
+    :func:`block_quantize_plain`: q*scale per row, f32 (rows, cols)."""
     if bits == 8:
         vals = q.float()
     else:

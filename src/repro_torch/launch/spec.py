@@ -4,11 +4,12 @@ import).
 
 The port's RunSpec has the reference's field names, defaults and JSON
 (schema v5), so ``results/specs/*.json`` load as they are. It accepts only
-what this slice of the port runs — smollm-360m, EF21-SGD(M) with Block-TopK,
-the dense / fused / fused_quant8 / fused_quant4 carriers, the single-device
+what the port runs — smollm-360m, seven EF methods, the six deterministic
+compressors, the seven carriers (``fused`` uplink only), the single-device
 "smoke" mesh and plain SGD — and rejects everything else loudly at
-construction. ``spec_hash`` parity with the reference waits for a later
-slice.
+construction. ``compressor_kw`` must map names to JSON scalars; which names
+the compressor takes is checked where it is built (launch/build.py).
+``spec_hash`` parity with the reference waits for a later slice.
 """
 from __future__ import annotations
 
@@ -21,13 +22,17 @@ from repro_torch.configs import base as cb
 
 SCHEMA_VERSION = 5
 
-METHODS = frozenset({"ef21_sgd", "ef21_sgdm"})
-COMPRESSORS = frozenset({"block_topk"})
-CARRIERS = frozenset({"dense", "fused", "fused_quant8", "fused_quant4"})
-DOWN_CARRIERS = frozenset({"dense", "fused_quant8", "fused_quant4"})
+METHODS = frozenset({"ef21_sgd", "ef21_sgdm", "ef21_sgd2m", "ef21_sgdm_abs",
+                     "ef14_sgd", "sgdm", "sgd"})
+COMPRESSORS = frozenset({"identity", "topk", "block_topk", "hard_threshold",
+                         "rank1", "block_quant"})
+FUSED_CARRIERS = frozenset({"fused", "fused_quant8", "fused_quant4"})
+CARRIERS = frozenset({"dense", "sparse", "quant8", "quant4"}) | FUSED_CARRIERS
+# the fused kernel fuses the uplink client update: no fused downlink
+DOWN_CARRIERS = CARRIERS - {"fused"}
 OPTIMIZERS = frozenset({"sgd"})
-COMPRESSOR_KW = frozenset({"block", "k_per_block", "ratio"})
-MAX_FUSED_BLOCK = 1024          # widest row of the CUDA kernels (kernels/ops.py)
+MAX_FUSED_BLOCK = 1024    # widest row of the fused kernels (kernels/ops.py)
+_JSON_SCALARS = (bool, int, float, str, type(None))
 
 _LATER = "arrives with a later slice of the port (ROADMAP Queue 1)"
 
@@ -99,16 +104,18 @@ class RunSpec:
         if self.overlap:
             errs.append(f"overlap=True {_LATER}")
         kw = self.compressor_kw
-        if not isinstance(kw, dict) or set(kw) - COMPRESSOR_KW:
-            errs.append(f"compressor_kw {kw!r}: keys must be a subset of "
-                        f"{sorted(COMPRESSOR_KW)}")
-        elif self.carrier != "dense" or self.downlink_carrier != "dense":
+        fused = {self.carrier, self.downlink_carrier} & FUSED_CARRIERS
+        if not isinstance(kw, dict) or not all(
+                isinstance(k, str) and isinstance(v, _JSON_SCALARS)
+                for k, v in kw.items()):
+            errs.append(f"compressor_kw must map str keys to JSON scalars, "
+                        f"got {kw!r}")
+        elif fused:
             block = kw.get("block", 1024)
             if not isinstance(block, int) or not 1 <= block <= MAX_FUSED_BLOCK:
-                errs.append(f"block {block!r}: the CUDA kernels take blocks "
+                errs.append(f"block {block!r}: the fused kernels take blocks "
                             f"of 1..{MAX_FUSED_BLOCK}")
-            elif block % 2 and "fused_quant4" in (self.carrier,
-                                                  self.downlink_carrier):
+            elif block % 2 and "fused_quant4" in fused:
                 errs.append("uint4 packing needs an even BlockTopK block")
         if self.seq_len <= 0 or self.global_batch <= 0 or self.clients < 1:
             errs.append("seq_len, global_batch and clients must be positive")
@@ -153,6 +160,7 @@ _FLAGS = [
     ("--arch", "arch", str), ("--smoke", "smoke", bool),
     ("--seq", "seq_len", int), ("--global-batch", "global_batch", int),
     ("--clients", "clients", int), ("--method", "method", str),
+    ("--compressor", "compressor", str),
     ("--ratio", "ratio", float), ("--eta", "eta", float),
     ("--carrier", "carrier", str),
     ("--downlink-carrier", "downlink_carrier", str),

@@ -5,6 +5,11 @@ src/repro/launch/train.py):
       --spec results/specs/fused_quickstart.json \
       --carrier fused_quant8 --downlink-carrier fused_quant4 --steps 3
 
+  # the unfused quantized wire (K5/K6), dense payload:
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --spec results/specs/fused_quickstart.json --compressor identity \
+      --compressor-kw '{}' --carrier quant8 --downlink-carrier quant4
+
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions on the CPU (use ``--smoke`` there). Prints the reference CLI's
 ``step N loss … g_norm …`` lines.

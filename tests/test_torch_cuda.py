@@ -80,3 +80,30 @@ def test_cuda_dequant_add_matches_plain(cuda_device, bits):
         want = ref.dequant_add_plain(q, scales, base, block=block, bits=bits,
                                      alpha=alpha)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(4099, 16), (2051, 51), (1025, 256),
+                                       (513, 1024), (3, 8191), (2, 8193),
+                                       (1, 2_359_296)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_codec_matches_plain(cuda_device, bits, rows, cols):
+    """K5 and K6 against their plain versions: the carriers' row widths (16
+    and 51 the sparse payloads, 256 the dense payload, 1024 a selection
+    block, one row of 2,359,296 plain TopK's block on the embed leaf), the
+    CTA size steps at 8192, with non-finite values and an all-zero row."""
+    gen = torch.Generator(device="cpu").manual_seed(bits + rows + cols)
+    x = torch.randn(rows, cols, generator=gen)
+    x[0, 0], x[0, -1] = float("inf"), float("nan")
+    if rows > 1:
+        x[1] = 0.0
+    x = x.to(cuda_device)
+    ops.reset_launches()
+    q, s = ops.block_quantize(x, bits)
+    out = ops.block_dequantize(q, s, bits, cols)
+    torch.cuda.synchronize()
+    assert ops.launches["block_quantize"] == ops.launches["block_dequantize"] == 1
+    for a, b in zip((q, s), ref.block_quantize_plain(x, bits)):
+        assert torch.equal(a, b)
+    assert torch.equal(out, ref.block_dequantize_plain(q, s, bits=bits,
+                                                       cols=cols))

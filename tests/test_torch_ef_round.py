@@ -1,7 +1,9 @@
 """One EF round of the port (repro_torch.core.distributed.ef_round) against
 the reference's vmap runtime (repro.core.distributed.ef_round, jitted as
 its train step runs it), on the same per-client grads and EF state made
-with numpy at the smoke smollm-360m leaf shapes.
+with numpy at the smoke smollm-360m leaf shapes: the fused plans, the dense
+plan, and cells of the unfused sparse and quantized wires (the whole grid
+runs on a small problem in test_torch_wire_round.py).
 
 The new client v and g, the server g, the downlink memory h and the
 estimate g_est must agree to rtol 1e-6 (atol: four ulps at the scale of
@@ -60,7 +62,8 @@ def _numpy_state(seed, downlink, method="ef21_sgdm"):
         return {k: rng.randn(*lead, *s).astype(np.float32)
                 for k, s in shapes.items()}
     grads = tree((DP,))
-    names = ("g", "v") if method == "ef21_sgdm" else ("g",)
+    names = {"ef21_sgdm": ("g", "v"), "ef21_sgd": ("g",),
+             "ef14_sgd": ("e",)}[method]
     state = {"clients": {n: tree((DP,)) for n in names}, "server": tree()}
     if downlink:
         state["h"] = tree()
@@ -100,6 +103,9 @@ CELLS = [
     pytest.param("ef21_sgd", "fused", "dense", id="ef21_sgd-fused"),
     pytest.param("ef21_sgd", "fused_quant4", "fused_quant8",
                  id="ef21_sgd-fused_quant4-down8"),
+    pytest.param("ef21_sgdm", "quant8", "quant4", id="quant8-down4"),
+    pytest.param("ef21_sgd", "sparse", "quant8", id="ef21_sgd-sparse-down8"),
+    pytest.param("ef14_sgd", "quant4", "dense", id="ef14_sgd-quant4"),
 ]
 
 
@@ -107,6 +113,9 @@ def _methods(name):
     if name == "ef21_sgdm":
         return (jax_ef.EF21SGDM(compressor=jax_comp.BlockTopK(**UP_KW), eta=ETA),
                 pt_ef.EF21SGDM(compressor=pt_comp.BlockTopK(**UP_KW), eta=ETA))
+    if name == "ef14_sgd":
+        return (jax_ef.EF14SGD(compressor=jax_comp.BlockTopK(**UP_KW)),
+                pt_ef.EF14SGD(compressor=pt_comp.BlockTopK(**UP_KW)))
     return (jax_ef.EF21SGD(compressor=jax_comp.BlockTopK(**UP_KW)),
             pt_ef.EF21SGD(compressor=pt_comp.BlockTopK(**UP_KW)))
 
@@ -140,7 +149,8 @@ def test_ef_round_matches_reference(method, carrier, down):
 
 
 @pytest.mark.parametrize("carrier", ["dense", "fused", "fused_quant8",
-                                     "fused_quant4"])
+                                     "fused_quant4", "sparse", "quant8",
+                                     "quant4"])
 def test_wire_words_per_leaf_match_reference(carrier):
     for kw in (UP_KW, DOWN_KW):
         j_car, p_car = jax_carriers.make(carrier), pt_carriers.make(carrier)
@@ -212,9 +222,9 @@ def test_fused_update_writes_client_state_in_place():
 
 
 def test_unported_names_raise_naming_the_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pt_carriers.make("quant8")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pt_comp.make("topk")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pt_ef.make("ef14_sgd")
+    for name in ("randk", "natural"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            pt_comp.make(name)
+    for name in ("ef21_storm", "neolithic", "ef21_sgdm_ideal"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            pt_ef.make(name)

@@ -142,7 +142,7 @@ def _run_k3(d, block, k, zero_rows, eta, seed, bits):
 def _decode(q, s, bits, block):
     q, s = (torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray) else x
             for x in (q, s))
-    return ref.block_dequantize_ref(q, s, bits=bits, cols=block).numpy()
+    return ref.block_dequantize_plain(q, s, bits=bits, cols=block).numpy()
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -220,11 +220,11 @@ def test_codec_oracles_match_reference(bits):
     # under jit, as the reference's runtime runs it (see ref.qmax_recip)
     qj, sj = jax.jit(jax_ref.block_quantize_ref, static_argnums=1)(
         jnp.asarray(x), bits)
-    qt, st = ref.block_quantize_ref(torch.tensor(x), bits)
+    qt, st = ref.block_quantize_plain(torch.tensor(x), bits)
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     dj = jax_ref.block_dequantize_ref(qj, sj, bits=bits, cols=255)
-    dt = ref.block_dequantize_ref(qt, st, bits=bits, cols=255)
+    dt = ref.block_dequantize_plain(qt, st, bits=bits, cols=255)
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
 
 
@@ -249,5 +249,7 @@ def test_plain_runs_do_not_count_as_launches():
     x = torch.zeros(4, 64)
     ops.ef21_sgdm_update(x, x, x, eta=0.1, k=3)
     ops.ef21_sgdm_topk_quant(x, x, x, eta=0.1, k=3, bits=8)
+    ops.block_dequantize(*ops.block_quantize(x, 4), 4, 64)
     assert ops.launches == {"ef21_sgdm_update": 0, "ef21_sgdm_topk_quant": 0,
-                            "dequant_add": 0}
+                            "dequant_add": 0, "block_quantize": 0,
+                            "block_dequantize": 0}

@@ -2,6 +2,8 @@
 the reference package, its entry points run on cuda unless told otherwise,
 and its RunSpec reads the reference's spec files and refuses what this
 slice does not run."""
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -38,6 +40,38 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert int(out.stdout.split()[0]) > 15          # every module was walked
 
 
+def _imports(path):
+    """(module, names) of every import statement in a source file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, ()
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or "", tuple(a.name for a in node.names)
+
+
+def test_sources_import_neither_jax_nor_the_reference_nor_plain_versions():
+    """Read from the sources, so an import behind a branch counts too: no
+    file of the port or chip_smoke.py imports jax or ``repro``, and no module
+    of core/, models/ or launch/ reaches kernels/ref.py — they go through
+    the kernel wrappers (chip_smoke.py may, to check the kernels)."""
+    port = os.path.join(SRC, "repro_torch")
+    files = glob.glob(os.path.join(port, "**", "*.py"), recursive=True)
+    assert len(files) > 15
+    for path in files + [os.path.join(ROOT, "chip_smoke.py")]:
+        for mod, _ in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+    for sub in ("core", "models", "launch"):
+        for path in glob.glob(os.path.join(port, sub, "*.py")):
+            for mod, names in _imports(path):
+                assert mod != "repro_torch.kernels.ref", (path, mod)
+                assert not (mod == "repro_torch.kernels" and "ref" in names), \
+                    (path, mod, names)
+
+
 def test_session_defaults_to_cuda():
     spec = pt_spec.RunSpec(smoke=True, seq_len=16)
     if torch.cuda.is_available():
@@ -58,7 +92,7 @@ def test_spec_reads_the_reference_golden_file():
 
 
 @pytest.mark.parametrize("bad", [
-    {"arch": "gemma2-9b"}, {"carrier": "sparse"}, {"method": "sgdm"},
+    {"arch": "gemma2-9b"}, {"compressor": "randk"}, {"method": "neolithic"},
     {"mesh": "pod"}, {"optimizer": "adamw"}, {"overlap": True},
     {"ef_state_dtype": "bfloat16"}, {"participation": {"mode": "sampled"}},
     {"carrier": "fused", "compressor_kw": {"block": 2048}},

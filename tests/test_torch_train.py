@@ -16,6 +16,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from repro.launch import session as jax_session
@@ -48,6 +49,32 @@ def test_three_steps_match_reference_through_npz_bridge(tmp_path):
     got = psess.train(3, log_every=1)
 
     assert [r["step"] for r in got] == [r["step"] for r in want] == [0, 1, 2]
+    for key in ("loss", "g_norm"):
+        np.testing.assert_allclose([r[key] for r in got],
+                                   [r[key] for r in want], rtol=1e-4,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("compressor", ["block_topk", "identity"])
+def test_quantized_wire_tracks_reference_through_npz_bridge(tmp_path,
+                                                            compressor):
+    """The unfused quantized wire, quant8 up and quant4 down: Block-TopK
+    ships the sparse payload (K5/K6 on the selected values), Identity the
+    dense payload (K5/K6 on rows of 256, K4 on the downlink). Same weights,
+    EF state and batches; loss and g_norm within rtol 1e-4 over 3 steps."""
+    overrides = {"carrier": "quant8", "downlink_carrier": "quant4"}
+    if compressor == "identity":
+        overrides.update(compressor="identity", compressor_kw={})
+    spec = dict(_spec_dict(), **overrides)
+    jsess = jax_session.Session(jax_spec.RunSpec.from_dict(spec))
+    jsess.cfg = dataclasses.replace(jsess.cfg, dtype="float32")
+    ckpt = jsess.save(str(tmp_path / "step_0.npz"))
+    want = jsess.train(3, log_every=1)
+
+    psess = pt_session.Session(pt_spec.RunSpec.from_dict(spec), device="cpu",
+                               dtype="float32")
+    psess.restore_from_jax(ckpt)
+    got = psess.train(3, log_every=1)
     for key in ("loss", "g_norm"):
         np.testing.assert_allclose([r[key] for r in got],
                                    [r[key] for r in want], rtol=1e-4,
