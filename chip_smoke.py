@@ -11,7 +11,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      kernel, plain version, bound and (where one exists) a library call:
      K2 ef21_sgdm_update, K3 ef21_sgdm_topk_quant at 8 and 4 bits and K4
      dequant_add at the shapes the fused path gives them (the
-     layers/mlp/w_up leaf, 8 clients folded into rows of 1024); K5
+     layers/mlp/w_up leaf, 8 clients folded into rows of 1024), K4 also
+     at path B's downlink shape (one copy of the leaf in rows of 256); K5
      block_quantize and K6 block_dequantize at 8 and 4 bits at every width
      the quantized carriers give them (16, 51, 256, 1024 and one row of
      2,359,296, with an all-zero row and inf/NaN inputs), timed at the
@@ -160,37 +161,42 @@ def kernel_checks(ops, ref, results):
             "library_ms": None}
     del grad, v, g
 
-    # K4 at the downlink's shape: one copy of the leaf, rows of 1024
-    rows1 = d // BLOCK
+    # K4 at the downlinks' shapes: one copy of the leaf, in rows of 1024
+    # (fused_quant4's block-dense payload) and of 256 (path B's dense
+    # payload, 4 bits; 8 bits as well)
     base = torch.randn(d, generator=gen, device="cuda")
-    scales = torch.rand(rows1, generator=gen, device="cuda") * 1e-3
-    scales[3] = 0.0
-    for bits in (8, 4):
-        hi = 256 if bits == 4 else 128
-        q = torch.randint(0 if bits == 4 else -127, hi,
-                          (rows1, BLOCK if bits == 8 else BLOCK // 2),
-                          generator=gen, device="cuda").to(
-            torch.uint8 if bits == 4 else torch.int8)
-        err = 0.0
-        for alpha in (1.0, -0.5):
-            got = ops.dequant_add(q, scales, base, block=BLOCK, bits=bits,
-                                  alpha=alpha)
-            want = ref.dequant_add_plain(q, scales, base, block=BLOCK,
-                                         bits=bits, alpha=alpha)
-            check_equal(f"dequant_add bits={bits} alpha={alpha}", [got], [want])
-            err = max(err, max_abs_err([got], [want]))
-        b_ms, b_by = bound(d * (8 + bits / 8) + rows1 * 4, d * 3)
-        lib = None
-        if bits == 8:          # one PyTorch call computes base + q*scale
-            b2 = base.view(rows1, BLOCK)
-            lib = time_ms(lambda: torch.addcmul(b2, q, scales[:, None]), 10)
-        results[f"dequant_add/{bits}"] = {
-            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-            "ms": time_ms(lambda: ops.dequant_add(q, scales, base, block=BLOCK,
-                                                  bits=bits), 10),
-            "plain_ms": time_ms(lambda: ref.dequant_add_plain(
-                q, scales, base, block=BLOCK, bits=bits), 3),
-            "library_ms": lib}
+    for blk, suffix in ((BLOCK, ""), (QBLOCK, f" block {QBLOCK}")):
+        rows1 = d // blk
+        scales = torch.rand(rows1, generator=gen, device="cuda") * 1e-3
+        scales[3] = 0.0
+        for bits in (8, 4):
+            hi = 256 if bits == 4 else 128
+            q = torch.randint(0 if bits == 4 else -127, hi,
+                              (rows1, blk if bits == 8 else blk // 2),
+                              generator=gen, device="cuda").to(
+                torch.uint8 if bits == 4 else torch.int8)
+            err = 0.0
+            for alpha in (1.0, -0.5):
+                got = ops.dequant_add(q, scales, base, block=blk, bits=bits,
+                                      alpha=alpha)
+                want = ref.dequant_add_plain(q, scales, base, block=blk,
+                                             bits=bits, alpha=alpha)
+                check_equal(f"dequant_add block={blk} bits={bits} "
+                            f"alpha={alpha}", [got], [want])
+                err = max(err, max_abs_err([got], [want]))
+            b_ms, b_by = bound(d * (8 + bits / 8) + rows1 * 4, d * 3)
+            lib = None
+            if bits == 8:      # one PyTorch call computes base + q*scale
+                b2 = base.view(rows1, blk)
+                lib = time_ms(lambda: torch.addcmul(b2, q, scales[:, None]),
+                              10)
+            results[f"dequant_add/{bits}{suffix}"] = {
+                "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: ops.dequant_add(
+                    q, scales, base, block=blk, bits=bits), 10),
+                "plain_ms": time_ms(lambda: ref.dequant_add_plain(
+                    q, scales, base, block=blk, bits=bits), 3),
+                "library_ms": lib}
     for name, r in results.items():
         print(f"kernel {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) library_ms "
@@ -410,17 +416,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("cuda paths against the cpu paths (smoke size)"):
         reference_check(Session, spec_lib)
-    # per leaf and step: quant8 up runs K5 to encode and K6 twice (the
-    # clients' local_c and the aggregate); quant4 down runs K5 to encode
-    # and, for the sparse payload, K6 to decode (h + decode), for the dense
-    # payload K4 (dequantize + add in one launch)
+    # per leaf and step: quant8 up runs K5 to encode and K6 once (one decode
+    # gives the clients' local_c and the aggregate); quant4 down runs K5 to
+    # encode and, for the sparse payload, K6 to decode (h + decode), for the
+    # dense payload K4 (dequantize + add in one launch)
     with phase("main path A: quant8 up, quant4 down, block_topk, 3 steps"):
         path_a = main_path(Session, spec_lib, ops, 3,
-                           {"block_quantize": 2, "block_dequantize": 3},
+                           {"block_quantize": 2, "block_dequantize": 2},
                            carrier="quant8", downlink_carrier="quant4")
     with phase("main path B: quant8 up, quant4 down, identity, 2 steps"):
         main_path(Session, spec_lib, ops, 2,
-                  {"block_quantize": 2, "block_dequantize": 2,
+                  {"block_quantize": 2, "block_dequantize": 1,
                    "dequant_add": 1},
                   carrier="quant8", downlink_carrier="quant4",
                   compressor="identity", compressor_kw={})

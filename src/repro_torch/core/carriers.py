@@ -113,6 +113,13 @@ def _fused_leaves(method, grads: Tree, state: Dict[str, Tree], eta, launch):
 # the TopK-family block wire, shared by the sparse and quantized carriers
 # ---------------------------------------------------------------------------
 
+def has_block_wire(comp) -> bool:
+    """True for the compressors with a deterministic fixed-size (values,
+    block-local indices) wire: the TopK family."""
+    return (comp.has_sparse_carrier
+            and isinstance(comp, (comp_lib.TopK, comp_lib.BlockTopK)))
+
+
 def sparse_geom(comp, d: int) -> Tuple[int, int, int]:
     """(nb, block, kb) of the fixed-size TopK-family wire for a flat (d,)
     leaf: BlockTopK's d-aware geometry; plain TopK is one block spanning the
@@ -200,6 +207,13 @@ class Carrier:
     def local_c(self, comp, delta: torch.Tensor, wire) -> torch.Tensor:
         return self.decode(comp, wire, d=delta.shape[-1], dtype=delta.dtype)
 
+    def local_c_and_mean(self, comp, delta: torch.Tensor, wire, dp: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(local_c, aggregate) of the wire of dp clients' (dp, d) deltas."""
+        return (self.local_c(comp, delta, wire),
+                self.aggregate(comp, wire, d=delta.shape[-1],
+                               dtype=delta.dtype, dp=dp))
+
     def decode_add(self, comp, wire, base: torch.Tensor, *, d: int, dtype
                    ) -> torch.Tensor:
         """``base + decode(wire)`` for a flat (d,) base — the downlink's
@@ -267,8 +281,7 @@ class SparseBlockCarrier(Carrier):
         return "wire", ""
 
     def supports(self, comp) -> bool:
-        return (comp.has_sparse_carrier
-                and isinstance(comp, (comp_lib.TopK, comp_lib.BlockTopK)))
+        return has_block_wire(comp)
 
     def encode(self, comp, delta):
         vals, idx = sparse_select(comp, delta)
@@ -357,7 +370,8 @@ class QuantCarrier(Carrier):
 
     ``local_c`` is the decode of the wire, so EF re-sends the quantization
     error in later rounds. Encode launches K5 once per leaf with the clients
-    folded into rows; decode and aggregate launch K6; the dense payload's
+    folded into rows; decode and aggregate launch K6, and the wire plan's
+    ``local_c_and_mean`` takes both from one K6 launch; the dense payload's
     ``decode_add`` runs K4 (dequantize + add in one launch)."""
 
     name: str = "quant8"
@@ -384,84 +398,100 @@ class QuantCarrier(Carrier):
                 "only")
         return "wire", ""
 
-    def _sparse_ok(self, comp) -> bool:
-        return (comp.has_sparse_carrier
-                and isinstance(comp, (comp_lib.TopK, comp_lib.BlockTopK)))
+    def _payload(self, comp, d: int) -> Tuple[bool, int, int, int]:
+        """(sparse, nb, block, cols) of a (d,) leaf's wire: the sparse
+        payload quantizes each of nb blocks' kb selected values (cols = kb);
+        the dense payload quantizes C(δ) padded to nb rows of cols = block =
+        ``qblock``."""
+        if has_block_wire(comp):
+            nb, block, kb = sparse_geom(comp, d)
+            return True, nb, block, kb
+        return False, -(-d // self.qblock), self.qblock, self.qblock
 
     @staticmethod
     def _idx_dtype(block: int) -> torch.dtype:
         return torch.int16 if block <= 2 ** 15 - 1 else torch.int32
 
-    def _dequantize(self, q, scales, cols: int) -> torch.Tensor:
+    def _dequantize(self, comp, wire, d: int) -> torch.Tensor:
         """K6 on a wire's rows, clients folded in: (rows, cols) f32."""
+        q, scales = wire[0], wire[1]
         return ops.block_dequantize(q.reshape(-1, q.shape[-1]),
-                                    scales.reshape(-1), self.bits, cols)
+                                    scales.reshape(-1), self.bits,
+                                    self._payload(comp, d)[3])
 
-    def _quantize_dense(self, comp, delta, nb: int, block: int):
-        """C(δ) per client, padded to nb rows of ``block``, through K5.
-        Returns (q (*lead, nb, ·), scales (*lead, nb))."""
-        d, lead = delta.shape[-1], delta.shape[:-1]
-        c = comp.batched(delta.reshape(-1, d))
-        q, scales = ops.block_quantize(_rows(c, nb, block), self.bits)
-        return q.reshape(*lead, nb, -1), scales.reshape(*lead, nb)
+    def _spread(self, comp, wire, vals, d: int) -> torch.Tensor:
+        """The f32 (*lead, d) decode from the wire's dequantized rows."""
+        sparse, nb, block, _ = self._payload(comp, d)
+        if sparse:
+            idx = wire[2]
+            return scatter_blocks(vals.reshape(idx.shape), idx, nb=nb,
+                                  block=block, d=d, dtype=torch.float32)
+        return _unrows(vals, wire[1].shape[:-1], d)
 
     # -- wire ---------------------------------------------------------------
     def encode(self, comp, delta):
         d, lead = delta.shape[-1], delta.shape[:-1]
-        if self._sparse_ok(comp):
-            nb, block, kb = sparse_geom(comp, d)
+        sparse, nb, block, cols = self._payload(comp, d)
+        if sparse:
             vals, idx = sparse_select(comp, delta)
-            q, scales = ops.block_quantize(vals.reshape(-1, kb), self.bits)
+            q, scales = ops.block_quantize(vals.reshape(-1, cols), self.bits)
             return (q.reshape(*lead, nb, -1), scales.reshape(*lead, nb),
                     idx.to(self._idx_dtype(block)))
-        return self._quantize_dense(comp, delta, -(-d // self.qblock),
-                                    self.qblock)
+        c = comp.batched(delta.reshape(-1, d))   # C(δ) per client
+        q, scales = ops.block_quantize(_rows(c, nb, block), self.bits)
+        return q.reshape(*lead, nb, -1), scales.reshape(*lead, nb)
 
     def decode(self, comp, wire, *, d, dtype):
-        if self._sparse_ok(comp):                        # sparse payload
-            q, scales, idx = wire
-            nb, block, kb = sparse_geom(comp, d)
-            vals = self._dequantize(q, scales, kb).reshape(idx.shape)
-            return scatter_blocks(vals, idx, nb=nb, block=block, d=d,
-                                  dtype=torch.float32).to(dtype)
-        q, scales = wire                                 # dense payload
-        vals = self._dequantize(q, scales, self.qblock)
-        return _unrows(vals, scales.shape[:-1], d).to(dtype)
+        vals = self._dequantize(comp, wire, d)
+        return self._spread(comp, wire, vals, d).to(dtype)
 
     def decode_add(self, comp, wire, base, *, d, dtype):
-        if self._sparse_ok(comp):      # the scatter decode has no fused add
+        sparse, _, block, _ = self._payload(comp, d)
+        if sparse:                     # the scatter decode has no fused add
             return super().decode_add(comp, wire, base, d=d, dtype=dtype)
         q, scales = wire               # dense payload: K4
         out = ops.dequant_add(q, scales, base.float().contiguous(),
-                              block=self.qblock, bits=self.bits)
+                              block=block, bits=self.bits)
         return out.to(dtype)
 
     def aggregate(self, comp, wire, *, d, dtype, dp):
-        if self._sparse_ok(comp):
-            q, scales, idx = wire                        # (dp, nb, ·)
-            nb, block, kb = sparse_geom(comp, d)
-            vals = self._dequantize(q, scales, kb).reshape(idx.shape)
-            return _scatter_mean(vals, idx, nb=nb, block=block, d=d,
-                                 dtype=torch.float32).to(dtype)
-        q, scales = wire
-        vals = self._dequantize(q, scales, self.qblock)
-        return (_unrows(vals, scales.shape[:-1], d).sum(0) / dp).to(dtype)
+        return self._mean(comp, wire, self._dequantize(comp, wire, d), d,
+                          dp).to(dtype)
+
+    def local_c_and_mean(self, comp, delta, wire, dp):
+        """Both from one K6 launch on the wire; the dense payload's mean is
+        the clients' decodes summed."""
+        d = delta.shape[-1]
+        vals = self._dequantize(comp, wire, d)
+        c = self._spread(comp, wire, vals, d)
+        mean = (self._mean(comp, wire, vals, d, dp)
+                if self._payload(comp, d)[0] else c.sum(0) / dp)
+        return c.to(delta.dtype), mean.to(delta.dtype)
+
+    def _mean(self, comp, wire, vals, d: int, dp: int) -> torch.Tensor:
+        """meanᵢ of the clients' decodes, f32 (d,), from the dequantized
+        rows: the sparse payload scatter-adds, the dense one sums."""
+        sparse, nb, block, _ = self._payload(comp, d)
+        if sparse:
+            idx = wire[2]
+            return _scatter_mean(vals.reshape(idx.shape), idx, nb=nb,
+                                 block=block, d=d, dtype=torch.float32)
+        return self._spread(comp, wire, vals, d).sum(0) / dp
 
     # -- accounting ---------------------------------------------------------
     def wire_words(self, comp, d):
         frac = self.bits / 32.0                          # 4-bit = 1/8 word
-        if self._sparse_ok(comp):
-            nb, block, kb = sparse_geom(comp, d)
+        sparse, nb, block, cols = self._payload(comp, d)
+        if sparse:
             idx_words = 0.5 if block <= 2 ** 15 - 1 else 1.0
-            return nb * (1.0 + kb * (frac + idx_words))
-        nbq = -(-d // self.qblock)
-        return nbq * (1.0 + self.qblock * frac)
+            return nb * (1.0 + cols * (frac + idx_words))
+        return nb * (1.0 + block * frac)
 
     def quant_eps(self, comp, d: int) -> float:
         """Relative per-message quantization error bound: B elements a scale
         give ‖Q(x) − x‖² ≤ B/(4·qmax²)·‖x‖²."""
         qmax = 2 ** (self.bits - 1) - 1
-        if self._sparse_ok(comp):
+        if has_block_wire(comp):
             per_scale = sparse_geom(comp, d)[2]
         else:
             per_scale = min(self.qblock, d)
@@ -524,44 +554,13 @@ class FusedQuantCarrier(QuantCarrier):
                             "running the unfused quantized wire")
         return "fused_wire", ""
 
-    # -- wire (block-dense payload at the selection geometry) ---------------
-    def encode(self, comp, delta):
-        if not self._sparse_ok(comp):
-            return super().encode(comp, delta)
-        nb, block, _ = self._fused_geom(comp, delta.shape[-1])
-        return self._quantize_dense(comp, delta, nb, block)  # threshold mask
-
-    def decode(self, comp, wire, *, d, dtype):
-        if not self._sparse_ok(comp):
-            return super().decode(comp, wire, d=d, dtype=dtype)
-        q, scales = wire
-        _, block, _ = self._fused_geom(comp, d)
-        vals = self._dequantize(q, scales, block)
-        return _unrows(vals, scales.shape[:-1], d).to(dtype)
-
-    def decode_add(self, comp, wire, base, *, d, dtype):
-        """h + decode(wire) in one K4 launch (the plain version on CPU)."""
-        if not self._sparse_ok(comp):
-            return super().decode_add(comp, wire, base, d=d, dtype=dtype)
-        q, scales = wire
-        _, block, _ = self._fused_geom(comp, d)
-        out = ops.dequant_add(q, scales, base.float().contiguous(),
-                              block=block, bits=self.bits)
-        return out.to(dtype)
-
-    def aggregate(self, comp, wire, *, d, dtype, dp):
-        if not self._sparse_ok(comp):
-            return super().aggregate(comp, wire, d=d, dtype=dtype, dp=dp)
-        q, scales = wire
-        _, block, _ = self._fused_geom(comp, d)
-        vals = self._dequantize(q, scales, block)
-        return (_unrows(vals, scales.shape[:-1], d).sum(0) / dp).to(dtype)
-
-    def wire_words(self, comp, d):
-        if not self._sparse_ok(comp):
-            return super().wire_words(comp, d)
+    def _payload(self, comp, d):
+        """The TopK family ships the block-dense payload at the selection
+        geometry (a threshold mask, quantized a selection block a row)."""
+        if not has_block_wire(comp):
+            return super()._payload(comp, d)
         nb, block, _ = self._fused_geom(comp, d)
-        return nb * (1.0 + block * self.bits / 32.0)
+        return False, nb, block, block
 
     # -- the one-launch round ------------------------------------------------
     def fused_wire_round(self, method, grads: Tree, state: Dict[str, Tree],
@@ -588,9 +587,9 @@ class FusedQuantCarrier(QuantCarrier):
 
 def wire_round_batched(carrier: Carrier, comp, deltas: Tree, dp: int
                        ) -> Tuple[Tree, Tree]:
-    """encode → local_c → aggregate per leaf, the dp clients on a leading
-    axis folded into the codec's kernel rows. Returns (c_tree,
-    msg_mean_tree)."""
+    """encode → (local_c, aggregate) per leaf, the dp clients on a leading
+    axis folded into the codec's kernel rows; one decode of the wire serves
+    both. Returns (c_tree, msg_mean_tree)."""
     c_out: Tree = {}
     agg_out: Tree = {}
     for key in sorted(deltas):
@@ -598,9 +597,9 @@ def wire_round_batched(carrier: Carrier, comp, deltas: Tree, dp: int
         d = leaf[0].numel()
         flat = leaf.reshape(dp, d)
         wire = carrier.encode(comp, flat)
-        c_out[key] = carrier.local_c(comp, flat, wire).reshape(leaf.shape)
-        agg_out[key] = carrier.aggregate(comp, wire, d=d, dtype=leaf.dtype,
-                                         dp=dp).reshape(leaf.shape[1:])
+        c, mean = carrier.local_c_and_mean(comp, flat, wire, dp)
+        c_out[key] = c.reshape(leaf.shape)
+        agg_out[key] = mean.reshape(leaf.shape[1:])
     return c_out, agg_out
 
 

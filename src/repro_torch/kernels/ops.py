@@ -38,7 +38,7 @@ _SIGNATURES = {
     "ef_launch_block_quantize": [_P, _P, _P, _L, _I, _I, _P],
     "ef_launch_block_dequantize": [_P, _P, _P, _L, _I, _I, _P],
 }
-# the launches take one CTA a row: gridDim.x caps the rows of one launch
+# wide codec rows take one CTA a row: gridDim.x caps the rows of one launch
 _MAX_ROWS = 2 ** 31 - 1
 
 

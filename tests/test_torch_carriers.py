@@ -116,3 +116,33 @@ def test_sparse_select_takes_local_indices_in_top_k_order():
         jax_comp.BlockTopK(block=8, k_per_block=3), jnp.asarray(x[0].numpy()))
     np.testing.assert_array_equal(idx[0].numpy(), np.asarray(jidx))
     np.testing.assert_array_equal(vals[0].numpy(), np.asarray(jvals))
+
+
+QUANT_CELLS = [(car, comp) for car in ("quant8", "quant4", "fused_quant8",
+                                       "fused_quant4")
+               for comp in COMPRESSORS]
+
+
+@pytest.mark.parametrize("carrier,comp", QUANT_CELLS)
+def test_wire_round_decodes_each_wire_once(carrier, comp, monkeypatch):
+    """The 'wire' plan takes local_c and the mean from one K6 call a leaf;
+    they equal the carrier's own decode and aggregate exactly, and the mean
+    the reference's aggregate within ``_close``."""
+    jc = jax_comp.make(comp, **COMPRESSORS[comp])
+    pc = pt_comp.make(comp, **COMPRESSORS[comp])
+    jcar, pcar = jax_car.make(carrier), pt_car.make(carrier)
+    d = 5 * 1024 + 17
+    x = _deltas(d, 11 + len(carrier) + len(comp))
+    xt = torch.tensor(x)
+    wire = pcar.encode(pc, xt)
+    calls, real = [], pt_car.ops.block_dequantize
+    monkeypatch.setattr(pt_car.ops, "block_dequantize",
+                        lambda *a: calls.append(a) or real(*a))
+    c, mean = pcar.local_c_and_mean(pc, xt, wire, DP)
+    assert len(calls) == 1
+    monkeypatch.undo()
+    _equal(c, pcar.decode(pc, wire, d=d, dtype=torch.float32))
+    _equal(mean, pcar.aggregate(pc, wire, d=d, dtype=torch.float32, dp=DP))
+    jw = jax.jit(jax.vmap(lambda v: jcar.encode(jc, v)))(jnp.asarray(x))
+    _close(mean, jax.jit(lambda w: jcar.aggregate(
+        jc, w, d=d, dtype=jnp.float32, dp=DP))(jw), "aggregate")

@@ -63,9 +63,11 @@ def test_cuda_kernels_write_state_in_place(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block", [1024, 256])
 @pytest.mark.parametrize("bits", [8, 4])
-def test_cuda_dequant_add_matches_plain(cuda_device, bits):
-    block, nb = 1024, 77
+def test_cuda_dequant_add_matches_plain(cuda_device, bits, block):
+    """K4 at the fused downlink's rows of 1024 and the dense payload's 256."""
+    nb = 77
     d = nb * block - 100
     gen = torch.Generator(device="cpu").manual_seed(bits)
     qcols = block if bits == 8 else block // 2
@@ -85,13 +87,16 @@ def test_cuda_dequant_add_matches_plain(cuda_device, bits):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,cols", [(4099, 16), (2051, 51), (1025, 256),
                                        (513, 1024), (3, 8191), (2, 8193),
-                                       (1, 2_359_296)])
+                                       (1, 2_359_296), (1001, 1), (333, 3),
+                                       (777, 17), (257, 33), (65, 1025)])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_cuda_codec_matches_plain(cuda_device, bits, rows, cols):
     """K5 and K6 against their plain versions: the carriers' row widths (16
     and 51 the sparse payloads, 256 the dense payload, 1024 a selection
     block, one row of 2,359,296 plain TopK's block on the embed leaf), the
-    CTA size steps at 8192, with non-finite values and an all-zero row."""
+    lane groups of narrow rows (1 to 32 lanes a row, up to 1024 wide; row
+    counts that leave a CTA's last groups empty), the CTA size steps at
+    8192, with non-finite values and an all-zero row."""
     gen = torch.Generator(device="cpu").manual_seed(bits + rows + cols)
     x = torch.randn(rows, cols, generator=gen)
     x[0, 0], x[0, -1] = float("inf"), float("nan")
