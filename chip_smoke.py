@@ -28,13 +28,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   5. main path B: the same with the identity compressor (the dense
      payload, K4 on the downlink), 2 steps;
   6. the fused paths: carrier fused_quant8 up and fused_quant4 down, 3
-     steps, and carrier fused, 2 steps.
-Each training path resets the launch counts just before it, checks that
-every kernel launched exactly as often per leaf and step as the path's
-code calls it (and the others not at all), that losses and parameters are
-finite, and prints step ms, peak memory and a step breakdown. Then the
-script prints a ``kernels`` JSON line, the card line, and the final
-``{"ok": true, ...}`` line. Imports nothing of JAX or of src/repro.
+     steps, and carrier fused, 2 steps, after which the live training tree
+     serves one small batch (batch 2, prompt 256, 8 decode steps) whose
+     first token must be the argmax of a prefill with the trained params;
+  7. serving, card against CPU at smoke size (f32 activations): the greedy
+     tokens must be equal and the prefill logits agree within rtol 1e-4;
+  8. serving full-width smollm-360m from fresh weights: batch 8, prompt
+     1024, 32 decode steps, nothing cut, twice (the second reading is free
+     of warm-up); K7 must launch exactly 32 times in the prefill (once a
+     layer) and never in decode; then torch.profiler reads one more
+     prefill and two decode steps (device busy time, the decode's idle
+     share, device time by op).
+Phase 2 also holds K7 flash_attention against its plain version within
+2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
+shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, a ragged S of 1000
+and hd 128, and times it at the full-width bf16 shape beside the library's
+scaled_dot_product_attention (a yardstick, never the path).
+Each training or serving path resets the launch counts just before it,
+checks that every kernel launched exactly as often as the path's code
+calls it (and the others not at all), that losses, parameters and logits
+are finite, and prints its times and peak memory. Then the script prints
+a ``kernels`` JSON line, the card line, and the final ``{"ok": true, ...}``
+line. Imports nothing of JAX or of src/repro.
 """
 import contextlib
 import gc
@@ -53,10 +68,14 @@ SRC = os.path.join(ROOT, "src")
 SPEC = os.path.join(ROOT, "results", "specs", "fused_quickstart.json")
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (published)
 F32_OPS_S = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_TC_OPS_S = 989e12         # H100 SXM bf16 tensor cores, dense
 CLIENTS, BLOCK = 8, 1024
 W_UP = (32, 960, 2560)         # layers/mlp/w_up of full-width smollm-360m
 QBLOCK = 256                   # the quantized carriers' dense-payload row
 TOPK_EMBED_K = 2_359_296       # plain TopK's k at ratio 0.05 on the embed leaf
+SERVE_FULL = dict(batch=8, prompt_len=1024, decode_steps=32)
+FLASH_FULL = (8, 1024, 15, 5, 64)   # (B, S, H, KV, hd) of its prefill
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def fail(msg: str) -> None:
@@ -273,6 +292,252 @@ def codec_checks(ops, ref, results):
         del x, q, scales
 
 
+def flash_checks(ops, ref, results):
+    """Phase 2, K7: against its plain version at every shape of the serving
+    paths and the ragged and hd-128 cases, within the tolerance of the
+    reference's flash test; then timed at the full-width prefill's shape in
+    bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def inputs(B, S, H, KV, hd, dtype):
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+        k, v = (torch.randn(B, S, KV, hd, generator=gen, device="cuda")
+                for _ in range(2))
+        return [x.to(dtype) for x in (q, k, v)]
+
+    smoke = (2, 64, 3, 1, 64)          # the smoke config's heads
+    err = 0.0
+    for shape, dtype in ((smoke, torch.float32), (smoke, torch.bfloat16),
+                         (FLASH_FULL, torch.bfloat16),
+                         (FLASH_FULL, torch.float32),
+                         ((8, 1000, 15, 5, 64), torch.bfloat16),
+                         ((2, 512, 8, 2, 128), torch.bfloat16),
+                         ((2, 512, 8, 2, 128), torch.float32)):
+        q, k, v = inputs(*shape, dtype)
+        got = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        e, tol = max_abs_err([got], [want]), FLASH_TOL[dtype]
+        if got.dtype != dtype or got.shape != want.shape or not \
+                torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            fail(f"flash_attention {shape} {dtype}: differs from the plain "
+                 f"version beyond {tol} (max abs err {e})")
+        print(f"flash_attention {shape} {dtype}: within {tol} of the plain "
+              f"version, max abs err {e}", flush=True)
+        if shape == FLASH_FULL and dtype == torch.bfloat16:
+            err = e
+        del q, k, v, got, want
+
+    B, S, H, KV, hd = FLASH_FULL
+    q, k, v = inputs(B, S, H, KV, hd, torch.bfloat16)
+    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)   # q, o, k, v
+    n_ops = 4 * B * H * hd * S * (S + 1) / 2                  # causal
+    t_bytes, t_tc = n_bytes / HBM_BYTES_S, n_ops / BF16_TC_OPS_S
+    # the library's fused attention on kv heads expanded as the plain
+    # version expands them, in its (B, H, S, hd) layout, prepared untimed
+    qt, kt, vt = (x.repeat_interleave(H // x.shape[2], dim=2).transpose(1, 2)
+                  .contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+    want = ref.flash_attention_plain(q, k, v)
+    lib_err = max_abs_err([lib_out], [want])
+    if not torch.allclose(lib_out.float(), want.float(), atol=2e-2,
+                          rtol=2e-2):
+        fail(f"scaled_dot_product_attention differs from the plain version "
+             f"(max abs err {lib_err})")
+    del lib_out, want
+    results["flash_attention"] = {
+        "max_abs_err": err, "bound_ms": max(t_bytes, t_tc) * 1e3,
+        "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v), 20),
+        "plain_ms": time_ms(lambda: ref.flash_attention_plain(q, k, v), 5),
+        "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20)}
+    r = results["flash_attention"]
+    print(f"kernel flash_attention [{FLASH_FULL} bf16, causal]: ms "
+          f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+          f"{r['library_ms']:.4f} (sdpa max abs err {lib_err} vs plain); "
+          f"bytes {n_bytes} -> {t_bytes * 1e3:.4f} ms; ops {n_ops:.4e} -> "
+          f"{t_tc * 1e3:.4f} ms on bf16 tensor cores, "
+          f"{n_ops / F32_OPS_S * 1e3:.4f} ms on f32 CUDA cores; bound_ms "
+          f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    del q, k, v, qt, kt, vt
+
+
+def check_serve_launches(ops, launches, label, want_flash) -> None:
+    """Serving runs K7 once a layer in the prefill and no other kernel."""
+    for name, count in launches.items():
+        want = want_flash if name == "flash_attention" else 0
+        if count != want:
+            fail(f"{name} launched {count} times on {label}, expected {want}")
+
+
+def first_token_check(model_lib, cfg, params, tokens, out, label) -> None:
+    """The served first tokens are the argmax of a prefill's logits under
+    ``params``, and the logits are finite."""
+    B, S = tokens.shape
+    cache = model_lib.init_cache(cfg, B, S, device="cuda")
+    logits, _ = model_lib.prefill(cfg, params, {"tokens": tokens}, cache)
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{label}: non-finite prefill logits")
+    first = logits[:, -1].argmax(-1).cpu().numpy()
+    if (first != out["tokens"][:, 0]).any():
+        fail(f"{label}: first tokens {out['tokens'][:, 0]} are not the "
+             f"argmax {first} of the prefill under these params")
+
+
+def serve_smoke_check(Session, spec_lib, model_lib, ops):
+    """Phase 7: serving on the card against the CPU at smoke size, f32."""
+    spec = load_spec(spec_lib, smoke=True)
+    outs, logits, tokens = {}, {}, None
+    for device in ("cuda", "cpu"):
+        sess = Session(spec, device=device, dtype="float32")
+        if tokens is None:
+            tokens = torch.randint(0, sess.cfg.vocab_size, (2, 64),
+                                   generator=torch.Generator().manual_seed(0))
+        ops.reset_launches()
+        outs[device] = sess.serve(tokens=tokens, decode_steps=8)
+        if device == "cuda":
+            check_serve_launches(ops, dict(ops.launches), "the smoke serve",
+                                 sess.cfg.num_layers)
+        cache = model_lib.init_cache(sess.cfg, 2, 64, device=device)
+        logits[device] = model_lib.prefill(
+            sess.cfg, sess.serve_source(), {"tokens": tokens.to(device)},
+            cache)[0].cpu()
+    a, b = outs["cuda"]["tokens"], outs["cpu"]["tokens"]
+    print(f"smoke serve tokens: cuda {a.tolist()} cpu {b.tolist()}",
+          flush=True)
+    if a.shape != (2, 9) or (a != b).any():
+        fail("smoke serve: the card's greedy tokens differ from the CPU's")
+    # rtol 1e-4, and atol 1e-4 of the largest logit for the ones near zero
+    diff = (logits["cuda"] - logits["cpu"]).abs()
+    lim = 1e-4 * (logits["cpu"].abs() + logits["cpu"].abs().max())
+    print(f"smoke serve prefill logits: max abs diff {float(diff.max())}",
+          flush=True)
+    if not bool(torch.isfinite(logits["cuda"]).all()) or \
+            bool((diff > lim).any()):
+        fail("smoke serve: prefill logits on the card differ from the CPU's "
+             "beyond rtol 1e-4")
+
+
+def serve_full(Session, spec_lib, model_lib, ops):
+    """Phase 8: full-width smollm-360m, batch 8, prompt 1024, 32 decode
+    steps, from fresh weights; served twice."""
+    spec = load_spec(spec_lib)
+    sess = Session(spec, device="cuda")
+    B, S, steps = (SERVE_FULL[k] for k in ("batch", "prompt_len",
+                                           "decode_steps"))
+    # the prompts serve() draws when given none, drawn here to check them
+    tokens = torch.randint(0, sess.cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(spec.seed))
+    for run in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        at_decode = {}
+
+        def hook(i):
+            if i == 0:                          # the prefill's launches
+                at_decode.update(ops.launches)
+        out = sess.serve(tokens=tokens, decode_steps=steps, decode_hook=hook)
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"serve full width run {run}: prefill_ms "
+              f"{out['prefill_s'] * 1e3:.3f} prefill_tok_s "
+              f"{out['prefill_tok_s']:.1f} decode_ms_per_token "
+              f"{out['decode_s'] * 1e3 / steps:.3f} decode_tok_s "
+              f"{out['decode_tok_s']:.1f} cache_bytes {out['cache_bytes']} "
+              f"max_memory_allocated {peak} launches {launches}", flush=True)
+        check_serve_launches(ops, at_decode, "the full-width prefill",
+                             sess.cfg.num_layers)
+        check_serve_launches(ops, launches, "the full-width serve (prefill "
+                             "and decode)", sess.cfg.num_layers)
+        toks = out["tokens"]
+        if toks.shape != (B, steps + 1) or toks.min() < 0 or \
+                toks.max() >= sess.cfg.vocab_size:
+            fail(f"full-width serve: tokens of shape {toks.shape} in "
+                 f"[{toks.min()}, {toks.max()}]")
+    # the fresh weights of spec.seed, drawn again to check what was served
+    fresh = model_lib.init_params(
+        sess.cfg, torch.Generator().manual_seed(spec.seed), "cuda")
+    first_token_check(model_lib, sess.cfg, fresh, tokens.cuda(), out,
+                      "full-width serve")
+    serve_profile(model_lib, sess.cfg, fresh, tokens.cuda(),
+                  out["decode_s"] / steps)
+    del sess, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def device_ms(prof):
+    """(device busy ms, {op: ms of the kernels it launched}) of a
+    torch.profiler run. Busy time sums the kernel rows only: an aten op's
+    row repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    busy, by_op = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.device_time_total / 1e3
+        if "flash_attention" in e.key or e.device_type != DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            if t > 0:
+                by_op[e.key] = t / 1e3
+    return busy, by_op
+
+
+def serve_profile(model_lib, cfg, params, tokens, decode_s_per_step) -> None:
+    """Where serving's time goes, from torch.profiler (CPU and CUDA
+    activity) around one full-width prefill and 2 decode steps: the
+    device's busy time, K7's share of the prefill, and the decode step's
+    device time against its unprofiled wall time (the idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    B, S = tokens.shape
+    cache = model_lib.init_cache(cfg, B, S + 2, device="cuda")
+    with profile(activities=acts) as prof:
+        logits, cache = model_lib.prefill(cfg, params, {"tokens": tokens},
+                                          cache)
+        torch.cuda.synchronize()
+    busy, by_op = device_ms(prof)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile prefill: device busy ms {busy:.3f}; by op "
+          f"{[(k[:40], round(t, 3)) for k, t in top]}", flush=True)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    with profile(activities=acts) as prof:
+        for i in range(2):
+            logits, cache = model_lib.decode_step(cfg, params, cache, tok,
+                                                  S + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+    busy, by_op = device_ms(prof)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+    wall = decode_s_per_step * 1e3
+    if busy > 0:
+        print(f"profile decode: device busy ms a step {busy / 2:.3f} of "
+              f"{wall:.3f} unprofiled wall ms (idle share "
+              f"{1 - busy / 2 / wall:.3f}); by op a step "
+              f"{[(k[:40], round(t / 2, 3)) for k, t in top]}", flush=True)
+    else:
+        print("profile decode: no device time in the trace (not measured)",
+              flush=True)
+
+
+def serve_trained(sess, model_lib, ops) -> None:
+    """Serve one small batch from the live training tree: its first tokens
+    must be those of the trained params."""
+    tokens = torch.randint(0, sess.cfg.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(1))
+    ops.reset_launches()
+    out = sess.serve(tokens=tokens, decode_steps=8)
+    check_serve_launches(ops, dict(ops.launches), "the trained-model serve",
+                         sess.cfg.num_layers)
+    first_token_check(model_lib, sess.cfg, sess.params, tokens.cuda(), out,
+                      "trained-model serve")
+    print(f"served the trained model (step {sess.step}): tokens "
+          f"{out['tokens'].tolist()}", flush=True)
+
+
 def load_spec(spec_lib, **overrides):
     with open(SPEC) as f:
         return spec_lib.RunSpec.from_dict(dict(json.load(f), **overrides))
@@ -307,10 +572,12 @@ def reference_check(Session, spec_lib):
                      "(rtol 1e-3)")
 
 
-def main_path(Session, spec_lib, ops, steps, per_leaf_step, **overrides):
+def main_path(Session, spec_lib, ops, steps, per_leaf_step, serve=None,
+              **overrides):
     """Phases 4-6: full-width smollm-360m through the port's Session.
     ``per_leaf_step`` names the launches each kernel makes per leaf and step
-    on this path; every other kernel must not launch."""
+    on this path; every other kernel must not launch. ``serve(sess)``, when
+    given, runs on the trained session at the end."""
     spec = load_spec(spec_lib, **overrides)
     label = f"{spec.carrier}/{spec.downlink_carrier} {spec.compressor}"
     sess = Session(spec, device="cuda")
@@ -346,6 +613,8 @@ def main_path(Session, spec_lib, ops, steps, per_leaf_step, **overrides):
     if not all(bool(torch.isfinite(p).all()) for p in sess.params.values()):
         fail("non-finite parameters after training")
     step_breakdown(sess, spec, label)
+    if serve is not None:
+        serve(sess)
     del sess, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -392,6 +661,7 @@ def main() -> None:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import spec as spec_lib
     from repro_torch.launch.session import Session
+    from repro_torch.models import model as model_lib
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -412,6 +682,9 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         codec_checks(ops, ref, results)
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash_checks(ops, ref, results)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("cuda paths against the cpu paths (smoke size)"):
@@ -437,9 +710,15 @@ def main() -> None:
                        {"ef21_sgdm_topk_quant": 1, "block_dequantize": 1,
                         "block_quantize": 1, "dequant_add": 1},
                        carrier="fused_quant8", downlink_carrier="fused_quant4")
-    with phase("fused carrier, 2 steps"):
+    with phase("fused carrier, 2 steps, then serve the trained model"):
         fused = main_path(Session, spec_lib, ops, 2, {"ef21_sgdm_update": 1},
+                          serve=lambda s: serve_trained(s, model_lib, ops),
                           carrier="fused", downlink_carrier="dense")
+    with phase("serving, cuda against cpu (smoke size)"):
+        serve_smoke_check(Session, spec_lib, model_lib, ops)
+    with phase("serving full-width smollm-360m: batch 8, prompt 1024, "
+               "32 decode steps"):
+        served = serve_full(Session, spec_lib, model_lib, ops)
 
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
@@ -453,6 +732,8 @@ def main() -> None:
          "src/repro/kernels/quantize.py:92", path_a),
         ("block_dequantize", "block_dequantize", f"{csrc}/codec.cu",
          "src/repro/kernels/quantize.py:112", path_a),
+        ("flash_attention", "flash_attention", f"{csrc}/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:83", served),
     ]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **{

@@ -12,6 +12,22 @@ import numpy as np
 import torch
 
 
+# the production alignment of the frontend prefix (DESIGN.md §5), which
+# serving pads to, as the reference's Session.serve does
+PREFIX_PAD_SPEC = 64
+
+
+def prefix_token_count(cfg, pad_to: int = PREFIX_PAD_SPEC) -> int:
+    """Number of prefix-embedding tokens a batch for ``cfg`` carries, the
+    prefix padded to ``pad_to``: 0 for the dense family, which has no
+    modality frontend (the frontends arrive with the families that use
+    them)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the prefix of family {cfg.family!r} "
+                                  "arrives with a later slice")
+    return 0
+
+
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     vocab_size: int

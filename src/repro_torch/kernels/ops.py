@@ -1,10 +1,11 @@
 """Wrappers of the hand kernels (counterpart of src/repro/kernels/ops.py).
 
-Every wrapper takes the row view its kernel takes, checks device, dtype,
-shape and contiguity, and raises on anything else. Tensors on the CPU run
-the plain PyTorch version (kernels/ref.py); tensors on a CUDA device launch
-the kernel on the current stream and raise if the launch fails. There is no
-fallback from one to the other.
+Every wrapper takes the layout its kernel takes (the row view for K2-K6,
+(B, S, heads, hd) for K7), checks device, dtype, shape and contiguity, and
+raises on anything else. Tensors on the CPU run the plain PyTorch version
+(kernels/ref.py); tensors on a CUDA device launch the kernel on the current
+stream and raise if the launch fails. There is no fallback from one to the
+other.
 
 ``launches`` counts kernel launches per wrapper (plain runs do not count),
 so a run can show that its main path went through the kernels.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
@@ -23,7 +25,8 @@ MAX_WIDTH = 1024
 
 launches: Dict[str, int] = {"ef21_sgdm_update": 0,
                             "ef21_sgdm_topk_quant": 0, "dequant_add": 0,
-                            "block_quantize": 0, "block_dequantize": 0}
+                            "block_quantize": 0, "block_dequantize": 0,
+                            "flash_attention": 0}
 
 _lib_handle: Optional[ctypes.CDLL] = None
 
@@ -37,7 +40,11 @@ _SIGNATURES = {
     "ef_launch_dequant_add": [_P, _P, _P, _P, _L, _L, _I, _I, _F, _I, _P],
     "ef_launch_block_quantize": [_P, _P, _P, _L, _I, _I, _P],
     "ef_launch_block_dequantize": [_P, _P, _P, _L, _I, _I, _P],
+    "ef_launch_flash_attention":
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
+# head dims K7 is compiled for
+FLASH_HEAD_DIMS = (32, 64, 128)
 # wide codec rows take one CTA a row: gridDim.x caps the rows of one launch
 _MAX_ROWS = 2 ** 31 - 1
 
@@ -263,4 +270,38 @@ def block_dequantize(q: torch.Tensor, scales: torch.Tensor, bits: int,
     _launch("ef_launch_block_dequantize", q.data_ptr(), scales.data_ptr(),
             out.data_ptr(), rows, cols, bits)
     launches["block_dequantize"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """K7, attention forward with an online softmax: q (B,S,H,hd), k and v
+    (B,S,KV,hd) with H % KV == 0 (query head h reads kv head h // (H/KV)),
+    all of one dtype, f32 or bf16, hd in ``FLASH_HEAD_DIMS``, any S.
+    Returns (B,S,H,hd) in q's dtype. Scores, softmax and P.V are f32."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q and k must be (B,S,heads,hd), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q: dtype {q.dtype}; K7 takes float32 or bfloat16")
+    _check("q", q, (B, S, H, hd), q.dtype)
+    _check("k", k, (B, S, KV, hd), q.dtype)
+    _check("v", v, (B, S, KV, hd), q.dtype)
+    if S < 1 or KV < 1 or H % KV:
+        raise ValueError(f"S={S}, H={H}, KV={KV}: need S >= 1 and KV "
+                         "dividing H")
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {FLASH_HEAD_DIMS}")
+    if not _on_cuda(q, k, v):
+        return ref.flash_attention_plain(q, k, v, causal=causal)
+    if B > 65535 or H > 65535:
+        raise ValueError(f"B={B}, H={H}: at most 65535 each in one launch")
+    out = torch.empty_like(q)
+    _launch("ef_launch_flash_attention", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, S, H, KV, hd,
+            int(q.dtype == torch.bfloat16), int(causal),
+            float(np.float32(hd ** -0.5)))
+    launches["flash_attention"] += 1
     return out

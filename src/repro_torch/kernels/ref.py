@@ -1,15 +1,19 @@
 """Plain PyTorch versions of the hand kernels.
 
-Each ``*_plain`` function repeats its Pallas body step by step — the same
-f32 operations in the same order, the 26-step threshold bisection included —
-so it is bit-for-bit what the CUDA kernel in ``csrc/`` computes. They are
-what the kernel wrappers (``kernels/ops.py``) run on CPU tensors and what
-``chip_smoke.py`` holds each kernel against on the card. They are NOT the
-sort-based ``block_topk_ref`` of the reference, which keeps exactly k with
-the earliest index winning ties (a different tie rule).
+They are what the kernel wrappers (``kernels/ops.py``) run on CPU tensors
+and what ``chip_smoke.py`` holds each kernel against on the card.
 
-Every function takes the row view the kernels take: ``(rows, block)``
-tensors, one selection/quantization block per row.
+The EF and codec functions (K2-K6) repeat their Pallas bodies step by step
+— the same f32 operations in the same order, the 26-step threshold
+bisection included — so each is bit-for-bit what its CUDA kernel in
+``csrc/`` computes. They take the row view the kernels take: ``(rows,
+block)`` tensors, one selection/quantization block per row. They are NOT
+the sort-based ``block_topk_ref`` of the reference, which keeps exactly k
+with the earliest index winning ties (a different tie rule).
+
+``flash_attention_plain`` (K7) is the reference's materialised-softmax
+oracle; the kernel's online softmax sums in another order, so the two
+agree within a tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -145,3 +149,27 @@ def block_dequantize_plain(q: torch.Tensor, scales: torch.Tensor, *,
         lo = (q & 0xF).float() - 8.0
         vals = torch.stack([hi, lo], dim=-1).reshape(q.shape[0], -1)[:, :cols]
     return vals * scales.float()[:, None]
+
+
+# ---------------------------------------------------------------------------
+# attention (kernels/flash_attention.py::flash_attention, K7)
+# ---------------------------------------------------------------------------
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """kernels/ref.py::flash_attention_ref of the reference, with GQA: q
+    (B,S,H,hd), k and v (B,S,KV,hd). The kv heads are expanded with
+    ``repeat_interleave`` (what ``jnp.repeat`` does), the softmax is
+    materialised in f32, P.V is taken in f32 (P is not rounded to v's
+    dtype), and the result is cast to q's dtype. Not bit-identical to the
+    kernel, which sums in another order with an online softmax."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / (hd ** 0.5)
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)

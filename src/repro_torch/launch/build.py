@@ -1,6 +1,8 @@
 """RunSpec → EFConfig assembly with the authoritative carrier checks
 (counterpart of the factories in src/repro/launch/session.py and of
-src/repro/launch/build.py::default_ef_config).
+src/repro/launch/build.py::default_ef_config), and the serving closures
+``build_prefill``/``build_decode`` (one device, no mesh: what the
+reference's placement specs do is the caller's ``.to(device)``).
 
 A fused carrier whose (method, compressor) would silently run a degraded
 plan is a hard error here, exactly as in the reference; a ``sparse`` or
@@ -18,6 +20,7 @@ from repro_torch.core import compressors as comp_lib
 from repro_torch.core import distributed as dist
 from repro_torch.core import ef as ef_lib
 from repro_torch.launch.spec import RunSpec
+from repro_torch.models import model as model_lib
 
 # the plan each fused carrier must run; anything else is a misconfiguration
 _FUSED_PLANS = {"fused": "fused", "fused_quant8": "fused_wire",
@@ -95,3 +98,23 @@ def ef_config(spec: RunSpec) -> dist.EFConfig:
     return dist.EFConfig(method=method, carrier=spec.carrier,
                          down_carrier=spec.downlink_carrier,
                          down_compressor=down)
+
+
+def cache_len(prompt_len: int, decode_budget: int, n_prefix: int = 0) -> int:
+    """Slots of a serving cache: the prefix, the prompt and the decode
+    budget (the reference's ``_cache_shape``)."""
+    return n_prefix + prompt_len + decode_budget
+
+
+def build_prefill(cfg):
+    """fn(params, batch, cache) -> (last-token logits, cache)."""
+    def fn(params, batch, cache):
+        return model_lib.prefill(cfg, params, batch, cache)
+    return fn
+
+
+def build_decode(cfg):
+    """fn(params, cache, tokens, pos) -> (logits, cache)."""
+    def fn(params, cache, tokens, pos):
+        return model_lib.decode_step(cfg, params, cache, tokens, pos)
+    return fn

@@ -1,9 +1,10 @@
 """Session: the runtime facade over a RunSpec (counterpart of
-src/repro/launch/session.py, training path).
+src/repro/launch/session.py: training, and static serving).
 
     spec = RunSpec.from_json(open("results/specs/fused_quickstart.json").read())
     sess = Session(spec)              # on cuda; Session(spec, device="cpu")
     sess.train(3)
+    sess.serve(batch=8, prompt_len=1024, decode_steps=32)
 
 Training state (params, optimizer state, EF state) is built lazily on first
 use: parameters from a CPU ``torch.Generator`` seeded with ``spec.seed``, then
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -54,6 +55,13 @@ class Session:
         self.step = 0                      # the data cursor: pipe.batch(step)
         self.history: List[Dict[str, float]] = []
         self._tr: Optional[Dict[str, Any]] = None
+        # serve() places params by this version, which every path that
+        # changes the served tree bumps (step_once, restore_from_jax,
+        # set_serve_params): an unchanged tree is not moved again and a
+        # changed one is never served stale
+        self._params_version = 0
+        self._serve_params: Optional[tuple] = None   # (version, tree)
+        self._serve_src: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def n_clients(self) -> int:
@@ -104,6 +112,7 @@ class Session:
         tr["params"], tr["opt_state"], tr["ef_state"], m = tr["step_fn"](
             tr["params"], tr["opt_state"], tr["ef_state"], batch, self.step)
         self.step += 1
+        self._params_version += 1
         return m
 
     def train(self, steps: int, log_every: int = 10, verbose: bool = False
@@ -139,6 +148,107 @@ class Session:
                         ef_lib.flatten(tr[name]))
         tr["params"], tr["ef_state"] = state["params"], state["ef_state"]
         self.step = int(meta["step"])
+        # the restored params are the new serving truth, even at the same
+        # step, and they supersede an injected serving tree
+        self._serve_src = None
+        self._params_version += 1
+
+    # --------------------------------------------------------------- serving
+    def serve_source(self) -> Dict[str, torch.Tensor]:
+        """THE parameter tree serve() uses, in priority order: the injected
+        serving tree (``set_serve_params``), else the live training tree,
+        else a fresh init from ``spec.seed``."""
+        if self._serve_src is not None:
+            return self._serve_src
+        if self._tr is not None:
+            return self._tr["params"]
+        return model_lib.init_params(
+            self.cfg, torch.Generator().manual_seed(self.spec.seed),
+            self.device)
+
+    def set_serve_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Inject the tree serve() must use from now on."""
+        self._serve_src = params
+        self._params_version += 1
+
+    def _placed_params(self) -> Dict[str, torch.Tensor]:
+        if self._serve_params is None \
+                or self._serve_params[0] != self._params_version:
+            self._serve_params = (
+                self._params_version,
+                {k: t.to(self.device) for k, t in self.serve_source().items()})
+        return self._serve_params[1]
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def serve(self, tokens=None, batch: int = 4, prompt_len: int = 128,
+              decode_steps: int = 32, prompt_lens=None,
+              decode_hook: Optional[Callable[[int], None]] = None
+              ) -> Dict[str, Any]:
+        """Batched prefill, then greedy decode against a KV cache. Returns
+        ``tokens`` ((B, decode_steps+1) int32 numpy: the prefill's token,
+        then one a decode step), ``prefill_s``, ``decode_s``,
+        ``prefill_tok_s``, ``decode_tok_s`` and ``cache_bytes``; each time
+        ends in a synchronize on the card.
+
+        ``tokens`` (B, S) are the prompts; when not given they are drawn
+        from a ``torch.Generator`` seeded with ``spec.seed``, which cannot
+        reproduce the reference's jax.random prompts (pass tokens to
+        compare). ``prompt_lens`` (per-row true lengths <= S) takes each
+        row's first token from its last real position, so right padding
+        never reaches it. ``decode_hook(i)`` runs before decode step i; if
+        it moves the params version (``set_serve_params``), the remaining
+        steps decode with the new tree."""
+        cfg = self.cfg
+        if tokens is None:
+            tokens = torch.randint(
+                0, cfg.vocab_size, (batch, prompt_len),
+                generator=torch.Generator().manual_seed(self.spec.seed))
+        tokens = torch.as_tensor(tokens, device=self.device)
+        B, S = tokens.shape
+        n_prefix = pipe_lib.prefix_token_count(cfg,
+                                               pad_to=pipe_lib.PREFIX_PAD_SPEC)
+        prefill = build_lib.build_prefill(cfg)
+        decode = build_lib.build_decode(cfg)
+        params = self._placed_params()
+        batch_in = {"tokens": tokens}
+        if prompt_lens is not None:
+            batch_in["prompt_lens"] = torch.as_tensor(prompt_lens,
+                                                      device=self.device)
+        cache = model_lib.init_cache(
+            cfg, B, build_lib.cache_len(S, decode_steps, n_prefix),
+            device=self.device)
+
+        self._sync()
+        t0 = time.time()
+        logits, cache = prefill(params, batch_in, cache)
+        self._sync()
+        t_prefill = time.time() - t0
+
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out_tokens = [tok]
+        t0 = time.time()
+        for i in range(decode_steps):
+            if decode_hook is not None:
+                decode_hook(i)
+                params = self._placed_params()
+            logits, cache = decode(params, cache, tok, n_prefix + S + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            out_tokens.append(tok)
+        self._sync()
+        t_decode = time.time() - t0
+
+        return {
+            "tokens": torch.cat(out_tokens, dim=1).to(torch.int32).cpu()
+            .numpy(),
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "prefill_tok_s": B * S / max(t_prefill, 1e-9),
+            "decode_tok_s": decode_steps * B / max(t_decode, 1e-9),
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for t in cache.values()),
+        }
 
 
 def _check_like(name: str, got: Dict[str, torch.Tensor],

@@ -1,18 +1,27 @@
 """Transformer building blocks of the dense family (counterpart of
-src/repro/models/layers.py): RMSNorm, split-half RoPE, causal GQA chunked
-attention and the SwiGLU MLP, on the training path.
+src/repro/models/layers.py): RMSNorm, split-half RoPE, causal GQA
+attention (chunked, and decode against a KV cache) and the SwiGLU MLP.
 
-Attention is plain PyTorch here, as it is plain JAX in the reference (the
-reference's flash-attention Pallas kernel has no production caller); its
-large products go to ``torch.einsum``. Sliding windows, soft caps and the
-decode path arrive with the serving slice.
+Training runs ``chunked_attention``, plain PyTorch as it is plain JAX in the
+reference; its large products go to ``torch.einsum``. Serving's prefill
+runs the hand flash-attention kernel K7 (``kernels/ops.flash_attention``)
+where the reference runs ``chunked_attention``: the same causal softmax
+attention, except that K7 keeps P in f32 for P.V where chunked attention
+rounds it to v's dtype. K7 has no backward, so training keeps chunked
+attention. Decode is plain PyTorch, as in the reference. Sliding windows
+and soft caps arrive with the slice that brings the families using them
+(gemma2, h2o-danube).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+Cache = Tuple[torch.Tensor, torch.Tensor]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -62,17 +71,58 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """One-token attention against a cache. q: (B,1,H,hd); caches
+    (B,S,KV,hd) holding position p at slot p; ``pos`` is the new token's
+    position. Scores and softmax in f32 over the slots <= pos, P rounded to
+    the cache's dtype before P.V (the reference's ``_gqa_out``)."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd).float() / (hd ** 0.5)
+    s = torch.einsum("bqngd,bknd->bngqk", qg, k_cache.float())
+    slot = torch.arange(S, device=q.device)
+    bias = torch.where(slot <= pos, 0.0, -1e30)
+    p = torch.softmax(s + bias, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bngqk,bknd->bqngd", p, v_cache)
+    return o.reshape(B, 1, H, hd)
+
+
 def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                positions: torch.Tensor, *, rope_theta: float, eps: float,
-               chunk: int) -> torch.Tensor:
-    """Pre-norm attention sub-block; returns the residual delta."""
+               chunk: int, cache: Optional[Cache] = None,
+               pos: Optional[int] = None) -> torch.Tensor:
+    """Pre-norm attention sub-block; returns the residual delta.
+
+    Modes:
+      cache None                → training: chunked attention, no cache;
+      cache (k, v), pos None    → prefill of x's S tokens: K7 on the fresh
+                                  k and v, then slots [0, S) of the cache
+                                  are written in the cache's dtype;
+      cache (k, v), pos an int  → decode of one token at position ``pos``:
+                                  slot ``pos`` is written, then attention
+                                  runs over the cache.
+    The cache tensors are written IN PLACE (the reference returns updated
+    copies).
+    """
     h = rms_norm(x, p["norm"], eps)
     q = torch.einsum("bsd,dnh->bsnh", h, p["wq"].to(h.dtype))
     k = torch.einsum("bsd,dnh->bsnh", h, p["wk"].to(h.dtype))
     v = torch.einsum("bsd,dnh->bsnh", h, p["wv"].to(h.dtype))
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
-    out = chunked_attention(q, k, v, chunk=chunk)
+    if cache is None:
+        out = chunked_attention(q, k, v, chunk=chunk)
+    elif pos is None:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True)
+        n = min(k.shape[1], cache[0].shape[1])   # as the reference: k[:, :S]
+        cache[0][:, :n] = k[:, :n]
+        cache[1][:, :n] = v[:, :n]
+    else:
+        cache[0][:, pos] = k[:, 0]
+        cache[1][:, pos] = v[:, 0]
+        out = decode_attention(q, cache[0], cache[1], pos)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(out.dtype))
 
 

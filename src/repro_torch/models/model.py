@@ -1,5 +1,5 @@
 """Dense-family model (counterpart of src/repro/models/model.py): parameter
-init and the training loss.
+init, the training loss, and serving's KV cache, prefill and decode step.
 
 Parameters are a flat dict keyed by the reference's ``/``-joined leaf paths,
 with each layer's weights STACKED on a leading (num_layers, ...) axis under
@@ -9,7 +9,7 @@ per-layer leaves would change the algorithm.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,13 +52,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return {k: params[k].to(device) for k in sorted(params)}
 
 
-def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
-               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Mean next-token cross-entropy. batch: tokens (B,S), labels (B,S)."""
-    tokens, labels = batch["tokens"].long(), batch["labels"].long()
-    B, S = tokens.shape
-    h = F.embedding(tokens, params["embed"]).to(cfg.activation_dtype)
-    positions = torch.arange(S, device=h.device)[None].expand(B, S)
+def _embed(cfg: ArchConfig, params: Dict[str, torch.Tensor],
+           tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), params["embed"]).to(
+        cfg.activation_dtype)
+
+
+def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
+               h: torch.Tensor, positions: torch.Tensor,
+               cache: Optional[Dict[str, torch.Tensor]] = None,
+               pos: Optional[int] = None) -> torch.Tensor:
+    """The layers, one after another, for training (no cache), prefill
+    (cache, no ``pos``) and decode (cache and ``pos``); see
+    ``layers.attn_apply``. The cache is written in place."""
     # one unbind per stacked leaf: its backward is a single stack
     per_layer = {k[len("layers/"):]: params[k].unbind(0)
                  for k in params if k.startswith("layers/")}
@@ -67,18 +73,98 @@ def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                 if k.startswith("attn/")}
         mlp = {k[len("mlp/"):]: v[i] for k, v in per_layer.items()
                if k.startswith("mlp/")}
+        layer_cache = None if cache is None else (cache["k"][i],
+                                                  cache["v"][i])
         h = h + L.attn_apply(attn, h, positions, rope_theta=cfg.rope_theta,
-                             eps=cfg.norm_eps, chunk=cfg.attn_chunk)
+                             eps=cfg.norm_eps, chunk=cfg.attn_chunk,
+                             cache=layer_cache, pos=pos)
         h = h + L.mlp_apply(mlp, h, cfg.norm_eps)
+    return h
+
+
+def _logits(embed: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits through the tied embedding, already cast to h's dtype
+    (no soft cap in this family)."""
+    return torch.einsum("bsd,vd->bsv", h, embed).float()
+
+
+def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy. batch: tokens (B,S), labels (B,S)."""
+    tokens, labels = batch["tokens"], batch["labels"].long()
+    B, S = tokens.shape
+    h = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    h = _run_stack(cfg, params, h, positions)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
 
     # chunked cross-entropy: never materialize (B, S, V) in full
     embed = params["embed"].to(h.dtype)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for start in range(0, S, CE_CHUNK):
-        hc = h[:, start:start + CE_CHUNK]
+        lg = _logits(embed, h[:, start:start + CE_CHUNK])
         lc = labels[:, start:start + CE_CHUNK]
-        lg = torch.einsum("bsd,vd->bsv", hc, embed).float()
         gold = torch.gather(lg, -1, lc[..., None])[..., 0]
         total = total + (torch.logsumexp(lg, dim=-1) - gold).sum()
     return total / (B * S)
+
+
+def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16, device="cpu"
+               ) -> Dict[str, torch.Tensor]:
+    """Zero KV cache of the dense family: k and v (L, B, max_seq, KV, hd),
+    bfloat16 by default as in the reference. Two tensors, since the port
+    writes them in place."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family!r} cache arrives with a "
+                                  "later slice")
+    shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads,
+             cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params: Dict[str, torch.Tensor],
+            batch: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Process the whole prompt; returns (last-token logits (B,1,V) f32,
+    the cache with slots [0, S) filled).
+
+    ``batch["prompt_lens"]`` (optional, (B,) true lengths) takes each row's
+    logits at its last REAL token, ``len - 1``, instead of the rightmost
+    column: right padding (id 0, a legal token) never reaches the first
+    generated token, since causal attention keeps that position blind to
+    the padding after it."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    h = _run_stack(cfg, params, h, positions, cache=cache)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    lens = batch.get("prompt_lens")
+    if lens is None:
+        h_last = h[:, -1:]
+    else:
+        idx = lens.to(device=h.device, dtype=torch.long) - 1
+        h_last = h[torch.arange(B, device=h.device), idx][:, None]
+    return _logits(params["embed"].to(h.dtype), h_last), cache
+
+
+def _decode_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
+                  h: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+    positions = torch.full((h.shape[0], 1), pos, device=h.device)
+    return _run_stack(cfg, params, h, positions, cache=cache, pos=pos)
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params: Dict[str, torch.Tensor],
+                cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                pos: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step. tokens: (B,1); pos: the tokens' absolute position.
+    Returns (logits (B,1,V) f32, the cache with slot ``pos`` written)."""
+    h = _embed(cfg, params, tokens)
+    h = _decode_stack(cfg, params, h, pos, cache)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(params["embed"].to(h.dtype), h), cache

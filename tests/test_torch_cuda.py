@@ -112,3 +112,49 @@ def test_cuda_codec_matches_plain(cuda_device, bits, rows, cols):
         assert torch.equal(a, b)
     assert torch.equal(out, ref.block_dequantize_plain(q, s, bits=bits,
                                                        cols=cols))
+
+
+# K7 at the shapes of chip_smoke.py's phase: the smoke config's heads, the
+# full-width prefill (B 8, S 1024, H 15, KV 5, hd 64), a ragged S and hd 128
+FLASH_SHAPES = [(2, 64, 3, 1, 64), (8, 1024, 15, 5, 64),
+                (2, 1000, 15, 5, 64), (2, 256, 8, 2, 128), (1, 70, 4, 2, 32)]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(B, S, H, KV, hd, dtype, device, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed + S + H + hd)
+    q = torch.randn(B, S, H, hd, generator=gen)
+    k, v = (torch.randn(B, S, KV, hd, generator=gen) for _ in range(2))
+    return [x.to(device=device, dtype=dtype) for x in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd", FLASH_SHAPES)
+def test_cuda_flash_attention_matches_plain(cuda_device, B, S, H, KV, hd,
+                                            dtype, causal):
+    """K7 against flash_attention_plain within the tolerance of the
+    reference's flash test (tests/test_kernels.py): 2e-5 in f32, 2e-2 in
+    bf16, atol and rtol; one launch a call."""
+    q, k, v = _flash_inputs(B, S, H, KV, hd, dtype, cuda_device)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 1
+    want = ref.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == (B, S, H, hd)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd", FLASH_SHAPES[:3])
+def test_cuda_flash_attention_bf16_tracks_f32(cuda_device, B, S, H, KV, hd):
+    """K7 on bf16 inputs against K7 on the same values in f32: the only
+    difference is the output's rounding to bf16 (the arithmetic is f32 in
+    both), so they agree within bf16's half ulp, 2^-8 relative."""
+    q, k, v = _flash_inputs(B, S, H, KV, hd, torch.bfloat16, cuda_device)
+    got = ops.flash_attention(q, k, v).float()
+    want = ops.flash_attention(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=2 ** -8)

@@ -250,6 +250,8 @@ def test_plain_runs_do_not_count_as_launches():
     ops.ef21_sgdm_update(x, x, x, eta=0.1, k=3)
     ops.ef21_sgdm_topk_quant(x, x, x, eta=0.1, k=3, bits=8)
     ops.block_dequantize(*ops.block_quantize(x, 4), 4, 64)
+    q = torch.zeros(1, 8, 2, 64)
+    ops.flash_attention(q, q, q)
     assert ops.launches == {"ef21_sgdm_update": 0, "ef21_sgdm_topk_quant": 0,
                             "dequant_add": 0, "block_quantize": 0,
-                            "block_dequantize": 0}
+                            "block_dequantize": 0, "flash_attention": 0}

@@ -1,0 +1,221 @@
+"""The port's serving path against the reference's, on the CPU: KV cache,
+prefill (K7's plain version on CPU tensors, where the reference runs
+chunked attention), greedy decode, and Session.serve.
+
+The weights come from the reference's ``init_params`` through
+checkpoint/bridge.py; prompts are made with numpy from a seed. Tolerances:
+- f32 activations: logits and f32 caches within 1e-5 (atol and rtol) — the
+  packages differ only in the order of their sums. The caches are not held
+  to 1e-6: one f32 einsum of the two frameworks already differs by more
+  (layer 0's k, which is rope(rms_norm(embed) @ wk), by up to 1.2e-6 at a
+  magnitude of 3.5, five ulps, in this test);
+- bf16 activations: logits within 2e-2 of the largest logit's magnitude
+  (rtol 2e-2, atol 2e-2 * max|logit|). The reference's prefill rounds P
+  to bf16 before P.V where K7 keeps it in f32, and the two frameworks round
+  their bf16 elementwise steps at different places; a logit is a bf16
+  product rounded to bf16, so its error follows the size of its row, not
+  its own: an elementwise 2e-2 fails near zero even when the port runs the
+  reference's own chunked attention (0.036 at a logit of 0.01, measured on
+  this test's inputs);
+- within the port, in f32: 1e-5.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jax_cb
+from repro.launch import session as jax_session
+from repro.launch import spec as jax_spec
+from repro.models import model as jax_model
+from repro_torch.checkpoint import bridge
+from repro_torch.configs import base as pt_cb
+from repro_torch.kernels import ops
+from repro_torch.launch import serve as pt_serve
+from repro_torch.launch import session as pt_session
+from repro_torch.launch import spec as pt_spec
+from repro_torch.models import model as pt_model
+
+TINY = dict(arch="smollm-360m", smoke=True, clients=2, global_batch=4,
+            seq_len=32)
+
+
+def _configs(dtype):
+    return (dataclasses.replace(jax_cb.get_smoke("smollm_360m"), dtype=dtype),
+            dataclasses.replace(pt_cb.get_smoke("smollm-360m"), dtype=dtype))
+
+
+def _params(jcfg, seed=0):
+    jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(seed))
+    return jparams, bridge.params_from_jax(jax.device_get(jparams))
+
+
+def _np(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor) else
+                      np.asarray(x, np.float32))
+
+
+def _close(got, want, tol, msg="", rowwise=False):
+    """Within tol (atol and rtol); ``rowwise``: atol tol * max|want| of
+    each row (the last axis)."""
+    got, want = _np(got), _np(want)
+    atol = tol * np.abs(want).max(-1, keepdims=True) if rowwise else tol
+    bad = np.abs(got - want) > atol + tol * np.abs(want)
+    assert got.shape == want.shape and not bad.any(), (
+        f"{msg}: {int(bad.sum())} of {bad.size} outside tol {tol}; max abs "
+        f"diff {np.abs(got - want).max()}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_match_reference(dtype):
+    """Prefill of a 24-token prompt, then 3 decode steps; in f32 with f32
+    caches (compared too), in bf16 with the default bf16 caches."""
+    jcfg, pcfg = _configs(dtype)
+    jparams, pparams = _params(jcfg)
+    B, S, steps = 2, 24, 3
+    tokens = np.random.RandomState(0).randint(0, jcfg.vocab_size,
+                                              (B, S + steps)).astype(np.int32)
+    f32 = dtype == "float32"
+    tol = 1e-5 if f32 else 2e-2
+    jcache = jax_model.init_cache(jcfg, B, S + steps,
+                                  dtype=jnp.float32 if f32 else jnp.bfloat16)
+    pcache = pt_model.init_cache(pcfg, B, S + steps,
+                                 dtype=torch.float32 if f32 else
+                                 torch.bfloat16)
+    jpre = jax.jit(lambda p, b, c: jax_model.prefill(jcfg, p, b, c))
+    jdec = jax.jit(lambda p, c, t, q: jax_model.decode_step(jcfg, p, c, t, q))
+
+    want, jcache = jpre(jparams, {"tokens": jnp.asarray(tokens[:, :S])},
+                        jcache)
+    got, pcache = pt_model.prefill(pcfg, pparams,
+                                   {"tokens": torch.tensor(tokens[:, :S])},
+                                   pcache)
+    assert got.shape == (B, 1, pcfg.vocab_size) and got.dtype == torch.float32
+    _close(got, want, tol, "prefill logits", rowwise=not f32)
+    for i in range(steps):
+        t = tokens[:, S + i:S + i + 1]
+        want, jcache = jdec(jparams, jcache, jnp.asarray(t),
+                            jnp.asarray(S + i, jnp.int32))
+        got, pcache = pt_model.decode_step(pcfg, pparams, pcache,
+                                           torch.tensor(t), S + i)
+        _close(got, want, tol, f"decode step {i} logits", rowwise=not f32)
+    if f32:
+        for name in ("k", "v"):
+            _close(pcache[name], jcache[name], tol, f"cache {name}")
+
+
+def test_prefill_then_decode_equals_longer_prefill():
+    """tests/test_models.py::test_prefill_decode_matches_full_forward on
+    the port: decoding token S after prefilling S tokens gives the logits
+    of a prefill over S+1 tokens."""
+    _, cfg = _configs("float32")
+    params = pt_model.init_params(cfg, torch.Generator().manual_seed(3))
+    B, S = 2, 32
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                           generator=torch.Generator().manual_seed(3))
+    cache = pt_model.init_cache(cfg, B, S + 1, dtype=torch.float32)
+    full, _ = pt_model.prefill(cfg, params, {"tokens": tokens}, cache)
+    cache = pt_model.init_cache(cfg, B, S + 1, dtype=torch.float32)
+    _, cache = pt_model.prefill(cfg, params, {"tokens": tokens[:, :S]}, cache)
+    dec, _ = pt_model.decode_step(cfg, params, cache, tokens[:, S:], S)
+    _close(dec, full, 1e-5)
+
+
+def test_prefill_prompt_lens_ignores_right_padding():
+    """tests/test_models.py::test_prefill_prompt_lens_ignores_right_padding
+    on the port: with prompt_lens, a right-padded prompt ending in a real
+    token 0 gives exactly the logits of the unpadded prompt."""
+    _, cfg = _configs("float32")
+    params = pt_model.init_params(cfg, torch.Generator().manual_seed(7))
+    S, L = 8, 5
+    row = torch.randint(1, cfg.vocab_size, (1, L),
+                        generator=torch.Generator().manual_seed(7))
+    row[0, L - 1] = 0                          # a real token 0, not padding
+    padded = torch.zeros(1, S, dtype=row.dtype)
+    padded[:, :L] = row
+
+    def prefill(tokens, **extra):
+        cache = pt_model.init_cache(cfg, 1, tokens.shape[1],
+                                    dtype=torch.float32)
+        return pt_model.prefill(cfg, params, {"tokens": tokens, **extra},
+                                cache)[0]
+
+    exact = prefill(row)
+    _close(prefill(padded, prompt_lens=torch.tensor([L])), exact, 1e-5)
+    assert (prefill(padded) - exact).abs().max() > 1e-3   # the tail differs
+
+
+def test_session_serve_matches_reference_session():
+    """Session.serve on both packages, from the same weights and explicit
+    prompts, f32 activations and the default bf16 caches: the greedy tokens
+    are equal and so are the cache bytes."""
+    spec = dict(TINY)
+    jsess = jax_session.Session(jax_spec.RunSpec(**spec))
+    jsess.cfg = dataclasses.replace(jsess.cfg, dtype="float32")
+    psess = pt_session.Session(pt_spec.RunSpec(**spec), device="cpu",
+                               dtype="float32")
+    jparams, pparams = _params(jsess.cfg, seed=11)
+    jsess.set_serve_params(jparams)
+    psess.set_serve_params(pparams)
+    tokens = np.random.RandomState(5).randint(
+        0, jsess.cfg.vocab_size, (3, 20)).astype(np.int32)
+    want = jsess.serve(tokens=jnp.asarray(tokens), decode_steps=6)
+    ops.reset_launches()
+    got = psess.serve(tokens=tokens, decode_steps=6)
+    assert ops.launches["flash_attention"] == 0       # CPU: plain version
+    assert got["tokens"].shape == (3, 7) and got["tokens"].dtype == np.int32
+    np.testing.assert_array_equal(got["tokens"], np.asarray(want["tokens"]))
+    assert got["cache_bytes"] == want["cache_bytes"]
+    for key in ("prefill_s", "decode_s", "prefill_tok_s", "decode_tok_s"):
+        assert got[key] > 0
+
+
+def test_serve_params_follow_state_changes_without_a_step(tmp_path):
+    """tests/test_session.py::test_serve_params_track_same_step_state_changes
+    on the port: serve() places params by a version that step_once,
+    set_serve_params and restore_from_jax bump, so an injected tree or a
+    restore at the SAME step is served, never a stale copy."""
+    jsess = jax_session.Session(jax_spec.RunSpec(**TINY))
+    ckpt = jsess.save(str(tmp_path / "step_0.npz"))
+    sess = pt_session.Session(pt_spec.RunSpec(**TINY), device="cpu")
+
+    def served():
+        sess.serve(batch=1, prompt_len=8, decode_steps=1)
+        return sess._serve_params[1]
+
+    fresh = served()                     # no training state: a fresh init
+    init = pt_model.init_params(sess.cfg, torch.Generator().manual_seed(0))
+    assert all(torch.equal(fresh[k], init[k]) for k in init)
+
+    sess.restore_from_jax(ckpt)
+    restored = {k: v.clone() for k, v in served().items()}
+    assert all(torch.equal(restored[k], sess.params[k]) for k in restored)
+
+    sess.step_once()                     # a step moves the served params
+    assert any(not torch.equal(served()[k], restored[k]) for k in restored)
+
+    zeros = {k: torch.zeros_like(v) for k, v in sess.params.items()}
+    sess.set_serve_params(zeros)         # same step, new tree
+    assert all(not v.any() for v in served().values())
+
+    sess.restore_from_jax(ckpt)          # supersedes the injected tree
+    assert sess.step == 0
+    assert all(torch.equal(served()[k], restored[k]) for k in restored)
+
+
+def test_serve_cli_on_cpu(capsys):
+    pt_serve.main(["--smoke", "--batch", "2", "--prompt-len", "8",
+                   "--decode-steps", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "prefill 2×8:" in out and "decode 2 steps:" in out
+    assert "sample generations (token ids):" in out
+
+
+def test_serve_cli_refuses_fleet_mode(capsys):
+    with pytest.raises(SystemExit):
+        pt_serve.main(["--serve-stream", "/nonexistent", "--replicas", "2",
+                       "--device", "cpu"])
+    assert "core/stream.py" in capsys.readouterr().err
