@@ -9,7 +9,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      src/repro_torch/kernels/csrc with nvcc and print the build time;
   2. hold each kernel against its plain PyTorch version, exactly, and time
      kernel, plain version, bound and (where one exists) a library call:
-     K2 ef21_sgdm_update, K3 ef21_sgdm_topk_quant at 8 and 4 bits and K4
+     K1 block_topk on the 8-client layers/mlp/w_up stack (614,400 rows of
+     1024, f32, k 16), at a ragged length (f32 and bf16) and at narrow odd
+     blocks (13 and 51), with torch.topk + scatter timed beside it as a
+     yardstick only (it keeps exactly k, another tie rule); K2
+     ef21_sgdm_update, K3 ef21_sgdm_topk_quant at 8 and 4 bits, each with
+     f32 and with bfloat16 EF state, and K4
      dequant_add at the shapes the fused path gives them (the
      layers/mlp/w_up leaf, 8 clients folded into rows of 1024), K4 also
      at path B's downlink shape (one copy of the leaf in rows of 256); K5
@@ -17,6 +22,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      the quantized carriers give them (16, 51, 256, 1024 and one row of
      2,359,296, with an all-zero row and inf/NaN inputs), timed at the
      shapes of main paths A and B;
+  2b. the K1 path: the public wrapper ops.block_topk (the reference's
+     ops.block_topk, which its kernel bench drives; nothing in training
+     calls it) on the 8-client w_up stack, one launch;
   3. check the paths against a reference on a small input: smoke-size
      Sessions on the card and on the CPU (the CPU runs the plain versions,
      which the CPU tests hold against the JAX package) agree for 2 steps,
@@ -31,6 +39,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      steps, and carrier fused, 2 steps, after which the live training tree
      serves one small batch (batch 2, prompt 256, 8 decode steps) whose
      first token must be the argmax of a prefill with the trained params;
+  6b. the resumable path: full-width smollm-360m, 8 clients, bf16 EF state,
+     AdamW at lr 1e-3, fused_quant8 up and fused_quant4 down; 2 steps, a
+     save (about 30 GB on disk, in a temporary directory that is deleted at
+     the end), per-leaf checksums of params, opt_state and ef_state, step
+     3; then a new Session from Session.resume, whose checksums must equal
+     the saved ones exactly and whose step 3 must match within rtol 1e-3;
+     prints step ms, peak bytes, the EF state's bytes (exactly half of
+     f32's), the checkpoint's bytes and the save and restore seconds;
   7. serving, card against CPU at smoke size (f32 activations): the greedy
      tokens must be equal and the prefill logits agree within rtol 1e-4;
   8. serving full-width smollm-360m from fresh weights: batch 8, prompt
@@ -56,8 +72,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -76,6 +94,10 @@ TOPK_EMBED_K = 2_359_296       # plain TopK's k at ratio 0.05 on the embed leaf
 SERVE_FULL = dict(batch=8, prompt_len=1024, decode_steps=32)
 FLASH_FULL = (8, 1024, 15, 5, 64)   # (B, S, H, KV, hd) of its prefill
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the resumable path: bf16 EF state and AdamW on the fused quantized wire
+RESUME_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
+                   ef_state_dtype="bfloat16", optimizer="adamw", lr=1e-3)
+CKPT_FREE_BYTES = 40e9         # a full-width checkpoint is about 30 GB
 
 
 def fail(msg: str) -> None:
@@ -178,7 +200,41 @@ def kernel_checks(ops, ref, results):
             "plain_ms": time_ms(lambda: ref.ef21_sgdm_topk_quant_plain(
                 grad, v, g, eta=eta, k=k, bits=bits), 2),
             "library_ms": None}
-    del grad, v, g
+
+    # the same with bfloat16 EF state: grad f32, v and g bf16
+    v16, g16 = v.to(torch.bfloat16), g.to(torch.bfloat16)
+    got = ops.ef21_sgdm_update(grad, v16, g16, eta=eta, k=k)
+    want = ref.ef21_sgdm_update_plain(grad, v16, g16, eta=eta, k=k)
+    check_equal("ef21_sgdm_update bf16 state", got, want)
+    err = max_abs_err(got, want)
+    del got, want
+    b_ms, b_by = bound(n * 14, n * ops_per_elem)
+    results["ef21_sgdm_update/bf16"] = {
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+        "ms": time_ms(lambda: ops.ef21_sgdm_update(grad, v16, g16, eta=eta,
+                                                   k=k), 5),
+        "plain_ms": time_ms(lambda: ref.ef21_sgdm_update_plain(
+            grad, v16, g16, eta=eta, k=k), 2),
+        "library_ms": None}
+    for bits in (8, 4):
+        got = ops.ef21_sgdm_topk_quant(grad, v16, g16, eta=eta, k=k,
+                                       bits=bits)
+        want = ref.ef21_sgdm_topk_quant_plain(grad, v16, g16, eta=eta, k=k,
+                                              bits=bits)
+        check_equal(f"ef21_sgdm_topk_quant bf16 state bits={bits}", got,
+                    want)
+        err = max_abs_err(got, want)
+        del got, want
+        b_ms, b_by = bound(n * (12 + bits / 8) + rows * 4,
+                           n * (ops_per_elem + 6))
+        results[f"ef21_sgdm_topk_quant/{bits}/bf16"] = {
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: ops.ef21_sgdm_topk_quant(
+                grad, v16, g16, eta=eta, k=k, bits=bits), 5),
+            "plain_ms": time_ms(lambda: ref.ef21_sgdm_topk_quant_plain(
+                grad, v16, g16, eta=eta, k=k, bits=bits), 2),
+            "library_ms": None}
+    del grad, v, g, v16, g16
 
     # K4 at the downlinks' shapes: one copy of the leaf, in rows of 1024
     # (fused_quant4's block-dense payload) and of 256 (path B's dense
@@ -220,6 +276,88 @@ def kernel_checks(ops, ref, results):
         print(f"kernel {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) library_ms "
               f"{r['library_ms']} max_abs_err {r['max_abs_err']}", flush=True)
+
+
+def topk_checks(ops, ref, results):
+    """Phase 2, K1: bit-identical to its plain version at the main shape
+    (the 8-client w_up stack, an all-zero row and a tie of 20 values across
+    k 16), at a ragged length in f32 and bf16 and at narrow odd blocks
+    (lane groups of 16, and a warp holding two values a lane); then timed
+    at the main shape beside torch.topk + scatter, a yardstick only: it
+    keeps exactly k with no stated tie order, where K1 keeps ties."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k = 16
+    x = torch.randn(CLIENTS, *W_UP, generator=gen, device="cuda")
+    flat = x.view(-1)
+    flat[5 * BLOCK:6 * BLOCK] = 0.0                 # an all-zero row
+    flat[9 * BLOCK:9 * BLOCK + 20] = 4.5            # 20 tied values
+    err = 0.0
+    cases = [("main", x, BLOCK, k)]
+    y = torch.randn(3_000_017, generator=gen, device="cuda")
+    cases += [("ragged f32", y, BLOCK, k),
+              ("ragged bf16", y.to(torch.bfloat16), BLOCK, k),
+              ("block 13", y[:1_000_003], 13, 3),
+              ("block 51", y[:1_000_003], 51, 3)]
+    for label, inp, block, kk in cases:
+        got = ops.block_topk(inp, block=block, k=kk)
+        want = ref.block_topk_plain(inp, block=block, k=kk)
+        check_equal(f"block_topk {label}", [got], [want])
+        err = max(err, max_abs_err([got], [want]))
+        print(f"block_topk {label} ({inp.numel()} values, block {block}, k "
+              f"{kk}, {inp.dtype}): bit-identical to the plain version",
+              flush=True)
+        del got, want
+    if int((ops.block_topk(x, block=BLOCK, k=k).view(-1, BLOCK)[9] != 0)
+           .sum()) < 20:
+        fail("block_topk dropped a tie at the threshold")
+    del y, cases
+    n = x.numel()
+    b_ms, b_by = bound(n * 8, n * (2 + 26 + 1))     # abs, 26 counts, select
+    xb = x.view(-1, BLOCK)
+
+    def topk_scatter():
+        idx = torch.topk(xb.abs(), k, dim=1).indices
+        return torch.zeros_like(xb).scatter_(1, idx, xb.gather(1, idx))
+    results["block_topk"] = {
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+        "ms": time_ms(lambda: ops.block_topk(x, block=BLOCK, k=k), 20),
+        "plain_ms": time_ms(lambda: ref.block_topk_plain(x, block=BLOCK,
+                                                         k=k), 2),
+        "library_ms": None,
+        "yardstick_topk_scatter_ms": time_ms(topk_scatter, 5)}
+    r = results["block_topk"]
+    print(f"kernel block_topk [{tuple(x.shape)}, block {BLOCK}, k {k}]: ms "
+          f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}); torch.topk + scatter "
+          f"(yardstick, another tie rule) "
+          f"{r['yardstick_topk_scatter_ms']:.4f} ms", flush=True)
+    del x, xb
+
+
+def topk_path(ops):
+    """Phase 2b: K1 through its public entry, as the reference's kernel
+    bench drives it, on the 8-client w_up stack: exactly one launch; every
+    row keeps at least k values, each equal to its input."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(CLIENTS, *W_UP, generator=gen, device="cuda")
+    ops.reset_launches()
+    out = ops.block_topk(x, block=BLOCK, k=16)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    print(f"K1 path: launches {launches}", flush=True)
+    for name, count in launches.items():
+        if count != (1 if name == "block_topk" else 0):
+            fail(f"{name} launched {count} times on the K1 path")
+    kept = out != 0
+    per_row = kept.view(-1, BLOCK).sum(1)
+    if out.shape != x.shape or not bool(torch.isfinite(out).all()) or \
+            int(per_row.min()) < 16 or \
+            not torch.equal(out[kept], x[kept]):
+        fail("K1 path: the output is not a Block-TopK of its input")
+    print(f"K1 path: kept per row min {int(per_row.min())} max "
+          f"{int(per_row.max())} of {BLOCK}", flush=True)
+    del x, out, kept
+    return launches
 
 
 def codec_checks(ops, ref, results):
@@ -630,7 +768,8 @@ def step_breakdown(sess, spec, label) -> None:
     from repro_torch.launch import build as build_lib
     from repro_torch.models import model as model_lib
     from repro_torch.optim import optimizer as opt_lib
-    efc, opt = build_lib.ef_config(spec), opt_lib.make("sgd", lr=spec.lr)
+    efc = build_lib.ef_config(spec)
+    opt = opt_lib.make(spec.optimizer, lr=spec.lr)
     batch = sess.batch_for(sess.step)
     t = [time.time()]
     _, grads = dist.per_client_value_and_grad(
@@ -642,7 +781,7 @@ def step_breakdown(sess, spec, label) -> None:
     del grads
     torch.cuda.synchronize()
     t.append(time.time())
-    updates, _ = opt.update(g_est, {}, sess.params, sess.step)
+    updates, _ = opt.update(g_est, sess.opt_state, sess.params, sess.step)
     opt_lib.apply_updates(sess.params, updates)
     torch.cuda.synchronize()
     t.append(time.time())
@@ -650,6 +789,135 @@ def step_breakdown(sess, spec, label) -> None:
     print(f"{label} step breakdown ms: "
           f"client_grads {ms[0]} ef_round {ms[1]} optimizer {ms[2]}",
           flush=True)
+
+
+def leaf_checksums(sess):
+    """Per leaf of params, opt_state and ef_state: the f64 sum of its
+    values and the integer sum of its bit patterns (exact, so any changed
+    bit shows)."""
+    from repro_torch.core.ef import flatten
+    flat = flatten({"params": sess.params, "opt_state": sess.opt_state,
+                    "ef_state": sess.ef_state})
+    out = {}
+    for key, t in flat.items():
+        bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        out[key] = (float(t.double().sum()), int(bits.long().sum()))
+    return out
+
+
+def resume_path(Session, spec_lib, ops, per_leaf_step):
+    """Phase 6b: the resumable full-width path; see the module doc."""
+    base = tempfile.gettempdir()
+    free = shutil.disk_usage(base).free
+    print(f"checkpoint directory under {base}: {free} bytes free", flush=True)
+    if free < CKPT_FREE_BYTES:
+        fail(f"{base} has {free} bytes free; the checkpoint needs "
+             f"{CKPT_FREE_BYTES:.0f}")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)
+    try:
+        return _resume_path(Session, spec_lib, ops, per_leaf_step, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _resume_path(Session, spec_lib, ops, per_leaf_step, ckpt_dir):
+    spec = load_spec(spec_lib, ckpt_dir=ckpt_dir, **RESUME_PATH)
+    label = "resumable bf16/adamw fused_quant8/fused_quant4"
+    sess = Session(spec, device="cuda")
+    n_leaves = len(sess.params)                     # builds the train state
+    clients = [t for tree in sess.ef_state["clients"].values()
+               for t in tree.values()]
+    ef_bytes = sum(t.numel() * t.element_size() for t in clients)
+    ef_f32 = sum(t.numel() * 4 for t in clients)
+    print(f"{label}: EF state {ef_bytes} bytes in "
+          f"{sorted({str(t.dtype) for t in clients})} (f32 would be "
+          f"{ef_f32})", flush=True)
+    if any(t.dtype != torch.bfloat16 for t in clients) or \
+            2 * ef_bytes != ef_f32:
+        fail("the EF state is not bfloat16 at half of f32's bytes")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+
+    def step(s):
+        t0 = time.time()
+        m = s.step_once()
+        loss, g_norm = float(m["loss"]), float(m["g_norm"])
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        print(f"{label} step {s.step - 1} loss {loss:.6f} g_norm "
+              f"{g_norm:.6e} step_ms {ms:.1f}", flush=True)
+        if not (math.isfinite(loss) and math.isfinite(g_norm)):
+            fail(f"non-finite loss/g_norm at step {s.step - 1}")
+        return loss, g_norm, ms
+
+    steps = [step(sess) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    path = sess.save()
+    save_s = time.time() - t0
+    disk = os.path.getsize(path)
+    saved = leaf_checksums(sess)
+    # what the npz holds: every leaf as f32 (bf16 is stored widened)
+    leaf_bytes = sum(t.numel() * 4 for t in (
+        list(sess.params.values())
+        + [t for tree in sess.opt_state.values() for t in tree.values()]
+        + clients + list(sess.ef_state["server"].values())
+        + list(sess.ef_state["h"].values())))
+    print(f"{label}: saved {path} ({disk} bytes on disk, {leaf_bytes} of "
+          f"them leaves) in {save_s:.2f} s", flush=True)
+    for key, (total, bits) in saved.items():
+        print(f"  checksum {key}: f64 sum {total!r} bit sum {bits}",
+              flush=True)
+    steps.append(step(sess))
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: step_ms {[round(s[2], 1) for s in steps]} "
+          f"max_memory_allocated {peak} launches {launches}", flush=True)
+    for name, count in launches.items():
+        want = per_leaf_step.get(name, 0) * n_leaves * 3
+        if count != want:
+            fail(f"{name} launched {count} times on the {label} path, "
+                 f"expected {want}")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    sess = Session.resume(ckpt_dir, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    print(f"{label}: resumed at step {sess.step} in {restore_s:.2f} s",
+          flush=True)
+    got = leaf_checksums(sess)
+    bad = [k for k in saved if got.get(k) != saved[k]]
+    if sess.step != 2 or sorted(got) != sorted(saved) or bad:
+        fail(f"the resumed state differs from the saved one at step "
+             f"{sess.step}: leaves {bad[:5]}")
+    print(f"{label}: all {len(saved)} restored leaves equal the saved ones "
+          "(f64 and bit sums)", flush=True)
+    ops.reset_launches()
+    loss, g_norm, ms = step(sess)
+    resumed_launches = dict(ops.launches)
+    for name, count in resumed_launches.items():
+        if count != per_leaf_step.get(name, 0) * n_leaves:
+            fail(f"{name} launched {count} times in the resumed step")
+    for name, a, b in (("loss", loss, steps[2][0]),
+                       ("g_norm", g_norm, steps[2][1])):
+        if abs(a - b) > 1e-3 * abs(b):
+            fail(f"resumed step 2 {name} {a} != uninterrupted {b} "
+                 "(rtol 1e-3)")
+    print(f"{label}: resumed step 2 loss {loss:.6f} g_norm {g_norm:.6e} "
+          f"against uninterrupted {steps[2][0]:.6f} {steps[2][1]:.6e}; "
+          f"save_s {save_s:.2f} restore_s {restore_s:.2f} checkpoint_bytes "
+          f"{disk} ef_state_bytes {ef_bytes} (f32 {ef_f32}) launches "
+          f"K1 {launches['block_topk']} K2 {launches['ef21_sgdm_update']} "
+          f"K3 {launches['ef21_sgdm_topk_quant']}", flush=True)
+    step_breakdown(sess, sess.spec, label)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -685,6 +953,13 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         flash_checks(ops, ref, results)
+        gc.collect()
+        torch.cuda.empty_cache()
+        topk_checks(ops, ref, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("K1 path: ops.block_topk on the 8-client w_up stack"):
+        k1 = topk_path(ops)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("cuda paths against the cpu paths (smoke size)"):
@@ -714,6 +989,13 @@ def main() -> None:
         fused = main_path(Session, spec_lib, ops, 2, {"ef21_sgdm_update": 1},
                           serve=lambda s: serve_trained(s, model_lib, ops),
                           carrier="fused", downlink_carrier="dense")
+    # the same launches as the fused path, K3 on bf16 state
+    with phase("resumable path: bf16 EF state, adamw, fused_quant8 up, "
+               "fused_quant4 down; save, resume, step"):
+        resumed = resume_path(Session, spec_lib, ops,
+                              {"ef21_sgdm_topk_quant": 1,
+                               "block_dequantize": 1, "block_quantize": 1,
+                               "dequant_add": 1})
     with phase("serving, cuda against cpu (smoke size)"):
         serve_smoke_check(Session, spec_lib, model_lib, ops)
     with phase("serving full-width smollm-360m: batch 8, prompt 1024, "
@@ -722,6 +1004,8 @@ def main() -> None:
 
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
+        ("block_topk", "block_topk", f"{csrc}/topk.cu",
+         "src/repro/kernels/topk_compress.py:60", k1),
         ("ef21_sgdm_update", "ef21_sgdm_update", f"{csrc}/ef_update.cu",
          "src/repro/kernels/ef_update.py:55", fused),
         ("ef21_sgdm_topk_quant", "ef21_sgdm_topk_quant/8",
@@ -735,12 +1019,20 @@ def main() -> None:
         ("flash_attention", "flash_attention", f"{csrc}/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:83", served),
     ]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=counts[name], **{
-                        k: results[key][k] for k in
-                        ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms")})
+                    launches=counts[name],
+                    **{k: results[key][k] for k in keys})
                for name, key, src, rep, counts in rows]
+    kernels[0]["yardstick_topk_scatter_ms"] = \
+        results["block_topk"]["yardstick_topk_scatter_ms"]
+    # K2 and K3 with bfloat16 EF state: K3 runs it on the resumable path
+    kernels[1]["bf16_state"] = {k: results["ef21_sgdm_update/bf16"][k]
+                                for k in keys}
+    kernels[2]["bf16_state"] = {k: results["ef21_sgdm_topk_quant/8/bf16"][k]
+                                for k in keys}
+    kernels[2]["bf16_state"]["launches"] = resumed["ef21_sgdm_topk_quant"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,10 @@ whole blocks first, so client boundaries and row boundaries coincide. The
 fused carriers update the client EF state IN PLACE: the kernels write v' and
 g' over v and g (each element is read before its own lane writes it), which
 is what keeps the state of eight full-width clients inside one card's
-memory.
+memory. That state is f32 or bfloat16: the fused kernels read and write it
+in its dtype (K2's c comes back in it too), and the unfused wires encode
+the innovation in f32 and decode to the delta's dtype, as the reference
+casts.
 """
 from __future__ import annotations
 

@@ -69,8 +69,9 @@ def per_client_value_and_grad(loss_fn: Callable, params: Tree,
 def init_ef_state(efc: EFConfig, params: Tree, dp: int,
                   init_grads: Optional[Tree] = None) -> Dict:
     """init_grads: optional per-client grads (dp leading) for Alg 1 line 2
-    (v⁰ = g⁰ = first gradients); the clients' state takes that tensor
-    over."""
+    (v⁰ = g⁰ = first gradients); the clients' state takes that tensor over
+    (or its cast to the method's state dtype). The server's estimate and the
+    downlink memory h stay in the params' dtype."""
     method = efc.method
     if init_grads is None:
         like = ef_lib.tree_map(
@@ -127,7 +128,7 @@ def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
     if plan == "fused":
         c_tree, new_clients = carrier.fused_update(method, grads, clients,
                                                    eta=eta)
-        msg_mean = ef_lib.tree_map(lambda c: c.sum(0) / dp, c_tree)
+        msg_mean = ef_lib.tree_map(ef_lib.client_mean, c_tree)
     elif plan == "fused_wire":
         msg_mean, new_clients = carrier.fused_wire_round(method, grads,
                                                          clients, eta=eta)
@@ -139,7 +140,7 @@ def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
                               {name: ef_lib.tree_index(tree, i)
                                for name, tree in clients.items()}, eta=eta)
                 for i in range(dp)]
-        msg_mean = ef_lib.tree_map(lambda m: m.sum(0) / dp,
+        msg_mean = ef_lib.tree_map(ef_lib.client_mean,
                                    ef_lib.tree_stack([m for m, _ in outs]))
         new_clients = {name: ef_lib.tree_stack([s[name] for _, s in outs])
                        for name in clients}

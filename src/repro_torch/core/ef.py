@@ -13,8 +13,9 @@ reference's ten methods with the server rule and the downlink (server →
 client broadcast) sync. ``ef21_sgdm_ideal`` and ``ef21_storm`` take paired
 gradients and ``neolithic`` runs R compression rounds a step: they arrive
 with later slices (ROADMAP Queue 1), and naming one raises
-``NotImplementedError``. The EF state follows the grads' dtype (the
-reference's bfloat16 state arrives with a later slice).
+``NotImplementedError``. The client EF state follows the grads' dtype, or
+the method's ``state_dtype`` (bfloat16 at LLM scale): every method casts its
+state where the reference does, in ``init`` and after each step.
 """
 from __future__ import annotations
 
@@ -69,7 +70,22 @@ def tree_lerp(a: Tree, b: Tree, eta: float) -> Tree:
 
 
 def tree_scale(a: Tree, s: float) -> Tree:
-    return tree_map(lambda x: x * s, a)
+    """x * s leaf-wise, with s rounded to x's dtype first: the reference
+    multiplies by a weakly typed Python scalar, which JAX converts to the
+    array's dtype (a bfloat16 leaf is scaled by bf16(s))."""
+    return tree_map(lambda x: x * torch.tensor(s, dtype=x.dtype), a)
+
+
+def tree_cast(tree: Tree, dtype: Optional[torch.dtype]) -> Tree:
+    if dtype is None:
+        return tree
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def client_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the leading client axis, as ``jnp.mean`` takes it: a
+    bfloat16 stack is summed in f32 and the mean rounded back once."""
+    return (x.float().sum(0) / x.shape[0]).to(x.dtype)
 
 
 def tree_clone(tree: Tree) -> Tree:
@@ -106,9 +122,11 @@ class Method:
     c unchanged), the condition for a non-dense carrier to aggregate the wire
     directly. ``init`` gives every state entry its own tensor (the reference
     shares one immutable array): the fused carriers update v and g in
-    place."""
+    place. ``state_dtype`` (None: follow the grads; ``torch.bfloat16`` at
+    LLM scale) is the dtype of the client state."""
 
     compressor: comp_lib.Compressor = comp_lib.Identity()
+    state_dtype: Optional[torch.dtype] = None
     name: str = "base"
     mode: str = "delta"
     needs_paired_grads: bool = False
@@ -136,11 +154,14 @@ class Method:
     def _eta(self, eta):
         return eta if eta is not None else getattr(self, "eta", 1.0)
 
+    def _cast(self, tree: Tree) -> Tree:
+        return tree_cast(tree, self.state_dtype)
+
     def _first(self, params_like, init_grads) -> Tree:
-        """The initial estimate: the clients' first gradients (Alg 1 line 2)
-        or zeros."""
-        return init_grads if init_grads is not None \
-            else tree_zeros_like(params_like)
+        """The initial estimate in the state's dtype: the clients' first
+        gradients (Alg 1 line 2) or zeros."""
+        return self._cast(init_grads if init_grads is not None
+                          else tree_zeros_like(params_like))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +176,7 @@ class EF21SGD(Method):
         return tree_sub(grads, state["g"]), {"g": state["g"]}
 
     def post_compress(self, c, ctx):
-        return c, {"g": tree_add(ctx["g"], c)}
+        return c, {"g": self._cast(tree_add(ctx["g"], c))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +194,8 @@ class EF21SGDM(Method):
         return tree_sub(v_new, state["g"]), {"v": v_new, "g": state["g"]}
 
     def post_compress(self, c, ctx):
-        return c, {"v": ctx["v"], "g": tree_add(ctx["g"], c)}
+        return c, {"v": self._cast(ctx["v"]),
+                   "g": self._cast(tree_add(ctx["g"], c))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,8 +217,8 @@ class EF21SGD2M(Method):
             {"v": v_new, "u": u_new, "g": state["g"]}
 
     def post_compress(self, c, ctx):
-        return c, {"v": ctx["v"], "u": ctx["u"],
-                   "g": tree_add(ctx["g"], c)}
+        return c, {"v": self._cast(ctx["v"]), "u": self._cast(ctx["u"]),
+                   "g": self._cast(tree_add(ctx["g"], c))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,7 +241,8 @@ class EF21SGDMAbs(Method):
 
     def post_compress(self, c, ctx):
         c = tree_scale(c, self.gamma)
-        return c, {"v": ctx["v"], "g": tree_add(ctx["g"], c)}
+        return c, {"v": self._cast(ctx["v"]),
+                   "g": self._cast(tree_add(ctx["g"], c))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,14 +253,14 @@ class EF14SGD(Method):
     mode: str = "absolute"
 
     def init(self, params_like, init_grads=None):
-        return {"e": tree_zeros_like(params_like)}
+        return {"e": self._cast(tree_zeros_like(params_like))}
 
     def pre_compress(self, grads, state, *, eta=None):
         p = tree_add(state["e"], grads)
         return p, {"p": p}
 
     def post_compress(self, c, ctx):
-        return c, {"e": tree_sub(ctx["p"], c)}
+        return c, {"e": self._cast(tree_sub(ctx["p"], c))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,7 +278,7 @@ class SGDM(Method):
         return v_new, {"v": v_new}
 
     def post_compress(self, c, ctx):
-        return c, {"v": ctx["v"]}
+        return c, {"v": self._cast(ctx["v"])}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("ef_update.cu", "fused_round.cu", "codec.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "topk.cu")
 LIB_NAME = "libef_kernels.so"
 # no --use_fast_math: the kernels rely on IEEE division and rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,20 +1,28 @@
-// Shared device code of the EF client kernels: the Block-TopK threshold
-// bisection of src/repro/kernels/topk_compress.py::_bisect_threshold, run by
-// one warp on one row held in registers.
+// Shared device code of the EF client kernels and the standalone Block-TopK:
+// the threshold bisection of src/repro/kernels/topk_compress.py::
+// _bisect_threshold, run by a group of G lanes on one row held in registers
+// (G = 32, a whole warp, for the rows of K2/K3 and rows of K1 wider than 32).
 //
-// Layout: a row of `width` <= 32*PER f32 values is spread over the 32 lanes
-// of a warp, lane l holding elements l, l+32, l+64, ... (so every warp-wide
+// Layout: a row of `width` <= G*PER values is spread over the G lanes of its
+// group, lane l holding elements l, l+G, l+2G, ... (so every group-wide
 // load and store touches consecutive addresses). Elements at or past `width`
 // are absent: they are never counted and never stored.
 //
 // Arithmetic: exactly kBisectIters f32 steps of mid = 0.5*(lo+hi) on
-// [0, max|x|], each counting |x| >= mid over the row with a warp reduction;
+// [0, max|x|], each counting |x| >= mid over the row with a group reduction;
 // the result is the largest lo with count(|x| >= lo) >= k. Every rounding is
 // spelled out (__fadd_rn/__fmul_rn) so nvcc cannot contract or reorder it:
 // the plain PyTorch version (kernels/ref.py::bisect_threshold_plain) makes
-// the same roundings, and the two agree bit for bit.
+// the same roundings, and the two agree bit for bit (an integer count and a
+// max do not depend on the order of the reduction).
+//
+// The EF state (v, g) is f32 or bfloat16: it is loaded into f32, all
+// arithmetic is f32, and bf16 results are stored rounded to nearest even
+// (what XLA's astype does).
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,30 +33,70 @@ constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 4;  // one warp per row, four rows per CTA
 constexpr int kMaxWidth = 32 * kWarp;
 
-__device__ __forceinline__ float warp_max(float x) {
+// f32 views of the element types: exact widenings
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// an f32 result in the state's type, rounded to nearest even
+template <typename S>
+__device__ __forceinline__ S from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// Reductions inside a group of G lanes (G a power of two, at most a warp).
+// Every lane of the warp takes part: xor offsets below G stay in the group.
+template <int G>
+__device__ __forceinline__ float group_max(float x) {
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1)
+  for (int o = G / 2; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
+template <int G>
+__device__ __forceinline__ int group_sum(int x) {
+  if constexpr (G == kWarp) {
+    return __reduce_add_sync(0xffffffffu, x);
+  } else {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+      x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  return group_max<kWarp>(x);
+}
+
 // max over the present elements of |d| (0 for an all-zero row)
-template <int PER>
+template <int PER, int G = kWarp>
 __device__ __forceinline__ float row_absmax(const float (&d)[PER], int lane,
                                             int width) {
   float m = 0.f;
 #pragma unroll
   for (int i = 0; i < PER; ++i)
-    if (i * kWarp + lane < width) m = fmaxf(m, fabsf(d[i]));
-  return warp_max(m);
+    if (i * G + lane < width) m = fmaxf(m, fabsf(d[i]));
+  return group_max<G>(m);
 }
 
 // The threshold t of the row: count(|d| >= t) >= k, t maximal up to the
 // 26-step resolution. Ties at t are all kept by the caller's |d| >= t test.
-template <int PER>
+template <int PER, int G = kWarp>
 __device__ __forceinline__ float bisect_threshold(const float (&d)[PER],
                                                   int lane, int width, int k) {
-  float hi = row_absmax<PER>(d, lane, width);
+  float hi = row_absmax<PER, G>(d, lane, width);
   float lo = 0.f;
 #pragma unroll 1
   for (int it = 0; it < kBisectIters; ++it) {
@@ -56,8 +104,8 @@ __device__ __forceinline__ float bisect_threshold(const float (&d)[PER],
     int cnt = 0;
 #pragma unroll
     for (int i = 0; i < PER; ++i)
-      cnt += (i * kWarp + lane < width && fabsf(d[i]) >= mid) ? 1 : 0;
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
+      cnt += (i * G + lane < width && fabsf(d[i]) >= mid) ? 1 : 0;
+    cnt = group_sum<G>(cnt);
     const bool ok = cnt >= k;
     lo = ok ? mid : lo;
     hi = ok ? hi : mid;
@@ -66,13 +114,15 @@ __device__ __forceinline__ float bisect_threshold(const float (&d)[PER],
 }
 
 // v' = (1-eta)*v + eta*grad and delta = v' - g for one row, with v' stored
-// as soon as it is known. Each element is loaded before anything is stored
-// to it, by the one lane that owns it, so outputs may alias inputs element
-// for element (the caller updates the EF state in place).
-template <int PER>
+// (in the state's type S) as soon as it is known; delta is taken from the
+// f32 v' before that rounding, as the Pallas body computes it. Each element
+// is loaded before anything is stored to it, by the one lane that owns it,
+// so outputs may alias inputs element for element (the caller updates the
+// EF state in place).
+template <int PER, typename S>
 __device__ __forceinline__ void momentum_delta(
-    const float* grad, const float* v, const float* g, float* v_out,
-    long long base, int lane, int width, float c1, float c2, float (&d)[PER],
+    const float* grad, const S* v, const S* g, S* v_out, long long base,
+    int lane, int width, float c1, float c2, float (&d)[PER],
     float (&gv)[PER]) {
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
@@ -80,10 +130,10 @@ __device__ __forceinline__ void momentum_delta(
     d[i] = 0.f;
     gv[i] = 0.f;
     if (j < width) {
-      const float gj = g[base + j];
-      const float vn = __fadd_rn(__fmul_rn(c1, v[base + j]),
+      const float gj = to_f32(g[base + j]);
+      const float vn = __fadd_rn(__fmul_rn(c1, to_f32(v[base + j])),
                                  __fmul_rn(c2, grad[base + j]));
-      v_out[base + j] = vn;
+      v_out[base + j] = from_f32<S>(vn);
       gv[i] = gj;
       d[i] = __fsub_rn(vn, gj);
     }

@@ -3,14 +3,17 @@
 //
 // ef21_sgdm_topk_quant replaces src/repro/kernels/fused_round.py::
 // ef21_sgdm_topk_quant (Pallas TPU kernel _fused_uplink_kernel): per row of
-// (rows, width) f32, the EF21-SGDM chain of ef_update.cu, then per-row
-// absmax quantization of the selected c,
+// (rows, width), grad f32 and the EF state v, g f32 or bfloat16, the
+// EF21-SGDM chain of ef_update.cu in f32, then per-row absmax quantization
+// of the selected c,
 //     scale = max|c| * f32(1/qmax),  q = clip(rint(c / safe), -qmax, qmax)
 //     g'    = g + q*scale                      (the EF invariant)
-// returning (v', g', q, scales): q int8 (rows, width) for bits=8, packed
-// uint4 (rows, width/2) for bits=4 (+8 offset, high nibble first).
-// Bound: memory. 3 f32 reads + 2 f32 writes + bits/8 bytes of mantissa a
-// element + one f32 scale a row: about 21 bytes an element at bits=8.
+// returning (v', g', q, scales): v', g' in the state's type (bf16 rounded to
+// nearest even), q int8 (rows, width) for bits=8, packed uint4 (rows,
+// width/2) for bits=4 (+8 offset, high nibble first), scales f32.
+// Bound: memory. A 4-byte grad read, v and g read and v', g' written in the
+// state's type, bits/8 bytes of mantissa an element and one f32 scale a
+// row: about 21 bytes an element at bits=8 with f32 state, 13 with bf16.
 // Design: ef_update.cu's warp-per-row layout with the row in registers; the
 // quantization row IS the selection row, so the absmax is one more warp
 // reduction and nothing leaves registers between selection and codec.
@@ -31,12 +34,12 @@
 
 namespace efk {
 
-template <int PER, int BITS>
+template <int PER, int BITS, typename S>
 __global__ void __launch_bounds__(kRowsPerBlock * kWarp)
-ef21_sgdm_topk_quant_kernel(const float* grad, const float* v, const float* g,
-                            float* v_out, float* g_out, uint8_t* q_out,
-                            float* s_out, long long rows, int width, float c1,
-                            float c2, int k) {
+ef21_sgdm_topk_quant_kernel(const float* grad, const S* v, const S* g,
+                            S* v_out, S* g_out, uint8_t* q_out, float* s_out,
+                            long long rows, int width, float c1, float c2,
+                            int k) {
   const int lane = threadIdx.x % kWarp;
   const long long row =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
@@ -59,7 +62,8 @@ ef21_sgdm_topk_quant_kernel(const float* grad, const float* v, const float* g,
     const int j = i * kWarp + lane;
     float q = rintf(__fdiv_rn(d[i], safe));
     q = fminf(fmaxf(q, -qmax), qmax);
-    if (j < width) g_out[base + j] = __fadd_rn(gv[i], __fmul_rn(q, scale));
+    if (j < width)
+      g_out[base + j] = from_f32<S>(__fadd_rn(gv[i], __fmul_rn(q, scale)));
     const int qi = static_cast<int>(q);
     if constexpr (BITS == 8) {
       if (j < width)
@@ -99,25 +103,27 @@ __global__ void dequant_add_kernel(const uint8_t* q, const float* scales,
   }
 }
 
-template <int PER, int BITS>
-static void launch_uplink(const float* grad, const float* v, const float* g,
-                          float* v_out, float* g_out, uint8_t* q_out,
+template <int PER, int BITS, typename S>
+static void launch_uplink(const float* grad, const void* v, const void* g,
+                          void* v_out, void* g_out, uint8_t* q_out,
                           float* s_out, long long rows, int width, float c1,
                           float c2, int k, cudaStream_t s) {
-  ef21_sgdm_topk_quant_kernel<PER, BITS>
+  ef21_sgdm_topk_quant_kernel<PER, BITS, S>
       <<<grid_for_rows(rows), kRowsPerBlock * kWarp, 0, s>>>(
-          grad, v, g, v_out, g_out, q_out, s_out, rows, width, c1, c2, k);
+          grad, static_cast<const S*>(v), static_cast<const S*>(g),
+          static_cast<S*>(v_out), static_cast<S*>(g_out), q_out, s_out, rows,
+          width, c1, c2, k);
 }
 
-template <int BITS>
-static void launch_uplink_bits(const float* grad, const float* v,
-                               const float* g, float* v_out, float* g_out,
+template <int BITS, typename S>
+static void launch_uplink_bits(const float* grad, const void* v,
+                               const void* g, void* v_out, void* g_out,
                                uint8_t* q_out, float* s_out, long long rows,
                                int width, float c1, float c2, int k,
                                cudaStream_t s) {
 #define EFK_UPLINK(PER)                                                       \
-  launch_uplink<PER, BITS>(grad, v, g, v_out, g_out, q_out, s_out, rows,     \
-                           width, c1, c2, k, s)
+  launch_uplink<PER, BITS, S>(grad, v, g, v_out, g_out, q_out, s_out, rows,  \
+                              width, c1, c2, k, s)
   if (width <= 32) EFK_UPLINK(1);
   else if (width <= 64) EFK_UPLINK(2);
   else if (width <= 128) EFK_UPLINK(4);
@@ -129,28 +135,29 @@ static void launch_uplink_bits(const float* grad, const float* v,
 
 }  // namespace efk
 
-// Returns the cudaError_t of the launch (0 on success). v_out/g_out may
-// alias v/g (in-place EF state update).
+// Returns the cudaError_t of the launch (0 on success). v, g, v_out and
+// g_out are f32 (state_bf16 = 0) or bfloat16 (state_bf16 = 1); grad is f32.
+// v_out/g_out may alias v/g (in-place EF state update).
 extern "C" int ef_launch_ef21_sgdm_topk_quant(
     const void* grad, const void* v, const void* g, void* v_out, void* g_out,
     void* q_out, void* s_out, long long rows, int width, float c1, float c2,
-    int k, int bits, void* stream) {
+    int k, int bits, int state_bf16, void* stream) {
   using namespace efk;
   if (rows <= 0 || width <= 0 || width > kMaxWidth || k < 1 ||
       (bits != 8 && bits != 4) || (bits == 4 && width % 2))
     return static_cast<int>(cudaErrorInvalidValue);
   auto gr = static_cast<const float*>(grad);
-  auto vv = static_cast<const float*>(v);
-  auto gg = static_cast<const float*>(g);
-  auto vo = static_cast<float*>(v_out);
-  auto go = static_cast<float*>(g_out);
   auto qo = static_cast<uint8_t*>(q_out);
   auto so = static_cast<float*>(s_out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (bits == 8)
-    launch_uplink_bits<8>(gr, vv, gg, vo, go, qo, so, rows, width, c1, c2, k, s);
-  else
-    launch_uplink_bits<4>(gr, vv, gg, vo, go, qo, so, rows, width, c1, c2, k, s);
+#define EFK_UPLINK_STATE(BITS, S)                                            \
+  launch_uplink_bits<BITS, S>(gr, v, g, v_out, g_out, qo, so, rows, width,  \
+                              c1, c2, k, s)
+  if (bits == 8 && state_bf16) EFK_UPLINK_STATE(8, __nv_bfloat16);
+  else if (bits == 8) EFK_UPLINK_STATE(8, float);
+  else if (state_bf16) EFK_UPLINK_STATE(4, __nv_bfloat16);
+  else EFK_UPLINK_STATE(4, float);
+#undef EFK_UPLINK_STATE
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 """Wrappers of the hand kernels (counterpart of src/repro/kernels/ops.py).
 
-Every wrapper takes the layout its kernel takes (the row view for K2-K6,
-(B, S, heads, hd) for K7), checks device, dtype, shape and contiguity, and
+Every wrapper takes the layout its kernel takes (any shape for K1, the row
+view for K2-K6, (B, S, heads, hd) for K7), checks device, dtype, shape and
+contiguity, and
 raises on anything else. Tensors on the CPU run the plain PyTorch version
 (kernels/ref.py); tensors on a CUDA device launch the kernel on the current
 stream and raise if the launch fails. There is no fallback from one to the
@@ -23,7 +24,7 @@ from repro_torch.kernels import ref
 # widest row the warp-per-row kernels hold in registers (bisect.cuh)
 MAX_WIDTH = 1024
 
-launches: Dict[str, int] = {"ef21_sgdm_update": 0,
+launches: Dict[str, int] = {"block_topk": 0, "ef21_sgdm_update": 0,
                             "ef21_sgdm_topk_quant": 0, "dequant_add": 0,
                             "block_quantize": 0, "block_dequantize": 0,
                             "flash_attention": 0}
@@ -33,16 +34,21 @@ _lib_handle: Optional[ctypes.CDLL] = None
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
+    "ef_launch_block_topk": [_P, _P, _L, _I, _I, _I, _P],
     "ef_launch_ef21_sgdm_update":
-        [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _I, _P],
     "ef_launch_ef21_sgdm_topk_quant":
-        [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _I, _I, _P],
     "ef_launch_dequant_add": [_P, _P, _P, _P, _L, _L, _I, _I, _F, _I, _P],
     "ef_launch_block_quantize": [_P, _P, _P, _L, _I, _I, _P],
     "ef_launch_block_dequantize": [_P, _P, _P, _L, _I, _I, _P],
     "ef_launch_flash_attention":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
+# the EF state dtypes K2/K3 are compiled for (grad is always f32)
+STATE_DTYPES = (torch.float32, torch.bfloat16)
+# the dtypes K1 is compiled for, by their code in the C interface
+_TOPK_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # head dims K7 is compiled for
 FLASH_HEAD_DIMS = (32, 64, 128)
 # wide codec rows take one CTA a row: gridDim.x caps the rows of one launch
@@ -113,13 +119,18 @@ def _codec_layout(bits: int, cols: int) -> Tuple[torch.dtype, int]:
 
 
 def _check_rows(grad, v, g, v_out, g_out, k: int) -> Tuple[int, int]:
+    """grad f32 (rows, block); v, g and the outputs of one state dtype, f32
+    or bfloat16, at the same shape."""
     if grad.dim() != 2:
         raise ValueError(f"grad: expected (rows, block), got {tuple(grad.shape)}")
     rows, width = grad.shape
-    for name, t in (("grad", grad), ("v", v), ("g", g), ("v_out", v_out),
-                    ("g_out", g_out)):
+    _check("grad", grad, (rows, width), torch.float32)
+    if v.dtype not in STATE_DTYPES:
+        raise ValueError(f"v: dtype {v.dtype}; the EF state is one of "
+                         f"{STATE_DTYPES}")
+    for name, t in (("v", v), ("g", g), ("v_out", v_out), ("g_out", g_out)):
         if t is not None:
-            _check(name, t, (rows, width), torch.float32)
+            _check(name, t, (rows, width), v.dtype)
     if not 1 <= k <= width:
         raise ValueError(f"k={k} outside [1, block={width}]")
     return rows, width
@@ -136,13 +147,42 @@ def _present(*ts):
     return [t for t in ts if t is not None]
 
 
+def block_topk(x: torch.Tensor, *, block: int = 1024, k: int = 16
+               ) -> torch.Tensor:
+    """K1, Block-TopK by threshold bisection (the reference's public
+    ``ops.block_topk``): x of any shape, f32, bf16 or f16, flattened and
+    zero-padded to rows of ``block`` (at most 1024 on the card); per row
+    keeps x where |x| >= the 26-step threshold. Returns a new tensor of x's
+    shape and dtype."""
+    if not 1 <= k <= block:
+        raise ValueError(f"k={k} outside [1, block={block}]")
+    if x.dtype not in _TOPK_DTYPES:
+        raise ValueError(f"x: dtype {x.dtype}; K1 takes "
+                         f"{sorted(map(str, _TOPK_DTYPES))}")
+    if not x.is_contiguous():
+        raise ValueError("x: must be contiguous")
+    if not _on_cuda(x):
+        return ref.block_topk_plain(x, block=block, k=k)
+    if block > MAX_WIDTH:
+        raise ValueError(f"block {block} > {MAX_WIDTH}: wider rows are not "
+                         "supported by the CUDA kernel")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    _launch("ef_launch_block_topk", x.data_ptr(), out.data_ptr(), x.numel(),
+            block, k, _TOPK_DTYPES[x.dtype])
+    launches["block_topk"] += 1
+    return out
+
+
 def ef21_sgdm_update(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *,
                      eta: float, k: int, v_out: Optional[torch.Tensor] = None,
                      g_out: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2, the fused EF21-SGDM client update on (rows, block) f32 rows:
-    returns (v', g', c). ``v_out``/``g_out`` receive v'/g' when given (they
-    may be ``v``/``g`` themselves: an in-place state update)."""
+    """K2, the fused EF21-SGDM client update on (rows, block) rows, grad f32
+    and the state v, g f32 or bfloat16: returns (v', g', c) in the state's
+    dtype. ``v_out``/``g_out`` receive v'/g' when given (they may be
+    ``v``/``g`` themselves: an in-place state update)."""
     rows, width = _check_rows(grad, v, g, v_out, g_out, k)
     if not _on_cuda(grad, v, g, *_present(v_out, g_out)):
         vn, gn, c = ref.ef21_sgdm_update_plain(grad, v, g, eta=eta, k=k)
@@ -156,7 +196,7 @@ def ef21_sgdm_update(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *,
     c1, c2 = ref._coeffs(eta)
     _launch("ef_launch_ef21_sgdm_update", grad.data_ptr(), v.data_ptr(),
             g.data_ptr(), v_out.data_ptr(), g_out.data_ptr(), c.data_ptr(),
-            rows, width, c1, c2, k)
+            rows, width, c1, c2, k, int(v.dtype == torch.bfloat16))
     launches["ef21_sgdm_update"] += 1
     return v_out, g_out, c
 
@@ -167,8 +207,9 @@ def ef21_sgdm_topk_quant(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                          g_out: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
-    """K3, the one-launch uplink on (rows, block) f32 rows: returns
-    (v', g', q, scales) with g' = g + dequantize(q, scales). ``v_out`` /
+    """K3, the one-launch uplink on (rows, block) rows, grad f32 and the
+    state v, g f32 or bfloat16: returns (v', g', q, scales) with g' = g +
+    dequantize(q, scales), v' and g' in the state's dtype. ``v_out`` /
     ``g_out`` as for :func:`ef21_sgdm_update`."""
     rows, width = _check_rows(grad, v, g, v_out, g_out, k)
     _check_bits(bits)
@@ -190,7 +231,8 @@ def ef21_sgdm_topk_quant(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     c1, c2 = ref._coeffs(eta)
     _launch("ef_launch_ef21_sgdm_topk_quant", grad.data_ptr(), v.data_ptr(),
             g.data_ptr(), v_out.data_ptr(), g_out.data_ptr(), q.data_ptr(),
-            scales.data_ptr(), rows, width, c1, c2, k, bits)
+            scales.data_ptr(), rows, width, c1, c2, k, bits,
+            int(v.dtype == torch.bfloat16))
     launches["ef21_sgdm_topk_quant"] += 1
     return v_out, g_out, q, scales
 

@@ -3,13 +3,21 @@
 They are what the kernel wrappers (``kernels/ops.py``) run on CPU tensors
 and what ``chip_smoke.py`` holds each kernel against on the card.
 
-The EF and codec functions (K2-K6) repeat their Pallas bodies step by step
-— the same f32 operations in the same order, the 26-step threshold
-bisection included — so each is bit-for-bit what its CUDA kernel in
-``csrc/`` computes. They take the row view the kernels take: ``(rows,
-block)`` tensors, one selection/quantization block per row. They are NOT
-the sort-based ``block_topk_ref`` of the reference, which keeps exactly k
-with the earliest index winning ties (a different tie rule).
+The Block-TopK, EF and codec functions (K1-K6) repeat their Pallas bodies
+step by step — the same f32 operations in the same order, the 26-step
+threshold bisection included — so each is bit-for-bit what its CUDA kernel
+in ``csrc/`` computes. K2-K6 take the row view the kernels take: ``(rows,
+block)`` tensors, one selection/quantization block per row; K1 takes any
+shape, as the reference's ``block_topk`` does. The EF state (v, g) of K2
+and K3 is f32 or bfloat16: it is widened to f32, the arithmetic is f32, and
+the state's outputs are rounded back to its dtype.
+
+Three tie rules for Block-TopK live side by side and are never compared
+with one another: the bisection (``block_topk_plain`` and the EF kernels)
+keeps every value at or above its 26-step threshold; ``block_topk_ref``,
+the reference's sort-based oracle, keeps exactly k with the earliest index
+winning ties; ``BlockTopK.__call__`` (core/compressors.py) keeps everything
+at or above the k-th largest magnitude.
 
 ``flash_attention_plain`` (K7) is the reference's materialised-softmax
 oracle; the kernel's online softmax sums in another order, so the two
@@ -53,10 +61,44 @@ def bisect_threshold_plain(ab: torch.Tensor, k: int) -> torch.Tensor:
     return lo
 
 
+def _flat_rows(x: torch.Tensor, block: int) -> torch.Tensor:
+    """The (nb, block) row view of x flattened and zero-padded."""
+    d = x.numel()
+    nb = -(-d // block)
+    return torch.nn.functional.pad(x.reshape(-1), (0, nb * block - d)) \
+        .reshape(nb, block)
+
+
+def block_topk_plain(x: torch.Tensor, *, block: int = 1024,
+                     k: int = 16) -> torch.Tensor:
+    """kernels/topk_compress.py::block_topk — x (any shape) flattened and
+    zero-padded to rows of ``block``; per row the 26-step bisection
+    threshold t on |x| in f32, and x kept where |x| >= t (ties kept). The
+    result has x's shape and dtype."""
+    xb = _flat_rows(x, block)
+    xf = xb.float()
+    ab = xf.abs()
+    t = bisect_threshold_plain(ab, k)
+    out = torch.where(ab >= t[:, None], xf, torch.zeros_like(xf)).to(x.dtype)
+    return out.reshape(-1)[:x.numel()].reshape(x.shape)
+
+
+def block_topk_ref(x: torch.Tensor, block: int, k: int) -> torch.Tensor:
+    """kernels/ref.py::block_topk_ref of the reference, the sort-based
+    Block-TopK: within each zero-padded block keep exactly the k largest
+    |x|, the earliest index winning ties (a stable sort), zero elsewhere."""
+    xb = _flat_rows(x, block)
+    order = torch.argsort(-xb.abs(), dim=1, stable=True)
+    ranks = torch.argsort(order, dim=1, stable=True)
+    out = torch.where(ranks < k, xb, torch.zeros_like(xb))
+    return out.reshape(-1)[:x.numel()].reshape(x.shape)
+
+
 def _momentum_select(grad, v, g, eta: float, k: int):
+    """v' and the selected c in f32, from the state widened to f32."""
     c1, c2 = _coeffs(eta)
-    v_new = c1 * v + c2 * grad
-    delta = v_new - g
+    v_new = c1 * v.float() + c2 * grad.float()
+    delta = v_new - g.float()
     ab = delta.abs()
     t = bisect_threshold_plain(ab, k)
     c = torch.where(ab >= t[:, None], delta, torch.zeros_like(delta))
@@ -67,10 +109,11 @@ def ef21_sgdm_update_plain(grad: torch.Tensor, v: torch.Tensor,
                            g: torch.Tensor, *, eta: float, k: int
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """kernels/ef_update.py::_ef_kernel — v' = (1-eta)v + eta*grad;
-    c = keep (v' - g) where |v' - g| >= the bisection threshold; g' = g + c.
-    Returns (v', g', c)."""
+    c = keep (v' - g) where |v' - g| >= the bisection threshold; g' = g + c,
+    all in f32. Returns (v', g', c), each rounded to the state's dtype (c has
+    g's dtype)."""
     v_new, c = _momentum_select(grad, v, g, eta, k)
-    return v_new, g + c, c
+    return v_new.to(v.dtype), (g.float() + c).to(g.dtype), c.to(g.dtype)
 
 
 def ef21_sgdm_topk_quant_plain(grad: torch.Tensor, v: torch.Tensor,
@@ -81,15 +124,16 @@ def ef21_sgdm_topk_quant_plain(grad: torch.Tensor, v: torch.Tensor,
     to even, non-finite -> 0) and g' = g + q*scale (the EF invariant).
     Returns (v', g', q, scales): q int8
     (rows, block) for bits=8, packed uint4 (rows, block/2) for bits=4 (+8
-    offset, high nibble first), scales f32 (rows,)."""
+    offset, high nibble first), scales f32 (rows,); v' and g' in the state's
+    dtype."""
     v_new, c = _momentum_select(grad, v, g, eta, k)
     c = torch.where(torch.isfinite(c), c, torch.zeros_like(c))
     qmax = float(2 ** (bits - 1) - 1)
     scale = c.abs().amax(dim=1) * qmax_recip(bits)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(c / safe[:, None]), -qmax, qmax)
-    g_new = g + q * scale[:, None]
-    return v_new, g_new, _pack(q, bits), scale
+    g_new = g.float() + q * scale[:, None]
+    return v_new.to(v.dtype), g_new.to(g.dtype), _pack(q, bits), scale
 
 
 def dequant_add_plain(q: torch.Tensor, scales: torch.Tensor,

@@ -15,6 +15,8 @@ import dataclasses
 import warnings
 from typing import Optional
 
+import torch
+
 from repro_torch.core import carriers as carrier_lib
 from repro_torch.core import compressors as comp_lib
 from repro_torch.core import distributed as dist
@@ -67,10 +69,21 @@ def make_down_compressor(spec: RunSpec) -> Optional[comp_lib.Compressor]:
 
 
 def make_method(spec: RunSpec) -> ef_lib.Method:
+    """The spec's EF method: its compressor, its client state dtype, the
+    spec's η for every method with an η field, then ``method_kw`` on top; a
+    ``method_kw`` key that names no field of the method is an error."""
     cls = ef_lib.REGISTRY[spec.method]
-    kw = {"compressor": make_compressor(spec)}
-    if "eta" in {f.name for f in dataclasses.fields(cls)}:
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kw = {"compressor": make_compressor(spec),
+          "state_dtype": torch.bfloat16
+          if spec.ef_state_dtype == "bfloat16" else None}
+    if "eta" in fields:
         kw["eta"] = spec.eta
+    kw.update(spec.method_kw)
+    unknown = sorted(set(kw) - fields)
+    if unknown:
+        raise ValueError(f"method_kw keys {unknown} are not fields of "
+                         f"{cls.__name__}; have {sorted(fields)}")
     return cls(**kw)
 
 

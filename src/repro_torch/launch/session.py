@@ -1,29 +1,33 @@
 """Session: the runtime facade over a RunSpec (counterpart of
-src/repro/launch/session.py: training, and static serving).
+src/repro/launch/session.py: training with checkpoints, and static
+serving).
 
     spec = RunSpec.from_json(open("results/specs/fused_quickstart.json").read())
     sess = Session(spec)              # on cuda; Session(spec, device="cpu")
-    sess.train(3)
+    sess.train(3)                     # saves under spec.ckpt_dir when set
+    sess = Session.resume(spec.ckpt_dir)     # the same run, from its latest
     sess.serve(batch=8, prompt_len=1024, decode_steps=32)
 
 Training state (params, optimizer state, EF state) is built lazily on first
 use: parameters from a CPU ``torch.Generator`` seeded with ``spec.seed``, then
 the batch-0 per-client gradients initialize the EF state (Alg 1 line 2),
-as in the reference. ``restore_from_jax`` replaces that state with a
-checkpoint written by the JAX package.
+as in the reference. ``save`` writes that state, the step and the spec in
+the reference's npz layout; ``restore_from`` reads a checkpoint of either
+package back (refusing one written by another RunSpec), and ``resume``
+rebuilds a run from the spec its latest checkpoint embeds.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.checkpoint import bridge
+from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import base as cb
 from repro_torch.core import distributed as dist
-from repro_torch.core import ef as ef_lib
 from repro_torch.data import pipeline as pipe_lib
 from repro_torch.launch import build as build_lib
 from repro_torch.launch.spec import RunSpec
@@ -55,8 +59,9 @@ class Session:
         self.step = 0                      # the data cursor: pipe.batch(step)
         self.history: List[Dict[str, float]] = []
         self._tr: Optional[Dict[str, Any]] = None
+        self._last_saved_step: Optional[int] = None
         # serve() places params by this version, which every path that
-        # changes the served tree bumps (step_once, restore_from_jax,
+        # changes the served tree bumps (step_once, restore_from,
         # set_serve_params): an unchanged tree is not moved again and a
         # changed one is never served stale
         self._params_version = 0
@@ -67,36 +72,53 @@ class Session:
     def n_clients(self) -> int:
         return self.spec.clients
 
-    def _ensure_train(self) -> Dict[str, Any]:
+    def _pipe(self, seed: int) -> pipe_lib.SyntheticTokens:
+        spec, cfg = self.spec, self.cfg
+        return pipe_lib.SyntheticTokens(pipe_lib.DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=spec.seq_len,
+            global_batch=spec.global_batch, seed=seed,
+            dp_groups=self.n_clients, heterogeneity=spec.heterogeneity))
+
+    def _ensure_train(self, template: bool = False) -> Dict[str, Any]:
+        """Build the training bundle. With ``template=True`` the state trees
+        (params, opt_state, ef_state) live on the meta device — their
+        structure, shapes and dtypes without memory, init or the batch-0
+        gradients; ``restore_from`` fills every leaf from a checkpoint."""
         if self._tr is not None:
             return self._tr
         spec, cfg, n = self.spec, self.cfg, self.n_clients
         efc = build_lib.ef_config(spec)
         opt = opt_lib.make(spec.optimizer, lr=spec.lr)
-        pipe = pipe_lib.SyntheticTokens(pipe_lib.DataConfig(
-            vocab_size=cfg.vocab_size, seq_len=spec.seq_len,
-            global_batch=spec.global_batch, seed=spec.seed, dp_groups=n,
-            heterogeneity=spec.heterogeneity))
+        pipe = self._pipe(spec.seed)
 
         def loss_fn(p, b):
             return model_lib.train_loss(cfg, p, b)
 
-        params = model_lib.init_params(
-            cfg, torch.Generator().manual_seed(spec.seed), self.device)
-        # Alg 1 line 2: v⁰ᵢ = g⁰ᵢ = the clients' gradients on batch 0
-        _, g0 = dist.per_client_value_and_grad(
-            loss_fn, params, pipe.batch(0, self.device), n)
+        if template:
+            params = model_lib.init_params(cfg, None, "meta")
+            ef_state = dist.init_ef_state(efc, params, n)
+        else:
+            params = model_lib.init_params(
+                cfg, torch.Generator().manual_seed(spec.seed), self.device)
+            # Alg 1 line 2: v⁰ᵢ = g⁰ᵢ = the clients' gradients on batch 0
+            _, g0 = dist.per_client_value_and_grad(
+                loss_fn, params, pipe.batch(0, self.device), n)
+            ef_state = dist.init_ef_state(efc, params, n, init_grads=g0)
         self._tr = {
-            "pipe": pipe,
+            "pipe": pipe, "loss_fn": loss_fn,
             "step_fn": dist.make_train_step(loss_fn, efc, opt, n),
             "params": params, "opt_state": opt.init(params),
-            "ef_state": dist.init_ef_state(efc, params, n, init_grads=g0),
+            "ef_state": ef_state,
         }
         return self._tr
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         return self._ensure_train()["params"]
+
+    @property
+    def opt_state(self) -> Dict[str, Any]:
+        return self._ensure_train()["opt_state"]
 
     @property
     def ef_state(self) -> Dict[str, Any]:
@@ -117,8 +139,12 @@ class Session:
 
     def train(self, steps: int, log_every: int = 10, verbose: bool = False
               ) -> List[Dict[str, float]]:
-        """Train until the step counter reaches ``steps`` (absolute). Logs
-        every ``log_every`` steps and the last one; returns the new entries."""
+        """Train until the step counter reaches ``steps`` (absolute: a
+        resumed session goes on from its checkpoint's step). Logs every
+        ``log_every`` steps and the last one; returns the new entries. With
+        ``spec.ckpt_dir`` set, saves every ``spec.ckpt_every`` steps (when
+        > 0) and at the end."""
+        spec = self.spec
         self._ensure_train()
         new: List[Dict[str, float]] = []
         t0, start = time.time(), self.step
@@ -135,23 +161,113 @@ class Session:
                           f"g_norm {rec['g_norm']:.3e} "
                           f"({(time.time()-t0)/max(step-start+1,1):.2f}s/step)",
                           flush=True)
+            if (spec.ckpt_dir and spec.ckpt_every
+                    and self.step % spec.ckpt_every == 0):
+                self.save()
+        # the end-of-train save, unless the periodic one just wrote this step
+        if spec.ckpt_dir and self._last_saved_step != self.step:
+            self.save()
         return new
 
-    def restore_from_jax(self, path: str) -> None:
-        """Replace params and EF state with a checkpoint the JAX package
-        wrote (``Session.save`` there), and take over its step counter. The
-        checkpoint's trees must match this session's leaf for leaf."""
+    def evaluate(self, batches: int = 2) -> float:
+        """Mean loss over ``batches`` held-out batches (the synthetic stream
+        at seed + 1, disjoint from every training batch) at the current
+        params."""
         tr = self._ensure_train()
-        state, meta = bridge.load_jax_npz(path, self.device)
-        for name in ("params", "ef_state"):
-            _check_like(name, ef_lib.flatten(state[name]),
-                        ef_lib.flatten(tr[name]))
-        tr["params"], tr["ef_state"] = state["params"], state["ef_state"]
+        pipe = self._pipe(self.spec.seed + 1)
+        with torch.no_grad():
+            losses = [float(tr["loss_fn"](tr["params"],
+                                          pipe.batch(i, self.device)))
+                      for i in range(batches)]
+        return sum(losses) / max(len(losses), 1)
+
+    # ---------------------------------------------------------- checkpoints
+    def _state(self) -> Dict[str, Any]:
+        tr = self._ensure_train()
+        return {"params": tr["params"], "opt_state": tr["opt_state"],
+                "ef_state": tr["ef_state"]}
+
+    def save(self, path: Optional[str] = None) -> str:
+        """Write the FULL training state — params, opt_state, ef_state, the
+        step (the data cursor: ``pipe.batch(step)`` resumes the stream) and
+        the spec — to ``path``, by default ``step_<step>.npz`` under
+        ``spec.ckpt_dir``. Returns the path."""
+        if path is None:
+            if not self.spec.ckpt_dir:
+                raise ValueError("no ckpt_dir in the spec and no path given")
+            path = os.path.join(self.spec.ckpt_dir,
+                                f"step_{self.step:08d}.npz")
+        ckpt_lib.save(path, self._state(), step=self.step, spec=self.spec)
+        self._last_saved_step = self.step
+        return path
+
+    def restore_from(self, path: str, allow_spec_mismatch: bool = False
+                     ) -> None:
+        """Replace the full training state with the checkpoint at ``path``
+        (written by this package or by the JAX one: the layout is the same)
+        and take over its step. Refuses a checkpoint whose recorded
+        ``spec_hash`` is not this spec's, naming the differing fields,
+        unless ``allow_spec_mismatch``."""
+        meta = ckpt_lib.read_meta(path)
+        stored = meta.get("spec_hash")
+        if stored is not None and stored != self.spec.spec_hash() \
+                and not allow_spec_mismatch:
+            diff = ""
+            if "spec" in meta:
+                other = RunSpec.from_dict(meta["spec"])
+                diff = "\n  - " + "\n  - ".join(self.spec.diff(other))
+            raise ValueError(
+                f"checkpoint {path} was written by a different RunSpec "
+                f"(hash {stored} != {self.spec.spec_hash()}); refusing to "
+                f"resume across experiment definitions.{diff}\n"
+                "Pass allow_spec_mismatch=True / --allow-spec-mismatch to "
+                "override.")
+        # a fresh session restores into a meta-device template: no init, no
+        # batch-0 gradients, and no second copy of the state on the device
+        created = self._tr is None
+        self._ensure_train(template=created)
+        try:
+            state, meta = ckpt_lib.restore(path, self._state(), self.device)
+        except BaseException:
+            if created:
+                self._tr = None         # never leave a template behind
+            raise
+        self._tr.update(state)
         self.step = int(meta["step"])
         # the restored params are the new serving truth, even at the same
         # step, and they supersede an injected serving tree
         self._serve_src = None
         self._params_version += 1
+
+    @classmethod
+    def resume(cls, ckpt_dir: str, spec: Optional[RunSpec] = None,
+               overrides: Optional[Dict[str, Any]] = None,
+               allow_spec_mismatch: bool = False,
+               device: Optional[str] = None, dtype: Optional[str] = None
+               ) -> "Session":
+        """Rebuild a run from the latest checkpoint under ``ckpt_dir``. The
+        RunSpec embedded in it is the source of truth; ``overrides`` changes
+        single fields on top of it (an experiment-defining change still
+        needs ``allow_spec_mismatch``). Pass ``spec`` to insist on an exact
+        spec instead: it must hash-match the checkpoint unless allowed."""
+        path = ckpt_lib.latest(ckpt_dir)
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir!r}")
+        if spec is None:
+            meta = ckpt_lib.read_meta(path)
+            if "spec" not in meta:
+                raise ValueError(f"checkpoint {path} has no embedded RunSpec; "
+                                 "pass spec= explicitly")
+            embedded = RunSpec.from_dict(meta["spec"])
+            spec = dataclasses.replace(embedded, ckpt_dir=ckpt_dir,
+                                       **(overrides or {}))
+            if spec.spec_hash() == embedded.spec_hash():
+                allow_spec_mismatch = True   # no experiment-defining change
+        elif overrides:
+            raise ValueError("pass either spec= or overrides=, not both")
+        sess = cls(spec, device=device, dtype=dtype)
+        sess.restore_from(path, allow_spec_mismatch=allow_spec_mismatch)
+        return sess
 
     # --------------------------------------------------------------- serving
     def serve_source(self) -> Dict[str, torch.Tensor]:
@@ -250,13 +366,3 @@ class Session:
                                for t in cache.values()),
         }
 
-
-def _check_like(name: str, got: Dict[str, torch.Tensor],
-                like: Dict[str, torch.Tensor]) -> None:
-    if sorted(got) != sorted(like):
-        raise ValueError(f"{name}: leaves {sorted(got)} != {sorted(like)}")
-    for k in like:
-        if got[k].shape != like[k].shape or got[k].dtype != like[k].dtype:
-            raise ValueError(f"{name}/{k}: {tuple(got[k].shape)} "
-                             f"{got[k].dtype} != {tuple(like[k].shape)} "
-                             f"{like[k].dtype}")

@@ -3,18 +3,21 @@
 import).
 
 The port's RunSpec has the reference's field names, defaults and JSON
-(schema v5), so ``results/specs/*.json`` load as they are. It accepts only
-what the port runs — smollm-360m, seven EF methods, the six deterministic
-compressors, the seven carriers (``fused`` uplink only), the single-device
-"smoke" mesh and plain SGD — and rejects everything else loudly at
-construction. ``compressor_kw`` must map names to JSON scalars; which names
-the compressor takes is checked where it is built (launch/build.py).
-``spec_hash`` parity with the reference waits for a later slice.
+(schema v5), so ``results/specs/*.json`` load as they are, and its
+``spec_hash`` is the reference's (the same sparse canonical form), so a
+checkpoint written by either package names its experiment for both. It
+accepts only what the port runs — smollm-360m, seven EF methods, the six
+deterministic compressors, the seven carriers (``fused`` uplink only), the
+single-device "smoke" mesh, f32 or bfloat16 EF state, SGD and AdamW — and
+rejects everything else loudly at construction. ``compressor_kw`` and
+``method_kw`` must map names to JSON scalars; which names the compressor
+and the method take is checked where they are built (launch/build.py).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 from typing import Any, Dict, List, Optional
 
@@ -30,7 +33,8 @@ FUSED_CARRIERS = frozenset({"fused", "fused_quant8", "fused_quant4"})
 CARRIERS = frozenset({"dense", "sparse", "quant8", "quant4"}) | FUSED_CARRIERS
 # the fused kernel fuses the uplink client update: no fused downlink
 DOWN_CARRIERS = CARRIERS - {"fused"}
-OPTIMIZERS = frozenset({"sgd"})
+OPTIMIZERS = frozenset({"sgd", "adamw"})
+EF_STATE_DTYPES = (None, "bfloat16")
 MAX_FUSED_BLOCK = 1024    # widest row of the fused kernels (kernels/ops.py)
 _JSON_SCALARS = (bool, int, float, str, type(None))
 
@@ -90,27 +94,29 @@ class RunSpec:
                 ("mesh", self.mesh, ("smoke",)),
                 ("client_granularity", self.client_granularity, ("group",)),
                 ("state_sharding", self.state_sharding, ("client",)),
-                ("ef_state_dtype", self.ef_state_dtype, (None,)),
+                ("ef_state_dtype", self.ef_state_dtype, EF_STATE_DTYPES),
                 ("moe_impl", self.moe_impl, ("dispatch",)),
                 ("shape", self.shape, (None,)),
                 ("tp_pad_heads", self.tp_pad_heads, (0,))]:
             if val not in allowed:
                 errs.append(f"{field}={val!r} is not ported (have "
                             f"{sorted(map(repr, allowed))}); it {_LATER}")
-        for field in ("groups", "participation", "hops", "method_kw"):
+        for field in ("groups", "participation", "hops"):
             if getattr(self, field):
                 errs.append(f"{field}={getattr(self, field)!r}: only the "
                             f"default is ported; the rest {_LATER}")
         if self.overlap:
             errs.append(f"overlap=True {_LATER}")
+        for kw_name, kw in [("method_kw", self.method_kw),
+                            ("compressor_kw", self.compressor_kw)]:
+            if not isinstance(kw, dict) or not all(
+                    isinstance(k, str) and isinstance(v, _JSON_SCALARS)
+                    for k, v in kw.items()):
+                errs.append(f"{kw_name} must map str keys to JSON scalars, "
+                            f"got {kw!r}")
         kw = self.compressor_kw
         fused = {self.carrier, self.downlink_carrier} & FUSED_CARRIERS
-        if not isinstance(kw, dict) or not all(
-                isinstance(k, str) and isinstance(v, _JSON_SCALARS)
-                for k, v in kw.items()):
-            errs.append(f"compressor_kw must map str keys to JSON scalars, "
-                        f"got {kw!r}")
-        elif fused:
+        if isinstance(kw, dict) and fused:
             block = kw.get("block", 1024)
             if not isinstance(block, int) or not 1 <= block <= MAX_FUSED_BLOCK:
                 errs.append(f"block {block!r}: the fused kernels take blocks "
@@ -130,6 +136,8 @@ class RunSpec:
         if not 0.0 <= self.heterogeneity <= 1.0:
             errs.append(f"heterogeneity must be in [0, 1], got "
                         f"{self.heterogeneity}")
+        if self.ckpt_every < 0:
+            errs.append(f"ckpt_every must be >= 0, got {self.ckpt_every}")
         if errs:
             raise ValueError("invalid RunSpec:\n  - " + "\n  - ".join(errs))
 
@@ -153,21 +161,51 @@ class RunSpec:
     def from_json(cls, s: str) -> "RunSpec":
         return cls.from_dict(json.loads(s))
 
+    def spec_hash(self) -> str:
+        """The reference's hash of the experiment-defining fields, in SPARSE
+        canonical form: only fields that differ from their defaults are
+        hashed, and ``version`` and the checkpoint policy (ckpt_dir,
+        ckpt_every) never are — moving a checkpoint directory keeps its
+        hash. 16 hex digits of a sha256."""
+        base = dataclasses.asdict(_DEFAULT)
+        sparse = {k: v for k, v in self.to_dict().items()
+                  if k not in ("version", "ckpt_dir", "ckpt_every")
+                  and v != base.get(k)}
+        return hashlib.sha256(
+            json.dumps(sparse, sort_keys=True).encode()).hexdigest()[:16]
+
+    def diff(self, other: "RunSpec") -> List[str]:
+        """The differing fields, one ``name: a != b`` line each (for the
+        resume refusal)."""
+        out = []
+        for f in dataclasses.fields(self):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            if a != b:
+                out.append(f"{f.name}: {a!r} != {b!r}")
+        return out
+
+
+_DEFAULT = RunSpec()            # the defaults spec_hash leaves out
+
 
 # (flag, field, type) — the reference's flag names for the fields this
 # slice runs; dest is the field name
 _FLAGS = [
     ("--arch", "arch", str), ("--smoke", "smoke", bool),
     ("--seq", "seq_len", int), ("--global-batch", "global_batch", int),
+    ("--ef-state-dtype", "ef_state_dtype", str),
     ("--clients", "clients", int), ("--method", "method", str),
     ("--compressor", "compressor", str),
     ("--ratio", "ratio", float), ("--eta", "eta", float),
     ("--carrier", "carrier", str),
     ("--downlink-carrier", "downlink_carrier", str),
     ("--downlink-ratio", "downlink_ratio", float),
+    ("--method-kw", "method_kw", json.loads),
     ("--compressor-kw", "compressor_kw", json.loads),
+    ("--optimizer", "optimizer", str),
     ("--lr", "lr", float), ("--heterogeneity", "heterogeneity", float),
     ("--seed", "seed", int),
+    ("--ckpt-dir", "ckpt_dir", str), ("--ckpt-every", "ckpt_every", int),
 ]
 
 
@@ -183,11 +221,18 @@ def add_flags(ap: argparse.ArgumentParser) -> None:
             ap.add_argument(flag, dest=field, type=kind, default=None)
 
 
+def explicit_fields(args: argparse.Namespace, ignore=()) -> List[str]:
+    """The RunSpec fields set on the command line (an unset flag parses as
+    None, so a flag equal to its default still counts)."""
+    return [field for _, field, _ in _FLAGS
+            if field not in ignore and getattr(args, field, None) is not None]
+
+
 def from_args(args: argparse.Namespace) -> RunSpec:
     base = RunSpec()
     if getattr(args, "spec_file", None):
         with open(args.spec_file) as f:
             base = RunSpec.from_json(f.read())
-    overrides = {field: getattr(args, field) for _, field, _ in _FLAGS
-                 if getattr(args, field, None) is not None}
+    overrides = {field: getattr(args, field)
+                 for field in explicit_fields(args)}
     return dataclasses.replace(base, **overrides) if overrides else base

@@ -10,13 +10,29 @@ src/repro/launch/train.py):
       --spec results/specs/fused_quickstart.json --compressor identity \
       --compressor-kw '{}' --carrier quant8 --downlink-carrier quant4
 
+  # checkpoints every 2 steps, then the same run resumed to step 6:
+  PYTHONPATH=src python -m repro_torch.launch.train ... --steps 4 \
+      --ckpt-dir /path/to/run --ckpt-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir /path/to/run \
+      --resume --steps 6
+
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions on the CPU (use ``--smoke`` there). Prints the reference CLI's
 ``step N loss … g_norm …`` lines.
+
+``--resume`` restores the full training state (params, opt_state, ef_state
+and the data cursor) from the latest checkpoint under ``--ckpt-dir``. The
+RunSpec embedded in it wins: spec flags passed with ``--resume`` change
+single fields on top of it, a ``--spec`` file must match it, and a change
+to an experiment-defining field is refused unless ``--allow-spec-mismatch``.
+An empty or absent ``--ckpt-dir`` starts a fresh run. ``--ckpt-every`` on
+the resume command line applies (checkpoint policy is not part of the
+experiment).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from repro_torch.launch import spec as spec_lib
 
@@ -26,6 +42,12 @@ def main(argv=None) -> None:
     spec_lib.add_flags(ap)
     ap.add_argument("--steps", type=int, default=200,
                     help="train until this ABSOLUTE step count")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the full state from the latest checkpoint "
+                         "in --ckpt-dir (the spec embedded there wins)")
+    ap.add_argument("--allow-spec-mismatch", action="store_true",
+                    help="resume even when the spec differs from the "
+                         "checkpoint's")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
@@ -34,10 +56,40 @@ def main(argv=None) -> None:
     spec = spec_lib.from_args(args)
 
     from repro_torch.launch.session import Session
-    sess = Session(spec, device=args.device)
-    print(f"carrier={spec.carrier} downlink={spec.downlink_carrier} "
-          f"device={sess.device}", flush=True)
+    if args.resume:
+        if not spec.ckpt_dir:
+            ap.error("--resume needs --ckpt-dir")
+        try:
+            if args.spec_file:
+                sess = Session.resume(
+                    spec.ckpt_dir, spec=spec, device=args.device,
+                    allow_spec_mismatch=args.allow_spec_mismatch)
+            else:
+                explicit = spec_lib.explicit_fields(
+                    args, ignore=("ckpt_dir", "ckpt_every"))
+                sess = Session.resume(
+                    spec.ckpt_dir, device=args.device,
+                    overrides={f: getattr(args, f) for f in explicit} or None,
+                    allow_spec_mismatch=args.allow_spec_mismatch)
+            print(f"resumed {sess.spec.arch} from {spec.ckpt_dir} "
+                  f"@ step {sess.step}", flush=True)
+        except FileNotFoundError:
+            print(f"no checkpoint under {spec.ckpt_dir}; starting fresh",
+                  flush=True)
+            sess = Session(spec, device=args.device)
+        if args.ckpt_every is not None:
+            sess.spec = dataclasses.replace(sess.spec,
+                                            ckpt_every=args.ckpt_every)
+    else:
+        sess = Session(spec, device=args.device)
+    print(f"carrier={sess.spec.carrier} "
+          f"downlink={sess.spec.downlink_carrier} "
+          f"optimizer={sess.spec.optimizer} "
+          f"ef_state_dtype={sess.spec.ef_state_dtype} device={sess.device}",
+          flush=True)
     sess.train(args.steps, log_every=args.log_every, verbose=True)
+    if sess.spec.ckpt_dir:
+        print(f"saved checkpoint @ {sess.step}", flush=True)
 
 
 if __name__ == "__main__":

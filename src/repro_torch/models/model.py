@@ -25,7 +25,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random parameters drawn from ``generator`` (a CPU generator, so the
     same seed gives the same numbers on every device), moved to ``device``.
     The reference draws from jax.random, so parity runs load its numbers
-    through checkpoint/bridge.py instead."""
+    from its checkpoints instead. ``generator=None`` with ``device="meta"``
+    gives the tree's shapes and dtypes alone, drawing nothing (a restore
+    template)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"model family {cfg.family!r} arrives with "
                                   "a later slice")
@@ -34,6 +36,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     H, KV = cfg.num_heads, cfg.num_kv_heads
 
     def normal(*shape, std):
+        if generator is None:
+            return torch.empty(*shape, dtype=dt, device="meta")
         return (torch.randn(*shape, generator=generator) * std).to(dt)
 
     params = {

@@ -158,3 +158,100 @@ def test_cuda_flash_attention_bf16_tracks_f32(cuda_device, B, S, H, KV, hd):
     got = ops.flash_attention(q, k, v).float()
     want = ops.flash_attention(q.float(), k.float(), v.float())
     torch.testing.assert_close(got, want, atol=1e-6, rtol=2 ** -8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape,block,k", [
+    ((600, 1024), 1024, 16), ((8, 3, 1000), 1024, 51),   # ragged last row
+    ((4097,), 37, 5), ((5, 99), 16, 3), ((77,), 1, 1),   # narrow and odd
+    ((3, 130), 8, 8), ((1000,), 33, 32)])
+def test_cuda_block_topk_matches_plain(cuda_device, dtype, shape, block, k):
+    """K1 at widths that take a whole warp a row and at the lane groups of
+    narrow rows, on a flat length that leaves the last row ragged, with an
+    all-zero stretch and ties."""
+    gen = torch.Generator(device="cpu").manual_seed(block + k)
+    x = torch.randn(shape, generator=gen).to(dtype)
+    flat = x.view(-1)
+    flat[: 3 * block] = 0.0
+    flat[5 * block: 5 * block + 4] = 2.0                 # a tie
+    x = x.to(cuda_device)
+    ops.reset_launches()
+    got = ops.block_topk(x, block=block, k=k)
+    torch.cuda.synchronize()
+    assert ops.launches["block_topk"] == 1
+    want = ref.block_topk_plain(x, block=block, k=k)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,k", [(1024, 16), (1024, 51), (1000, 50),
+                                     (128, 5)])
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_cuda_kernels_match_plain_bf16_state(cuda_device, bits, width, k):
+    """K2 (bits 0) and K3 with bfloat16 v and g: loads widened to f32, f32
+    arithmetic, v' and g' (and K2's c) rounded to bf16 by the kernel and the
+    plain version alike; in place as the carriers run them."""
+    rows, eta = 513, 0.2
+    gen = torch.Generator(device="cpu").manual_seed(7 * bits + width)
+    grad = torch.randn(rows, width, generator=gen).to(cuda_device)
+    v, g = (torch.randn(rows, width, generator=gen).to(
+        device=cuda_device, dtype=torch.bfloat16) for _ in range(2))
+    v[7], g[7], grad[7] = 0.0, 0.0, 0.0
+    if bits == 0:
+        want = ref.ef21_sgdm_update_plain(grad, v, g, eta=eta, k=k)
+        got = ops.ef21_sgdm_update(grad, v, g, eta=eta, k=k, v_out=v,
+                                   g_out=g)
+    else:
+        want = ref.ef21_sgdm_topk_quant_plain(grad, v, g, eta=eta, k=k,
+                                              bits=bits)
+        got = ops.ef21_sgdm_topk_quant(grad, v, g, eta=eta, k=k, bits=bits,
+                                       v_out=v, g_out=g)
+    torch.cuda.synchronize()
+    assert got[0] is v and got[1] is g
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_save_resume_at_smoke_size(cuda_device, tmp_path):
+    """bf16 EF state, AdamW and fused_quant8 up / fused_quant4 down on the
+    card at smoke size: train 2 steps and save, resume in a new Session,
+    every restored leaf equal to the saved one, and step 3 after the resume
+    equal to step 3 of the uninterrupted run within rtol 1e-3."""
+    import json
+    import os
+    from repro_torch.launch.session import Session
+    from repro_torch.launch.spec import RunSpec
+    root = os.path.join(os.path.dirname(__file__), "..")
+    with open(os.path.join(root, "results", "specs",
+                           "fused_quickstart.json")) as f:
+        spec = RunSpec.from_dict(dict(
+            json.load(f), smoke=True, seq_len=64, carrier="fused_quant8",
+            downlink_carrier="fused_quant4", ef_state_dtype="bfloat16",
+            optimizer="adamw", lr=1e-3, ckpt_dir=str(tmp_path)))
+    sess = Session(spec, device="cuda")
+    sess.train(2, log_every=1)                         # saves at step 2
+    saved = {k: v.clone() for k, v in _flat_state(sess).items()}
+    assert all(v.dtype == torch.bfloat16 for k, v in saved.items()
+               if k.startswith("ef_state/clients/"))
+    want = sess.step_once()
+    resumed = Session.resume(str(tmp_path), device="cuda")
+    assert resumed.step == 2
+    got_state = _flat_state(resumed)
+    assert sorted(got_state) == sorted(saved)
+    for k, v in saved.items():
+        assert got_state[k].dtype == v.dtype and torch.equal(got_state[k], v), k
+    got = resumed.step_once()
+    for key in ("loss", "g_norm"):
+        a, b = float(got[key]), float(want[key])
+        assert abs(a - b) <= 1e-3 * abs(b), (key, a, b)
+
+
+def _flat_state(sess):
+    from repro_torch.core.ef import flatten
+    return flatten({"params": sess.params, "opt_state": sess.opt_state,
+                    "ef_state": sess.ef_state})

@@ -15,6 +15,8 @@ is the same in both packages; at other η the contraction can move a
 mantissa by one grid step (bounded in test_torch_kernels.py), which no
 rtol of 1e-6 covers. Wire words per leaf must match exactly.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -228,3 +230,92 @@ def test_unported_names_raise_naming_the_later_slice():
     for name in ("ef21_storm", "neolithic", "ef21_sgdm_ideal"):
         with pytest.raises(NotImplementedError, match="later slice"):
             pt_ef.make(name)
+
+
+# --------------------------------------------------------------------------
+# bfloat16 client state on every plan
+# --------------------------------------------------------------------------
+
+BF16_CELLS = [
+    pytest.param("ef21_sgdm", "fused", "dense", id="fused"),
+    pytest.param("ef21_sgdm", "fused_quant8", "fused_quant4",
+                 id="fused_quant8-down4"),
+    pytest.param("ef21_sgdm", "dense", "dense", id="dense"),
+    pytest.param("ef21_sgdm", "quant8", "quant4", id="quant8-down4"),
+    pytest.param("ef21_sgdm", "sparse", "dense", id="sparse"),
+    pytest.param("ef14_sgd", "quant4", "dense", id="ef14_sgd-quant4"),
+]
+
+
+def _close_bf16(got, want, what):
+    """Within one bf16 ulp of each value: K3's g + q·scale is one fused
+    multiply-add in the reference and two roundings in the port before the
+    bf16 store (test_torch_kernels.py)."""
+    assert sorted(got) == sorted(want), what
+    for k in want:
+        g, w = np.asarray(got[k].float()), np.asarray(want[k], np.float32)
+        tol = np.spacing(np.abs(w).astype(np.float32)) * 2.0 ** 16
+        bad = np.abs(g.astype(np.float64) - w) > tol
+        assert not bad.any(), f"{what}/{k}: {bad.sum()} values off by > 1 ulp"
+
+
+@pytest.mark.parametrize("method,carrier,down", BF16_CELLS)
+def test_ef_round_bf16_state_matches_reference(method, carrier, down):
+    """The reference's ``ef_state_dtype='bfloat16'``: the client state is
+    bf16 (the fused kernels read and write it so), the server and h stay
+    f32. At η = 0.5 the server estimate, h and g_est agree as in f32; the
+    bf16 client state within one bf16 ulp (almost every value equal)."""
+    downlink = down != "dense"
+    grads, state = _numpy_state(9, downlink, method)
+    j_method, p_method = _methods(method)
+    j_method = dataclasses.replace(j_method, state_dtype=jnp.bfloat16)
+    p_method = dataclasses.replace(p_method, state_dtype=torch.bfloat16)
+    j_state, p_state = _to_jax(state), _to_torch(state)
+    j_state["clients"] = jax.tree_util.tree_map(
+        lambda x: x.astype(jnp.bfloat16), j_state["clients"])
+    p_state["clients"] = {n: pt_ef.tree_cast(t, torch.bfloat16)
+                          for n, t in p_state["clients"].items()}
+    j_efc = jax_dist.EFConfig(
+        method=j_method, carrier=carrier, down_carrier=down,
+        down_compressor=jax_comp.BlockTopK(**DOWN_KW) if downlink else None)
+    j_est, j_new = jax.jit(
+        lambda g, s: jax_dist.ef_round(j_efc, g, s, None))(
+        _to_jax(grads), j_state)
+    p_efc = pt_dist.EFConfig(
+        method=p_method, carrier=carrier, down_carrier=down,
+        down_compressor=pt_comp.BlockTopK(**DOWN_KW) if downlink else None)
+    p_est, p_new = pt_dist.ef_round(p_efc, _to_torch(grads), p_state)
+
+    _close(p_est, _flat_np(jax.tree_util.tree_map(
+        lambda x: x.astype(jnp.float32), j_est)), "g_est")
+    _close(p_new["server"], _flat_np(j_new["server"]), "server")
+    assert all(t.dtype == torch.float32 for t in p_new["server"].values())
+    for name in state["clients"]:
+        want = jax.tree_util.tree_map(lambda x: x.astype(jnp.float32),
+                                      j_new["clients"][name])
+        assert all(t.dtype == torch.bfloat16
+                   for t in p_new["clients"][name].values())
+        _close_bf16(p_new["clients"][name], _flat_np(want),
+                    f"clients/{name}")
+    if downlink:
+        _close(p_new["h"], _flat_np(j_new["h"]), "h")
+
+
+def test_init_ef_state_casts_the_clients_only():
+    """init_ef_state with the batch-0 grads: the clients' v and g are the
+    grads rounded to bf16 (each its own tensor), the server the f32 mean."""
+    grads, _ = _numpy_state(5, False)
+    method = dataclasses.replace(_methods("ef21_sgdm")[1],
+                                 state_dtype=torch.bfloat16)
+    efc = pt_dist.EFConfig(method=method, carrier="fused_quant8",
+                           down_carrier="fused_quant4",
+                           down_compressor=pt_comp.BlockTopK(**DOWN_KW))
+    g0 = _to_torch(grads)
+    params = {k: v[0] for k, v in g0.items()}
+    st = pt_dist.init_ef_state(efc, params, DP, init_grads=g0)
+    v, g = st["clients"]["v"]["embed"], st["clients"]["g"]["embed"]
+    assert v.dtype == g.dtype == torch.bfloat16
+    assert v.data_ptr() != g.data_ptr() and torch.equal(v, g)
+    assert torch.equal(v, g0["embed"].to(torch.bfloat16))
+    assert st["server"]["embed"].dtype == torch.float32
+    assert torch.equal(st["h"]["embed"], st["server"]["embed"])

@@ -28,6 +28,7 @@ import torch
 
 from repro.kernels import ef_update as jax_ef
 from repro.kernels import fused_round as jax_fr
+from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.kernels import topk_compress as jax_tk
 from repro_torch.core.carriers import FusedPallasCarrier
@@ -247,11 +248,166 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 def test_plain_runs_do_not_count_as_launches():
     ops.reset_launches()
     x = torch.zeros(4, 64)
+    ops.block_topk(x, block=64, k=3)
     ops.ef21_sgdm_update(x, x, x, eta=0.1, k=3)
     ops.ef21_sgdm_topk_quant(x, x, x, eta=0.1, k=3, bits=8)
     ops.block_dequantize(*ops.block_quantize(x, 4), 4, 64)
     q = torch.zeros(1, 8, 2, 64)
     ops.flash_attention(q, q, q)
-    assert ops.launches == {"ef21_sgdm_update": 0, "ef21_sgdm_topk_quant": 0,
-                            "dequant_add": 0, "block_quantize": 0,
-                            "block_dequantize": 0, "flash_attention": 0}
+    assert ops.launches == {"block_topk": 0, "ef21_sgdm_update": 0,
+                            "ef21_sgdm_topk_quant": 0, "dequant_add": 0,
+                            "block_quantize": 0, "block_dequantize": 0,
+                            "flash_attention": 0}
+
+
+# --------------------------------------------------------------------------
+# K1, the standalone Block-TopK, and its three tie rules
+# --------------------------------------------------------------------------
+
+def _topk_input(shape, block, seed, dtype=np.float32):
+    """Random values with an all-zero block, a run of ties and a ragged
+    tail (the flat length need not be a multiple of the block)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(int(np.prod(shape))).astype(np.float32)
+    x[:block] = 0.0
+    x[2 * block:2 * block + 7] = 9.0    # 7 ties above every other value
+    return x.reshape(shape).astype(dtype)
+
+
+TOPK_CASES = [
+    pytest.param((300 * 1024 - 517,), 1024, 51, np.float32, id="ragged_1024"),
+    pytest.param((8, 3, 1000), 1024, 5, np.float32, id="3d_ties_k5"),
+    pytest.param((999,), 13, 3, np.float32, id="narrow_odd_13"),
+    pytest.param((40, 51), 51, 3, np.float32, id="block_51"),
+    pytest.param((4129,), 256, 5, jnp.bfloat16, id="bf16_256"),
+]
+
+
+@pytest.mark.parametrize("shape,block,k,dtype", TOPK_CASES)
+def test_block_topk_matches_pallas(shape, block, k, dtype):
+    """K1's plain version against the reference's public ops.block_topk
+    (the Pallas kernel in interpret mode): bit for bit, ties kept."""
+    x = _topk_input(shape, block, 20 + k, dtype)
+    want = np.asarray(jax_ops.block_topk(jnp.asarray(x), block=block, k=k)
+                      .astype(jnp.float32))
+    xt = torch.tensor(np.asarray(x, np.float32)).to(
+        torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+    got = ops.block_topk(xt, block=block, k=k)
+    assert got.shape == xt.shape and got.dtype == xt.dtype
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    if k < 7:                            # the 7 ties at 9.0 are all kept
+        assert (got.reshape(-1)[2 * block:2 * block + 7] != 0).all()
+
+
+@pytest.mark.parametrize("shape,block,k,dtype", TOPK_CASES[:4])
+def test_block_topk_ref_matches_reference(shape, block, k, dtype):
+    """The sort-based oracle: exactly k a block, the earliest index winning
+    ties, as the reference's kernels/ref.py::block_topk_ref."""
+    x = _topk_input(shape, block, 40 + k, dtype)
+    want = np.asarray(jax_ref.block_topk_ref(jnp.asarray(x), block, k))
+    got = ref.block_topk_ref(torch.tensor(x), block, k).numpy()
+    np.testing.assert_array_equal(got, want)
+    kept = (got.reshape(-1) != 0)
+    nb = -(-x.size // block)
+    per_block = np.pad(kept, (0, nb * block - x.size)).reshape(nb, block)
+    assert (per_block[1:-1].sum(1) == k).all()   # the zero block keeps 0s
+
+
+# --------------------------------------------------------------------------
+# K2/K3 with bfloat16 EF state
+# --------------------------------------------------------------------------
+
+def _within_bf16_ulp(a, b, n=1):
+    """|a - b| <= n bf16 ulps at the scale of the values (rtol 0)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    assert a.shape == b.shape
+    top = np.float32(max(np.abs(a).max(), np.abs(b).max()))
+    tol = n * np.spacing(top) * 2.0 ** 16      # 7 mantissa bits, not 23
+    bad = np.abs(a.astype(np.float64) - b.astype(np.float64)) > tol
+    assert not bad.any(), (f"{bad.sum()} values differ by more than {n} "
+                           f"bf16 ulp; first at {np.argwhere(bad)[:3].tolist()}")
+
+
+def _bf16_rows(x, nb, block):
+    return _rows(x, nb, block).to(torch.bfloat16)
+
+
+def _bf16_np(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16))
+
+
+def _run_bf16(kernel, d, block, k, zero_rows, eta, seed, **kw):
+    """One K2 (kernel 'k2') or K3 launch on f32 grad and bf16 v, g in both
+    packages; returns (port outputs, reference outputs) as f32 numpy."""
+    grad, v, g = _inputs(d, seed, zero_rows, block)
+    v, g = _bf16_np(v), _bf16_np(g)
+    fn = jax_ef.ef21_sgdm_update if kernel == "k2" else \
+        jax_fr.ef21_sgdm_topk_quant
+    want = fn(jnp.asarray(grad), jnp.asarray(v), jnp.asarray(g), eta=eta,
+              block=block, k=k, interpret=True, **kw)
+    nb = -(-d // block)
+    pfn = ops.ef21_sgdm_update if kernel == "k2" else \
+        ops.ef21_sgdm_topk_quant
+    got = pfn(_rows(grad, nb, block),
+              _bf16_rows(v.astype(np.float32), nb, block),
+              _bf16_rows(g.astype(np.float32), nb, block), eta=eta, k=k, **kw)
+    n_state = 3 if kernel == "k2" else 2     # v', g' (and K2's c) are bf16
+    for t, w in zip(got[:n_state], want[:n_state]):
+        assert t.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+    out = [_unrows(t.float(), d) for t in got[:n_state]] + list(got[n_state:])
+    return out, [np.asarray(jnp.asarray(x).astype(jnp.float32))
+                 if i < n_state else np.asarray(x) for i, x in enumerate(want)]
+
+
+@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+def test_ef21_sgdm_update_bf16_state_matches_pallas(d, block, k, zero_rows):
+    """η = 0.5: every product exact, one f32 rounding of each sum in both
+    packages, then one bf16 rounding: v', g' and c equal bit for bit."""
+    (vt, gt, ct), (vj, gj, cj) = _run_bf16("k2", d, block, k, zero_rows,
+                                           0.5, 12)
+    np.testing.assert_array_equal(ct, cj)
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_array_equal(gt, gj)
+
+
+@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+def test_ef21_sgdm_update_bf16_state_at_main_path_eta(d, block, k,
+                                                      zero_rows):
+    """η = 0.2: the reference's fused multiply-add moves the f32 v' by up to
+    an ulp, which the bf16 store almost always absorbs: within one bf16
+    ulp, the masks equal."""
+    (vt, gt, ct), (vj, gj, cj) = _run_bf16("k2", d, block, k, zero_rows,
+                                           0.2, 14)
+    np.testing.assert_array_equal(ct != 0, cj != 0)
+    _within_bf16_ulp(vt, vj)
+    _within_bf16_ulp(ct, cj)
+    _within_bf16_ulp(gt, gj)
+
+
+@pytest.mark.parametrize("eta", [0.5, 0.2])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+def test_ef21_sgdm_topk_quant_bf16_state_matches_pallas(d, block, k,
+                                                        zero_rows, bits,
+                                                        eta):
+    """K3 with bf16 state. η = 0.5: mantissas, scales and v' equal, g'
+    (where the reference fuses g + q·scale into one rounding) within one
+    bf16 ulp. η = 0.2: v' within one bf16 ulp, the masks equal, a mantissa
+    by at most one grid step, the scales within two f32 ulps, g' within one
+    bf16 ulp."""
+    (vt, gt, qt, st), (vj, gj, qj, sj) = _run_bf16(
+        "k3", d, block, k, zero_rows, eta, 16 + bits, bits=bits)
+    if eta == 0.5:
+        np.testing.assert_array_equal(qt.numpy(), qj)
+        np.testing.assert_array_equal(st.numpy(), sj)
+        np.testing.assert_array_equal(vt, vj)
+    else:
+        mt, mj = _decode(qt, st, bits, block), _decode(qj, sj, bits, block)
+        ones = np.ones_like(st.numpy())
+        steps = np.abs(_decode(qt, ones, bits, block)
+                       - _decode(qj, ones, bits, block))
+        np.testing.assert_array_equal(mt != 0, mj != 0)
+        assert steps.max() <= 1.0
+        _within_bf16_ulp(vt, vj)
+        _within_ulp(st.numpy(), sj, 2)
+    _within_bf16_ulp(gt, gj)

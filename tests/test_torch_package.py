@@ -93,8 +93,8 @@ def test_spec_reads_the_reference_golden_file():
 
 @pytest.mark.parametrize("bad", [
     {"arch": "gemma2-9b"}, {"compressor": "randk"}, {"method": "neolithic"},
-    {"mesh": "pod"}, {"optimizer": "adamw"}, {"overlap": True},
-    {"ef_state_dtype": "bfloat16"}, {"participation": {"mode": "sampled"}},
+    {"mesh": "pod"}, {"optimizer": "lion"}, {"overlap": True},
+    {"ef_state_dtype": "float16"}, {"participation": {"mode": "sampled"}},
     {"carrier": "fused", "compressor_kw": {"block": 2048}},
     {"global_batch": 12},
 ])

@@ -176,7 +176,7 @@ def test_session_serve_matches_reference_session():
 def test_serve_params_follow_state_changes_without_a_step(tmp_path):
     """tests/test_session.py::test_serve_params_track_same_step_state_changes
     on the port: serve() places params by a version that step_once,
-    set_serve_params and restore_from_jax bump, so an injected tree or a
+    set_serve_params and restore_from bump, so an injected tree or a
     restore at the SAME step is served, never a stale copy."""
     jsess = jax_session.Session(jax_spec.RunSpec(**TINY))
     ckpt = jsess.save(str(tmp_path / "step_0.npz"))
@@ -190,7 +190,7 @@ def test_serve_params_follow_state_changes_without_a_step(tmp_path):
     init = pt_model.init_params(sess.cfg, torch.Generator().manual_seed(0))
     assert all(torch.equal(fresh[k], init[k]) for k in init)
 
-    sess.restore_from_jax(ckpt)
+    sess.restore_from(ckpt)
     restored = {k: v.clone() for k, v in served().items()}
     assert all(torch.equal(restored[k], sess.params[k]) for k in restored)
 
@@ -201,7 +201,7 @@ def test_serve_params_follow_state_changes_without_a_step(tmp_path):
     sess.set_serve_params(zeros)         # same step, new tree
     assert all(not v.any() for v in served().values())
 
-    sess.restore_from_jax(ckpt)          # supersedes the injected tree
+    sess.restore_from(ckpt)          # supersedes the injected tree
     assert sess.step == 0
     assert all(torch.equal(served()[k], restored[k]) for k in restored)
 

@@ -1,8 +1,8 @@
 """The port's training trajectory against the reference's, from the same
 weights: the JAX smoke Session (carrier fused_quant8, downlink
-fused_quant4) saves its initial state to npz, the port's Session loads it
-through repro_torch.checkpoint.bridge, and both train 3 steps on the same
-pipeline batches.
+fused_quant4) saves its initial state to npz, the port's Session restores
+it (``Session.restore_from``: one layout for both packages), and both train
+3 steps on the same pipeline batches.
 
 Both run their activations in float32, so the comparison tests the
 algorithm rather than two frameworks' bfloat16 roundings. Loss and g_norm
@@ -44,7 +44,7 @@ def test_three_steps_match_reference_through_npz_bridge(tmp_path):
 
     psess = pt_session.Session(pt_spec.RunSpec.from_dict(_spec_dict()),
                                device="cpu", dtype="float32")
-    psess.restore_from_jax(ckpt)
+    psess.restore_from(ckpt)
     assert psess.step == 0
     got = psess.train(3, log_every=1)
 
@@ -73,7 +73,7 @@ def test_quantized_wire_tracks_reference_through_npz_bridge(tmp_path,
 
     psess = pt_session.Session(pt_spec.RunSpec.from_dict(spec), device="cpu",
                                dtype="float32")
-    psess.restore_from_jax(ckpt)
+    psess.restore_from(ckpt)
     got = psess.train(3, log_every=1)
     for key in ("loss", "g_norm"):
         np.testing.assert_allclose([r[key] for r in got],
@@ -82,8 +82,12 @@ def test_quantized_wire_tracks_reference_through_npz_bridge(tmp_path,
 
 
 def test_bridge_reads_every_leaf_of_the_reference_checkpoint(tmp_path):
+    """A checkpoint the reference's checkpoint module wrote reads back
+    through the port's ``checkpoint.restore`` leaf for leaf, nested trees
+    and all; ``bridge.params_from_jax`` takes an in-memory pytree."""
     from repro.checkpoint import checkpoint as jax_ckpt
     from repro_torch.checkpoint import bridge
+    from repro_torch.checkpoint import checkpoint as pt_ckpt
     rng = np.random.RandomState(0)
     tree = {"params": {"embed": rng.randn(4, 3).astype(np.float32),
                        "layers": {"attn": {"wq": rng.randn(2, 3, 1, 2)
@@ -95,7 +99,12 @@ def test_bridge_reads_every_leaf_of_the_reference_checkpoint(tmp_path):
                                     .astype(np.float32)}}}
     path = str(tmp_path / "c.npz")
     jax_ckpt.save(path, tree, step=5)
-    state, meta = bridge.load_jax_npz(path)
+    like = {"params": {"embed": torch.zeros(4, 3),
+                       "layers/attn/wq": torch.zeros(2, 3, 1, 2)},
+            "opt_state": {},
+            "ef_state": {"clients": {"g": {"embed": torch.zeros(2, 4, 3)}},
+                         "server": {"embed": torch.zeros(4, 3)}}}
+    state, meta = pt_ckpt.restore(path, like)
     assert meta["step"] == 5
     assert sorted(state["params"]) == ["embed", "layers/attn/wq"]
     np.testing.assert_array_equal(state["params"]["layers/attn/wq"].numpy(),
