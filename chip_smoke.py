@@ -6,7 +6,10 @@ H100: the quickest proof that the port still starts on the GPU.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
   1. print the card's name and power limit; build the CUDA kernels from
-     src/repro_torch/kernels/csrc with nvcc and print the build time;
+     src/repro_torch/kernels/csrc with nvcc and print the build time, and
+     the registers, spills and HGMMA (tensor-core) instruction count of the
+     bf16 flash-attention and staged K3 kernels (ptxas's report and
+     cuobjdump -sass); the bf16 flash-attention kernel must hold HGMMA;
   2. hold each kernel against its plain PyTorch version, exactly, and time
      kernel, plain version, bound and (where one exists) a library call:
      K1 block_topk on the 8-client layers/mlp/w_up stack (614,400 rows of
@@ -57,9 +60,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      share, device time by op).
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
-shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, a ragged S of 1000
-and hd 128, and times it at the full-width bf16 shape beside the library's
-scaled_dot_product_attention (a yardstick, never the path).
+shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, a ragged S of 1000,
+hd 128 and hd 32; the bf16 (tensor-core) route also within a stated
+elementwise bound of the plain version that rounds P as it does
+(round_p=True); and times both routes at the full-width shape beside the
+library's scaled_dot_product_attention in the same dtype (a yardstick,
+never the path).
 Each training or serving path resets the launch counts just before it,
 checks that every kernel launched exactly as often as the path's code
 calls it (and the others not at all), that losses, parameters and logits
@@ -72,6 +78,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -430,11 +437,28 @@ def codec_checks(ops, ref, results):
         del x, q, scales
 
 
+def p_rounding_bound(q, k, v, want):
+    """The elementwise bound that holds K7's bf16 route against the
+    P-rounding plain version (tests/test_torch_cuda.py states the
+    argument): 1.01 * 2^-7 * (sum_j p_j |v_j| / l + |want|) + 1e-5."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    out = torch.empty(B, S, H, hd, device=q.device)
+    for h in range(H):                      # a head at a time: S x S scores
+        kf, vf = k[:, :, h // G].float(), v[:, :, h // G].float()
+        s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(), kf) * hd ** -0.5
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        out[:, :, h] = torch.einsum("bqk,bkd->bqd", p, vf.abs())
+    return 1.01 * 2 ** -7 * (out + want.float().abs()) + 1e-5
+
+
 def flash_checks(ops, ref, results):
     """Phase 2, K7: against its plain version at every shape of the serving
     paths and the ragged and hd-128 cases, within the tolerance of the
-    reference's flash test; then timed at the full-width prefill's shape in
-    bf16."""
+    reference's flash test, and (bf16) within the stated bound of the
+    P-rounding plain version; then both routes timed at the full-width
+    prefill's shape beside the library's attention in the same dtype."""
     gen = torch.Generator(device="cuda").manual_seed(2)
 
     def inputs(B, S, H, KV, hd, dtype):
@@ -444,13 +468,14 @@ def flash_checks(ops, ref, results):
         return [x.to(dtype) for x in (q, k, v)]
 
     smoke = (2, 64, 3, 1, 64)          # the smoke config's heads
-    err = 0.0
+    err = {}
     for shape, dtype in ((smoke, torch.float32), (smoke, torch.bfloat16),
                          (FLASH_FULL, torch.bfloat16),
                          (FLASH_FULL, torch.float32),
                          ((8, 1000, 15, 5, 64), torch.bfloat16),
                          ((2, 512, 8, 2, 128), torch.bfloat16),
-                         ((2, 512, 8, 2, 128), torch.float32)):
+                         ((2, 512, 8, 2, 128), torch.float32),
+                         ((1, 70, 4, 2, 32), torch.bfloat16)):
         q, k, v = inputs(*shape, dtype)
         got = ops.flash_attention(q, k, v)
         want = ref.flash_attention_plain(q, k, v)
@@ -460,45 +485,104 @@ def flash_checks(ops, ref, results):
                 torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
             fail(f"flash_attention {shape} {dtype}: differs from the plain "
                  f"version beyond {tol} (max abs err {e})")
-        print(f"flash_attention {shape} {dtype}: within {tol} of the plain "
-              f"version, max abs err {e}", flush=True)
-        if shape == FLASH_FULL and dtype == torch.bfloat16:
-            err = e
+        line = f"within {tol} of the plain version, max abs err {e}"
+        if dtype == torch.bfloat16:
+            want_r = ref.flash_attention_plain(q, k, v, round_p=True)
+            e_r = max_abs_err([got], [want_r])
+            ratio = float(((got.float() - want_r.float()).abs()
+                           / p_rounding_bound(q, k, v, want_r)).max())
+            if ratio > 1:
+                fail(f"flash_attention {shape} bf16: outside the bound of "
+                     f"the P-rounding plain version (err/bound {ratio})")
+            line += (f"; P-rounding plain version: max abs err {e_r}, "
+                     f"worst err/bound {ratio:.4f}")
+            del want_r
+        print(f"flash_attention {shape} {dtype}: {line}", flush=True)
+        if shape == FLASH_FULL:
+            err[dtype] = e
         del q, k, v, got, want
 
     B, S, H, KV, hd = FLASH_FULL
-    q, k, v = inputs(B, S, H, KV, hd, torch.bfloat16)
-    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)   # q, o, k, v
     n_ops = 4 * B * H * hd * S * (S + 1) / 2                  # causal
-    t_bytes, t_tc = n_bytes / HBM_BYTES_S, n_ops / BF16_TC_OPS_S
-    # the library's fused attention on kv heads expanded as the plain
-    # version expands them, in its (B, H, S, hd) layout, prepared untimed
-    qt, kt, vt = (x.repeat_interleave(H // x.shape[2], dim=2).transpose(1, 2)
-                  .contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_out = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
-    want = ref.flash_attention_plain(q, k, v)
-    lib_err = max_abs_err([lib_out], [want])
-    if not torch.allclose(lib_out.float(), want.float(), atol=2e-2,
-                          rtol=2e-2):
-        fail(f"scaled_dot_product_attention differs from the plain version "
-             f"(max abs err {lib_err})")
-    del lib_out, want
-    results["flash_attention"] = {
-        "max_abs_err": err, "bound_ms": max(t_bytes, t_tc) * 1e3,
-        "bound_by": "operations" if t_tc >= t_bytes else "bytes",
-        "ms": time_ms(lambda: ops.flash_attention(q, k, v), 20),
-        "plain_ms": time_ms(lambda: ref.flash_attention_plain(q, k, v), 5),
-        "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20)}
-    r = results["flash_attention"]
-    print(f"kernel flash_attention [{FLASH_FULL} bf16, causal]: ms "
-          f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
-          f"{r['library_ms']:.4f} (sdpa max abs err {lib_err} vs plain); "
-          f"bytes {n_bytes} -> {t_bytes * 1e3:.4f} ms; ops {n_ops:.4e} -> "
-          f"{t_tc * 1e3:.4f} ms on bf16 tensor cores, "
-          f"{n_ops / F32_OPS_S * 1e3:.4f} ms on f32 CUDA cores; bound_ms "
-          f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
-    del q, k, v, qt, kt, vt
+    for dtype, peak, key in ((torch.bfloat16, BF16_TC_OPS_S, "flash_attention"),
+                             (torch.float32, F32_OPS_S, "flash_attention/f32")):
+        q, k, v = inputs(B, S, H, KV, hd, dtype)
+        size = 2 if dtype == torch.bfloat16 else 4
+        n_bytes = size * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / peak
+        # the library's fused attention on kv heads expanded as the plain
+        # version expands them, in its (B, H, S, hd) layout, prepared untimed
+        qt, kt, vt = (x.repeat_interleave(H // x.shape[2], dim=2)
+                      .transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_out = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+        want = ref.flash_attention_plain(q, k, v)
+        lib_err = max_abs_err([lib_out], [want])
+        if not torch.allclose(lib_out.float(), want.float(), atol=2e-2,
+                              rtol=2e-2):
+            fail(f"scaled_dot_product_attention {dtype} differs from the "
+                 f"plain version (max abs err {lib_err})")
+        del lib_out, want
+        round_p = dtype == torch.bfloat16
+        results[key] = {
+            "max_abs_err": err[dtype], "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ms": time_ms(lambda: ops.flash_attention(q, k, v),
+                          50 if round_p else 10),
+            "plain_ms": time_ms(lambda: ref.flash_attention_plain(
+                q, k, v, round_p=round_p), 3),
+            "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                                  50 if round_p else 10)}
+        r = results[key]
+        print(f"kernel flash_attention [{FLASH_FULL} {dtype}, causal, "
+              f"{'tensor cores' if round_p else 'CUDA cores'}]: ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+              f"{r['library_ms']:.4f} (sdpa max abs err {lib_err} vs "
+              f"plain); bytes {n_bytes} -> {t_bytes * 1e3:.4f} ms; ops "
+              f"{n_ops:.4e} -> {t_ops * 1e3:.4f} ms at {peak:.3g} op/s; "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+        del q, k, v, qt, kt, vt
+
+
+def kernel_resources(build, lib):
+    """Registers and spill bytes of every kernel from the build's ptxas
+    report (-Xptxas -v), and the HGMMA count of each function in the
+    library's SASS (cuobjdump -sass): {demangled name: {...}}."""
+    funcs, cur = {}, None
+    for line in build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            cur.setdefault("hgmma", 0)
+        elif cur is not None and "HGMMA" in line:
+            cur["hgmma"] += 1
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(funcs),
+                               capture_output=True, text=True
+                               ).stdout.split("\n")
+    except FileNotFoundError:
+        names = []
+    if len(names) < len(funcs):
+        names = list(funcs)
+    return {re.sub(r"\(.*", "", n): funcs[m]
+            for n, m in zip(names, funcs)}
 
 
 def check_serve_launches(ops, launches, label, want_flash) -> None:
@@ -615,7 +699,8 @@ def device_ms(prof):
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             busy += e.device_time_total / 1e3
-        if "flash_attention" in e.key or e.device_type != DeviceType.CUDA:
+        # K7's kernels (flash_attention_kernel, flash_tc_kernel) and the ops
+        if "flash_" in e.key or e.device_type != DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = e.self_cuda_time_total
@@ -944,6 +1029,16 @@ def main() -> None:
         for line in build.build_log().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("  " + line.strip(), flush=True)
+        resources = kernel_resources(build, lib)
+        redesigned = {n: r for n, r in resources.items()
+                      if "flash_tc_kernel" in n or "quant_staged" in n}
+        for name, r in sorted(redesigned.items()):
+            print(f"resources {name}: {r}", flush=True)
+        tc64 = [r for n, r in redesigned.items()
+                if "flash_tc_kernel<64>" in n]
+        if not tc64 or not tc64[0].get("hgmma"):
+            fail("the bf16 flash-attention kernel at hd 64 has no HGMMA in "
+                 "its SASS")
     results = {}
     with phase("kernels against their plain versions"):
         kernel_checks(ops, ref, results)
@@ -1027,12 +1122,38 @@ def main() -> None:
                for name, key, src, rep, counts in rows]
     kernels[0]["yardstick_topk_scatter_ms"] = \
         results["block_topk"]["yardstick_topk_scatter_ms"]
+    kernels[0]["design"] = kernels[1]["design"] = (
+        "warp (or lane group) a row in registers, strided layout; the "
+        "bisection stops early once the kept set is decided")
     # K2 and K3 with bfloat16 EF state: K3 runs it on the resumable path
     kernels[1]["bf16_state"] = {k: results["ef21_sgdm_update/bf16"][k]
                                 for k in keys}
     kernels[2]["bf16_state"] = {k: results["ef21_sgdm_topk_quant/8/bf16"][k]
                                 for k in keys}
     kernels[2]["bf16_state"]["launches"] = resumed["ef21_sgdm_topk_quant"]
+    kernels[2]["bits4"] = {k: results["ef21_sgdm_topk_quant/4"][k]
+                           for k in keys}
+    kernels[2]["bits4_bf16_state"] = {
+        k: results["ef21_sgdm_topk_quant/4/bf16"][k] for k in keys}
+    kernels[2]["design"] = (
+        "a warp walks rows; the next row's grad, v, g "
+        "staged by cp.async.bulk + mbarrier during the bisection (g "
+        "double-buffered, read back after it); 16-byte runs of 4/8 "
+        "consecutive values a lane; early-exit bisection; full rows count "
+        "with no presence test")
+    kernels[2]["resources"] = {n: r for n, r in redesigned.items()
+                               if "quant_staged" in n}
+    kernels[6]["design"] = (
+        "bf16 on the tensor cores (wgmma m64n64k16 for "
+        "Q.K^T, m64n{hd}k16 for P.V with P from registers), one CTA a "
+        "query tile for the query heads of a kv head (a consumer "
+        "warpgroup each, one TMA producer warp, 4-stage K/V ring; the "
+        "next tile's softmax runs during P.V); f32 on the CUDA cores, P "
+        "in f32")
+    kernels[6]["f32_route"] = {k: results["flash_attention/f32"][k]
+                               for k in keys}
+    kernels[6]["resources"] = {n: r for n, r in redesigned.items()
+                               if "flash_tc_kernel" in n}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,46 @@
 // _bisect_threshold, run by a group of G lanes on one row held in registers
 // (G = 32, a whole warp, for the rows of K2/K3 and rows of K1 wider than 32).
 //
-// Layout: a row of `width` <= G*PER values is spread over the G lanes of its
-// group, lane l holding elements l, l+G, l+2G, ... (so every group-wide
-// load and store touches consecutive addresses). Elements at or past `width`
-// are absent: they are never counted and never stored.
+// Layouts: `bisect_threshold` takes a row of `width` <= G*PER values spread
+// over the G lanes of its group, lane l holding elements l, l+G, l+2G, ...
+// (K1, K2 and K3's narrow rows; every group-wide load and store touches
+// consecutive addresses); elements at or past `width` are absent: never
+// counted, never stored. `bisect_threshold_by` takes any layout, with a
+// predicate that says which registers hold present elements: K3's staged
+// kernel (fused_round.cu) gives each lane runs of 4 or 8 consecutive values
+// and tests presence a run at a time, or not at all on a full row.
 //
-// Arithmetic: exactly kBisectIters f32 steps of mid = 0.5*(lo+hi) on
-// [0, max|x|], each counting |x| >= mid over the row with a group reduction;
-// the result is the largest lo with count(|x| >= lo) >= k. Every rounding is
-// spelled out (__fadd_rn/__fmul_rn) so nvcc cannot contract or reorder it:
-// the plain PyTorch version (kernels/ref.py::bisect_threshold_plain) makes
-// the same roundings, and the two agree bit for bit (an integer count and a
-// max do not depend on the order of the reduction).
+// Arithmetic: at most kBisectIters f32 steps of mid = 0.5*(lo+hi) on
+// [0, max|x|], each counting |x| >= mid over the row with a group
+// reduction; the reference's result is the largest lo with
+// count(|x| >= lo) >= k after exactly 26 steps, and the callers keep the
+// set {|x| >= lo}. Every rounding is spelled out (__fadd_rn/__fmul_rn) so
+// nvcc cannot contract or reorder it: the plain PyTorch version
+// (kernels/ref.py::bisect_threshold_plain) makes the same roundings, and
+// the kept sets agree bit for bit (an integer count and a max do not depend
+// on the order of the reduction).
+//
+// Early exit. Every later lo is a mid with count(|x| >= mid) >= k, so it
+// lies in [lo, x_k], x_k the row's k-th largest |x|, and only values in
+// [lo, x_k) can still leave the set. The loop stops once that range holds
+// no present value, on one of two tests, both taken on counts the loop
+// already has (lo's count before lo first moves taken as the row's present
+// count, which can only overestimate it: a NaN is never counted):
+//   - count(|x| >= lo) == k: the set has exactly k values, those at or
+//     above x_k, and every later set has at least k of them;
+//   - count(|x| >= lo) == count(|x| >= hi): no value lies in [lo, hi) at
+//     all (hi's count is unknown until hi first moves). Alone this rule
+//     never fires on a row with k or more present values, whose x_k always
+//     lies in [lo, hi); it ends rows with fewer than k.
+// The returned lo then keeps exactly the set the 26-step threshold keeps
+// (the threshold itself is never stored, only the set it selects). Rows
+// with ties across the k-th value (count(|x| >= x_k) > k), all-zero rows
+// and rows with fewer than k nonzero values take all 26 steps. The test is
+// made across the whole warp (__all_sync), so groups of fewer than 32
+// lanes keep shuffling until every group of the warp is done; a finished
+// group's further steps keep its set. On Gaussian rows at k 16 of 1024 the
+// loop stops after about 8 to 10 steps; tests/test_torch_kernels.py holds
+// an emulation of it against the 26-step set on adversarial rows.
 //
 // The EF state (v, g) is f32 or bfloat16: it is loaded into f32, all
 // arithmetic is f32, and bf16 results are stored rounded to nearest even
@@ -91,26 +119,43 @@ __device__ __forceinline__ float row_absmax(const float (&d)[PER], int lane,
   return group_max<G>(m);
 }
 
-// The threshold t of the row: count(|d| >= t) >= k, t maximal up to the
-// 26-step resolution. Ties at t are all kept by the caller's |d| >= t test.
-template <int PER, int G = kWarp>
-__device__ __forceinline__ float bisect_threshold(const float (&d)[PER],
-                                                  int lane, int width, int k) {
-  float hi = row_absmax<PER, G>(d, lane, width);
+// A threshold that keeps the row's 26-step set: count(|d| >= t) >= k, the
+// set {|d| >= t} that of the reference's 26-step t (see the early exit
+// above). hi is the row's max |d| over present elements, n_present their
+// count, present(i) whether register i holds a present element.
+template <int PER, int G, typename Present>
+__device__ __forceinline__ float bisect_threshold_by(const float (&d)[PER],
+                                                     float hi, int n_present,
+                                                     int k, Present present) {
   float lo = 0.f;
+  int cnt_lo = n_present, cnt_hi = -1;          // -1: not counted yet
 #pragma unroll 1
   for (int it = 0; it < kBisectIters; ++it) {
     const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
     int cnt = 0;
 #pragma unroll
     for (int i = 0; i < PER; ++i)
-      cnt += (i * G + lane < width && fabsf(d[i]) >= mid) ? 1 : 0;
+      cnt += (present(i) && fabsf(d[i]) >= mid) ? 1 : 0;
     cnt = group_sum<G>(cnt);
-    const bool ok = cnt >= k;
-    lo = ok ? mid : lo;
-    hi = ok ? hi : mid;
+    if (cnt >= k) {
+      lo = mid;
+      cnt_lo = cnt;
+    } else {
+      hi = mid;
+      cnt_hi = cnt;
+    }
+    if (__all_sync(0xffffffffu, cnt_lo == k || cnt_lo == cnt_hi)) break;
   }
   return lo;
+}
+
+// The same on the strided layout of a group of G lanes.
+template <int PER, int G = kWarp>
+__device__ __forceinline__ float bisect_threshold(const float (&d)[PER],
+                                                  int lane, int width, int k) {
+  return bisect_threshold_by<PER, G>(
+      d, row_absmax<PER, G>(d, lane, width), width, k,
+      [&](int i) { return i * G + lane < width; });
 }
 
 // v' = (1-eta)*v + eta*grad and delta = v' - g for one row, with v' stored

@@ -2,11 +2,10 @@
 
 Every wrapper takes the layout its kernel takes (any shape for K1, the row
 view for K2-K6, (B, S, heads, hd) for K7), checks device, dtype, shape and
-contiguity, and
-raises on anything else. Tensors on the CPU run the plain PyTorch version
-(kernels/ref.py); tensors on a CUDA device launch the kernel on the current
-stream and raise if the launch fails. There is no fallback from one to the
-other.
+contiguity, and raises on anything else. Tensors on the CPU run the plain
+PyTorch version (kernels/ref.py); tensors on a CUDA device launch the
+kernel on the current stream and raise if the launch fails. There is no
+fallback from one to the other.
 
 ``launches`` counts kernel launches per wrapper (plain runs do not count),
 so a run can show that its main path went through the kernels.
@@ -320,7 +319,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """K7, attention forward with an online softmax: q (B,S,H,hd), k and v
     (B,S,KV,hd) with H % KV == 0 (query head h reads kv head h // (H/KV)),
     all of one dtype, f32 or bf16, hd in ``FLASH_HEAD_DIMS``, any S.
-    Returns (B,S,H,hd) in q's dtype. Scores, softmax and P.V are f32."""
+    Returns (B,S,H,hd) in q's dtype; one launch a call.
+
+    The dtype picks the route. bf16 runs on the tensor cores (wgmma; one
+    CTA for the query heads of a kv head, K/V staged by TMA): the scores,
+    softmax, l and the accumulator are f32, and P is rounded to bf16 for
+    P.V, as the reference's chunked attention rounds it. f32 runs on the
+    CUDA cores with P in f32. On CPU tensors the plain version makes the
+    same roundings (``ref.flash_attention_plain``, with ``round_p`` for
+    bf16)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be (B,S,heads,hd), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -336,14 +343,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "dividing H")
     if hd not in FLASH_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {FLASH_HEAD_DIMS}")
+    bf16 = q.dtype == torch.bfloat16
     if not _on_cuda(q, k, v):
-        return ref.flash_attention_plain(q, k, v, causal=causal)
+        return ref.flash_attention_plain(q, k, v, causal=causal,
+                                         round_p=bf16)
     if B > 65535 or H > 65535:
         raise ValueError(f"B={B}, H={H}: at most 65535 each in one launch")
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v must start on 16-byte boundaries "
+                         "(the tensor-core route loads them by TMA)")
     out = torch.empty_like(q)
     _launch("ef_launch_flash_attention", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, S, H, KV, hd,
-            int(q.dtype == torch.bfloat16), int(causal),
-            float(np.float32(hd ** -0.5)))
+            v.data_ptr(), out.data_ptr(), B, S, H, KV, hd, int(bf16),
+            int(causal), float(np.float32(hd ** -0.5)))
     launches["flash_attention"] += 1
     return out

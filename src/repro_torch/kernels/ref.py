@@ -20,8 +20,10 @@ winning ties; ``BlockTopK.__call__`` (core/compressors.py) keeps everything
 at or above the k-th largest magnitude.
 
 ``flash_attention_plain`` (K7) is the reference's materialised-softmax
-oracle; the kernel's online softmax sums in another order, so the two
-agree within a tolerance, not bit for bit.
+oracle (P in f32); with ``round_p=True`` it makes the roundings of K7's
+bf16 tensor-core route (P rounded to bf16 for P.V). The kernels' online
+softmax sums in another order, so each agrees with it within a tolerance,
+not bit for bit.
 """
 from __future__ import annotations
 
@@ -200,20 +202,34 @@ def block_dequantize_plain(q: torch.Tensor, scales: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          round_p: bool = False) -> torch.Tensor:
     """kernels/ref.py::flash_attention_ref of the reference, with GQA: q
     (B,S,H,hd), k and v (B,S,KV,hd). The kv heads are expanded with
     ``repeat_interleave`` (what ``jnp.repeat`` does), the softmax is
     materialised in f32, P.V is taken in f32 (P is not rounded to v's
     dtype), and the result is cast to q's dtype. Not bit-identical to the
-    kernel, which sums in another order with an online softmax."""
+    kernel, which sums in another order with an online softmax.
+
+    ``round_p=True`` makes the roundings of K7's tensor-core (bf16) route:
+    the scores are multiplied by f32(hd^-0.5) after the product, P =
+    exp(s - rowmax) is rounded to bf16 for P.V while its row sum l is taken
+    from the f32 P, and the output is (P_bf16 . V) / l. The kernel rounds P
+    against its running max instead of the final one, so the two still
+    differ by the order of the sums and by where P's one rounding falls."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     kf = k.float().repeat_interleave(G, dim=2)
     vf = v.float().repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / (hd ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf)
+    s = s * float(np.float32(hd ** -0.5)) if round_p else s / (hd ** 0.5)
     if causal:
         mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    if not round_p:
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), vf) / l
+    return o.transpose(1, 2).to(q.dtype)

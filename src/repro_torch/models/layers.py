@@ -6,11 +6,12 @@ Training runs ``chunked_attention``, plain PyTorch as it is plain JAX in the
 reference; its large products go to ``torch.einsum``. Serving's prefill
 runs the hand flash-attention kernel K7 (``kernels/ops.flash_attention``)
 where the reference runs ``chunked_attention``: the same causal softmax
-attention, except that K7 keeps P in f32 for P.V where chunked attention
-rounds it to v's dtype. K7 has no backward, so training keeps chunked
-attention. Decode is plain PyTorch, as in the reference. Sliding windows
-and soft caps arrive with the slice that brings the families using them
-(gemma2, h2o-danube).
+attention. In bf16, K7 (on the tensor cores) rounds P to bf16 for P.V as
+chunked attention rounds it to v's dtype, but unnormalised, against its
+running max, with l summed from the f32 P; in f32 neither rounds P. K7 has
+no backward, so training keeps chunked attention. Decode is plain PyTorch,
+as in the reference. Sliding windows and soft caps arrive with the slice
+that brings the families using them (gemma2, h2o-danube).
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@ holds the CUDA kernel against) and the decode attention of serving.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: 1e-5 (atol and rtol) in f32, where only the order of the sums
-differs; 2e-2 in bf16, where the two frameworks round the output (and, for
-chunked attention, P) at different places — the tolerance of the
+differs; 2e-2 in bf16, where the two frameworks round the output (and P,
+which the reference's chunked attention rounds normalised and K7's bf16
+route unnormalised) at different places — the tolerance of the
 reference's own flash-attention test (tests/test_kernels.py).
 """
 import jax.numpy as jnp
@@ -87,6 +88,58 @@ def test_flash_plain_matches_chunked_attention_in_f32(S, chunk):
     _close(ref.flash_attention_plain(q, k, v),
            layers.chunked_attention(q, k, v, chunk=chunk).numpy(),
            TOL["float32"])
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,chunk", [
+    (2, 64, 3, 1, 64, 64),     # the smoke config's heads
+    (1, 150, 6, 2, 64, 64),    # ragged S over several chunks, GQA 3
+    (1, 100, 4, 2, 32, 512),   # hd 32, one chunk
+    (1, 37, 4, 4, 128, 16),    # hd 128, no GQA
+])
+def test_flash_plain_round_p_matches_chunked_attention_in_bf16(B, S, H, KV,
+                                                               hd, chunk):
+    """The P-rounding plain version (K7's bf16 tensor-core route) against
+    the reference's chunked attention in bf16, which rounds P to bf16 too
+    (normalised, after the softmax, where K7 rounds it unnormalised):
+    within the bf16 tolerance."""
+    q, k, v = _qkv(B, S, H, KV, hd, seed=S + hd, dtype="bfloat16")
+    got = ref.flash_attention_plain(_torch(q, "bfloat16"),
+                                    _torch(k, "bfloat16"),
+                                    _torch(v, "bfloat16"), round_p=True)
+    want = jax_layers.chunked_attention(_jax(q, "bfloat16"),
+                                        _jax(k, "bfloat16"),
+                                        _jax(v, "bfloat16"), chunk=chunk)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, hd)
+    _close(got, want, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (2, 64, 3, 1, 64), (1, 100, 6, 2, 32), (1, 37, 4, 4, 128),
+    (2, 130, 15, 5, 64),
+])
+def test_flash_plain_round_p_within_tol_of_f32_p(B, S, H, KV, hd, causal):
+    """Rounding P to bf16 moves the bf16 output by well under the 2e-2 the
+    card holds K7 to against the f32-P oracle; the default keeps f32 P."""
+    q, k, v = (_torch(x, "bfloat16") for x in
+               _qkv(B, S, H, KV, hd, seed=S + H, dtype="bfloat16"))
+    f32_p = ref.flash_attention_plain(q, k, v, causal=causal)
+    assert torch.equal(f32_p, ref.flash_attention_plain(
+        q, k, v, causal=causal, round_p=False))
+    got = ref.flash_attention_plain(q, k, v, causal=causal, round_p=True)
+    _close(got, f32_p.float().numpy(), TOL["bfloat16"])
+
+
+def test_flash_wrapper_on_cpu_rounds_p_in_bf16_only():
+    """On CPU tensors the wrapper runs the plain version of the route the
+    card would take: P rounded for bf16 inputs, f32 P for f32 inputs."""
+    q, k, v = (torch.tensor(x) for x in
+               _qkv(1, 70, 3, 1, 64, seed=2, dtype="bfloat16"))
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    assert torch.equal(ops.flash_attention(qb, kb, vb),
+                       ref.flash_attention_plain(qb, kb, vb, round_p=True))
+    assert torch.equal(ops.flash_attention(q, k, v),
+                       ref.flash_attention_plain(q, k, v))
 
 
 def test_flash_wrapper_on_cpu_runs_the_plain_version_without_a_launch():

@@ -411,3 +411,97 @@ def test_ef21_sgdm_topk_quant_bf16_state_matches_pallas(d, block, k,
         _within_bf16_ulp(vt, vj)
         _within_ulp(st.numpy(), sj, 2)
     _within_bf16_ulp(gt, gj)
+
+
+# ---------------------------------------------------------------------------
+# the bisection's early exit (kernels/csrc/bisect.cuh)
+# ---------------------------------------------------------------------------
+
+def _early_exit_kept(ab: torch.Tensor, k: int):
+    """An emulation, row by row, of bisect.cuh's loop: the 26-step
+    bisection that stops once count(|x| >= lo) == k or count(|x| >= lo) ==
+    count(|x| >= hi) (hi's count unknown until hi first moves, lo's taken
+    as the row's present count until lo first moves). ``ab`` holds the
+    present |values| of each row. Returns the kept masks {ab >= lo} and the
+    passes each row took."""
+    rows, width = ab.shape
+    hi = ab.amax(dim=1)
+    lo = torch.zeros_like(hi)
+    cnt_lo = torch.full((rows,), width, dtype=torch.int64)
+    cnt_hi = torch.full((rows,), -1, dtype=torch.int64)
+    done = torch.zeros(rows, dtype=torch.bool)
+    passes = torch.zeros(rows, dtype=torch.int64)
+    for _ in range(ref.BISECT_ITERS):
+        live = ~done
+        if not bool(live.any()):
+            break
+        mid = 0.5 * (lo + hi)
+        cnt = (ab >= mid[:, None]).sum(dim=1)
+        up, down = live & (cnt >= k), live & (cnt < k)
+        lo, cnt_lo = torch.where(up, mid, lo), torch.where(up, cnt, cnt_lo)
+        hi, cnt_hi = (torch.where(down, mid, hi),
+                      torch.where(down, cnt, cnt_hi))
+        passes += live
+        done = done | (cnt_lo == k) | (cnt_lo == cnt_hi)
+    return ab >= lo[:, None], passes
+
+
+def _adversarial_rows(case: str, k: int) -> torch.Tensor:
+    """(rows, width) f32 values of one adversarial family."""
+    rng = np.random.RandomState(k + len(case))
+    x = rng.randn(64, 1024).astype(np.float32)
+    if case == "gaussian":
+        pass
+    elif case == "all_zero":
+        x[::2] = 0.0
+    elif case == "ties_at_max":                       # k and k+4 ties
+        x[0, :k] = 9.0
+        x[1, 5:5 + k + 4] = -9.0
+        x[2, :k] = 9.0
+        x[2, k:k + 3] = -9.0
+    elif case == "k_above_width":                     # a ragged 12-wide row
+        x = x[:, :12]
+    elif case == "zeros_and_subnormals":
+        x[:, ::3] = 0.0
+        x[:, 1::3] = -0.0
+        x[:, 2::6] = np.float32(1e-40) * rng.randint(1, 100, (64, 171))
+        x[::2, : 3 * k] = np.float32(-1e-42)
+        x[1::4, :] = np.where(rng.rand(16, 1024) < 0.5, np.float32(1e-45),
+                              np.float32(-0.0))
+    elif case == "near_kth":                          # the k-th and (k+1)-th
+        mx = np.float32(3.0)                          # within 2^-26 * max
+        x = np.clip(x, -2.0, 2.0)
+        x[:, 0] = mx
+        x[:, 1:k] = 2.5
+        x[:, k] = np.float32(2.5) - np.float32(2.0 ** -26) * mx * \
+            rng.rand(64).astype(np.float32)
+    elif case == "ragged_1000":                       # K2/K3's 1000-wide rows
+        x = x[:, :1000]
+    elif case == "padded_last_row":                   # K1: a leaf padded
+        flat = x.reshape(-1)[:64 * 1024 - 617]        # with counted zeros
+        x = ref._flat_rows(torch.tensor(flat), 1024).numpy()
+    return torch.tensor(x)
+
+
+@pytest.mark.parametrize("k", [16, 51])
+@pytest.mark.parametrize("case", [
+    "gaussian", "all_zero", "ties_at_max", "k_above_width",
+    "zeros_and_subnormals", "near_kth", "ragged_1000", "padded_last_row"])
+def test_bisect_early_exit_keeps_the_26_step_set(case, k):
+    """The early exit keeps, mask for mask, the set that the full 26-step
+    bisection keeps (ref.bisect_threshold_plain, as block_topk_plain and
+    the EF kernels' plain versions use it), and never takes more than 26
+    passes; on Gaussian rows it stops after about 8-10."""
+    x = _adversarial_rows(case, k)
+    ab = x.abs()
+    want = ab >= ref.bisect_threshold_plain(ab, k)[:, None]
+    got, passes = _early_exit_kept(ab, k)
+    assert torch.equal(got, want)
+    assert int(passes.max()) <= ref.BISECT_ITERS
+    if x.shape[1] == 1024:                  # block_topk_plain's kept set
+        kept = ref.block_topk_plain(x, block=1024, k=k)
+        assert torch.equal(kept, torch.where(want, x, torch.zeros_like(x)))
+    if case == "gaussian":
+        assert float(passes.float().mean()) <= 12
+    if case == "all_zero":                  # nothing to decide: 26 passes
+        assert bool((passes[::2] == ref.BISECT_ITERS).all())

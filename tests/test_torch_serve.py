@@ -10,9 +10,10 @@ checkpoint/bridge.py; prompts are made with numpy from a seed. Tolerances:
   (layer 0's k, which is rope(rms_norm(embed) @ wk), by up to 1.2e-6 at a
   magnitude of 3.5, five ulps, in this test);
 - bf16 activations: logits within 2e-2 of the largest logit's magnitude
-  (rtol 2e-2, atol 2e-2 * max|logit|). The reference's prefill rounds P
-  to bf16 before P.V where K7 keeps it in f32, and the two frameworks round
-  their bf16 elementwise steps at different places; a logit is a bf16
+  (rtol 2e-2, atol 2e-2 * max|logit|). The reference's prefill rounds
+  the normalised P to bf16 before P.V where K7 rounds the unnormalised P
+  against its running max, and the two frameworks round their bf16
+  elementwise steps at different places; a logit is a bf16
   product rounded to bf16, so its error follows the size of its row, not
   its own: an elementwise 2e-2 fails near zero even when the port runs the
   reference's own chunked attention (0.036 at a logit of 0.01, measured on
