@@ -23,23 +23,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      at path B's downlink shape (one copy of the leaf in rows of 256); K5
      block_quantize and K6 block_dequantize at 8 and 4 bits at every width
      the quantized carriers give them (16, 51, 256, 1024 and one row of
-     2,359,296, with an all-zero row and inf/NaN inputs), timed at the
-     shapes of main paths A and B;
+     2,359,296) and at the cases of each of their three mappings (rows of
+     16, 32, 256 and 1024 with a partial last pass, a base off a 16-byte
+     boundary, odd widths 1, 17 and 51), each with an all-zero row and
+     inf/NaN inputs, then timed where the main paths run them (A's two
+     sparse payloads, B's dense payload both ways, the fused path's K6 up
+     and K5 down), by CUDA events around the wrapper and by the profiler's
+     kernel rows;
   2b. the K1 path: the public wrapper ops.block_topk (the reference's
      ops.block_topk, which its kernel bench drives; nothing in training
      calls it) on the 8-client w_up stack, one launch;
   3. check the paths against a reference on a small input: smoke-size
      Sessions on the card and on the CPU (the CPU runs the plain versions,
      which the CPU tests hold against the JAX package) agree for 2 steps,
-     with fused_quant8/fused_quant4, with quant8/quant4, and with
-     quant8/quant4 under the identity compressor;
+     with fused_quant8/fused_quant4, with quant8/quant4, with
+     quant8/quant4 under the identity compressor, and on the dense plan
+     (the clients in one pass) with block_quant and with block_topk; the
+     card's run must launch each path's kernels;
   4. main path A: full-width smollm-360m, 8 clients, EF21-SGDM with
      Block-TopK, carrier quant8 up and quant4 down (the sparse payload both
      ways), 3 training steps;
   5. main path B: the same with the identity compressor (the dense
      payload, K4 on the downlink), 2 steps;
   6. the fused paths: carrier fused_quant8 up and fused_quant4 down, 3
-     steps, and carrier fused, 2 steps, after which the live training tree
+     steps, then one more step timed and one under torch.profiler (device
+     busy ms, idle share, the five ops with the most device time); and
+     carrier fused, 2 steps, after which the live training tree
      serves one small batch (batch 2, prompt 256, 8 decode steps) whose
      first token must be the argmax of a prefill with the trained params;
   6b. the resumable path: full-width smollm-360m, 8 clients, bf16 EF state,
@@ -56,8 +65,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      1024, 32 decode steps, nothing cut, twice (the second reading is free
      of warm-up); K7 must launch exactly 32 times in the prefill (once a
      layer) and never in decode; then torch.profiler reads one more
-     prefill and two decode steps (device busy time, the decode's idle
-     share, device time by op).
+     prefill and two decode steps on the tree serve() ran (its matrices
+     cast to bf16 once for the params version): device busy time, the
+     decode's idle share, device time by op and of aten::copy_.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
 shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, a ragged S of 1000,
@@ -86,7 +96,12 @@ import tempfile
 import time
 import traceback
 
-import torch
+# as the training CLI (repro_torch/launch/train.py) sets it: the training
+# paths' peak is some 67 GB, where fixed segments make the caching
+# allocator free its cache and retry (a synchronize each)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -367,74 +382,146 @@ def topk_path(ops):
     return launches
 
 
+def kernel_row_ms(fn, match: str, reps: int):
+    """The mean device time of the kernels whose name holds ``match`` over
+    ``reps`` calls of ``fn``, from torch.profiler's kernel rows (CUDA
+    activity only): the kernel's own time, without the wrapper's host
+    cost that an event bracket around back-to-back calls can include.
+    None when the trace holds no such kernel (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key]
+    count = sum(e.count for e in rows)
+    return sum(e.device_time_total for e in rows) / count / 1e3 if count \
+        else None
+
+
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary: a view into a larger buffer."""
+    n = t.numel()
+    pad = 4 // t.element_size()
+    buf = torch.empty(n + pad, dtype=t.dtype, device=t.device)
+    view = buf[pad:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+# K5/K6 at every width the quantized carriers give them and the cases of
+# each mapping: (rows, cols, unaligned). 614,400 x 16 is path A's uplink
+# sparse payload, 76,800 x 51 its downlink's, 2,457,600 x 256 path B's
+# dense payload, 4,096 x 1024 the fused path's rows, 2,359,296 plain TopK's
+# single block; 1,000,003 rows leave the last CTA and the last grid-stride
+# pass partial; 1, 17 and 51 are odd widths.
+CODEC_CASES = [(614_400, 16, False), (76_800, 51, False),
+               (2_457_600, 256, False), (4096, 1024, False),
+               (1, TOPK_EMBED_K, False), (1_000_003, 16, False),
+               (70_001, 32, False), (33_333, 256, False), (3001, 1024, False),
+               (10_007, 16, True), (1001, 256, True), (20_000, 1, False),
+               (20_000, 17, False), (1000, 51, True)]
+# where the main paths run them: (label, rows, cols, bits, K5 and/or K6)
+CODEC_TIMED = [
+    ("A uplink sparse payload", 614_400, 16, 8, ("block_quantize",
+                                                 "block_dequantize")),
+    ("A downlink sparse payload", 76_800, 51, 4, ("block_quantize",
+                                                  "block_dequantize")),
+    ("B uplink dense payload", 2_457_600, QBLOCK, 8, ("block_quantize",
+                                                      "block_dequantize")),
+    ("B downlink dense payload", 307_200, QBLOCK, 4, ("block_quantize",)),
+    ("fused_quant8 uplink mean", 614_400, BLOCK, 8, ("block_dequantize",)),
+    ("fused_quant4 downlink", 76_800, BLOCK, 4, ("block_quantize",))]
+
+
 def codec_checks(ops, ref, results):
     """Phase 2, K5 and K6: bit-identical to their plain versions at every
-    width the quantized carriers give them, then timed where main paths A
-    and B run them."""
+    case of CODEC_CASES (an inf, a NaN and an all-zero row in each), each
+    of the three mappings run at least once by both; then timed where the
+    main paths run them, by CUDA events around back-to-back calls of the
+    wrapper and by the profiler's kernel rows."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    d = math.prod(W_UP)
     err = {"block_quantize": 0.0, "block_dequantize": 0.0}
-    for rows, cols in ((CLIENTS * d // BLOCK, 16), (d // BLOCK, 51),
-                       (CLIENTS * d // QBLOCK, QBLOCK), (4096, BLOCK),
-                       (1, TOPK_EMBED_K)):
+    mappings = {"block_quantize": set(), "block_dequantize": set()}
+    for rows, cols, misaligned in CODEC_CASES:
         x = torch.randn(rows, cols, generator=gen, device="cuda")
         x[0, 0], x[0, -1] = float("inf"), float("nan")
         if rows > 1:
             x[1] = 0.0                                  # an all-zero row
+        if misaligned:
+            x = unaligned(x)
         for bits in (8, 4):
             got = ops.block_quantize(x, bits)
             want = ref.block_quantize_plain(x, bits)
             check_equal(f"block_quantize {rows}x{cols} bits={bits}", got, want)
             err["block_quantize"] = max(err["block_quantize"],
                                         max_abs_err(got, want))
-            dec = ops.block_dequantize(*got, bits, cols)
+            q = unaligned(got[0]) if misaligned else got[0]
+            dec = ops.block_dequantize(q, got[1], bits, cols)
             want = ref.block_dequantize_plain(*got, bits=bits, cols=cols)
             check_equal(f"block_dequantize {rows}x{cols} bits={bits}", [dec],
                         [want])
             err["block_dequantize"] = max(err["block_dequantize"],
                                           max_abs_err([dec], [want]))
-            del got, want, dec
-        print(f"codec {rows}x{cols}: K5 and K6 bit-identical at bits 8 and 4",
-              flush=True)
+            maps = (ops.codec_mapping(x, got[0], cols),
+                    ops.codec_mapping(q, dec, cols))
+            mappings["block_quantize"].add(maps[0])
+            mappings["block_dequantize"].add(maps[1])
+            del got, want, dec, q
+        print(f"codec {rows}x{cols}{' unaligned' if misaligned else ''}: "
+              f"K5 ({maps[0]}) and K6 ({maps[1]}) bit-identical at bits 8 "
+              "and 4", flush=True)
         del x
-    shapes = [  # (label, rows, cols, bits): the w_up leaf on each path
-        ("A uplink sparse payload", CLIENTS * d // BLOCK, 16, 8),
-        ("A downlink sparse payload", d // BLOCK, 51, 4),
-        ("B uplink dense payload", CLIENTS * d // QBLOCK, QBLOCK, 8),
-        ("B downlink dense payload", d // QBLOCK, QBLOCK, 4)]
-    for label, rows, cols, bits in shapes:
+    for name, seen in mappings.items():
+        if seen != {"vector", "scalar", "wide"}:
+            fail(f"{name} ran the mappings {sorted(seen)}, not all three")
+    shapes = {}
+    for label, rows, cols, bits, names in CODEC_TIMED:
         x = torch.randn(rows, cols, generator=gen, device="cuda")
         q, scales = ops.block_quantize(x, bits)
         n = rows * cols
         io = q.numel() + rows * 4 + n * 4          # mantissas, scales, f32
-        timed = {}
-        b_ms, b_by = bound(io, n * 6)               # abs, max, div, rint, clamp
-        timed["block_quantize"] = {
-            "max_abs_err": err["block_quantize"], "bound_ms": b_ms,
-            "bound_by": b_by,
-            "ms": time_ms(lambda: ops.block_quantize(x, bits), 20),
-            "plain_ms": time_ms(lambda: ref.block_quantize_plain(x, bits), 3),
-            "library_ms": None}
-        b_ms, b_by = bound(io, n * 2)               # unpack, multiply
-        lib = None
-        if bits == 8:          # int8 × f32 promotes to f32: one PyTorch call
-            lib = time_ms(lambda: torch.mul(q, scales[:, None]), 20)
-        timed["block_dequantize"] = {
-            "max_abs_err": err["block_dequantize"], "bound_ms": b_ms,
-            "bound_by": b_by,
-            "ms": time_ms(lambda: ops.block_dequantize(q, scales, bits, cols),
-                          20),
-            "plain_ms": time_ms(lambda: ref.block_dequantize_plain(
-                q, scales, bits=bits, cols=cols), 3),
-            "library_ms": lib}
-        for name, r in timed.items():
-            print(f"kernel {name} [{label}, {rows}x{cols}, bits {bits}]: ms "
-                  f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
-                  f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms "
-                  f"{r['library_ms']}", flush=True)
-        if label == shapes[0][0]:                   # main path A's uplink
-            results.update(timed)
+        calls = {
+            "block_quantize": (lambda: ops.block_quantize(x, bits),
+                               lambda: ref.block_quantize_plain(x, bits),
+                               None, n * 6),   # abs, max, div, rint, clamp
+            "block_dequantize": (
+                lambda: ops.block_dequantize(q, scales, bits, cols),
+                lambda: ref.block_dequantize_plain(q, scales, bits=bits,
+                                                   cols=cols),
+                # int8 x f32 promotes to f32: one PyTorch call at bits 8
+                (lambda: torch.mul(q, scales[:, None])) if bits == 8
+                else None, n * 2)}                 # unpack, multiply
+        reps = 20 if n * 4 < 1e9 else 5
+        for name in names:
+            fn, plain, lib, n_ops = calls[name]
+            b_ms, b_by = bound(io, n_ops)
+            r = {"max_abs_err": err[name], "bound_ms": b_ms, "bound_by": b_by,
+                 "ms": time_ms(fn, reps),
+                 "kernel_row_ms": kernel_row_ms(fn, name, reps),
+                 "plain_ms": time_ms(plain, 3),
+                 "library_ms": time_ms(lib, reps) if lib else None,
+                 # K6's output is a fresh (rows, cols) f32, as x is
+                 "mapping": ops.codec_mapping(
+                     *((x, q) if name == "block_quantize"
+                       else (q, torch.empty_like(x))), cols)}
+            shapes.setdefault(name, {})[f"{rows}x{cols}/{bits}"] = r
+            print(f"kernel {name} [{label}, {rows}x{cols}, bits {bits}, "
+                  f"{r['mapping']}]: ms {r['ms']:.4f} kernel_row_ms "
+                  f"{r['kernel_row_ms']} plain_ms {r['plain_ms']:.4f} "
+                  f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
+                  f"library_ms {r['library_ms']}", flush=True)
         del x, q, scales
+    # the kernels line's entries: main path A's uplink, with every shape
+    for name in ("block_quantize", "block_dequantize"):
+        results[name] = dict(shapes[name][f"{614_400}x16/8"],
+                             shapes=shapes[name])
 
 
 def p_rounding_bound(q, k, v, want):
@@ -682,9 +769,16 @@ def serve_full(Session, spec_lib, model_lib, ops):
         sess.cfg, torch.Generator().manual_seed(spec.seed), "cuda")
     first_token_check(model_lib, sess.cfg, fresh, tokens.cuda(), out,
                       "full-width serve")
-    serve_profile(model_lib, sess.cfg, fresh, tokens.cuda(),
+    # the tree serve() ran: the matrices cast to bf16 once for this version
+    served_tree = sess.serving_params()
+    dtypes = {str(t.dtype) for k, t in served_tree.items()
+              if not k.endswith("norm")}
+    print(f"served tree: matrices in {sorted(dtypes)}, norm scales in "
+          f"{sorted({str(t.dtype) for k, t in served_tree.items() if k.endswith('norm')})}",
+          flush=True)
+    serve_profile(model_lib, sess.cfg, served_tree, tokens.cuda(),
                   out["decode_s"] / steps)
-    del sess, fresh
+    del sess, fresh, served_tree
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -712,8 +806,9 @@ def device_ms(prof):
 def serve_profile(model_lib, cfg, params, tokens, decode_s_per_step) -> None:
     """Where serving's time goes, from torch.profiler (CPU and CUDA
     activity) around one full-width prefill and 2 decode steps: the
-    device's busy time, K7's share of the prefill, and the decode step's
-    device time against its unprofiled wall time (the idle share)."""
+    device's busy time, K7's share of the prefill, the casts' (aten::copy_)
+    device time, and the decode step's device time against its unprofiled
+    wall time (the idle share)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     B, S = tokens.shape
@@ -725,7 +820,8 @@ def serve_profile(model_lib, cfg, params, tokens, decode_s_per_step) -> None:
     busy, by_op = device_ms(prof)
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
     print(f"profile prefill: device busy ms {busy:.3f}; by op "
-          f"{[(k[:40], round(t, 3)) for k, t in top]}", flush=True)
+          f"{[(k[:40], round(t, 3)) for k, t in top]}; aten::copy_ "
+          f"{by_op.get('aten::copy_', 0.0):.3f}", flush=True)
     tok = logits[:, -1].argmax(-1)[:, None]
     with profile(activities=acts) as prof:
         for i in range(2):
@@ -740,7 +836,8 @@ def serve_profile(model_lib, cfg, params, tokens, decode_s_per_step) -> None:
         print(f"profile decode: device busy ms a step {busy / 2:.3f} of "
               f"{wall:.3f} unprofiled wall ms (idle share "
               f"{1 - busy / 2 / wall:.3f}); by op a step "
-              f"{[(k[:40], round(t / 2, 3)) for k, t in top]}", flush=True)
+              f"{[(k[:40], round(t / 2, 3)) for k, t in top]}; aten::copy_ "
+              f"{by_op.get('aten::copy_', 0.0) / 2:.3f}", flush=True)
     else:
         print("profile decode: no device time in the trace (not measured)",
               flush=True)
@@ -766,25 +863,41 @@ def load_spec(spec_lib, **overrides):
         return spec_lib.RunSpec.from_dict(dict(json.load(f), **overrides))
 
 
-SMOKE_PATHS = [  # (label, spec overrides) for the card-vs-cpu check
+SMOKE_PATHS = [  # (label, spec overrides, kernels the cuda run launches)
     ("fused_quant8/fused_quant4", {"carrier": "fused_quant8",
-                                   "downlink_carrier": "fused_quant4"}),
-    ("quant8/quant4", {"carrier": "quant8", "downlink_carrier": "quant4"}),
+                                   "downlink_carrier": "fused_quant4"},
+     ("ef21_sgdm_topk_quant", "dequant_add")),
+    ("quant8/quant4", {"carrier": "quant8", "downlink_carrier": "quant4"},
+     ("block_quantize", "block_dequantize")),
     ("quant8/quant4 identity", {"carrier": "quant8",
                                 "downlink_carrier": "quant4",
                                 "compressor": "identity",
-                                "compressor_kw": {}}),
+                                "compressor_kw": {}},
+     ("block_quantize", "dequant_add")),
+    # the dense plan: the clients in one pass, C through Compressor.batched
+    ("dense block_quant", {"carrier": "dense", "downlink_carrier": "dense",
+                           "compressor": "block_quant",
+                           "compressor_kw": {"bits": 8, "block": 256}},
+     ("block_quantize", "block_dequantize")),
+    ("dense block_topk", {"carrier": "dense", "downlink_carrier": "dense"},
+     ()),
 ]
 
 
-def reference_check(Session, spec_lib):
-    """Phase 3: the CUDA paths against the CPU paths on a small input."""
-    for label, overrides in SMOKE_PATHS:
+def reference_check(Session, spec_lib, ops):
+    """Phase 3: the CUDA paths against the CPU paths on a small input; the
+    cuda run must launch the path's kernels."""
+    for label, overrides, kernels in SMOKE_PATHS:
         spec = load_spec(spec_lib, smoke=True, seq_len=64, **overrides)
         runs = {}
         for device in ("cuda", "cpu"):
             sess = Session(spec, device=device, dtype="float32")
+            ops.reset_launches()
             runs[device] = sess.train(2, log_every=1)
+            if device == "cuda":
+                idle = [k for k in kernels if not ops.launches[k]]
+                if idle:
+                    fail(f"smoke {label}: {idle} never launched on cuda")
         for key in ("loss", "g_norm"):
             a = [r[key] for r in runs["cuda"]]
             b = [r[key] for r in runs["cpu"]]
@@ -796,11 +909,12 @@ def reference_check(Session, spec_lib):
 
 
 def main_path(Session, spec_lib, ops, steps, per_leaf_step, serve=None,
-              **overrides):
+              profile=False, **overrides):
     """Phases 4-6: full-width smollm-360m through the port's Session.
     ``per_leaf_step`` names the launches each kernel makes per leaf and step
-    on this path; every other kernel must not launch. ``serve(sess)``, when
-    given, runs on the trained session at the end."""
+    on this path; every other kernel must not launch. ``profile`` adds a
+    torch.profiler reading of one more step; ``serve(sess)``, when given,
+    runs on the trained session at the end."""
     spec = load_spec(spec_lib, **overrides)
     label = f"{spec.carrier}/{spec.downlink_carrier} {spec.compressor}"
     sess = Session(spec, device="cuda")
@@ -811,6 +925,7 @@ def main_path(Session, spec_lib, ops, steps, per_leaf_step, serve=None,
           f"{sum(p.numel() for p in sess.params.values())} parameters, "
           f"state built in {time.time() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     ops.reset_launches()
     step_ms = []
     for _ in range(steps):
@@ -825,8 +940,11 @@ def main_path(Session, spec_lib, ops, steps, per_leaf_step, serve=None,
             fail(f"non-finite loss/g_norm at step {sess.step - 1}")
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
+    # allocations the caching allocator retried after freeing its cache
+    # (each one synchronizes the card): memory pressure near the peak
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     print(f"{label}: step_ms {step_ms} max_memory_allocated {peak} "
-          f"launches {launches}", flush=True)
+          f"alloc_retries {retries} launches {launches}", flush=True)
     for name, count in launches.items():
         want = per_leaf_step.get(name, 0) * n_leaves * steps
         if count != want:
@@ -836,6 +954,8 @@ def main_path(Session, spec_lib, ops, steps, per_leaf_step, serve=None,
     if not all(bool(torch.isfinite(p).all()) for p in sess.params.values()):
         fail("non-finite parameters after training")
     step_breakdown(sess, spec, label)
+    if profile:
+        step_profile(sess, label)
     if serve is not None:
         serve(sess)
     del sess, m
@@ -873,6 +993,34 @@ def step_breakdown(sess, spec, label) -> None:
     ms = [round((b - a) * 1e3, 1) for a, b in zip(t, t[1:])]
     print(f"{label} step breakdown ms: "
           f"client_grads {ms[0]} ef_round {ms[1]} optimizer {ms[2]}",
+          flush=True)
+
+
+def step_profile(sess, label) -> None:
+    """Where a training step's time goes: one more step timed by the host
+    clock (ending in a synchronize), then torch.profiler (CPU and CUDA
+    activity) around the next one: the device's busy ms against the
+    unprofiled wall ms (the idle share) and the five ops with the most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sess.step_once()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess.step_once()
+        torch.cuda.synchronize()
+    busy, by_op = device_ms(prof)
+    if busy <= 0:
+        print(f"profile {label} step: no device time in the trace (not "
+              "measured)", flush=True)
+        return
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile {label} step: device busy ms {busy:.3f} of {wall:.3f} "
+          f"unprofiled wall ms (idle share {1 - busy / wall:.3f}); top ops "
+          f"by device ms {[(k[:40], round(t, 3)) for k, t in top]}",
           flush=True)
 
 
@@ -1058,7 +1206,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("cuda paths against the cpu paths (smoke size)"):
-        reference_check(Session, spec_lib)
+        reference_check(Session, spec_lib, ops)
     # per leaf and step: quant8 up runs K5 to encode and K6 once (one decode
     # gives the clients' local_c and the aggregate); quant4 down runs K5 to
     # encode and, for the sparse payload, K6 to decode (h + decode), for the
@@ -1074,14 +1222,17 @@ def main() -> None:
                   carrier="quant8", downlink_carrier="quant4",
                   compressor="identity", compressor_kw={})
     # fused_quant8 up: K3, then K6 to mean the wire; fused_quant4 down: K5
-    # to encode, K4 to integrate
-    with phase("fused path: fused_quant8 up, fused_quant4 down, 3 steps"):
+    # to encode, K4 to integrate; then one step under torch.profiler
+    with phase("fused path: fused_quant8 up, fused_quant4 down, 3 steps, "
+               "then a profiled step"):
         up = main_path(Session, spec_lib, ops, 3,
                        {"ef21_sgdm_topk_quant": 1, "block_dequantize": 1,
                         "block_quantize": 1, "dequant_add": 1},
-                       carrier="fused_quant8", downlink_carrier="fused_quant4")
+                       profile=True, carrier="fused_quant8",
+                       downlink_carrier="fused_quant4")
     with phase("fused carrier, 2 steps, then serve the trained model"):
-        fused = main_path(Session, spec_lib, ops, 2, {"ef21_sgdm_update": 1},
+        fused = main_path(Session, spec_lib, ops, 2,
+                          {"ef21_sgdm_update": 1},
                           serve=lambda s: serve_trained(s, model_lib, ops),
                           carrier="fused", downlink_carrier="dense")
     # the same launches as the fused path, K3 on bf16 state
@@ -1143,6 +1294,16 @@ def main() -> None:
         "with no presence test")
     kernels[2]["resources"] = {n: r for n, r in redesigned.items()
                                if "quant_staged" in n}
+    kernels[4]["design"] = (
+        "by shape and alignment: vector (width a multiple of 4 up to 1024 "
+        "from a 16-byte boundary: a lane group a row, 16-byte loads kept in "
+        "registers, packed 4- or 2-byte stores, a grid-stride walk with the "
+        "next row's loads in flight), scalar (other widths up to 1024: a "
+        "lane group a row, values in registers), wide (one CTA a row)")
+    kernels[5]["design"] = (
+        "by shape and alignment: vector (a lane group a row, 4- or 2-byte "
+        "mantissa loads, float4 stores), scalar (a lane group a row), wide "
+        "(one CTA a row)")
     kernels[6]["design"] = (
         "bf16 on the tensor cores (wgmma m64n64k16 for "
         "Q.K^T, m64n{hd}k16 for P.V with P from registers), one CTA a "

@@ -57,8 +57,10 @@ class Compressor:
         return False
 
     def batched(self, x: torch.Tensor) -> torch.Tensor:
-        """C applied to each row of an (n, d) tensor (one client a row)."""
-        return torch.stack([self(r) for r in x])
+        """C applied to each row of an (n, d) tensor (one client a row), in
+        one pass (``torch.func.vmap``; a compressor that launches a kernel
+        folds the rows itself)."""
+        return torch.func.vmap(self)(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,16 +190,23 @@ class Rank1(Compressor):
         return 1.0 / max(2, min(self.rows, d // max(1, self.rows)))
 
     def __call__(self, x):
-        d = x.numel()
+        return self.batched(x.reshape(1, -1)).reshape(x.shape)
+
+    def batched(self, x):
+        # the products as broadcast multiplies and sums, whose order does
+        # not depend on the number of rows: a row's result is the same
+        # alone or among others (a batched matmul may sum otherwise)
+        n, d = x.shape
         r = min(self.rows, d)
         m = -(-d // r)
-        M = torch.nn.functional.pad(x.reshape(-1), (0, r * m - d)).reshape(r, m)
-        v = torch.ones((m,), dtype=x.dtype, device=x.device) / torch.sqrt(
-            torch.tensor(float(m), dtype=x.dtype))
-        u = M @ v
-        u = u / torch.clamp(torch.linalg.vector_norm(u), min=1e-12)
-        v = M.T @ u
-        return torch.outer(u, v).reshape(-1)[:d].reshape(x.shape)
+        M = torch.nn.functional.pad(x, (0, r * m - d)).reshape(n, r, m)
+        v = torch.ones((n, 1, m), dtype=x.dtype, device=x.device) / \
+            torch.sqrt(torch.tensor(float(m), dtype=x.dtype))
+        u = (M * v).sum(-1, keepdim=True)                      # (n, r, 1)
+        u = u / torch.clamp(torch.linalg.vector_norm(u, dim=1, keepdim=True),
+                            min=1e-12)
+        v = (M * u).sum(-2, keepdim=True)                      # (n, 1, m)
+        return (u * v).reshape(n, r * m)[:, :d]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,13 +228,18 @@ class BlockQuant(Compressor):
         return self.alpha(self.block) > 0.0
 
     def __call__(self, x):
-        d = x.numel()
+        return self.batched(x.reshape(1, -1)).reshape(x.shape)
+
+    def batched(self, x):
+        # the codec works row by row, so the n rows' blocks fold into the
+        # rows of one K5 and one K6 launch
+        n, d = x.shape
         nb = -(-d // self.block)
-        xb = torch.nn.functional.pad(x.reshape(-1).float(),
-                                     (0, nb * self.block - d))
-        q, scales = ops.block_quantize(xb.reshape(nb, self.block), self.bits)
+        xb = torch.nn.functional.pad(x.float(), (0, nb * self.block - d))
+        q, scales = ops.block_quantize(xb.reshape(n * nb, self.block),
+                                       self.bits)
         deq = ops.block_dequantize(q, scales, self.bits, self.block)
-        return deq.reshape(-1)[:d].reshape(x.shape).to(x.dtype)
+        return deq.reshape(n, nb * self.block)[:, :d].to(x.dtype)
 
 
 REGISTRY = {

@@ -45,25 +45,22 @@ def per_client_value_and_grad(loss_fn: Callable, params: Tree,
                               batch: Dict[str, torch.Tensor], dp: int
                               ) -> Tuple[torch.Tensor, Tree]:
     """loss_fn(params, sub_batch) -> scalar loss. Returns (mean loss over the
-    clients, per-client grads with a leading dp axis). The clients run one
-    after another; each one's gradient lands in a preallocated stack."""
+    clients, per-client grads with a leading dp axis, contiguous, in the
+    params' dtypes).
+
+    The clients run as ONE pass, as the reference's ``jax.vmap`` of
+    ``value_and_grad``: ``torch.func.vmap`` of ``grad_and_value`` over the
+    batch reshaped to (dp, b/dp, ...), the params shared. Every product of
+    the forward sees the whole global batch, each weight is cast to the
+    activation dtype once for all clients, and the backward's weight
+    products come out with the client axis leading."""
     b = batch["tokens"].shape[0]
     if b % dp:
         raise ValueError(f"global batch {b} not divisible by dp={dp}")
-    keys = sorted(params)
-    grads = {k: torch.empty((dp, *params[k].shape), dtype=params[k].dtype,
-                            device=params[k].device) for k in keys}
-    losses = []
-    for i in range(dp):
-        sub = {n: x.reshape(dp, b // dp, *x.shape[1:])[i]
-               for n, x in batch.items()}
-        leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
-        loss = loss_fn(leaves, sub)
-        for k, gk in zip(keys, torch.autograd.grad(
-                loss, [leaves[k] for k in keys])):
-            grads[k][i].copy_(gk)
-        losses.append(loss.detach())
-    return torch.stack(losses).mean(), grads
+    sub = {n: x.reshape(dp, b // dp, *x.shape[1:]) for n, x in batch.items()}
+    grads, losses = torch.func.vmap(torch.func.grad_and_value(loss_fn),
+                                    in_dims=(None, 0))(params, sub)
+    return losses.mean(), {k: g.contiguous() for k, g in grads.items()}
 
 
 def init_ef_state(efc: EFConfig, params: Tree, dp: int,
@@ -120,7 +117,6 @@ def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
     gᵗ⁺¹ the model steps with, the new ef_state). Under the fused and wire
     plans the client state is updated in place."""
     method = efc.method
-    dp = next(iter(grads.values())).shape[0]
     clients, server = ef_state["clients"], ef_state["server"]
     carrier = carrier_lib.make(efc.carrier)
     plan = carrier.plan(method, eta)
@@ -136,14 +132,16 @@ def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
         msg_mean = _wire_round(carrier, method, grads, clients, eta)
         new_clients = clients
     else:
-        outs = [method.update(ef_lib.tree_index(grads, i),
-                              {name: ef_lib.tree_index(tree, i)
-                               for name, tree in clients.items()}, eta=eta)
-                for i in range(dp)]
-        msg_mean = ef_lib.tree_map(ef_lib.client_mean,
-                                   ef_lib.tree_stack([m for m, _ in outs]))
-        new_clients = {name: ef_lib.tree_stack([s[name] for _, s in outs])
-                       for name in clients}
+        # every client in one pass, as the reference's vmap of the method's
+        # update: its steps act on the client-stacked trees elementwise, and
+        # C takes each client's flat leaf as one row (Compressor.batched)
+        delta, ctx = method.pre_compress(grads, clients, eta=eta)
+        c = ef_lib.tree_map(
+            lambda x: method.compressor.batched(
+                x.reshape(x.shape[0], -1)).reshape(x.shape), delta)
+        del delta
+        msgs, new_clients = method.post_compress(c, ctx)
+        msg_mean = ef_lib.tree_map(ef_lib.client_mean, msgs)
 
     new_server = ef_lib.server_step(method, server, msg_mean)
     new_state = {"clients": new_clients, "server": new_server}

@@ -96,14 +96,6 @@ def tree_norm_sq(tree: Tree) -> torch.Tensor:
     return sum(torch.sum(torch.square(tree[k].float())) for k in sorted(tree))
 
 
-def tree_index(tree: Tree, i: int) -> Tree:
-    return tree_map(lambda x: x[i], tree)
-
-
-def tree_stack(trees) -> Tree:
-    return {k: torch.stack([t[k] for t in trees]) for k in sorted(trees[0])}
-
-
 def tree_compress(comp: comp_lib.Compressor, tree: Tree) -> Tree:
     """Apply a flat-vector compressor leaf-wise (budget ∝ leaf size)."""
     return tree_map(lambda x: comp(x.reshape(-1)).reshape(x.shape), tree)

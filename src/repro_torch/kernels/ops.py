@@ -41,6 +41,7 @@ _SIGNATURES = {
     "ef_launch_dequant_add": [_P, _P, _P, _P, _L, _L, _I, _I, _F, _I, _P],
     "ef_launch_block_quantize": [_P, _P, _P, _L, _I, _I, _P],
     "ef_launch_block_dequantize": [_P, _P, _P, _L, _I, _I, _P],
+    "ef_codec_mapping": [_P, _P, _I],
     "ef_launch_flash_attention":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
@@ -73,7 +74,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(name: str, *args) -> None:
-    rc = getattr(_lib(), name)(*args, torch.cuda.current_stream().cuda_stream)
+    # the current stream's handle, read without building a Stream object
+    # (torch.cuda.current_stream() costs some 5 us a call, as much as a
+    # narrow codec launch's kernel time)
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    rc = getattr(_lib(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
@@ -115,6 +120,15 @@ def _codec_layout(bits: int, cols: int) -> Tuple[torch.dtype, int]:
     """(dtype, columns) of the mantissas of a row of ``cols`` values: int8
     at 8 bits, packed uint4 pairs at 4 (an odd row padded by one)."""
     return (torch.int8, cols) if bits == 8 else (torch.uint8, (cols + 1) // 2)
+
+
+def codec_mapping(src: torch.Tensor, dst: torch.Tensor, cols: int) -> str:
+    """The mapping ``vector``, ``scalar`` or ``wide`` that the card's K5
+    (``src`` x, ``dst`` q) or K6 (``src`` q, ``dst`` its output) runs rows
+    of ``cols`` values on: the launcher's own rule (csrc/codec.cu), asked
+    of the built library."""
+    code = _lib().ef_codec_mapping(src.data_ptr(), dst.data_ptr(), cols)
+    return ("vector", "scalar", "wide")[code]
 
 
 def _check_rows(grad, v, g, v_out, g_out, k: int) -> Tuple[int, int]:
@@ -271,7 +285,8 @@ def block_quantize(x_rows: torch.Tensor, bits: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5, per-row absmax quantization of (rows, cols) f32: returns
     (q, scales) — q int8 (rows, cols) at bits 8, packed uint4
-    (rows, ceil(cols/2)) at bits 4 — with scales f32 (rows,). Any width."""
+    (rows, ceil(cols/2)) at bits 4 — with scales f32 (rows,). Any width;
+    the launcher picks the card's mapping (:func:`codec_mapping`)."""
     _check_bits(bits)
     if x_rows.dim() != 2 or x_rows.shape[1] < 1:
         raise ValueError(f"x: expected (rows, cols >= 1), got "

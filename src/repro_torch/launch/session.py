@@ -60,12 +60,11 @@ class Session:
         self.history: List[Dict[str, float]] = []
         self._tr: Optional[Dict[str, Any]] = None
         self._last_saved_step: Optional[int] = None
-        # serve() places params by this version, which every path that
-        # changes the served tree bumps (step_once, restore_from,
-        # set_serve_params): an unchanged tree is not moved again and a
-        # changed one is never served stale
-        self._params_version = 0
-        self._serve_params: Optional[tuple] = None   # (version, tree)
+        # the tree serve() runs, placed and cast once; every path that
+        # changes the served tree (step_once, restore_from,
+        # set_serve_params) drops it, so an unchanged tree is not moved or
+        # cast again and a changed one is never served stale
+        self._serve_params: Optional[Dict[str, torch.Tensor]] = None
         self._serve_src: Optional[Dict[str, torch.Tensor]] = None
 
     @property
@@ -134,7 +133,7 @@ class Session:
         tr["params"], tr["opt_state"], tr["ef_state"], m = tr["step_fn"](
             tr["params"], tr["opt_state"], tr["ef_state"], batch, self.step)
         self.step += 1
-        self._params_version += 1
+        self._params_changed()
         return m
 
     def train(self, steps: int, log_every: int = 10, verbose: bool = False
@@ -237,7 +236,7 @@ class Session:
         # the restored params are the new serving truth, even at the same
         # step, and they supersede an injected serving tree
         self._serve_src = None
-        self._params_version += 1
+        self._params_changed()
 
     @classmethod
     def resume(cls, ckpt_dir: str, spec: Optional[RunSpec] = None,
@@ -285,15 +284,23 @@ class Session:
     def set_serve_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Inject the tree serve() must use from now on."""
         self._serve_src = params
-        self._params_version += 1
+        self._params_changed()
 
-    def _placed_params(self) -> Dict[str, torch.Tensor]:
-        if self._serve_params is None \
-                or self._serve_params[0] != self._params_version:
-            self._serve_params = (
-                self._params_version,
-                {k: t.to(self.device) for k, t in self.serve_source().items()})
-        return self._serve_params[1]
+    def _params_changed(self) -> None:
+        """The served tree changed: drop its placed, cast copy (the next
+        serve builds it again)."""
+        self._serve_params = None
+
+    def serving_params(self) -> Dict[str, torch.Tensor]:
+        """The tree serve() runs: ``serve_source()`` on the device, its
+        matrix leaves cast to the activation dtype
+        (``model.cast_matrices``), built once per version of the params. In
+        f32 serving it is the placed tree itself."""
+        if self._serve_params is None:
+            self._serve_params = model_lib.cast_matrices(
+                self.cfg, {k: t.to(self.device)
+                           for k, t in self.serve_source().items()})
+        return self._serve_params
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -315,7 +322,7 @@ class Session:
         compare). ``prompt_lens`` (per-row true lengths <= S) takes each
         row's first token from its last real position, so right padding
         never reaches it. ``decode_hook(i)`` runs before decode step i; if
-        it moves the params version (``set_serve_params``), the remaining
+        it changes the served tree (``set_serve_params``), the remaining
         steps decode with the new tree."""
         cfg = self.cfg
         if tokens is None:
@@ -328,7 +335,7 @@ class Session:
                                                pad_to=pipe_lib.PREFIX_PAD_SPEC)
         prefill = build_lib.build_prefill(cfg)
         decode = build_lib.build_decode(cfg)
-        params = self._placed_params()
+        params = self.serving_params()
         batch_in = {"tokens": tokens}
         if prompt_lens is not None:
             batch_in["prompt_lens"] = torch.as_tensor(prompt_lens,
@@ -349,7 +356,7 @@ class Session:
         for i in range(decode_steps):
             if decode_hook is not None:
                 decode_hook(i)
-                params = self._placed_params()
+                params = self.serving_params()
             logits, cache = decode(params, cache, tok, n_prefix + S + i)
             tok = logits[:, -1].argmax(-1)[:, None]
             out_tokens.append(tok)

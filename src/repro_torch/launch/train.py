@@ -33,11 +33,18 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from repro_torch.launch import spec as spec_lib
 
 
 def main(argv=None) -> None:
+    # the clients' one batched pass holds all their activations at once
+    # (some 67 GB at the peak of a full-width step): segments that grow in
+    # place keep the caching allocator from freeing its cache and retrying,
+    # which synchronizes the card (set before the first CUDA allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     ap = argparse.ArgumentParser("repro_torch.launch.train")
     spec_lib.add_flags(ap)
     ap.add_argument("--steps", type=int, default=200,

@@ -1,6 +1,7 @@
 """Transformer building blocks of the dense family (counterpart of
-src/repro/models/layers.py): RMSNorm, split-half RoPE, causal GQA
-attention (chunked, and decode against a KV cache) and the SwiGLU MLP.
+src/repro/models/layers.py): RMSNorm, split-half RoPE (its cos and sin
+read from tables cached per head dim, theta, device and length), causal
+GQA attention (chunked, and decode against a KV cache) and the SwiGLU MLP.
 
 Training runs ``chunked_attention``, plain PyTorch as it is plain JAX in the
 reference; its large products go to ``torch.einsum``. Serving's prefill
@@ -34,17 +35,56 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (x * (1.0 + scale.float())).to(dt)
 
 
+def _rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
          ) -> torch.Tensor:
-    """Split-half rotary embedding. x: (..., S, H, hd); positions: (..., S)."""
-    hd = x.shape[-1]
-    freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
-                                          device=x.device) / hd))
+    """Split-half rotary embedding. x: (..., S, H, hd); positions: (..., S).
+    The direct computation; the model reads the same values from
+    :func:`rope_tables` (see :func:`rope_at`)."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
     ang = positions[..., None].float() * freqs              # (..., S, hd/2)
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    return apply_rope(x, torch.cos(ang)[..., None, :],
+                      torch.sin(ang)[..., None, :])
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """Rotate x (..., S, H, hd) by cos and sin (..., S, 1, hd/2), in f32."""
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+_ROPE_TABLES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def rope_tables(hd: int, theta: float, length: int, device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin (L, hd/2) of positions 0 .. L-1, L the power of two at
+    or above ``length``, cached per (hd, theta, device, L). Each entry is
+    the computation :func:`rope` makes for that position, element by
+    element (an exact integer times the same f32 frequencies, then cos and
+    sin), so a gathered row equals the direct computation bit for bit."""
+    n = 1 << max(int(length) - 1, 0).bit_length()
+    key = (hd, float(theta), str(torch.device(device)), n)
+    if key not in _ROPE_TABLES:
+        ang = torch.arange(n, device=device).float()[:, None] * \
+            _rope_freqs(hd, theta, device)
+        _ROPE_TABLES[key] = (torch.cos(ang), torch.sin(ang))
+    return _ROPE_TABLES[key]
+
+
+def rope_at(positions: torch.Tensor, hd: int, theta: float, length: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin (..., S, 1, hd/2) for :func:`apply_rope` at ``positions``
+    (..., S), read from the cached tables; every position must lie below
+    ``length``."""
+    cos, sin = rope_tables(hd, theta, length, positions.device)
+    return cos[positions][..., None, :], sin[positions][..., None, :]
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -90,10 +130,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
-               positions: torch.Tensor, *, rope_theta: float, eps: float,
+               rope_cs: Tuple[torch.Tensor, torch.Tensor], *, eps: float,
                chunk: int, cache: Optional[Cache] = None,
                pos: Optional[int] = None) -> torch.Tensor:
     """Pre-norm attention sub-block; returns the residual delta.
+    ``rope_cs``: the cos and sin of x's positions (:func:`rope_at`).
 
     Modes:
       cache None                → training: chunked attention, no cache;
@@ -110,8 +151,8 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     q = torch.einsum("bsd,dnh->bsnh", h, p["wq"].to(h.dtype))
     k = torch.einsum("bsd,dnh->bsnh", h, p["wk"].to(h.dtype))
     v = torch.einsum("bsd,dnh->bsnh", h, p["wv"].to(h.dtype))
-    q = rope(q, positions, rope_theta)
-    k = rope(k, positions, rope_theta)
+    q = apply_rope(q, *rope_cs)
+    k = apply_rope(k, *rope_cs)
     if cache is None:
         out = chunked_attention(q, k, v, chunk=chunk)
     elif pos is None:

@@ -56,6 +56,20 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return {k: params[k].to(device) for k in sorted(params)}
 
 
+def cast_matrices(cfg: ArchConfig, params: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """``params`` with every matrix leaf (the embedding and the attention
+    and MLP weights) cast to the activation dtype, the norm scales kept
+    (``rms_norm`` reads them in f32). The model uses each matrix in the
+    activation dtype, and a cast commutes with the embedding's gather and
+    with the slice of a stacked leaf, so this tree gives the same numbers
+    as ``params`` without a cast a call: serving runs it, cast once per
+    params version. A leaf already in that dtype is not copied."""
+    act = cfg.activation_dtype
+    return {k: t if k.endswith("norm") else t.to(act)
+            for k, t in params.items()}
+
+
 def _embed(cfg: ArchConfig, params: Dict[str, torch.Tensor],
            tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens.long(), params["embed"]).to(
@@ -68,7 +82,11 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                pos: Optional[int] = None) -> torch.Tensor:
     """The layers, one after another, for training (no cache), prefill
     (cache, no ``pos``) and decode (cache and ``pos``); see
-    ``layers.attn_apply``. The cache is written in place."""
+    ``layers.attn_apply``. The cache is written in place. RoPE's cos and
+    sin are gathered once for all layers from the cached tables; positions
+    run below S, or up to ``pos`` in decode."""
+    length = h.shape[1] if pos is None else pos + 1
+    rope_cs = L.rope_at(positions, cfg.head_dim_, cfg.rope_theta, length)
     # one unbind per stacked leaf: its backward is a single stack
     per_layer = {k[len("layers/"):]: params[k].unbind(0)
                  for k in params if k.startswith("layers/")}
@@ -79,9 +97,9 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                if k.startswith("mlp/")}
         layer_cache = None if cache is None else (cache["k"][i],
                                                   cache["v"][i])
-        h = h + L.attn_apply(attn, h, positions, rope_theta=cfg.rope_theta,
-                             eps=cfg.norm_eps, chunk=cfg.attn_chunk,
-                             cache=layer_cache, pos=pos)
+        h = h + L.attn_apply(attn, h, rope_cs, eps=cfg.norm_eps,
+                             chunk=cfg.attn_chunk, cache=layer_cache,
+                             pos=pos)
         h = h + L.mlp_apply(mlp, h, cfg.norm_eps)
     return h
 

@@ -94,3 +94,25 @@ def test_codec_wrappers_reject_what_the_kernels_do_not_take():
         ops.block_dequantize(q, s, 8, 3)              # 8 bits are int8
     with pytest.raises(ValueError, match="scales"):
         ops.block_dequantize(q, s[:2], 4, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols,offset,want", [
+    (16, 0, "vector"), (32, 0, "vector"), (256, 0, "vector"),
+    (1024, 0, "vector"), (16, 1, "scalar"), (256, 3, "scalar"),
+    (51, 0, "scalar"), (17, 0, "scalar"), (1, 0, "scalar"),
+    (1026, 0, "wide"), (2_359_296, 0, "wide")])
+def test_codec_mapping_follows_shape_and_alignment(cols, offset, want):
+    """The mapping the card's K5/K6 run (csrc/codec.cu, asked of the built
+    library), chosen from the shape and the base addresses alone: vector
+    for widths that are a multiple of 4, up to 1024, with input and output
+    on 16-byte boundaries; wide above 1024; scalar otherwise. ``offset``
+    elements into a buffer move the input's base."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the rule lives in the built library")
+    buf = torch.zeros(offset + 2 * cols, device="cuda")
+    t = buf[offset:].view(2, cols)
+    assert t.is_contiguous() and (t.data_ptr() % 16 == 0) == (offset == 0)
+    out = torch.empty(2, cols, dtype=torch.int8, device="cuda")
+    assert ops.codec_mapping(t, out, cols) == want
+    assert ops.codec_mapping(out, t, cols) == want

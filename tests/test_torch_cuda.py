@@ -115,6 +115,63 @@ def test_cuda_codec_matches_plain(cuda_device, bits, rows, cols):
                                                        cols=cols))
 
 
+def _unaligned(t):
+    """A contiguous copy of ``t`` starting 4 bytes past a 16-byte boundary
+    (a view into a larger buffer)."""
+    pad = 4 // t.element_size()
+    buf = torch.empty(t.numel() + pad, dtype=t.dtype, device=t.device)
+    view = buf[pad:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,misaligned,mapping", [
+    (4099, 16, False, "vector"), (4099, 32, False, "vector"),
+    (1025, 256, False, "vector"), (513, 1024, False, "vector"),
+    # more rows than the card's resident groups: the grid-stride walk's
+    # last pass, and the last CTA's last warp, are partial
+    (1_000_003, 16, False, "vector"), (70_001, 32, False, "vector"),
+    (33_333, 256, False, "vector"), (3001, 1024, False, "vector"),
+    # not on a 16-byte boundary: the scalar mapping
+    (4099, 16, True, "scalar"), (1025, 256, True, "scalar"),
+    (513, 1024, True, "scalar"),
+    # odd widths
+    (1001, 1, False, "scalar"), (777, 17, False, "scalar"),
+    (2051, 51, False, "scalar"), (2051, 51, True, "scalar"),
+    # wider than 1024: one CTA a row
+    (65, 1026, False, "wide"), (2, 2_359_296, False, "wide")])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_codec_mappings_match_plain(cuda_device, bits, rows, cols,
+                                         misaligned, mapping):
+    """K5 and K6 on each mapping (``ops.codec_mapping``): rows of 16, 32,
+    256 and 1024 on the vector mapping, with a partial last pass; the same
+    from a base that is not 16-byte aligned (a sliced view of x for K5 and
+    of q for K6) and odd widths on the scalar mapping; rows wider than 1024
+    on the wide mapping; an inf, a NaN and an all-zero row in each.
+    Bit-identical to the plain versions."""
+    gen = torch.Generator(device="cpu").manual_seed(bits + rows + cols)
+    x = torch.randn(rows, cols, generator=gen)
+    x[0, 0], x[0, -1] = float("inf"), float("nan")
+    x[1] = 0.0
+    x[-1, -1] = float("-inf")
+    x = x.to(cuda_device)
+    if misaligned:
+        x = _unaligned(x)
+    q, s = ops.block_quantize(x, bits)
+    assert ops.codec_mapping(x, q, cols) == mapping
+    if misaligned:
+        q = _unaligned(q)
+    out = ops.block_dequantize(q, s, bits, cols)
+    assert ops.codec_mapping(q, out, cols) == mapping
+    torch.cuda.synchronize()
+    for a, b in zip((q, s), ref.block_quantize_plain(x, bits)):
+        assert torch.equal(a, b)
+    assert torch.equal(out, ref.block_dequantize_plain(q, s, bits=bits,
+                                                       cols=cols))
+
+
 # K7 at the shapes of chip_smoke.py's phase: the smoke config's heads, the
 # full-width prefill (B 8, S 1024, H 15, KV 5, hd 64), a ragged S and hd 128
 FLASH_SHAPES = [(2, 64, 3, 1, 64), (8, 1024, 15, 5, 64),
@@ -278,6 +335,41 @@ def test_cuda_save_resume_at_smoke_size(cuda_device, tmp_path):
     for key in ("loss", "g_norm"):
         a, b = float(got[key]), float(want[key])
         assert abs(a - b) <= 1e-3 * abs(b), (key, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compressor,kw", [
+    ("block_quant", {"bits": 8, "block": 256}),
+    ("block_topk", {"block": 1024, "k_per_block": 16})])
+def test_cuda_dense_plan_matches_cpu(cuda_device, compressor, kw):
+    """The dense plan (the clients in one pass, C through
+    ``Compressor.batched``) on the card against the CPU at smoke size: 2
+    steps in f32 activations, loss and g_norm within rtol 1e-3 (the same
+    check as chip_smoke.py's phase 3); block_quant launches K5 and K6 on
+    the card."""
+    import json
+    import os
+    from repro_torch.launch.session import Session
+    from repro_torch.launch.spec import RunSpec
+    root = os.path.join(os.path.dirname(__file__), "..")
+    with open(os.path.join(root, "results", "specs",
+                           "fused_quickstart.json")) as f:
+        spec = RunSpec.from_dict(dict(
+            json.load(f), smoke=True, seq_len=64, carrier="dense",
+            downlink_carrier="dense", compressor=compressor,
+            compressor_kw=kw))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ops.reset_launches()
+        runs[device] = Session(spec, device=device,
+                               dtype="float32").train(2, log_every=1)
+        if device == "cuda" and compressor == "block_quant":
+            assert ops.launches["block_quantize"] > 0
+            assert ops.launches["block_dequantize"] > 0
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        for key in ("loss", "g_norm"):
+            assert abs(got[key] - want[key]) <= 1e-3 * abs(want[key]), \
+                (key, got[key], want[key])
 
 
 def _flat_state(sess):

@@ -176,24 +176,31 @@ def test_session_serve_matches_reference_session():
 
 def test_serve_params_follow_state_changes_without_a_step(tmp_path):
     """tests/test_session.py::test_serve_params_track_same_step_state_changes
-    on the port: serve() places params by a version that step_once,
-    set_serve_params and restore_from bump, so an injected tree or a
-    restore at the SAME step is served, never a stale copy."""
+    on the port: step_once, set_serve_params and restore_from drop the
+    served (placed, cast) tree, so an injected tree or a restore at the
+    SAME step is served, never a stale copy. The served tree holds the
+    source's matrices cast to the activation dtype (bf16 here): it is
+    compared with the source cast the same way."""
     jsess = jax_session.Session(jax_spec.RunSpec(**TINY))
     ckpt = jsess.save(str(tmp_path / "step_0.npz"))
     sess = pt_session.Session(pt_spec.RunSpec(**TINY), device="cpu")
 
     def served():
         sess.serve(batch=1, prompt_len=8, decode_steps=1)
-        return sess._serve_params[1]
+        return sess.serving_params()
+
+    def cast(tree):
+        return pt_model.cast_matrices(sess.cfg, tree)
 
     fresh = served()                     # no training state: a fresh init
-    init = pt_model.init_params(sess.cfg, torch.Generator().manual_seed(0))
+    init = cast(pt_model.init_params(sess.cfg,
+                                     torch.Generator().manual_seed(0)))
     assert all(torch.equal(fresh[k], init[k]) for k in init)
 
     sess.restore_from(ckpt)
     restored = {k: v.clone() for k, v in served().items()}
-    assert all(torch.equal(restored[k], sess.params[k]) for k in restored)
+    assert all(torch.equal(restored[k], cast(sess.params)[k])
+               for k in restored)
 
     sess.step_once()                     # a step moves the served params
     assert any(not torch.equal(served()[k], restored[k]) for k in restored)
@@ -205,6 +212,109 @@ def test_serve_params_follow_state_changes_without_a_step(tmp_path):
     sess.restore_from(ckpt)          # supersedes the injected tree
     assert sess.step == 0
     assert all(torch.equal(served()[k], restored[k]) for k in restored)
+
+
+def _serve_greedy(cfg, params, tokens, steps):
+    """Prefill, then ``steps`` greedy decode steps: (logits of each, the
+    tokens, the cache)."""
+    B, S = tokens.shape
+    cache = pt_model.init_cache(cfg, B, S + steps)
+    logits, cache = pt_model.prefill(cfg, params, {"tokens": tokens}, cache)
+    out, toks = [logits], [logits[:, -1].argmax(-1)[:, None]]
+    for i in range(steps):
+        logits, cache = pt_model.decode_step(cfg, params, cache, toks[-1],
+                                             S + i)
+        out.append(logits)
+        toks.append(logits[:, -1].argmax(-1)[:, None])
+    return out, torch.cat(toks, dim=1), cache
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cast_tree_serves_bit_identical(dtype):
+    """``model.cast_matrices``: every matrix leaf in the activation dtype,
+    the norm scales kept in f32 (the same tensors); serving from it gives
+    the logits, tokens and cache of serving from the f32 tree, bit for bit
+    (a cast commutes with the embedding's gather and with the slice of a
+    stacked leaf). In f32 it is the tree itself."""
+    _, cfg = _configs(dtype)
+    params = pt_model.init_params(cfg, torch.Generator().manual_seed(3))
+    tree = pt_model.cast_matrices(cfg, params)
+    assert sorted(tree) == sorted(params)
+    for k, t in tree.items():
+        if k.endswith("norm"):
+            assert t is params[k] and t.dtype == torch.float32, k
+        else:
+            assert t.dtype == cfg.activation_dtype, k
+            assert (t is params[k]) == (dtype == "float32"), k
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24),
+                           generator=torch.Generator().manual_seed(4))
+    want_logits, want_toks, want_cache = _serve_greedy(cfg, params, tokens, 3)
+    got_logits, got_toks, got_cache = _serve_greedy(cfg, tree, tokens, 3)
+    for a, b in zip(got_logits, want_logits):
+        assert torch.equal(a, b)
+    assert torch.equal(got_toks, want_toks)
+    for name in ("k", "v"):
+        assert torch.equal(got_cache[name], want_cache[name])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_session_casts_once_per_params_version(dtype):
+    """Session.serve runs ``serving_params()``: built once per params
+    version (the same tensors on a second serve), matrices in the
+    activation dtype and norm scales in f32, and its tokens are the greedy
+    tokens of the uncast tree. set_serve_params makes a new version and
+    drops the cached copy; the next serve builds it from the new tree."""
+    sess = pt_session.Session(pt_spec.RunSpec(**TINY), device="cpu",
+                              dtype=dtype)
+    cfg = sess.cfg
+    params = pt_model.init_params(cfg, torch.Generator().manual_seed(5))
+    sess.set_serve_params(params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(6))
+    out = sess.serve(tokens=tokens, decode_steps=3)
+    tree = sess.serving_params()
+    assert sess.serve(tokens=tokens, decode_steps=3)["tokens"].tolist() == \
+        out["tokens"].tolist()
+    assert all(sess.serving_params()[k] is tree[k] for k in tree)
+    for k, t in tree.items():
+        assert t.dtype == (torch.float32 if k.endswith("norm")
+                           else cfg.activation_dtype), k
+    _, want, _ = _serve_greedy(cfg, params, tokens, 3)
+    np.testing.assert_array_equal(out["tokens"], want.numpy())
+
+    other = pt_model.init_params(cfg, torch.Generator().manual_seed(8))
+    sess.set_serve_params(other)
+    assert sess._serve_params is None                # the copy is dropped
+    new = sess.serving_params()
+    assert all(torch.equal(new[k], other[k].to(new[k].dtype)) for k in new)
+    assert not any(new[k] is tree[k] for k in new)
+
+
+@pytest.mark.parametrize("hd,theta", [(64, 10000.0), (32, 100000.0),
+                                      (128, 10000.0)])
+def test_cached_rope_tables_equal_the_direct_computation(hd, theta):
+    """RoPE's cos and sin read from the cached tables (``rope_at``) rotate
+    q and k bit for bit as ``rope`` does from the positions, for training
+    and prefill positions and for decode positions; the tables are built
+    once per (hd, theta, device, power-of-two length)."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(hd)
+    for B, S, length in ((2, 24, 24), (3, 17, 17), (1, 300, 300)):
+        x = torch.randn(B, S, 3, hd, generator=gen)
+        for positions, need in (
+                (torch.arange(S)[None].expand(B, S), length),
+                (torch.full((B, 1), S - 1), S)):
+            xs = x[:, :positions.shape[1]]
+            want = layers.rope(xs, positions, theta)
+            got = layers.apply_rope(xs, *layers.rope_at(positions, hd, theta,
+                                                        need))
+            assert torch.equal(got, want)
+            assert torch.equal(layers.apply_rope(
+                xs.bfloat16(), *layers.rope_at(positions, hd, theta, need)),
+                layers.rope(xs.bfloat16(), positions, theta))
+    a = layers.rope_tables(hd, theta, 33, "cpu")
+    b = layers.rope_tables(hd, theta, 64, "cpu")
+    assert a[0] is b[0] and a[0].shape == (64, hd // 2)
 
 
 def test_serve_cli_on_cpu(capsys):
