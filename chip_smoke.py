@@ -8,8 +8,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   1. print the card's name and power limit; build the CUDA kernels from
      src/repro_torch/kernels/csrc with nvcc and print the build time, and
      the registers, spills and HGMMA (tensor-core) instruction count of the
-     bf16 flash-attention and staged K3 kernels (ptxas's report and
-     cuobjdump -sass); the bf16 flash-attention kernel must hold HGMMA;
+     redesigned kernels: both K7 routes (the bf16 tensor-core kernel and
+     the f32 CUDA-core one) and the staged row walk of K2 and K3 (ptxas's
+     report and cuobjdump -sass), and for K2's staged walk (width 1024)
+     and the f32 K7 (the prefill's 3 query heads a kv head) the launch's
+     shared memory and resident CTAs an SM; the bf16 flash-attention kernel
+     must hold HGMMA;
   2. hold each kernel against its plain PyTorch version, exactly, and time
      kernel, plain version, bound and (where one exists) a library call:
      K1 block_topk on the 8-client layers/mlp/w_up stack (614,400 rows of
@@ -17,7 +21,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      blocks (13 and 51), with torch.topk + scatter timed beside it as a
      yardstick only (it keeps exactly k, another tie rule); K2
      ef21_sgdm_update, K3 ef21_sgdm_topk_quant at 8 and 4 bits, each with
-     f32 and with bfloat16 EF state, and K4
+     f32 and with bfloat16 EF state (on the staged kernel: the launchers'
+     rule is asked and must say so), and K4
      dequant_add at the shapes the fused path gives them (the
      layers/mlp/w_up leaf, 8 clients folded into rows of 1024), K4 also
      at path B's downlink shape (one copy of the leaf in rows of 256); K5
@@ -67,7 +72,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      layer) and never in decode; then torch.profiler reads one more
      prefill and two decode steps on the tree serve() ran (its matrices
      cast to bf16 once for the params version): device busy time, the
-     decode's idle share, device time by op and of aten::copy_.
+     decode's idle share, device time by op and of aten::copy_. Then one
+     f32 prefill of the same fresh weights and prompts
+     (Session(spec, dtype="float32")): K7's f32 route must launch exactly
+     32 times and the logits must be finite; torch.profiler reads one more
+     such prefill: device busy ms and K7's kernel row.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
 shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, a ragged S of 1000,
@@ -75,7 +84,7 @@ hd 128 and hd 32; the bf16 (tensor-core) route also within a stated
 elementwise bound of the plain version that rounds P as it does
 (round_p=True); and times both routes at the full-width shape beside the
 library's scaled_dot_product_attention in the same dtype (a yardstick,
-never the path).
+never the path), the two in turns over three rounds, medians kept.
 Each training or serving path resets the launch counts just before it,
 checks that every kernel launched exactly as often as the path's code
 calls it (and the others not at all), that losses, parameters and logits
@@ -193,6 +202,8 @@ def kernel_checks(ops, ref, results):
     ops_per_elem = 3 + 2 + 2 * 26 + 2               # momentum, delta, 26 counts, select/add
 
     got = ops.ef21_sgdm_update(grad, v, g, eta=eta, k=k)
+    if ops.ef_layout(grad, v, g, *got) != "staged":
+        fail("ef21_sgdm_update: the w_up rows do not take the staged kernel")
     want = ref.ef21_sgdm_update_plain(grad, v, g, eta=eta, k=k)
     check_equal("ef21_sgdm_update", got, want)
     err = max_abs_err(got, want)
@@ -209,6 +220,9 @@ def kernel_checks(ops, ref, results):
         err = 0.0
         for kk in ((k, 51) if bits == 8 else (k,)):  # 51: ratio 0.05 of 1024
             got = ops.ef21_sgdm_topk_quant(grad, v, g, eta=eta, k=kk, bits=bits)
+            if ops.ef_layout(grad, v, g, *got[:3]) != "staged":
+                fail("ef21_sgdm_topk_quant: the w_up rows do not take the "
+                     "staged kernel")
             want = ref.ef21_sgdm_topk_quant_plain(grad, v, g, eta=eta, k=kk,
                                                   bits=bits)
             check_equal(f"ef21_sgdm_topk_quant bits={bits} k={kk}", got, want)
@@ -226,6 +240,9 @@ def kernel_checks(ops, ref, results):
     # the same with bfloat16 EF state: grad f32, v and g bf16
     v16, g16 = v.to(torch.bfloat16), g.to(torch.bfloat16)
     got = ops.ef21_sgdm_update(grad, v16, g16, eta=eta, k=k)
+    if ops.ef_layout(grad, v16, g16, *got) != "staged":
+        fail("ef21_sgdm_update bf16 state: the w_up rows do not take the "
+             "staged kernel")
     want = ref.ef21_sgdm_update_plain(grad, v16, g16, eta=eta, k=k)
     check_equal("ef21_sgdm_update bf16 state", got, want)
     err = max_abs_err(got, want)
@@ -611,23 +628,32 @@ def flash_checks(ops, ref, results):
                  f"plain version (max abs err {lib_err})")
         del lib_out, want
         round_p = dtype == torch.bfloat16
+        reps = 50 if round_p else 20
+        # kernel and library in turns, three rounds each: the medians
+        turns = {"ms": [], "library_ms": []}
+        for _ in range(3):
+            turns["ms"].append(time_ms(lambda: ops.flash_attention(q, k, v),
+                                       reps))
+            turns["library_ms"].append(time_ms(
+                lambda: sdpa(qt, kt, vt, is_causal=True), reps))
         results[key] = {
             "max_abs_err": err[dtype], "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ms": time_ms(lambda: ops.flash_attention(q, k, v),
-                          50 if round_p else 10),
+            "ms": sorted(turns["ms"])[1],
             "plain_ms": time_ms(lambda: ref.flash_attention_plain(
                 q, k, v, round_p=round_p), 3),
-            "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
-                                  50 if round_p else 10)}
+            "library_ms": sorted(turns["library_ms"])[1]}
         r = results[key]
         print(f"kernel flash_attention [{FLASH_FULL} {dtype}, causal, "
               f"{'tensor cores' if round_p else 'CUDA cores'}]: ms "
               f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
-              f"{r['library_ms']:.4f} (sdpa max abs err {lib_err} vs "
-              f"plain); bytes {n_bytes} -> {t_bytes * 1e3:.4f} ms; ops "
-              f"{n_ops:.4e} -> {t_ops * 1e3:.4f} ms at {peak:.3g} op/s; "
-              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"{r['library_ms']:.4f} (medians of the turns "
+              f"{[round(t, 4) for t in turns['ms']]} and "
+              f"{[round(t, 4) for t in turns['library_ms']]}; sdpa max abs "
+              f"err {lib_err} vs plain); bytes {n_bytes} -> "
+              f"{t_bytes * 1e3:.4f} ms; ops {n_ops:.4e} -> "
+              f"{t_ops * 1e3:.4f} ms at {peak:.3g} op/s; bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
         del q, k, v, qt, kt, vt
 
 
@@ -730,7 +756,9 @@ def serve_smoke_check(Session, spec_lib, model_lib, ops):
 
 def serve_full(Session, spec_lib, model_lib, ops):
     """Phase 8: full-width smollm-360m, batch 8, prompt 1024, 32 decode
-    steps, from fresh weights; served twice."""
+    steps, from fresh weights; served twice; then the f32 prefill
+    (:func:`prefill_f32`). Returns the launches of the bf16 serve and of
+    the f32 prefill."""
     spec = load_spec(spec_lib)
     sess = Session(spec, device="cuda")
     B, S, steps = (SERVE_FULL[k] for k in ("batch", "prompt_len",
@@ -779,6 +807,58 @@ def serve_full(Session, spec_lib, model_lib, ops):
     serve_profile(model_lib, sess.cfg, served_tree, tokens.cuda(),
                   out["decode_s"] / steps)
     del sess, fresh, served_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, prefill_f32(Session, spec, model_lib, ops, tokens.cuda())
+
+
+def prefill_f32(Session, spec, model_lib, ops, tokens):
+    """Phase 8, f32: one prefill of the same fresh weights and prompts in
+    f32 activations, the path of K7's f32 route: exactly 32 launches (one
+    a layer), finite logits; then torch.profiler around one more prefill
+    reads the device busy ms and K7's kernel row. Returns the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sess = Session(spec, device="cuda", dtype="float32")
+    cfg, params = sess.cfg, sess.serving_params()
+    B, S = tokens.shape
+
+    def run():
+        cache = model_lib.init_cache(cfg, B, S, device="cuda")
+        return model_lib.prefill(cfg, params, {"tokens": tokens}, cache)[0]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.time()
+    logits = run()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    launches = dict(ops.launches)
+    check_serve_launches(ops, launches, "the full-width f32 prefill",
+                         cfg.num_layers)
+    if logits.dtype != torch.float32 or \
+            tuple(logits.shape) != (B, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"full-width f32 prefill: logits {logits.dtype} "
+             f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy, by_op = device_ms(prof)
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and "flash_attention_kernel" in e.key]
+    count = sum(e.count for e in rows)
+    k7_ms = sum(e.device_time_total for e in rows) / 1e3
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+    print(f"f32 prefill full width (B {B}, S {S}): wall_ms {wall:.3f} "
+          f"launches {launches}; profile: device busy ms {busy:.3f}; K7 "
+          f"kernel row {count} launches, {k7_ms:.3f} ms "
+          f"({k7_ms / count if count else float('nan'):.4f} ms a launch); "
+          f"by op {[(k[:40], round(t, 3)) for k, t in top]}", flush=True)
+    if count != cfg.num_layers:
+        fail(f"the f32 prefill's trace holds {count} K7 kernel rows, "
+             f"expected {cfg.num_layers}")
+    del sess, params, logits
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1179,9 +1259,24 @@ def main() -> None:
                 print("  " + line.strip(), flush=True)
         resources = kernel_resources(build, lib)
         redesigned = {n: r for n, r in resources.items()
-                      if "flash_tc_kernel" in n or "quant_staged" in n}
+                      if "flash_tc_kernel" in n or "staged_rows_kernel" in n
+                      or "efk_flash::flash_attention_kernel" in n}
+        B, S, H, KV, hd = FLASH_FULL
         for name, r in sorted(redesigned.items()):
+            # the launch's dynamic shared memory and resident CTAs an SM
+            if "UpdateEpilogue" in name and "kernel<true" in name:
+                r["ctas_per_sm"], r["smem_bytes"] = ops.staged_occupancy(
+                    BLOCK, "bfloat16" in name)
             print(f"resources {name}: {r}", flush=True)
+        # the f32 K7 instantiation the prefill's shape launches
+        geo = ops.flash_f32_geometry(hd, H // KV)
+        f32_name = f"void efk_flash::flash_attention_kernel<{hd}, " \
+                   f"{geo['rows']}>"
+        if f32_name not in redesigned:
+            fail(f"no {f32_name} in the build's report")
+        redesigned[f32_name].update(geo)
+        print(f"resources {f32_name} at the prefill's shape: "
+              f"{redesigned[f32_name]}", flush=True)
         tc64 = [r for n, r in redesigned.items()
                 if "flash_tc_kernel<64>" in n]
         if not tc64 or not tc64[0].get("hgmma"):
@@ -1245,8 +1340,8 @@ def main() -> None:
     with phase("serving, cuda against cpu (smoke size)"):
         serve_smoke_check(Session, spec_lib, model_lib, ops)
     with phase("serving full-width smollm-360m: batch 8, prompt 1024, "
-               "32 decode steps"):
-        served = serve_full(Session, spec_lib, model_lib, ops)
+               "32 decode steps; then one f32 prefill"):
+        served, served_f32 = serve_full(Session, spec_lib, model_lib, ops)
 
     csrc = "src/repro_torch/kernels/csrc"
     rows = [
@@ -1273,9 +1368,18 @@ def main() -> None:
                for name, key, src, rep, counts in rows]
     kernels[0]["yardstick_topk_scatter_ms"] = \
         results["block_topk"]["yardstick_topk_scatter_ms"]
-    kernels[0]["design"] = kernels[1]["design"] = (
+    kernels[0]["design"] = (
         "warp (or lane group) a row in registers, strided layout; the "
         "bisection stops early once the kept set is decided")
+    kernels[1]["design"] = (
+        "K3's staged row walk (staged.cuh) with its own epilogue: a warp "
+        "walks rows; the next row's grad, v, g staged by cp.async.bulk + "
+        "mbarrier during the bisection (g double-buffered, read back for "
+        "g' = g + c); 16-byte runs of 4/8 consecutive values a lane for "
+        "every load and for the v', c, g' stores; early-exit bisection; "
+        "rows of another width or alignment keep the strided kernel")
+    kernels[1]["resources"] = {n: r for n, r in redesigned.items()
+                               if "UpdateEpilogue" in n}
     # K2 and K3 with bfloat16 EF state: K3 runs it on the resumable path
     kernels[1]["bf16_state"] = {k: results["ef21_sgdm_update/bf16"][k]
                                 for k in keys}
@@ -1287,13 +1391,14 @@ def main() -> None:
     kernels[2]["bits4_bf16_state"] = {
         k: results["ef21_sgdm_topk_quant/4/bf16"][k] for k in keys}
     kernels[2]["design"] = (
-        "a warp walks rows; the next row's grad, v, g "
+        "the staged row walk shared with K2 (staged.cuh), quantizing "
+        "epilogue: a warp walks rows; the next row's grad, v, g "
         "staged by cp.async.bulk + mbarrier during the bisection (g "
         "double-buffered, read back after it); 16-byte runs of 4/8 "
         "consecutive values a lane; early-exit bisection; full rows count "
         "with no presence test")
     kernels[2]["resources"] = {n: r for n, r in redesigned.items()
-                               if "quant_staged" in n}
+                               if "QuantEpilogue" in n}
     kernels[4]["design"] = (
         "by shape and alignment: vector (width a multiple of 4 up to 1024 "
         "from a 16-byte boundary: a lane group a row, 16-byte loads kept in "
@@ -1309,12 +1414,23 @@ def main() -> None:
         "Q.K^T, m64n{hd}k16 for P.V with P from registers), one CTA a "
         "query tile for the query heads of a kv head (a consumer "
         "warpgroup each, one TMA producer warp, 4-stage K/V ring; the "
-        "next tile's softmax runs during P.V); f32 on the CUDA cores, P "
-        "in f32")
+        "next tile's softmax runs during P.V)")
     kernels[6]["f32_route"] = {k: results["flash_attention/f32"][k]
                                for k in keys}
+    kernels[6]["f32_route"]["launches"] = served_f32["flash_attention"]
+    kernels[6]["f32_route"]["design"] = (
+        "f32 on the CUDA cores, P in f32: one CTA a 64-query tile for the "
+        "query heads of a kv head (up to 3), K/V by 16-byte cp.async into "
+        "a 2-stage ring (one barrier a tile); at hd 64 with 3 heads 12 "
+        "rows x 8 keys a thread for Q.K^T and 12 rows x 8 dims for P.V "
+        "(128 threads, two CTAs an SM), else 8 x 8; swizzled row-major Q "
+        "and K; P kept in registers and passed by shuffle, V as float4; m "
+        "and l of a row in one lane")
     kernels[6]["resources"] = {n: r for n, r in redesigned.items()
                                if "flash_tc_kernel" in n}
+    kernels[6]["f32_route"]["resources"] = {
+        n: r for n, r in redesigned.items()
+        if "efk_flash::flash_attention_kernel" in n}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@
 // (K1, K2 and K3's narrow rows; every group-wide load and store touches
 // consecutive addresses); elements at or past `width` are absent: never
 // counted, never stored. `bisect_threshold_by` takes any layout, with a
-// predicate that says which registers hold present elements: K3's staged
-// kernel (fused_round.cu) gives each lane runs of 4 or 8 consecutive values
-// and tests presence a run at a time, or not at all on a full row.
+// predicate that says which registers hold present elements: the staged
+// kernel of K2 and K3 (staged.cuh) gives each lane runs of 4 or 8
+// consecutive values and tests presence a run at a time, or not at all on
+// a full row.
 //
 // Arithmetic: at most kBisectIters f32 steps of mid = 0.5*(lo+hi) on
 // [0, max|x|], each counting |x| >= mid over the row with a group
@@ -20,7 +21,10 @@
 // nvcc cannot contract or reorder it: the plain PyTorch version
 // (kernels/ref.py::bisect_threshold_plain) makes the same roundings, and
 // the kept sets agree bit for bit (an integer count and a max do not depend
-// on the order of the reduction).
+// on the order of the reduction). The max propagates NaN, as the
+// reference's jnp.max does: a row holding a NaN gets hi = NaN, no mid ever
+// keeps k values, and lo stays 0 (every value but the NaN kept), in the
+// kernels as in the reference.
 //
 // Early exit. Every later lo is a mid with count(|x| >= mid) >= k, so it
 // lies in [lo, x_k], x_k the row's k-th largest |x|, and only values in
@@ -82,13 +86,20 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
+// max(a, b), NaN when either is NaN (fmaxf drops a NaN operand)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Reductions inside a group of G lanes (G a power of two, at most a warp).
 // Every lane of the warp takes part: xor offsets below G stay in the group.
 template <int G>
 __device__ __forceinline__ float group_max(float x) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    x = max_nan(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
@@ -108,21 +119,23 @@ __device__ __forceinline__ float warp_max(float x) {
   return group_max<kWarp>(x);
 }
 
-// max over the present elements of |d| (0 for an all-zero row)
+// max over the present elements of |d| (0 for an all-zero row, NaN for a
+// row holding a NaN)
 template <int PER, int G = kWarp>
 __device__ __forceinline__ float row_absmax(const float (&d)[PER], int lane,
                                             int width) {
   float m = 0.f;
 #pragma unroll
   for (int i = 0; i < PER; ++i)
-    if (i * G + lane < width) m = fmaxf(m, fabsf(d[i]));
+    if (i * G + lane < width) m = max_nan(m, fabsf(d[i]));
   return group_max<G>(m);
 }
 
 // A threshold that keeps the row's 26-step set: count(|d| >= t) >= k, the
 // set {|d| >= t} that of the reference's 26-step t (see the early exit
-// above). hi is the row's max |d| over present elements, n_present their
-// count, present(i) whether register i holds a present element.
+// above). hi is the row's max |d| over present elements (NaN-propagating),
+// n_present their count, present(i) whether register i holds a present
+// element.
 template <int PER, int G, typename Present>
 __device__ __forceinline__ float bisect_threshold_by(const float (&d)[PER],
                                                      float hi, int n_present,

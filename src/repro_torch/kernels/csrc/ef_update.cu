@@ -16,13 +16,22 @@
 // bf16 state, and a few hundred integer and float operations per row, far
 // below the card's compute rate.
 //
-// Design: one warp per row with the row in registers (width <= 1024, up to
-// 32 values a lane), so the 26 counting passes cost no memory traffic and
-// no block-wide barrier: each pass is a register compare and one warp
-// reduction. Loads are 4 bytes a lane, consecutive across the warp. Making
-// it fast (several rows a warp, 16-byte loads, cp.async/TMA staging) is
-// later work.
-#include "bisect.cuh"
+// Design. Rows whose width is a multiple of 8, from bases on 16-byte
+// boundaries (every carrier row), take the staged row walk of staged.cuh,
+// the one K3 runs: a warp walks rows over a grid that fills the card once,
+// the next row's grad, v and g arrive in shared memory by cp.async.bulk
+// while the row bisects, and each lane holds runs of 16 bytes, so every
+// load and store is 16 bytes a lane. v' is stored as soon as it is known;
+// the epilogue below reads g back from shared memory (double-buffered
+// there) and stores c and g' = g + c as 16-byte runs. On the fused path's
+// rows it reads about 85 % of its bound (PERF.md); shared memory sets its
+// residency (12 warps an SM with f32 state, 20 with bf16).
+// Rows of any other width keep the strided kernel below: one warp a row
+// with the row in registers (up to 32 values a lane), 4-byte loads
+// consecutive across the warp. Both stop the bisection early
+// (bisect.cuh) and make the same roundings, so both are bit-identical to
+// kernels/ref.py::ef21_sgdm_update_plain.
+#include "staged.cuh"
 
 namespace efk {
 
@@ -77,12 +86,55 @@ static void launch_state(const float* grad, const void* v, const void* g,
 #undef EFK_UPDATE
 }
 
+// c = where(|d| >= t, d, 0) and g' = g + c (from the f32 c), both stored in
+// the state's type as 16-byte runs
+template <typename S>
+struct UpdateEpilogue {
+  S* g_out;
+  S* c_out;
+
+  template <typename R>
+  __device__ __forceinline__ void operator()(
+      long long, long long base, float (&d)[Runs<S>::kPer], float t,
+      const S* sg, const R& runs) const {
+    constexpr int RUN = Runs<S>::kRun, NRUN = Runs<S>::kNRun;
+#pragma unroll
+    for (int r = 0; r < NRUN; ++r) {
+      const int e0 = runs.first(r);
+      if (runs.has(r)) {
+        float gg[RUN], c[RUN];
+        load_run(sg + e0, gg);
+#pragma unroll
+        for (int e = 0; e < RUN; ++e) {
+          c[e] = fabsf(d[r * RUN + e]) >= t ? d[r * RUN + e] : 0.f;
+          gg[e] = __fadd_rn(gg[e], c[e]);
+        }
+        store_run(c_out + base + e0, c);
+        store_run(g_out + base + e0, gg);
+      }
+    }
+  }
+};
+
+template <typename S>
+static void launch_staged_state(const float* grad, const void* v,
+                                const void* g, void* v_out, void* g_out,
+                                void* c_out, long long rows, int width,
+                                float c1, float c2, int k, cudaStream_t s) {
+  const StagedRows<S> in{grad, static_cast<const S*>(v),
+                         static_cast<const S*>(g), static_cast<S*>(v_out),
+                         rows, width, c1, c2, k};
+  launch_staged(in, UpdateEpilogue<S>{static_cast<S*>(g_out),
+                                      static_cast<S*>(c_out)}, s);
+}
+
 }  // namespace efk
 
 // Returns the cudaError_t of the launch (0 on success). v, g and the outputs
 // are f32 (state_bf16 = 0) or bfloat16 (state_bf16 = 1); grad is f32.
 // Outputs may alias the inputs of the same element (in-place EF state
-// update).
+// update). Rows of a multiple of 8 values with every base 16-byte aligned
+// take the staged kernel, any other rows the strided one.
 extern "C" int ef_launch_ef21_sgdm_update(
     const void* grad, const void* v, const void* g, void* v_out, void* g_out,
     void* c_out, long long rows, int width, float c1, float c2, int k,
@@ -92,11 +144,38 @@ extern "C" int ef_launch_ef21_sgdm_update(
   auto s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || width <= 0 || width > kMaxWidth || k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (state_bf16)
-    launch_state<__nv_bfloat16>(gr, v, g, v_out, g_out, c_out, rows, width,
-                                c1, c2, k, s);
-  else
-    launch_state<float>(gr, v, g, v_out, g_out, c_out, rows, width, c1, c2,
-                        k, s);
+  const void* ptrs[6] = {grad, v, g, v_out, g_out, c_out};
+  const bool staged = staged_fits(width, ptrs, 6);
+#define EFK_UPDATE_STATE(S)                                                  \
+  (staged ? launch_staged_state<S>(gr, v, g, v_out, g_out, c_out, rows,     \
+                                   width, c1, c2, k, s)                     \
+          : launch_state<S>(gr, v, g, v_out, g_out, c_out, rows, width, c1, \
+                            c2, k, s))
+  if (state_bf16) EFK_UPDATE_STATE(__nv_bfloat16);
+  else EFK_UPDATE_STATE(float);
+#undef EFK_UPDATE_STATE
   return static_cast<int>(cudaGetLastError());
+}
+
+// 1 when rows of `width` from these bases take the staged kernel of K2 and
+// K3 (the launchers' own rule), 0 when they take the strided one.
+extern "C" int ef_staged_rows(const void* grad, const void* v, const void* g,
+                              const void* v_out, const void* g_out,
+                              const void* c_out, int width) {
+  const void* ptrs[6] = {grad, v, g, v_out, g_out, c_out};
+  return efk::staged_fits(width, ptrs, 6) ? 1 : 0;
+}
+
+// The staged K2 launch's dynamic shared memory (bytes, into *smem) and
+// resident CTAs an SM (returned) for rows of `width` (a multiple of 8).
+extern "C" int ef_staged_update_occupancy(int width, int state_bf16,
+                                          int* smem) {
+  using namespace efk;
+  if (width <= 0 || width > kMaxWidth || width % 8) return -1;
+#define EFK_OCC(FULL, S) staged_occupancy<FULL, S, UpdateEpilogue<S>>(width, smem)
+  if (state_bf16)
+    return width == kMaxWidth ? EFK_OCC(true, __nv_bfloat16)
+                              : EFK_OCC(false, __nv_bfloat16);
+  return width == kMaxWidth ? EFK_OCC(true, float) : EFK_OCC(false, float);
+#undef EFK_OCC
 }

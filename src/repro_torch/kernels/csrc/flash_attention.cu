@@ -12,10 +12,10 @@
 // past S are not written and its keys past S are masked (the TPU kernel
 // asserts S % block == 0). Head dims 32, 64 and 128.
 //
-// Bound, at the serving prefill's shape (B 8, S 1024, H 15, KV 5, hd 64,
-// bf16): q, k, v and out are 41.9 MB, 0.0125 ms at 3.35 TB/s; the causal
-// work is 4*B*H*hd*S(S+1)/2 = 16.1 GFLOP, 0.0163 ms on the bf16 tensor cores
-// and 0.241 ms on the f32 CUDA cores.
+// Bound, at the serving prefill's shape (B 8, S 1024, H 15, KV 5, hd 64):
+// q, k, v and out are 41.9 MB in bf16 (0.0125 ms at 3.35 TB/s) and 83.9 MB
+// in f32; the causal work is 4*B*H*hd*S(S+1)/2 = 16.1 GFLOP, 0.0163 ms on
+// the bf16 tensor cores and 0.241 ms on the f32 CUDA cores (67 TFLOP/s).
 //
 // bf16 inputs: the tensor-core kernel (efk_flash_tc below).
 //   - One CTA per (64-query tile, kv head, batch row) covers the query heads
@@ -57,18 +57,42 @@
 // The tensor maps are made on the host by cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint(ByVersion): the library links no -lcuda.
 //
-// f32 inputs: the CUDA-core kernel (efk_flash below), so f32 serving stays
-// within 2e-5 (TF32 products would not be):
-//   - one CTA of 256 threads per (query tile of 64 rows, head, batch row);
-//     q is scaled by f32(hd^-0.5) before the product, and the scores, m, l,
-//     P and the accumulator are all f32 (P is not rounded);
-//   - the scaled Q tile, and each 64-key K and V tile in turn, are staged in
-//     shared memory as f32; thread (ty, tx) = (tid / 16, tid % 16) owns
-//     query rows 4ty..4ty+3 and keys tx, tx+16, tx+32, tx+48 of a tile (a
-//     4x4 register tile); a row's 16 threads reduce its max and sum with
-//     shuffles; P goes through shared memory to the P.V layout; rows are
-//     padded so no two lanes of a warp read one bank. It is bound by
-//     shared-memory loads, and 0.241 ms is its own floor.
+// f32 inputs: the CUDA-core kernel (efk_flash below). Its products stay
+// f32 on the CUDA cores, so f32 serving stays within 2e-5 (single TF32
+// products would not). Bound: the causal work over the f32 rate, 0.241 ms
+// at the prefill's shape. One FMA needs two f32 operands; an SM fetches 32
+// of them a clock from shared memory (or by shuffle) and issues 128 FMAs,
+// so a thread must reuse each operand it reads at least 4 times, and all
+// four schedulers must have warps to issue. The design:
+//   - one CTA per (64-query tile, kv head, batch row) covers the query
+//     heads that share the kv head (up to 3; more heads take more CTAs):
+//     each K and V tile is staged ONCE for all of them;
+//   - K and V arrive by cp.async, 16 bytes a copy, into a 2-stage ring:
+//     tile j+1 is copied while tile j computes, one barrier a tile; keys
+//     past S are zero-filled. q is scaled by f32(hd^-0.5) as it is staged;
+//   - a thread scores TR query rows against keys tx, tx+8, ..., tx+56 and
+//     accumulates the same rows over dims 32i + 4tx..+3. At hd 64 with 3
+//     heads a CTA (the prefill's shape) TR is 12: 128 threads, two CTAs an
+//     SM (8 warps, 112 KB of shared memory and up to 255 registers each),
+//     12 x 8 scores and 12 rows x 8 dims a thread, 20 operands for 96 FMAs
+//     (4.8 an operand), Q.K^T reading one dim a step. Elsewhere TR is 8:
+//     64 threads a head, 8 x 8 a thread, two dims a step, 16 operands for
+//     64 FMAs (hd 128 fits one CTA an SM). K and Q are row-major, their
+//     16-byte chunks XOR-swizzled by key % 8 and by row group % 8, so the 8
+//     keys and the row groups a read spans fall in distinct banks. (A
+//     d-major K would let Q.K^T read 4 keys at once, but a 16-byte copy
+//     cannot transpose it, and the registers hold no wider operand.)
+//   - the 8 threads of a query row are 8 lanes of one warp: the row's max
+//     and sum are 3 shuffles each, and P never leaves the registers: P.V
+//     takes key 8c+t's column of P from lane t by shuffle and V's row as
+//     float4s;
+//   - scores, m, l, P and the accumulator are f32 (P is not rounded); m
+//     and l of row r live in lane r % 8 of the row's 8 alone;
+//   - strictly-future kv tiles are skipped, and blockIdx.z counts the query
+//     tiles down from the end, so the longest are dispatched first.
+// What bounds it: even at 12 x 8 the shared-memory and shuffle traffic is
+// within a fifth of the FMAs' issue rate, and ptxas spills a few dozen
+// bytes at 255 registers; it runs at about 41 % of the FMA rate (PERF.md).
 //
 // Rounding, both kernels: expf (the f32 kernel) or exp2f (the bf16 one),
 // never __expf, no --use_fast_math, the final normalisation an IEEE
@@ -86,201 +110,369 @@
 
 namespace efk_flash {
 
-constexpr int kBQ = 64;                         // query rows a CTA
-constexpr int kBK = 64;                         // keys a kv tile
-constexpr int kThreads = 256;
-constexpr int kLanesPerRow = 16;                // threads sharing a query row
-constexpr int kRows = kBQ * kLanesPerRow / kThreads;   // rows a thread: 4
-constexpr int kKeys = kBK / kLanesPerRow;       // keys a thread scores: 4
-constexpr int kPStride = kBK + 4;               // rows 4 apart: 16 banks apart
+constexpr int kBQ = 64;          // query rows of a head in a CTA
+constexpr int kBK = 64;          // keys a kv tile
+constexpr int kTK = 8;           // keys a thread scores: tx, tx+8, ..., tx+56
+constexpr int kLanes = kBK / kTK;            // threads sharing a query row: 8
+constexpr int kMaxHeads = 3;     // query heads a CTA (see launch below)
 constexpr float kNegInf = -1e30f;
 
-// the CUDA-core kernel is instantiated for f32 only (bf16 takes the
-// tensor cores)
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// over the 16 lanes of a half-warp (xor offsets below 16 stay inside it)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = kLanesPerRow / 2; o > 0; o >>= 1)
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+// TR query rows a thread. 12 when a CTA holds 3 heads at hd 64: 128
+// threads, two CTAs (8 warps) an SM with up to 255 registers a thread, 20
+// operands for 96 FMAs; else 8 (64 threads a head; 12 does not divide
+// fewer heads' rows, hd 128's accumulators leave no room for 12 rows, and
+// at hd 32 it measured slower).
+template <int HD, int TR>
+struct Geo {
+  // floats a Q.K^T load reads along d: one at 12 rows, whose registers
+  // hold no second operand of each
+  static constexpr int kCh = TR == 12 ? 1 : 2;
+  static constexpr int kTile = kBK * HD;        // floats of a K or V tile
+  static constexpr int kDims = HD / kLanes;     // output dims a thread
+  static constexpr int kPieces = kTile / 4;     // 16-byte copies a tile
+  static constexpr int kMaxThreads = kMaxHeads * kBQ / TR * kLanes;
+  static constexpr int kOwn = (TR + kLanes - 1) / kLanes;   // rows a lane owns
+  // two CTAs an SM fit up to hd 64 (shared memory; registers: 168 a thread
+  // at 8 rows, 255 at 12); hd 128's 128 accumulators a thread take one
+  static constexpr int kMinBlocks = HD <= 64 ? 2 : 1;
+};
 
 template <int HD>
-constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(float)) *
-         (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * kPStride);
+constexpr int smem_bytes(int heads) {   // Q tiles, then the 2-stage K/V ring
+  return static_cast<int>(sizeof(float)) * (heads * kBQ * HD + 2 * 2 * kBK * HD);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S,
-                       int H, int KV, float scale, int causal) {
-  constexpr int kDims = HD / kLanesPerRow;      // output dims a thread
-  extern __shared__ float smem[];
-  float* qs = smem;                             // kBQ x (HD+1)
-  float* ks = qs + kBQ * (HD + 1);              // kBK x (HD+1)
-  float* vs = ks + kBK * (HD + 1);              // kBK x HD
-  float* ps = vs + kBK * HD;                    // kBQ x kPStride
+// Element (r, d) of a row-major tile of 16-byte chunks whose chunk index is
+// XORed with `x` in 0..7 (rows of at least 8 chunks: hd >= 32).
+template <int HD>
+__device__ __forceinline__ int swz(int r, int d, int x) {
+  return r * HD + ((((d >> 2) ^ x)) << 2) + (d & 3);
+}
 
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float (&x)[N]) {
+  if constexpr (N == 1) {
+    x[0] = *p;
+  } else if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  }
+}
+
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(hop::smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Thread (ty, tx) = (tid / 8, tid % 8) of a CTA covers CTA rows ty*TR ..
+// ty*TR+TR-1 (row c is head slot c / 64, position q0 + c % 64; a thread's
+// rows may straddle two heads) with keys tx + 8c of each kv tile for
+// Q.K^T and dims 32i + 4tx .. +3 for P.V; the 8 threads of a row are 8
+// consecutive lanes of one warp.
+template <int HD, int TR>
+__global__ void __launch_bounds__(Geo<HD, TR>::kMaxThreads,
+                                  Geo<HD, TR>::kMinBlocks)
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int S, int H, int KV, int hpc, float scale,
+                       int causal) {
+  using Gm = Geo<HD, TR>;
+  constexpr int kDims = Gm::kDims, kCh = Gm::kCh;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                             // hpc*64 rows x HD, swizzled
+  float* ring = qs + hpc * kBQ * HD;            // stage s: K, then V
+
+  const int G = H / KV;
+  const int chunks = (G + hpc - 1) / hpc;
+  const int kvh = blockIdx.x / chunks;
+  const int h0 = kvh * G + (blockIdx.x % chunks) * hpc;   // first query head
+  const int nh = min(hpc, (kvh + 1) * G - h0);            // heads of this CTA
+  const int b = blockIdx.y;
   const int nq = (S + kBQ - 1) / kBQ;
-  const int qt = nq - 1 - static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int ty = tid / kLanesPerRow, tx = tid % kLanesPerRow;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.z);
   const int q0 = qt * kBQ;
-  const long long seq0 = static_cast<long long>(b) * S;
-
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, s = q0 + r;
-    qs[r * (HD + 1) + d] =
-        s < S ? __fmul_rn(to_f32(q[((seq0 + s) * H + h) * HD + d]), scale)
-              : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][kDims];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kDims; ++e) acc[r][e] = 0.f;
-  }
-
   const int nk = (S + kBK - 1) / kBK;
   const int last = causal ? min(qt, nk - 1) : nk - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // Q stored; the last tile's P.V done with vs and ps
-    for (int i = tid; i < kBK * HD; i += kThreads) {
-      const int j = i / HD, d = i % HD, s = k0 + j;
+  const int nthreads = hpc * kBQ / TR * kLanes;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int ty = tid / kLanes, tx = tid % kLanes;
+  const int grp = lane & ~(kLanes - 1);         // lane 0 of the row's 8
+  // a warp whose first row is in an unused head slot has only such rows
+  const bool idle = (tid / 32) * (32 / kLanes) * TR / kBQ >= nh;
+  const long long seq0 = static_cast<long long>(b) * S;
+
+  // K and V tile j into stage j % 2: 16-byte copies, K's chunks swizzled by
+  // key % 8, keys past S zero-filled
+  auto issue = [&](int j) {
+    float* ks = ring + (j & 1) * 2 * Gm::kTile;
+    float* vs = ks + Gm::kTile;
+    for (int i = tid; i < Gm::kPieces; i += nthreads) {
+      const int key = i / (HD / 4), d = (i % (HD / 4)) * 4;
+      const int s = j * kBK + key;
       const bool in = s < S;
-      const long long off = ((seq0 + s) * KV + kvh) * HD + d;
-      ks[j * (HD + 1) + d] = in ? to_f32(k[off]) : 0.f;
-      vs[j * HD + d] = in ? to_f32(v[off]) : 0.f;
+      const long long off =
+          in ? ((seq0 + s) * KV + kvh) * HD + d : 0;
+      cp_async16(ks + swz<HD>(key, d, key & 7), k + off, in ? 16 : 0);
+      cp_async16(vs + key * HD + d, v + off, in ? 16 : 0);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  issue(0);
 
-    float sc[kRows][kKeys];
+  // the CTA's Q tiles, scaled by f32(hd^-0.5), chunks swizzled by the row
+  // group (row / TR) % 8; rows past S and heads past nh are zeros
+  for (int i = tid; i < hpc * kBQ * HD / 4; i += nthreads) {
+    const int row = i / (HD / 4), d = (i % (HD / 4)) * 4;
+    const int gg = row / kBQ, s = q0 + row % kBQ;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gg < nh && s < S) {
+      x = *reinterpret_cast<const float4*>(
+          q + ((seq0 + s) * H + h0 + gg) * HD + d);
+      x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+                      __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+    }
+    *reinterpret_cast<float4*>(qs + swz<HD>(row, d, (row / TR) & 7)) = x;
+  }
+
+  // m and l of rows tx and tx + 8 of the thread's TR live in this lane
+  // alone (the row's other lanes read them by shuffle)
+  float m_own[Gm::kOwn], l_own[Gm::kOwn], acc[TR][kDims];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+  for (int o = 0; o < Gm::kOwn; ++o) {
+    m_own[o] = kNegInf;
+    l_own[o] = 0.f;
+  }
 #pragma unroll
-      for (int c = 0; c < kKeys; ++c) sc[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[kRows], kv[kKeys];
+  for (int r = 0; r < TR; ++r)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        qv[r] = qs[(ty * kRows + r) * (HD + 1) + d];
+    for (int e = 0; e < kDims; ++e) acc[r][e] = 0.f;
+  const float* qrow = qs + ty * TR * HD;        // the thread's TR rows
+
+  for (int j = 0; j <= last; ++j) {
+    cp_async_wait_all();
+    __syncthreads();   // tile j (and Q) in place; tile j-1's stage is free
+    if (j < last) issue(j + 1);
+    if (idle) continue;                         // uniform across the warp
+    const float* ks = ring + (j & 1) * 2 * Gm::kTile;
+    const float* vs = ks + Gm::kTile;
+    const int k0 = j * kBK;
+
+    // S = Q.K^T: TR x 8 a thread, kCh dims a step from each of TR Q rows
+    // and 8 K rows
+    float sc[TR][kTK];
 #pragma unroll
-      for (int c = 0; c < kKeys; ++c)
-        kv[c] = ks[(tx + c * kLanesPerRow) * (HD + 1) + d];
+    for (int r = 0; r < TR; ++r)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+      for (int c = 0; c < kTK; ++c) sc[r][c] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < HD; d += kCh) {
+      float kf[kTK][kCh];
 #pragma unroll
-        for (int c = 0; c < kKeys; ++c) sc[r][c] = fmaf(qv[r], kv[c], sc[r][c]);
+      for (int c = 0; c < kTK; ++c)
+        lds<kCh>(ks + swz<HD>(c * kLanes + tx, d, tx), kf[c]);
+#pragma unroll
+      for (int r = 0; r < TR; ++r) {
+        float qf[kCh];
+        lds<kCh>(qrow + swz<HD>(r, d, ty & 7), qf);
+#pragma unroll
+        for (int c = 0; c < kTK; ++c)
+#pragma unroll
+          for (int e = 0; e < kCh; ++e)
+            sc[r][c] = fmaf(qf[e], kf[c][e], sc[r][c]);
+      }
     }
 
-    // only the diagonal tile and a ragged last tile hold masked keys
-    const bool masked = (causal && kt == qt) || k0 + kBK > S;
+    // online softmax; only the diagonal tile and a ragged last tile hold
+    // masked keys
+    const bool masked = (causal && j == qt) || k0 + kBK > S;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = q0 + ty * kRows + r;
+    for (int r = 0; r < TR; ++r) {
+      const int row = q0 + (ty * TR + r) % kBQ;
       float mx = kNegInf;
 #pragma unroll
-      for (int c = 0; c < kKeys; ++c) {
-        const int key = k0 + tx + c * kLanesPerRow;
+      for (int c = 0; c < kTK; ++c) {
+        const int key = k0 + c * kLanes + tx;
         if (masked && (key >= S || (causal && key > row))) sc[r][c] = kNegInf;
         mx = fmaxf(mx, sc[r][c]);
       }
-      const float m_new = fmaxf(m[r], row_max(mx));
-      const float alpha = expf(m[r] - m_new);
+#pragma unroll
+      for (int o = kLanes / 2; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old =
+          __shfl_sync(0xffffffffu, m_own[r / kLanes], grp | (r % kLanes));
+      const float m_new = fmaxf(m_old, mx);
+      const float alpha = expf(m_old - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < kKeys; ++c) {
-        const float p = expf(sc[r][c] - m_new);
-        ps[(ty * kRows + r) * kPStride + tx + c * kLanesPerRow] = p;
-        sum = __fadd_rn(sum, p);
+      for (int c = 0; c < kTK; ++c) {
+        sc[r][c] = expf(sc[r][c] - m_new);
+        sum = __fadd_rn(sum, sc[r][c]);
       }
-      l[r] = alpha * l[r] + row_sum(sum);
-      m[r] = m_new;
+#pragma unroll
+      for (int o = kLanes / 2; o > 0; o >>= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+      if (tx == r % kLanes) {
+        l_own[r / kLanes] = alpha * l_own[r / kLanes] + sum;
+        m_own[r / kLanes] = m_new;
+      }
 #pragma unroll
       for (int e = 0; e < kDims; ++e) acc[r][e] *= alpha;
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pv[kRows];
+    // O += P.V, keys in order: P stays in registers; key 8c + t's column
+    // of P comes from lane t of the row's 8 by shuffle, V's row as float4s
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) pv[r] = ps[(ty * kRows + r) * kPStride + j];
+    for (int c = 0; c < kTK; ++c) {
+#pragma unroll 2
+      for (int t = 0; t < kLanes; ++t) {
+        float p[TR], vv[kDims];
 #pragma unroll
-      for (int e = 0; e < kDims; ++e) {
-        const float vv = vs[j * HD + tx + e * kLanesPerRow];
+        for (int r = 0; r < TR; ++r)
+          p[r] = __shfl_sync(0xffffffffu, sc[r][c], grp | t);
+        const float* vrow = vs + (c * kLanes + t) * HD + tx * 4;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r][e] = fmaf(pv[r], vv, acc[r][e]);
+        for (int i = 0; i < kDims / 4; ++i) {
+          float x[4];
+          lds<4>(vrow + 32 * i, x);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) vv[4 * i + e] = x[e];
+        }
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+#pragma unroll
+          for (int e = 0; e < kDims; ++e)
+            acc[r][e] = fmaf(p[r], vv[e], acc[r][e]);
       }
     }
   }
 
+  float l[TR];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + ty * kRows + r;
-    if (row >= S) continue;
+  for (int r = 0; r < TR; ++r)
+    l[r] = __shfl_sync(0xffffffffu, l_own[r / kLanes], grp | (r % kLanes));
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    const int c = ty * TR + r;                  // the CTA row
+    const int row = q0 + c % kBQ;
+    if (c / kBQ >= nh || row >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* o = out + ((seq0 + row) * H + h) * HD;
+    float* o = out + ((seq0 + row) * H + h0 + c / kBQ) * HD + tx * 4;
 #pragma unroll
-    for (int e = 0; e < kDims; ++e)
-      o[tx + e * kLanesPerRow] = from_f32<T>(__fdiv_rn(acc[r][e], denom));
+    for (int i = 0; i < kDims / 4; ++i)
+      *reinterpret_cast<float4*>(o + 32 * i) = make_float4(
+          __fdiv_rn(acc[r][4 * i], denom), __fdiv_rn(acc[r][4 * i + 1], denom),
+          __fdiv_rn(acc[r][4 * i + 2], denom),
+          __fdiv_rn(acc[r][4 * i + 3], denom));
   }
 }
 
-template <typename T, int HD>
+// query heads a CTA for G that share a kv head: as few CTAs as kMaxHeads
+// allows, the heads spread evenly over them
+inline int heads_per_cta(int G) {
+  const int chunks = (G + kMaxHeads - 1) / kMaxHeads;
+  return (G + chunks - 1) / chunks;
+}
+
+// above 48 KB a CTA must opt in to dynamic shared memory
+template <int HD, int TR>
+static cudaError_t opt_in() {
+  return cudaFuncSetAttribute(flash_attention_kernel<HD, TR>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<HD>(kMaxHeads));
+}
+
+// The launch of G query heads a kv head at head dim HD, rows a thread TR
+// chosen by the shape: 12 for 3 heads a CTA at hd 64, else 8. `run` gets
+// the kernel, its opt-in's error, the heads a CTA and the threads.
+template <int HD, typename Run>
+static int with_geometry(int G, Run run) {
+  const int hpc = heads_per_cta(G);
+  if constexpr (HD == 64) {
+    if (hpc == kMaxHeads)
+      return run(flash_attention_kernel<HD, 12>, opt_in<HD, 12>(), hpc,
+                 hpc * kBQ / 12 * kLanes);
+  }
+  return run(flash_attention_kernel<HD, 8>, opt_in<HD, 8>(), hpc,
+             hpc * kBQ / 8 * kLanes);
+}
+
+template <int HD>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int B, int S, int H, int KV, float scale, int causal,
                   cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
-  auto kernel = flash_attention_kernel<T, HD>;
-  // above 48 KB a CTA must opt in to dynamic shared memory
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, scale,
-      causal);
-  return static_cast<int>(cudaGetLastError());
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs)        // 16-byte copies and stores
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  if ((S + kBQ - 1) / kBQ > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = H / KV;
+  return with_geometry<HD>(G, [&](auto kernel, cudaError_t err, int hpc,
+                                  int threads) {
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // the query tile is the slowest grid dimension, counted down from the
+    // end: the tiles with the most causal work are dispatched first
+    const dim3 grid(KV * ((G + hpc - 1) / hpc), B, (S + kBQ - 1) / kBQ);
+    kernel<<<grid, threads, smem_bytes<HD>(hpc), stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), S, H, KV, hpc,
+        scale, causal);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
-template <typename T>
 static int launch_hd(const void* q, const void* k, const void* v, void* out,
                      int B, int S, int H, int KV, int hd, float scale,
                      int causal, cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, out, B, S, H, KV, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, S, H, KV, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, S, H, KV, scale, causal, s);
+    case 32: return launch<32>(q, k, v, out, B, S, H, KV, scale, causal, s);
+    case 64: return launch<64>(q, k, v, out, B, S, H, KV, scale, causal, s);
+    case 128: return launch<128>(q, k, v, out, B, S, H, KV, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <int HD>
+static int occupancy(int G, int* smem, int* rows) {
+  return with_geometry<HD>(G, [&](auto kernel, cudaError_t err, int hpc,
+                                  int threads) {
+    *smem = smem_bytes<HD>(hpc);
+    *rows = hpc * kBQ * kLanes / threads;
+    int per_sm = 0;
+    if (err != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      *smem) != cudaSuccess)
+      return -1;
+    return per_sm;
+  });
+}
+
 }  // namespace efk_flash
+
+// The f32 route's launch at head dim hd with G query heads a kv head: its
+// dynamic shared memory (bytes, into *smem), query rows a thread (*rows)
+// and resident CTAs an SM (returned).
+extern "C" int ef_flash_f32_occupancy(int hd, int G, int* smem, int* rows) {
+  if (G < 1) return -1;
+  switch (hd) {
+    case 32: return efk_flash::occupancy<32>(G, smem, rows);
+    case 64: return efk_flash::occupancy<64>(G, smem, rows);
+    case 128: return efk_flash::occupancy<128>(G, smem, rows);
+    default: return -1;
+  }
+}
 
 namespace efk_flash_tc {
 
@@ -652,8 +844,8 @@ extern "C" int ef_launch_flash_attention(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (!bf16)
-    return efk_flash::launch_hd<float>(q, k, v, out, B, S, H, KV, hd, scale,
-                                       causal, s);
+    return efk_flash::launch_hd(q, k, v, out, B, S, H, KV, hd, scale, causal,
+                                s);
   using namespace efk_flash_tc;
   switch (hd) {
     case 32: return launch<32>(q, k, v, out, B, S, H, KV, scale, causal, s);

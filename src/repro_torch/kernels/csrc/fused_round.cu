@@ -15,30 +15,18 @@
 // state's type, bits/8 bytes of mantissa an element and one f32 scale a
 // row: about 21 bytes an element at bits=8 with f32 state, 13 with bf16.
 //
-// Design, for rows whose width is a multiple of 8 (every carrier row: the
-// selection block, 1024, with a leaf's pad as zeros in the state):
-//   - a warp walks rows (grid-stride over a grid that fills the card once);
-//     while it bisects row i, the next row's grad, v and g are on their way
-//     into shared memory by 1-D bulk copies (cp.async.bulk, one mbarrier a
-//     warp). grad and v are single-buffered (they are read once, before the
-//     bisection, so the next row may overwrite them), g double-buffered (it
-//     is read after the bisection, for g' = g + q*scale, instead of being
-//     held in registers through it). Shared memory, 16 KB a warp with f32
-//     state and 10 KB with bf16, not registers, sets the residency: 12 and
-//     20 warps an SM, each with one row of copies in flight, several times
-//     the bytes the HBM rate needs in flight;
-//   - lane l holds runs of 4 (f32 state) or 8 (bf16) consecutive values,
-//     runs l, l+32, ...: every shared-memory load and every v', g' store is
-//     16 bytes; at bits 8 a lane stores 4 or 8 mantissa bytes at once, at
-//     bits 4 a pair's two nibbles sit in one lane, with no shuffle, and a
-//     lane stores 2 or 4 bytes;
-//   - the bisection stops early once nothing is left to decide
-//     (bisect.cuh), and a full row (width 1024) counts with no presence
-//     test; a narrower row tests presence a run at a time.
-// Counts and maxima do not depend on where an element sits, so the outputs
-// are bit-identical to the strided layout's. Rows of another width keep the
-// strided warp-per-row kernel below (ef_update.cu's layout, the row and g in
-// registers, 4-byte loads); it takes the early exit too.
+// Design, for rows whose width is a multiple of 8 from 16-byte aligned
+// bases: the staged row walk of staged.cuh, which K2 shares (a warp walks
+// rows; the next row's grad, v and g arrive by cp.async.bulk during the
+// bisection; 16-byte runs of 4 or 8 consecutive values a lane; early-exit
+// bisection), with a quantizing epilogue: it reads g back from shared
+// memory after the bisection (g is double-buffered there), and at bits 8 a
+// lane stores 4 or 8 mantissa bytes at once, at bits 4 a pair's two nibbles
+// sit in one lane, with no shuffle, and a lane stores 2 or 4 bytes. Rows of
+// another width keep the strided warp-per-row kernel below (ef_update.cu's
+// layout, the row and g in registers, 4-byte loads); it takes the early
+// exit too. On the fused path's rows the staged kernel reads about 80 % of
+// its bound (PERF.md).
 //
 // dequant_add replaces fused_round.py::dequant_add (_dequant_add_kernel):
 //     out = base + alpha*(q*scale)      (alpha applied only when != 1)
@@ -52,8 +40,7 @@
 // multiplies by the f32 reciprocal of qmax, which is what the reference's
 // `absmax / qmax` compiles to under XLA — what the plain PyTorch versions
 // in kernels/ref.py compute, bit for bit.
-#include "bisect.cuh"
-#include "hopper.cuh"
+#include "staged.cuh"
 
 namespace efk {
 
@@ -157,57 +144,7 @@ static void launch_uplink_bits(const float* grad, const void* v,
 }
 
 
-// ---- the staged kernel: rows of a multiple of 8, 16-byte runs -------------
-
-constexpr int kStagedWarps = 4;     // warps a CTA, each walking its own rows
-
-template <typename S>
-struct Runs {
-  static constexpr int kRun = 16 / static_cast<int>(sizeof(S));  // 4 or 8
-  static constexpr int kNRun = kMaxWidth / (kWarp * kRun);       // 8 or 4
-  static constexpr int kPer = kRun * kNRun;                      // 32
-};
-
-// shared memory of one warp: grad (f32), v, and g twice, `width` each
-template <typename S>
-__host__ __device__ constexpr int staged_warp_bytes(int width) {
-  return width * (4 + 3 * static_cast<int>(sizeof(S)));
-}
-
-__device__ __forceinline__ void load_run(const float* p, float (&x)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-}
-__device__ __forceinline__ void load_run(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-__device__ __forceinline__ void load_run(const __nv_bfloat16* p,
-                                         float (&x)[8]) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h[e]);
-    x[2 * e] = f.x;
-    x[2 * e + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store_run(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store_run(__nv_bfloat16* p,
-                                          const float (&x)[8]) {
-  uint4 a;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    h[e] = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
-  *reinterpret_cast<uint4*>(p) = a;
-}
+// ---- the staged kernel (staged.cuh) with the quantizing epilogue -------
 
 // a run's mantissas: RUN int8 bytes at bits 8, RUN/2 packed bytes at bits
 // 4 (+8 offset, the even element in the high nibble), little-endian words
@@ -244,80 +181,21 @@ __device__ __forceinline__ void store_mantissas(uint8_t* q_row, int e0,
   }
 }
 
-template <bool FULL, int BITS, typename S>
-__global__ void __launch_bounds__(kStagedWarps * kWarp, 5)
-ef21_sgdm_topk_quant_staged(const float* grad, const S* v, const S* g,
-                            S* v_out, S* g_out, uint8_t* q_out, float* s_out,
-                            long long rows, int width, float c1, float c2,
-                            int k) {
-  constexpr int RUN = Runs<S>::kRun, NRUN = Runs<S>::kNRun;
-  constexpr int PER = Runs<S>::kPer;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + wid;
-  uint8_t* buf = smem + kStagedWarps * sizeof(uint64_t) +
-                 wid * staged_warp_bytes<S>(width);
-  float* s_grad = reinterpret_cast<float*>(buf);
-  S* s_v = reinterpret_cast<S*>(buf + width * 4);
-  S* s_g = s_v + width;                       // two buffers of width
-  const int nruns = width / RUN;
-  const uint32_t grad_bytes = width * 4;
-  const uint32_t state_bytes = width * static_cast<int>(sizeof(S));
-  const long long stride = static_cast<long long>(gridDim.x) * kStagedWarps;
-  long long row = static_cast<long long>(blockIdx.x) * kStagedWarps + wid;
-  auto present = [&](int i) {
-    return FULL || (i / RUN) * kWarp + lane < nruns;
-  };
-  auto stage = [&](long long r, int slot) {   // lane 0 only
-    hop::mbar_arrive_expect_tx(bar, grad_bytes + 2 * state_bytes);
-    hop::bulk_load(s_grad, grad + r * width, grad_bytes, bar);
-    hop::bulk_load(s_v, v + r * width, state_bytes, bar);
-    hop::bulk_load(s_g + slot * width, g + r * width, state_bytes, bar);
-  };
+// c = where(|d| >= t, d, 0) (non-finite -> 0), quantized against the row's
+// absmax; g' = g + q*scale, the mantissas and the scale stored
+template <int BITS, typename S>
+struct QuantEpilogue {
+  S* g_out;
+  uint8_t* q_out;
+  float* s_out;
+  int width;
 
-  if (lane == 0) {
-    hop::mbar_init(bar, 1);
-    hop::fence_barrier_init();
-    if (row < rows) stage(row, 0);
-  }
-  __syncwarp();
-  for (int j = 0; row < rows; ++j, row += stride) {
-    hop::mbar_wait(bar, j & 1);
-    const S* sg = s_g + (j & 1) * width;
-    const long long base = row * width;
-
-    // v' = c1*v + c2*grad (stored now), d = v' - g
-    float d[PER];
-#pragma unroll
-    for (int r = 0; r < NRUN; ++r) {
-      const int e0 = (r * kWarp + lane) * RUN;
-      if (FULL || r * kWarp + lane < nruns) {
-        float gr[RUN], vv[RUN], gg[RUN], vn[RUN];
-        load_run(s_grad + e0, gr);
-        load_run(s_v + e0, vv);
-        load_run(sg + e0, gg);
-#pragma unroll
-        for (int e = 0; e < RUN; ++e) {
-          vn[e] = __fadd_rn(__fmul_rn(c1, vv[e]), __fmul_rn(c2, gr[e]));
-          d[r * RUN + e] = __fsub_rn(vn[e], gg[e]);
-        }
-        store_run(v_out + base + e0, vn);
-      } else {
-#pragma unroll
-        for (int e = 0; e < RUN; ++e) d[r * RUN + e] = 0.f;
-      }
-    }
-    // grad and v are consumed: the next row's copies run during the
-    // bisection (into the other g buffer)
-    hop::fence_proxy_async();
-    __syncwarp();
-    if (lane == 0 && row + stride < rows) stage(row + stride, (j + 1) & 1);
-
-    float hi = 0.f;                            // absent values are 0
-#pragma unroll
-    for (int i = 0; i < PER; ++i) hi = fmaxf(hi, fabsf(d[i]));
-    const float t = bisect_threshold_by<PER, kWarp>(d, warp_max(hi), width,
-                                                    k, present);
+  template <typename R>
+  __device__ __forceinline__ void operator()(
+      long long row, long long base, float (&d)[Runs<S>::kPer], float t,
+      const S* sg, const R& runs) const {
+    constexpr int RUN = Runs<S>::kRun, NRUN = Runs<S>::kNRun;
+    constexpr int PER = Runs<S>::kPer;
     float amax = 0.f;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
@@ -332,8 +210,8 @@ ef21_sgdm_topk_quant_staged(const float* grad, const S* v, const S* g,
     uint8_t* q_row = q_out + (BITS == 8 ? base : row * (width / 2));
 #pragma unroll
     for (int r = 0; r < NRUN; ++r) {
-      const int e0 = (r * kWarp + lane) * RUN;
-      if (FULL || r * kWarp + lane < nruns) {
+      const int e0 = runs.first(r);
+      if (runs.has(r)) {
         float gg[RUN], q[RUN];
         load_run(sg + e0, gg);
 #pragma unroll
@@ -346,35 +224,9 @@ ef21_sgdm_topk_quant_staged(const float* grad, const S* v, const S* g,
         store_mantissas<BITS, RUN>(q_row, e0, q);
       }
     }
-    if (lane == 0) s_out[row] = scale;
+    if (runs.lane == 0) s_out[row] = scale;
   }
-}
-
-template <bool FULL, int BITS, typename S>
-static void launch_staged(const float* grad, const void* v, const void* g,
-                          void* v_out, void* g_out, uint8_t* q_out,
-                          float* s_out, long long rows, int width, float c1,
-                          float c2, int k, cudaStream_t s) {
-  auto kernel = ef21_sgdm_topk_quant_staged<FULL, BITS, S>;
-  const int smem = kStagedWarps * static_cast<int>(sizeof(uint64_t)) +
-                   kStagedWarps * staged_warp_bytes<S>(width);
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
-    return;                                    // reported by cudaGetLastError
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                kStagedWarps * kWarp, smem);
-  const long long need = (rows + kStagedWarps - 1) / kStagedWarps;
-  const long long fill =
-      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const unsigned grid = static_cast<unsigned>(need < fill ? need : fill);
-  kernel<<<grid, kStagedWarps * kWarp, smem, s>>>(
-      grad, static_cast<const S*>(v), static_cast<const S*>(g),
-      static_cast<S*>(v_out), static_cast<S*>(g_out), q_out, s_out, rows,
-      width, c1, c2, k);
-}
+};
 
 template <int BITS, typename S>
 static void launch_uplink_staged(const float* grad, const void* v,
@@ -382,12 +234,11 @@ static void launch_uplink_staged(const float* grad, const void* v,
                                  uint8_t* q_out, float* s_out, long long rows,
                                  int width, float c1, float c2, int k,
                                  cudaStream_t s) {
-  if (width == kMaxWidth)
-    launch_staged<true, BITS, S>(grad, v, g, v_out, g_out, q_out, s_out, rows,
-                                 width, c1, c2, k, s);
-  else
-    launch_staged<false, BITS, S>(grad, v, g, v_out, g_out, q_out, s_out,
-                                  rows, width, c1, c2, k, s);
+  const StagedRows<S> in{grad, static_cast<const S*>(v),
+                         static_cast<const S*>(g), static_cast<S*>(v_out),
+                         rows, width, c1, c2, k};
+  launch_staged(in, QuantEpilogue<BITS, S>{static_cast<S*>(g_out), q_out,
+                                           s_out, width}, s);
 }
 
 }  // namespace efk
@@ -410,9 +261,7 @@ extern "C" int ef_launch_ef21_sgdm_topk_quant(
   // rows of a multiple of 8 values, every base 16-byte aligned: the staged
   // kernel; any other width: the strided one
   const void* ptrs[6] = {grad, v, g, v_out, g_out, q_out};
-  bool staged = width % 8 == 0;
-  for (const void* p : ptrs)
-    staged = staged && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const bool staged = staged_fits(width, ptrs, 6);
 #define EFK_UPLINK_STATE(BITS, S)                                            \
   (staged ? launch_uplink_staged<BITS, S>(gr, v, g, v_out, g_out, qo, so,    \
                                           rows, width, c1, c2, k, s)         \

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "ef_launch_block_quantize": [_P, _P, _P, _L, _I, _I, _P],
     "ef_launch_block_dequantize": [_P, _P, _P, _L, _I, _I, _P],
     "ef_codec_mapping": [_P, _P, _I],
+    "ef_staged_rows": [_P, _P, _P, _P, _P, _P, _I],
+    "ef_staged_update_occupancy": [_I, _I, _P],
+    "ef_flash_f32_occupancy": [_I, _I, _P, _P],
     "ef_launch_flash_attention":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
@@ -129,6 +132,44 @@ def codec_mapping(src: torch.Tensor, dst: torch.Tensor, cols: int) -> str:
     of the built library."""
     code = _lib().ef_codec_mapping(src.data_ptr(), dst.data_ptr(), cols)
     return ("vector", "scalar", "wide")[code]
+
+
+def ef_layout(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+              v_out: torch.Tensor, g_out: torch.Tensor,
+              third: torch.Tensor) -> str:
+    """The layout, ``staged`` or ``strided``, that the card's K2 (``third``
+    its c) or K3 (``third`` its mantissas) runs rows of these tensors on:
+    staged for widths that are a multiple of 8 with every base on a 16-byte
+    boundary. The launchers' own rule (csrc/staged.cuh), asked of the built
+    library; it needs the card."""
+    ptrs = [t.data_ptr() for t in (grad, v, g, v_out, g_out, third)]
+    staged = _lib().ef_staged_rows(*ptrs, grad.shape[1])
+    return "staged" if staged else "strided"
+
+
+def staged_occupancy(width: int, bf16: bool) -> Tuple[int, int]:
+    """(resident CTAs an SM, dynamic shared memory bytes a CTA) of the
+    card's K2 launch on the staged layout for rows of ``width`` with f32 or
+    bf16 state, asked of the built library; it needs the card."""
+    smem = ctypes.c_int(0)
+    ctas = _lib().ef_staged_update_occupancy(width, int(bf16),
+                                             ctypes.byref(smem))
+    if ctas < 0:
+        raise ValueError(f"no staged launch for rows of {width}")
+    return ctas, smem.value
+
+
+def flash_f32_geometry(hd: int, heads: int) -> Dict[str, int]:
+    """The card's launch of K7's f32 route at head dim ``hd`` with
+    ``heads`` query heads a kv head: query rows a thread, dynamic shared
+    memory bytes a CTA and resident CTAs an SM, asked of the built library;
+    it needs the card."""
+    smem, rows = ctypes.c_int(0), ctypes.c_int(0)
+    ctas = _lib().ef_flash_f32_occupancy(hd, heads, ctypes.byref(smem),
+                                         ctypes.byref(rows))
+    if ctas < 0:
+        raise ValueError(f"no f32 launch for hd {hd}, {heads} heads")
+    return {"rows": rows.value, "smem_bytes": smem.value, "ctas_per_sm": ctas}
 
 
 def _check_rows(grad, v, g, v_out, g_out, k: int) -> Tuple[int, int]:
@@ -340,9 +381,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CTA for the query heads of a kv head, K/V staged by TMA): the scores,
     softmax, l and the accumulator are f32, and P is rounded to bf16 for
     P.V, as the reference's chunked attention rounds it. f32 runs on the
-    CUDA cores with P in f32. On CPU tensors the plain version makes the
-    same roundings (``ref.flash_attention_plain``, with ``round_p`` for
-    bf16)."""
+    CUDA cores with P in f32 (one CTA for the query heads of a kv head too,
+    K/V staged by 16-byte cp.async). On the card q, k and v must start on
+    16-byte boundaries. On CPU tensors the plain version makes the same
+    roundings (``ref.flash_attention_plain``, with ``round_p`` for bf16)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be (B,S,heads,hd), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -364,9 +406,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                          round_p=bf16)
     if B > 65535 or H > 65535:
         raise ValueError(f"B={B}, H={H}: at most 65535 each in one launch")
-    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bf16 q, k and v must start on 16-byte boundaries "
-                         "(the tensor-core route loads them by TMA)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries (the "
+                         "bf16 route loads them by TMA, the f32 route by "
+                         "16-byte copies)")
     out = torch.empty_like(q)
     _launch("ef_launch_flash_attention", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), B, S, H, KV, hd, int(bf16),

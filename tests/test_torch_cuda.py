@@ -6,7 +6,10 @@ elsewhere; they import nothing of JAX, so they run on a machine without it:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Outputs of K1-K6 must be bit-identical: the kernels and the plain versions
-make the same f32 roundings (kernels/ref.py). K7 (flash attention) sums in
+make the same f32 roundings (kernels/ref.py), NaN where the plain version
+has NaN. K2 and K3 run the staged row walk on widths that are a multiple of
+8 from 16-byte aligned bases and the strided kernel elsewhere
+(``ops.ef_layout`` says which); both are held. K7 (flash attention) sums in
 another order and is held within stated tolerances.
 """
 import pytest
@@ -46,6 +49,91 @@ def test_cuda_kernels_match_plain(cuda_device, bits, width, k):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _same(a, b):
+    """Bit for bit, NaN where the other has NaN (torch.equal counts two
+    NaNs unequal)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _ef_rows(rows, width, state_dtype, device, seed):
+    """grad f32, v and g in the state's dtype: an all-zero row, an inf in
+    grad, a NaN in g, and a row whose values tie across the k-th one."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    grad, v, g = (torch.randn(rows, width, generator=gen) for _ in range(3))
+    grad[3], v[3], g[3] = 0.0, 0.0, 0.0
+    grad[5, 0] = float("inf")
+    g[6, width // 2] = float("nan")
+    grad[7], v[7], g[7] = 0.0, 0.0, 0.0
+    grad[7, :min(width, 20)] = 2.0                  # 20 tied values
+    return (grad.to(device), v.to(device=device, dtype=state_dtype),
+            g.to(device=device, dtype=state_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [8, 16, 24, 256, 1000, 1024])
+def test_cuda_ef_update_staged_matches_plain(cuda_device, width, state_dtype,
+                                             in_place):
+    """K2 on the staged kernel (widths a multiple of 8 from 16-byte aligned
+    bases) against ef21_sgdm_update_plain, bit for bit, with f32 and bf16
+    state, an all-zero row, inf and NaN inputs and a tie across the k-th
+    value; in place (v_out=v, g_out=g) as the carriers call it."""
+    grad, v, g = _ef_rows(517, width, state_dtype, cuda_device, width)
+    k = min(width, 16) if width >= 64 else max(1, width // 4)
+    want = ref.ef21_sgdm_update_plain(grad, v, g, eta=0.2, k=k)
+    if in_place:
+        got = ops.ef21_sgdm_update(grad, v, g, eta=0.2, k=k, v_out=v, g_out=g)
+        assert got[0] is v and got[1] is g
+    else:
+        got = ops.ef21_sgdm_update(grad, v, g, eta=0.2, k=k)
+    torch.cuda.synchronize()
+    assert ops.ef_layout(grad, v, g, *got) == "staged"
+    for a, b in zip(got, want):
+        assert _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,misaligned", [(13, False), (51, False),
+                                              (1024, True), (256, True)])
+def test_cuda_ef_update_strided_matches_plain(cuda_device, width, misaligned,
+                                              state_dtype):
+    """K2's strided kernel takes odd widths and any base off a 16-byte
+    boundary (here grad's), bit for bit as well, NaN and inf included."""
+    grad, v, g = _ef_rows(300, width, state_dtype, cuda_device, 7 + width)
+    if misaligned:
+        grad = _unaligned(grad)
+    k = 3 if width < 64 else 16
+    want = ref.ef21_sgdm_update_plain(grad, v, g, eta=0.2, k=k)
+    got = ops.ef21_sgdm_update(grad, v, g, eta=0.2, k=k)
+    torch.cuda.synchronize()
+    assert ops.ef_layout(grad, v, g, *got) == "strided"
+    for a, b in zip(got, want):
+        assert _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_topk_quant_staged_odd_rows_match_plain(cuda_device, bits,
+                                                     state_dtype):
+    """K3 on the same rows (zeros, inf, NaN, ties) on the staged walk it
+    shares with K2, bit for bit."""
+    grad, v, g = _ef_rows(517, 1024, state_dtype, cuda_device, bits)
+    want = ref.ef21_sgdm_topk_quant_plain(grad, v, g, eta=0.2, k=16,
+                                          bits=bits)
+    got = ops.ef21_sgdm_topk_quant(grad, v, g, eta=0.2, k=16, bits=bits)
+    torch.cuda.synchronize()
+    assert ops.ef_layout(grad, v, g, *got[:3]) == "staged"
+    for a, b in zip(got, want):
+        assert _same(a, b)
 
 
 @pytest.mark.cuda
@@ -204,6 +292,25 @@ def test_cuda_flash_attention_matches_plain(cuda_device, B, S, H, KV, hd,
     assert got.dtype == dtype and got.shape == (B, S, H, hd)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 3, 5])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 1000, 1024])
+def test_cuda_flash_attention_f32_route_matches_plain(cuda_device, S, hd, G,
+                                                      causal):
+    """K7's f32 route (one CTA for the G query heads of a kv head, up to 3
+    a CTA; a ragged last tile at S 63, 65 and 1000; S 1 a single key)
+    within 2e-5 of flash_attention_plain, atol and rtol."""
+    B, KV = 2, 2
+    q, k, v = _flash_inputs(B, S, KV * G, KV, hd, torch.float32, cuda_device,
+                            seed=G)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
 def _p_rounding_bound(q, k, v, causal):

@@ -96,6 +96,60 @@ def test_bisect_threshold_matches_pallas_helper(d, block, k, zero_rows):
     np.testing.assert_array_equal(got, want)
 
 
+def _odd_rows(block=256):
+    """Rows of |v' - g| that the early exit and the max must get right: a
+    NaN, an inf, both, ties across the k-th value, an all-zero row, and
+    fewer than k nonzero values."""
+    rng = np.random.RandomState(5)
+    ab = np.abs(rng.randn(6, block)).astype(np.float32)
+    ab[0, 7] = np.nan
+    ab[1, 3] = np.inf
+    ab[2, 3], ab[2, 9] = np.inf, np.nan
+    ab[3, :] = 0.0
+    ab[3, :20] = 2.5                        # 20 tied values across k = 16
+    ab[4, :] = 0.0
+    ab[5, :] = 0.0
+    ab[5, :5] = 1.0                         # 5 nonzero, fewer than k
+    return ab
+
+
+def test_bisect_threshold_matches_pallas_helper_on_odd_rows():
+    """A NaN makes the row's max NaN in the reference (jnp.max), so no mid
+    keeps k values and the threshold stays 0: every value but the NaN is
+    kept. The plain version, and the kernels' NaN-propagating max
+    (csrc/bisect.cuh), do the same; ties, an inf, an all-zero row and rows
+    with fewer than k nonzeros take all 26 steps."""
+    ab = _odd_rows()
+    want = np.asarray(jax_tk._bisect_threshold(jnp.asarray(ab), 16))
+    got = ref.bisect_threshold_plain(torch.tensor(ab), 16).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == 0.0 and got[2] == 0.0           # the NaN rows keep all
+    assert (ab[3] >= got[3]).sum() == 20              # the tie is kept whole
+
+
+def test_ef21_sgdm_update_matches_pallas_on_odd_rows():
+    """K2's plain version against the Pallas kernel on rows holding a NaN,
+    an inf, ties, zeros: the same selection and v' (NaN where the
+    reference has NaN), at eta 0.5 where both round v' once."""
+    ab = _odd_rows()
+    rng = np.random.RandomState(6)
+    g = rng.randn(*ab.shape).astype(np.float32)
+    grad = (2.0 * ab + g).astype(np.float32)     # v' - g = |.|-valued rows
+    v = np.zeros_like(g)
+    want = jax_ef.ef21_sgdm_update(
+        jnp.asarray(grad.reshape(-1)), jnp.asarray(v.reshape(-1)),
+        jnp.asarray(g.reshape(-1)), eta=0.5, block=ab.shape[1], k=16,
+        interpret=True)
+    got = ops.ef21_sgdm_update(torch.tensor(grad), torch.tensor(v),
+                               torch.tensor(g), eta=0.5, k=16)
+    vj, gj, cj = (np.asarray(x).reshape(ab.shape) for x in want)
+    vt, gt, ct = (t.numpy() for t in got)
+    np.testing.assert_array_equal(ct, cj)
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_array_equal(np.isnan(gt), np.isnan(gj))
+    assert (ct[0] != 0).sum() == ab.shape[1] - 1      # all but the NaN
+
+
 def _run_k2(d, block, k, zero_rows, eta, seed):
     grad, v, g = _inputs(d, seed, zero_rows, block)
     want = jax_ef.ef21_sgdm_update(
