@@ -42,9 +42,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      Sessions on the card and on the CPU (the CPU runs the plain versions,
      which the CPU tests hold against the JAX package) agree for 2 steps,
      with fused_quant8/fused_quant4, with quant8/quant4, with
-     quant8/quant4 under the identity compressor, and on the dense plan
-     (the clients in one pass) with block_quant and with block_topk; the
-     card's run must launch each path's kernels;
+     quant8/quant4 under the identity compressor, on the dense plan
+     (the clients in one pass) with block_quant and with block_topk, and
+     for the shipped mixed_schedule, sampled_quarter and
+     hierarchy_quant4_cross specs; the card's run must launch each path's
+     kernels. Then two checks torch against torch on the card, bit for
+     bit over two rounds: a one-group schedule against the ungrouped
+     fused_quant8/fused_quant4 round, and a fraction-1.0 cohort against
+     the full round on carrier fused;
   4. main path A: full-width smollm-360m, 8 clients, EF21-SGDM with
      Block-TopK, carrier quant8 up and quant4 down (the sparse payload both
      ways), 3 training steps;
@@ -64,6 +69,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      the saved ones exactly and whose step 3 must match within rtol 1e-3;
      prints step ms, peak bytes, the EF state's bytes (exactly half of
      f32's), the checkpoint's bytes and the save and restore seconds;
+  6c. the grouped, sampled and two-tier rounds at full width (32 layers,
+     d_model 960, weights from seed 0), 3 steps each, each printing what it
+     adds (the resolved group table with its wire words, the cohort, the
+     cross-pod and flat words a round): G, fused_quickstart's 8 clients
+     with the norms dense and the embedding and the matrices on
+     fused_quant8 up and fused_quant4 down, the embedding's EF state in
+     bf16; M, mixed_schedule.json with smoke off (4 clients, batch 8, seq
+     64); S, carrier fused with sampled participation (fraction 0.25, seed
+     7): each step's cohort, and every non-sampled client's v and g
+     bit-unchanged on the card (a bit-sum per client and leaf before and
+     after the step), every sampled one moved; H,
+     hierarchy_quant4_cross.json with smoke off (8 clients, 2 pods, the
+     quant4 cross hop);
   7. serving, card against CPU at smoke size (f32 activations): the greedy
      tokens must be equal and the prefill logits agree within rtol 1e-4;
   8. serving full-width smollm-360m from fresh weights: batch 8, prompt
@@ -87,10 +105,14 @@ library's scaled_dot_product_attention in the same dtype (a yardstick,
 never the path), the two in turns over three rounds, medians kept.
 Each training or serving path resets the launch counts just before it,
 checks that every kernel launched exactly as often as the path's code
-calls it (and the others not at all), that losses, parameters and logits
-are finite, and prints its times and peak memory. Then the script prints
-a ``kernels`` JSON line, the card line, and the final ``{"ok": true, ...}``
-line. Imports nothing of JAX or of src/repro.
+calls it (and the others not at all; a training path's counts are derived
+from its EF config by ``expected_launches``: per group of a schedule, per
+leaf its plans, per pod its cross hop), that losses, parameters and logits
+are finite, and prints its times, peak memory and step breakdown. Then the
+script prints a ``kernels`` JSON line (each kernel's launches on the main
+path and, under ``launches_by_phase``, on phases G, M, S and H), the card
+line, and the final ``{"ok": true, ...}`` line. Imports nothing of JAX or
+of src/repro.
 """
 import contextlib
 import gc
@@ -114,7 +136,7 @@ import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-SPEC = os.path.join(ROOT, "results", "specs", "fused_quickstart.json")
+SPECS = os.path.join(ROOT, "results", "specs")
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (published)
 F32_OPS_S = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_S = 989e12         # H100 SXM bf16 tensor cores, dense
@@ -128,6 +150,14 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the resumable path: bf16 EF state and AdamW on the fused quantized wire
 RESUME_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
                    ef_state_dtype="bfloat16", optimizer="adamw", lr=1e-3)
+# phase G: the norms dense, the embedding and the matrices on the fused
+# wire, the embedding's EF state in bf16 beside the others' f32
+G_GROUPS = [{"pattern": "norm|bias", "carrier": "dense"},
+            {"pattern": "embed", "carrier": "fused_quant8",
+             "downlink_carrier": "fused_quant4",
+             "ef_state_dtype": "bfloat16"},
+            {"pattern": "*", "carrier": "fused_quant8",
+             "downlink_carrier": "fused_quant4"}]
 CKPT_FREE_BYTES = 40e9         # a full-width checkpoint is about 30 GB
 
 
@@ -938,37 +968,126 @@ def serve_trained(sess, model_lib, ops) -> None:
           f"{out['tokens'].tolist()}", flush=True)
 
 
-def load_spec(spec_lib, **overrides):
-    with open(SPEC) as f:
+def load_spec(spec_lib, name="fused_quickstart", **overrides):
+    with open(os.path.join(SPECS, f"{name}.json")) as f:
         return spec_lib.RunSpec.from_dict(dict(json.load(f), **overrides))
 
 
-SMOKE_PATHS = [  # (label, spec overrides, kernels the cuda run launches)
-    ("fused_quant8/fused_quant4", {"carrier": "fused_quant8",
-                                   "downlink_carrier": "fused_quant4"},
+def _codec_down(carrier_lib, comp_lib, car, comp):
+    """Launches of one leaf's broadcast (``ef.downlink_sync``): the
+    carrier's wire (K5 to encode; K6 to decode the sparse payload, K4 to
+    integrate the dense one) or, on the dense plan, C itself."""
+    out = {}
+    if car.plan_down(comp) == "wire":
+        if isinstance(car, carrier_lib.QuantCarrier):
+            sparse = carrier_lib.has_block_wire(comp) and not isinstance(
+                car, carrier_lib.FusedQuantCarrier)
+            if not sparse:
+                out = _compressor_launches(comp_lib, comp)
+            out["block_quantize"] = out.get("block_quantize", 0) + 1
+            key = "block_dequantize" if sparse else "dequant_add"
+            out[key] = out.get(key, 0) + 1
+        return out
+    return _compressor_launches(comp_lib, comp)
+
+
+def _compressor_launches(comp_lib, comp):
+    """C applied as a function: BlockQuant runs K5 and K6 (the codec is
+    its compressor), every other ported compressor is plain PyTorch."""
+    if isinstance(comp, comp_lib.BlockQuant):
+        return {"block_quantize": 1, "block_dequantize": 1}
+    return {}
+
+
+def expected_launches(efc, tree):
+    """The kernel launches of one training step, derived from the EF config:
+    per group of the schedule's resolution (or the whole tree without one),
+    each leaf's uplink plan, its downlink and, under a non-trivial cross
+    hop, each pod's cross hop. {kernel: launches a step}."""
+    from repro_torch.core import carriers as carrier_lib
+    from repro_torch.core import compressors as comp_lib
+    from repro_torch.core import hierarchy as hier_lib
+    from repro_torch.core import schedule as sched_lib
+    hops = efc.effective_hops
+    pods = 0 if hops is None or hier_lib.cross_is_trivial(
+        hops, efc.schedule) else hops.pods
+    if efc.schedule is not None:
+        legs = [(sched_lib.group_method(efc.method, g), g.carrier,
+                 g.down_carrier if g.has_downlink else None, g.down_comp(),
+                 None if g.trivial_cross else (g.cross_carrier,
+                                               g.cross_comp()), keys)
+                for g, keys in zip(efc.schedule.groups,
+                                   sched_lib.group_keys(efc.schedule, tree))]
+    else:
+        legs = [(efc.method, efc.carrier,
+                 efc.down_carrier if efc.has_downlink else None,
+                 efc.down_comp(),
+                 None if not pods else (hops.cross_carrier,
+                                        hops.cross_comp()), list(tree))]
+    counts = {}
+
+    def add(launches, times):
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n * times
+    for method, carrier, down, down_comp, cross, keys in legs:
+        car = carrier_lib.make(carrier)
+        plan = car.plan(method)
+        up = {"fused": {"ef21_sgdm_update": 1},
+              "fused_wire": {"ef21_sgdm_topk_quant": 1,
+                             "block_dequantize": 1}}.get(plan, {})
+        if plan == "wire" and isinstance(car, carrier_lib.QuantCarrier):
+            up = dict(_compressor_launches(comp_lib, method.compressor)
+                      if not carrier_lib.has_block_wire(method.compressor)
+                      or isinstance(car, carrier_lib.FusedQuantCarrier)
+                      else {})
+            up["block_quantize"] = up.get("block_quantize", 0) + 1
+            up["block_dequantize"] = up.get("block_dequantize", 0) + 1
+        elif plan == "dense":
+            up = _compressor_launches(comp_lib, method.compressor)
+        add(up, len(keys))
+        if down is not None:
+            add(_codec_down(carrier_lib, comp_lib, carrier_lib.make(down),
+                            down_comp), len(keys))
+        if cross is not None and pods:
+            add(_codec_down(carrier_lib, comp_lib,
+                            carrier_lib.make(cross[0]), cross[1]),
+                len(keys) * pods)
+    return counts
+
+
+SMOKE_PATHS = [  # (label, spec, overrides, kernels the cuda run launches)
+    ("fused_quant8/fused_quant4", "fused_quickstart",
+     {"carrier": "fused_quant8", "downlink_carrier": "fused_quant4"},
      ("ef21_sgdm_topk_quant", "dequant_add")),
-    ("quant8/quant4", {"carrier": "quant8", "downlink_carrier": "quant4"},
+    ("quant8/quant4", "fused_quickstart",
+     {"carrier": "quant8", "downlink_carrier": "quant4"},
      ("block_quantize", "block_dequantize")),
-    ("quant8/quant4 identity", {"carrier": "quant8",
-                                "downlink_carrier": "quant4",
-                                "compressor": "identity",
-                                "compressor_kw": {}},
+    ("quant8/quant4 identity", "fused_quickstart",
+     {"carrier": "quant8", "downlink_carrier": "quant4",
+      "compressor": "identity", "compressor_kw": {}},
      ("block_quantize", "dequant_add")),
     # the dense plan: the clients in one pass, C through Compressor.batched
-    ("dense block_quant", {"carrier": "dense", "downlink_carrier": "dense",
-                           "compressor": "block_quant",
-                           "compressor_kw": {"bits": 8, "block": 256}},
+    ("dense block_quant", "fused_quickstart",
+     {"carrier": "dense", "downlink_carrier": "dense",
+      "compressor": "block_quant", "compressor_kw": {"bits": 8, "block": 256}},
      ("block_quantize", "block_dequantize")),
-    ("dense block_topk", {"carrier": "dense", "downlink_carrier": "dense"},
-     ()),
+    ("dense block_topk", "fused_quickstart",
+     {"carrier": "dense", "downlink_carrier": "dense"}, ()),
+    # the shipped specs of the grouped, sampled and two-tier rounds
+    ("mixed_schedule", "mixed_schedule", {},
+     ("block_quantize", "block_dequantize")),
+    ("sampled_quarter", "sampled_quarter", {}, ()),
+    ("hierarchy_quant4_cross", "hierarchy_quant4_cross", {},
+     ("block_quantize", "block_dequantize")),
 ]
 
 
 def reference_check(Session, spec_lib, ops):
     """Phase 3: the CUDA paths against the CPU paths on a small input; the
     cuda run must launch the path's kernels."""
-    for label, overrides, kernels in SMOKE_PATHS:
-        spec = load_spec(spec_lib, smoke=True, seq_len=64, **overrides)
+    for label, name, overrides, kernels in SMOKE_PATHS:
+        spec = load_spec(spec_lib, name, **dict(
+            {"smoke": True, "seq_len": 64}, **overrides))
         runs = {}
         for device in ("cuda", "cpu"):
             sess = Session(spec, device=device, dtype="float32")
@@ -988,27 +1107,111 @@ def reference_check(Session, spec_lib, ops):
                      "(rtol 1e-3)")
 
 
-def main_path(Session, spec_lib, ops, steps, per_leaf_step, serve=None,
-              profile=False, **overrides):
-    """Phases 4-6: full-width smollm-360m through the port's Session.
-    ``per_leaf_step`` names the launches each kernel makes per leaf and step
-    on this path; every other kernel must not launch. ``profile`` adds a
+def card_bit_checks(spec_lib):
+    """Phase 3, torch against torch on the card, bit for bit, over two
+    rounds from the same state and gradients (smoke shapes, 8 clients): a
+    one-group schedule against the ungrouped fused_quant8/fused_quant4
+    round (K3, K6, K5, K4), and a fraction-1.0 cohort against the full
+    round on carrier fused (K2 on the gathered cohort rows)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import ef as ef_lib
+    from repro_torch.launch import build as build_lib
+    from repro_torch.launch.session import Session
+    fq = {"carrier": "fused_quant8", "downlink_carrier": "fused_quant4"}
+    pairs = [
+        ("one-group schedule vs ungrouped fused_quant8/fused_quant4", fq,
+         dict(fq, groups=[dict(fq, pattern="*")])),
+        ("fraction 1.0 vs full on fused", {"carrier": "fused"},
+         {"carrier": "fused", "participation": {
+             "mode": "sampled", "fraction": 1.0, "seed": 7}})]
+    for label, a, b in pairs:
+        specs = [load_spec(spec_lib, smoke=True, seq_len=64, **o)
+                 for o in (a, b)]
+        efcs = [build_lib.ef_config(sp) for sp in specs]
+        params = Session(specs[0], device="cuda").serve_source()
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        n = specs[0].clients
+
+        def stack():
+            return {k: torch.randn((n, *p.shape), generator=gen,
+                                   device="cuda") for k, p in params.items()}
+        g0 = stack()
+        states = [dist.init_ef_state(efc, params, n, init_grads={
+            k: v.clone() for k, v in g0.items()}) for efc in efcs]
+        for step in range(2):
+            grads = stack()
+            outs = [dist.ef_round(efc, {k: v.clone() for k, v in
+                                        grads.items()}, st, step=step)
+                    for efc, st in zip(efcs, states)]
+            states = [o[1] for o in outs]
+            flat = [ef_lib.flatten({"g_est": o[0], **o[1]}) for o in outs]
+            bad = [k for k in flat[0] if not torch.equal(flat[0][k],
+                                                         flat[1][k])]
+            if sorted(flat[0]) != sorted(flat[1]) or bad:
+                fail(f"card bit check {label}, round {step}: {bad[:5]}")
+        print(f"card bit check {label}: {len(flat[0])} leaves bit-identical "
+              "over 2 rounds", flush=True)
+
+
+def describe(sess, spec, efc) -> None:
+    """What a path adds to the flat round: the resolved group table (leaf
+    and parameter counts, plans, wire words up and down a group), the
+    cohort size, and the cross-pod words a round beside the flat
+    topology's (every client's uplink message crossing)."""
+    from repro_torch.core import hierarchy as hier_lib
+    from repro_torch.core import schedule as sched_lib
+    table = sess.schedule_table()
+    if table is not None:
+        print("plan_table:\n" + table, flush=True)
+    if efc.participation is not None:
+        part = efc.participation
+        print(f"participation {part.mode} fraction {part.fraction} seed "
+              f"{part.seed}: cohort {part.cohort_size(sess.n_clients)} of "
+              f"{sess.n_clients} a round", flush=True)
+    hops = efc.effective_hops
+    if hops is not None:
+        sched = efc.schedule or sched_lib.CompressionSchedule.uniform(
+            efc.method.compressor, efc.carrier)
+        _, up = sched_lib.wire_words_tree(sched, efc.method, sess.params)
+        cross = hier_lib.wire_words_cross(hops, efc.schedule, efc.method,
+                                          sess.params)
+        flat = sess.n_clients * up
+        print(f"hops pods {hops.pods} cross {hops.cross_carrier}: cross-pod "
+              f"words a round {cross:.0f}; flat words a round {flat:.0f} "
+              f"({sess.n_clients} clients x {up:.0f}); ratio "
+              f"{flat / cross:.2f}", flush=True)
+
+
+def main_path(Session, spec_lib, ops, steps, serve=None, profile=False,
+              spec_name="fused_quickstart", step_hook=None, **overrides):
+    """Phases 4-6 and 6c: full-width smollm-360m through the port's Session.
+    Every kernel must launch exactly as often as ``expected_launches``
+    derives from the path's EF config, and no other. ``profile`` adds a
     torch.profiler reading of one more step; ``serve(sess)``, when given,
-    runs on the trained session at the end."""
-    spec = load_spec(spec_lib, **overrides)
-    label = f"{spec.carrier}/{spec.downlink_carrier} {spec.compressor}"
+    runs on the trained session at the end; ``step_hook(sess)``, when
+    given, runs before each step and returns a check run after it."""
+    from repro_torch.launch import build as build_lib
+    spec = load_spec(spec_lib, spec_name, **overrides)
+    label = (f"{spec_name} " if spec_name != "fused_quickstart" else "") + \
+        f"{spec.carrier}/{spec.downlink_carrier} {spec.compressor}" + \
+        (" grouped" if spec.groups else "")
     sess = Session(spec, device="cuda")
     t0 = time.time()
     n_leaves = len(sess.params)                     # builds the train state
     torch.cuda.synchronize()
+    efc = build_lib.ef_config(spec)
+    per_step = expected_launches(efc, sess.params)
     print(f"{label}: {n_leaves} leaves, {spec.clients} clients, "
           f"{sum(p.numel() for p in sess.params.values())} parameters, "
-          f"state built in {time.time() - t0:.1f} s", flush=True)
+          f"state built in {time.time() - t0:.1f} s; expected launches a "
+          f"step {per_step}", flush=True)
+    describe(sess, spec, efc)
     torch.cuda.reset_peak_memory_stats()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     ops.reset_launches()
     step_ms = []
     for _ in range(steps):
+        after = step_hook(sess) if step_hook is not None else None
         t0 = time.time()
         m = sess.step_once()
         loss, g_norm = float(m["loss"]), float(m["g_norm"])
@@ -1018,6 +1221,8 @@ def main_path(Session, spec_lib, ops, steps, per_leaf_step, serve=None,
               f"step_ms {step_ms[-1]:.1f}", flush=True)
         if not (math.isfinite(loss) and math.isfinite(g_norm)):
             fail(f"non-finite loss/g_norm at step {sess.step - 1}")
+        if after is not None:
+            after()
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
     # allocations the caching allocator retried after freeing its cache
@@ -1025,12 +1230,7 @@ def main_path(Session, spec_lib, ops, steps, per_leaf_step, serve=None,
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     print(f"{label}: step_ms {step_ms} max_memory_allocated {peak} "
           f"alloc_retries {retries} launches {launches}", flush=True)
-    for name, count in launches.items():
-        want = per_leaf_step.get(name, 0) * n_leaves * steps
-        if count != want:
-            fail(f"{name} launched {count} times on the {label} path, "
-                 f"expected {per_leaf_step.get(name, 0)} a leaf and step x "
-                 f"{n_leaves} leaves x {steps} steps = {want}")
+    check_launches(launches, per_step, steps, label)
     if not all(bool(torch.isfinite(p).all()) for p in sess.params.values()):
         fail("non-finite parameters after training")
     step_breakdown(sess, spec, label)
@@ -1042,6 +1242,61 @@ def main_path(Session, spec_lib, ops, steps, per_leaf_step, serve=None,
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def check_launches(launches, per_step, steps, label) -> None:
+    for name, count in launches.items():
+        want = per_step.get(name, 0) * steps
+        if count != want:
+            fail(f"{name} launched {count} times on the {label} path, "
+                 f"expected {per_step.get(name, 0)} a step x {steps} "
+                 f"steps = {want}")
+
+
+def client_checksums(sess):
+    """Per client, EF state entry and leaf: the integer sum of the bit
+    patterns (exact: any changed bit shows), on the card."""
+    out = {}
+    for name, tree in sess.ef_state["clients"].items():
+        for key, t in tree.items():
+            bits = t.view(torch.int16 if t.element_size() == 2
+                          else torch.int32).reshape(t.shape[0], -1)
+            for i in range(t.shape[0]):
+                out[(name, key, i)] = int(bits[i].sum(dtype=torch.int64))
+    return out
+
+
+def frozen_check(part_lib, build_lib):
+    """Phase S's step hook: print the step's cohort (the port's
+    ``cohort_mask_np``), checksum every client's v and g before the step,
+    and after it require the non-sampled clients' bits unchanged and every
+    sampled client's state moved."""
+    def hook(sess):
+        mask = part_lib.cohort_mask_np(
+            build_lib.make_participation(sess.spec), sess.n_clients,
+            sess.step)
+        cohort = [int(i) for i in mask.nonzero()[0]]
+        before = client_checksums(sess)
+        step = sess.step
+
+        def after():
+            now = client_checksums(sess)
+            frozen = [k for k in before if k[2] not in cohort]
+            changed = [k for k in frozen if now[k] != before[k]]
+            moved = {k[2] for k in before
+                     if k[2] in cohort and now[k] != before[k]}
+            print(f"step {step} cohort {cohort} (cohort_mask_np "
+                  f"{mask.tolist()}): {len(frozen)} frozen client leaves "
+                  f"bit-unchanged: {not changed}; sampled clients moved "
+                  f"{sorted(moved)}", flush=True)
+            if changed:
+                fail(f"step {step}: non-sampled client state changed at "
+                     f"{changed[:5]}")
+            if moved != set(cohort):
+                fail(f"step {step}: sampled clients {cohort} moved only "
+                     f"{sorted(moved)}")
+        return after
+    return hook
 
 
 def step_breakdown(sess, spec, label) -> None:
@@ -1062,7 +1317,7 @@ def step_breakdown(sess, spec, label) -> None:
         sess.n_clients)
     torch.cuda.synchronize()
     t.append(time.time())
-    g_est, _ = dist.ef_round(efc, grads, sess.ef_state)
+    g_est, _ = dist.ef_round(efc, grads, sess.ef_state, step=sess.step)
     del grads
     torch.cuda.synchronize()
     t.append(time.time())
@@ -1072,8 +1327,8 @@ def step_breakdown(sess, spec, label) -> None:
     t.append(time.time())
     ms = [round((b - a) * 1e3, 1) for a, b in zip(t, t[1:])]
     print(f"{label} step breakdown ms: "
-          f"client_grads {ms[0]} ef_round {ms[1]} optimizer {ms[2]}",
-          flush=True)
+          f"client_grads {ms[0]} ef_round {ms[1]} optimizer {ms[2]} "
+          f"(EF round share {ms[1] / max(sum(ms), 1e-9):.3f})", flush=True)
 
 
 def step_profile(sess, label) -> None:
@@ -1118,7 +1373,7 @@ def leaf_checksums(sess):
     return out
 
 
-def resume_path(Session, spec_lib, ops, per_leaf_step):
+def resume_path(Session, spec_lib, ops):
     """Phase 6b: the resumable full-width path; see the module doc."""
     base = tempfile.gettempdir()
     free = shutil.disk_usage(base).free
@@ -1128,16 +1383,17 @@ def resume_path(Session, spec_lib, ops, per_leaf_step):
              f"{CKPT_FREE_BYTES:.0f}")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)
     try:
-        return _resume_path(Session, spec_lib, ops, per_leaf_step, ckpt_dir)
+        return _resume_path(Session, spec_lib, ops, ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def _resume_path(Session, spec_lib, ops, per_leaf_step, ckpt_dir):
+def _resume_path(Session, spec_lib, ops, ckpt_dir):
+    from repro_torch.launch import build as build_lib
     spec = load_spec(spec_lib, ckpt_dir=ckpt_dir, **RESUME_PATH)
     label = "resumable bf16/adamw fused_quant8/fused_quant4"
     sess = Session(spec, device="cuda")
-    n_leaves = len(sess.params)                     # builds the train state
+    per_step = expected_launches(build_lib.ef_config(spec), sess.params)
     clients = [t for tree in sess.ef_state["clients"].values()
                for t in tree.values()]
     ef_bytes = sum(t.numel() * t.element_size() for t in clients)
@@ -1187,11 +1443,7 @@ def _resume_path(Session, spec_lib, ops, per_leaf_step, ckpt_dir):
     peak = torch.cuda.max_memory_allocated()
     print(f"{label}: step_ms {[round(s[2], 1) for s in steps]} "
           f"max_memory_allocated {peak} launches {launches}", flush=True)
-    for name, count in launches.items():
-        want = per_leaf_step.get(name, 0) * n_leaves * 3
-        if count != want:
-            fail(f"{name} launched {count} times on the {label} path, "
-                 f"expected {want}")
+    check_launches(launches, per_step, 3, label)
     del sess
     gc.collect()
     torch.cuda.empty_cache()
@@ -1212,9 +1464,7 @@ def _resume_path(Session, spec_lib, ops, per_leaf_step, ckpt_dir):
     ops.reset_launches()
     loss, g_norm, ms = step(sess)
     resumed_launches = dict(ops.launches)
-    for name, count in resumed_launches.items():
-        if count != per_leaf_step.get(name, 0) * n_leaves:
-            fail(f"{name} launched {count} times in the resumed step")
+    check_launches(resumed_launches, per_step, 1, f"{label} resumed step")
     for name, a, b in (("loss", loss, steps[2][0]),
                        ("g_norm", g_norm, steps[2][1])):
         if abs(a - b) > 1e-3 * abs(b):
@@ -1300,43 +1550,55 @@ def main() -> None:
         k1 = topk_path(ops)
     gc.collect()
     torch.cuda.empty_cache()
-    with phase("cuda paths against the cpu paths (smoke size)"):
+    with phase("cuda paths against the cpu paths (smoke size); card bit "
+               "checks"):
         reference_check(Session, spec_lib, ops)
-    # per leaf and step: quant8 up runs K5 to encode and K6 once (one decode
-    # gives the clients' local_c and the aggregate); quant4 down runs K5 to
-    # encode and, for the sparse payload, K6 to decode (h + decode), for the
-    # dense payload K4 (dequantize + add in one launch)
+        card_bit_checks(spec_lib)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each path's launches are derived from its EF config
+    # (expected_launches): A runs K5 and K6 twice a leaf (quant8 up, the
+    # sparse payload down), B K5 twice, K6 and K4 once, the fused path K3,
+    # K6, K5 and K4 once, carrier fused K2 once
     with phase("main path A: quant8 up, quant4 down, block_topk, 3 steps"):
-        path_a = main_path(Session, spec_lib, ops, 3,
-                           {"block_quantize": 2, "block_dequantize": 2},
-                           carrier="quant8", downlink_carrier="quant4")
+        path_a = main_path(Session, spec_lib, ops, 3, carrier="quant8",
+                           downlink_carrier="quant4")
     with phase("main path B: quant8 up, quant4 down, identity, 2 steps"):
-        main_path(Session, spec_lib, ops, 2,
-                  {"block_quantize": 2, "block_dequantize": 1,
-                   "dequant_add": 1},
-                  carrier="quant8", downlink_carrier="quant4",
-                  compressor="identity", compressor_kw={})
-    # fused_quant8 up: K3, then K6 to mean the wire; fused_quant4 down: K5
-    # to encode, K4 to integrate; then one step under torch.profiler
+        main_path(Session, spec_lib, ops, 2, carrier="quant8",
+                  downlink_carrier="quant4", compressor="identity",
+                  compressor_kw={})
     with phase("fused path: fused_quant8 up, fused_quant4 down, 3 steps, "
                "then a profiled step"):
-        up = main_path(Session, spec_lib, ops, 3,
-                       {"ef21_sgdm_topk_quant": 1, "block_dequantize": 1,
-                        "block_quantize": 1, "dequant_add": 1},
-                       profile=True, carrier="fused_quant8",
-                       downlink_carrier="fused_quant4")
+        up = main_path(Session, spec_lib, ops, 3, profile=True,
+                       carrier="fused_quant8", downlink_carrier="fused_quant4")
     with phase("fused carrier, 2 steps, then serve the trained model"):
         fused = main_path(Session, spec_lib, ops, 2,
-                          {"ef21_sgdm_update": 1},
                           serve=lambda s: serve_trained(s, model_lib, ops),
                           carrier="fused", downlink_carrier="dense")
-    # the same launches as the fused path, K3 on bf16 state
     with phase("resumable path: bf16 EF state, adamw, fused_quant8 up, "
                "fused_quant4 down; save, resume, step"):
-        resumed = resume_path(Session, spec_lib, ops,
-                              {"ef21_sgdm_topk_quant": 1,
-                               "block_dequantize": 1, "block_quantize": 1,
-                               "dequant_add": 1})
+        resumed = resume_path(Session, spec_lib, ops)
+    by_phase = {}
+    with phase("G: groups on the fused wire (norms dense, embed on bf16 "
+               "state), 8 clients, 3 steps"):
+        by_phase["G"] = main_path(Session, spec_lib, ops, 3,
+                                  groups=G_GROUPS)
+    with phase("M: mixed_schedule.json at full width, 4 clients, 3 steps"):
+        by_phase["M"] = main_path(Session, spec_lib, ops, 3,
+                                  spec_name="mixed_schedule", smoke=False)
+    with phase("S: sampled participation 0.25 on carrier fused, 8 clients, "
+               "3 steps"):
+        from repro_torch.core import participation as part_lib
+        from repro_torch.launch import build as build_lib
+        by_phase["S"] = main_path(
+            Session, spec_lib, ops, 3,
+            step_hook=frozen_check(part_lib, build_lib),
+            participation={"mode": "sampled", "fraction": 0.25, "seed": 7})
+    with phase("H: hierarchy_quant4_cross.json at full width, 8 clients, "
+               "2 pods, 3 steps"):
+        by_phase["H"] = main_path(Session, spec_lib, ops, 3,
+                                  spec_name="hierarchy_quant4_cross",
+                                  smoke=False)
     with phase("serving, cuda against cpu (smoke size)"):
         serve_smoke_check(Session, spec_lib, model_lib, ops)
     with phase("serving full-width smollm-360m: batch 8, prompt 1024, "
@@ -1364,6 +1626,8 @@ def main() -> None:
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name],
+                    launches_by_phase={p: c[name]
+                                       for p, c in by_phase.items()},
                     **{k: results[key][k] for k in keys})
                for name, key, src, rep, counts in rows]
     kernels[0]["yardstick_topk_scatter_ms"] = \

@@ -143,6 +143,19 @@ class Method:
         delta, ctx = self.pre_compress(grads, state, eta=eta)
         return self.post_compress(tree_compress(self.compressor, delta), ctx)
 
+    def coords_per_message(self, d: int) -> float:
+        """Idealized transmitted-coordinate count of one message over a
+        (d,) leaf (the paper's x-axis): TopK's k, BlockTopK's nb·kb, else d
+        (HardThreshold's is data-dependent: d bounds it). The words that
+        actually travel are the carrier's ``wire_words``."""
+        c = self.compressor
+        if isinstance(c, comp_lib.TopK):
+            return c._k(d)
+        if isinstance(c, comp_lib.BlockTopK):
+            nb, _, kb = c.geom(d)
+            return nb * kb
+        return d
+
     def _eta(self, eta):
         return eta if eta is not None else getattr(self, "eta", 1.0)
 

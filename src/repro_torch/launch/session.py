@@ -28,6 +28,7 @@ import torch
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import base as cb
 from repro_torch.core import distributed as dist
+from repro_torch.core import schedule as sched_lib
 from repro_torch.data import pipeline as pipe_lib
 from repro_torch.launch import build as build_lib
 from repro_torch.launch.spec import RunSpec
@@ -70,6 +71,18 @@ class Session:
     @property
     def n_clients(self) -> int:
         return self.spec.clients
+
+    def schedule_table(self) -> Optional[str]:
+        """The resolved per-group table for this session's arch (leaf and
+        parameter counts, each group's plan and degradation reason, wire
+        words up and down), or None without a schedule. Reads the tree's
+        shapes from the meta device: nothing is allocated."""
+        sched = build_lib.make_schedule(self.spec)
+        if sched is None:
+            return None
+        return sched_lib.plan_table(
+            sched, build_lib.make_method(self.spec),
+            model_lib.init_params(self.cfg, None, "meta"), eta=self.spec.eta)
 
     def _pipe(self, seed: int) -> pipe_lib.SyntheticTokens:
         spec, cfg = self.spec, self.cfg

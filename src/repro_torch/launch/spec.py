@@ -6,12 +6,17 @@ The port's RunSpec has the reference's field names, defaults and JSON
 (schema v5), so ``results/specs/*.json`` load as they are, and its
 ``spec_hash`` is the reference's (the same sparse canonical form), so a
 checkpoint written by either package names its experiment for both. It
-accepts only what the port runs — smollm-360m, seven EF methods, the six
-deterministic compressors, the seven carriers (``fused`` uplink only), the
-single-device "smoke" mesh, f32 or bfloat16 EF state, SGD and AdamW — and
-rejects everything else loudly at construction. ``compressor_kw`` and
-``method_kw`` must map names to JSON scalars; which names the compressor
-and the method take is checked where they are built (launch/build.py).
+accepts smollm-360m, seven EF methods, the six deterministic compressors,
+the seven carriers (``fused`` uplink only), f32 or bfloat16 EF state, SGD
+and AdamW, per-parameter-group schedules (``groups``), sampled
+participation and the two-tier hierarchy (``hops``), with the reference's
+grammars, previews and cross-field refusals. It refuses, loudly and at
+construction, what the port does not run yet: a ``mesh`` beyond ``smoke``
+(and the client granularity and state sharding of one), ``overlap``,
+``moe_impl``, ``shape``, ``tp_pad_heads`` and participation mode
+``async``. ``compressor_kw`` and ``method_kw`` must map names to JSON
+scalars; which names the compressor and the method take is checked where
+they are built (launch/build.py).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.configs import base as cb
 
@@ -30,6 +35,7 @@ METHODS = frozenset({"ef21_sgd", "ef21_sgdm", "ef21_sgd2m", "ef21_sgdm_abs",
 COMPRESSORS = frozenset({"identity", "topk", "block_topk", "hard_threshold",
                          "rank1", "block_quant"})
 FUSED_CARRIERS = frozenset({"fused", "fused_quant8", "fused_quant4"})
+FUSED_WIRE_CARRIERS = frozenset({"fused_quant8", "fused_quant4"})
 CARRIERS = frozenset({"dense", "sparse", "quant8", "quant4"}) | FUSED_CARRIERS
 # the fused kernel fuses the uplink client update: no fused downlink
 DOWN_CARRIERS = CARRIERS - {"fused"}
@@ -38,13 +44,341 @@ EF_STATE_DTYPES = (None, "bfloat16")
 MAX_FUSED_BLOCK = 1024    # widest row of the fused kernels (kernels/ops.py)
 _JSON_SCALARS = (bool, int, float, str, type(None))
 
+# the keys one ``groups`` entry may carry, the per-group EF-state dtypes
+# and the characters the --schedule grammar reserves (core/schedule.py)
+GROUP_KEYS = frozenset({"pattern", "carrier", "compressor", "ratio",
+                        "compressor_kw", "downlink_carrier", "downlink_ratio",
+                        "ef_state_dtype", "cross_carrier", "cross_ratio"})
+GROUP_STATE_DTYPES = (None, "bfloat16", "float32")
+PATTERN_RESERVED = set("=,:@")
+# participation (core/participation.py): 'async' names the reference's
+# event-driven simulator, which the port refuses until its slice
+PART_MODES = ("full", "sampled", "async")
+PART_KEYS = frozenset({"mode", "fraction", "seed"})
+# the two-tier hierarchy (core/hierarchy.py): the cross hop is one message
+# a pod, integrated like a broadcast, so it takes the downlink's carriers
+HOP_KEYS = frozenset({"pods", "cross_carrier", "cross_ratio"})
+CROSS_CARRIERS = DOWN_CARRIERS
+
+# the carriers' plan rules by name (core/carriers.py plan_with_reason):
+# methods whose message is a transform of c, compressors with the block
+# wire, and what the fused kernels implement. No ported compressor draws
+# randomness, so the reference's rng rule has nothing to refuse here.
+WIRE_IS_NOT_MSG = frozenset({"ef21_sgdm_abs"})
+SPARSE_WIRE_OK = frozenset({"topk", "block_topk"})
+FUSED_METHODS = frozenset({"ef21_sgdm", "ef21_sgd"})
+FUSED_COMPRESSORS = frozenset({"block_topk"})
+
 _LATER = "arrives with a later slice of the port (ROADMAP Queue 1)"
+
+
+def pattern_token_errors(pattern: str) -> List[str]:
+    """An empty ``|`` token matches every leaf; an embedded ``'*'`` token
+    would shadow every later group (``core.schedule.pattern_token_errors``)."""
+    toks = pattern.split("|")
+    errs = []
+    if any(not t for t in toks):
+        errs.append("empty '|' token (matches every leaf)")
+    if "*" in toks and pattern != "*":
+        errs.append("'*' may only be the standalone catch-all pattern")
+    return errs
+
+
+def plan_preview(method: str, compressor: str, carrier: str,
+                 block: Optional[int] = None) -> Tuple[str, str]:
+    """(plan, reason) of ``Carrier.plan_with_reason`` by name: the plan in
+    {'dense', 'wire', 'fused', 'fused_wire'}, the reason non-empty iff the
+    carrier degraded. ``block`` is the BlockTopK block when the spec sets
+    one (fused_quant4's packing needs it even)."""
+    if carrier == "dense":
+        return "dense", ""
+    if method in WIRE_IS_NOT_MSG:
+        return "dense", (
+            f"method {method!r} transmits a transform of c "
+            "(wire_is_msg=False); a non-dense wire cannot ship it")
+    if carrier == "sparse":
+        if compressor not in SPARSE_WIRE_OK:
+            return "dense", (
+                f"compressor {compressor!r} has no deterministic fixed-size "
+                "(values, indices) wire")
+        return "wire", ""
+    if carrier == "fused":
+        if method not in FUSED_METHODS:
+            return "dense", ("the fused kernel implements the EF21-SGD(M) "
+                             f"client chain only, not {method!r}")
+        if compressor not in FUSED_COMPRESSORS:
+            return "dense", ("the fused kernel compresses with BlockTopK "
+                             f"only, not {compressor!r}")
+        return "fused", ""
+    if carrier in FUSED_WIRE_CARRIERS:
+        if method not in FUSED_METHODS:
+            return "wire", (
+                "the fused wire kernel implements the EF21-SGD(M) client "
+                f"chain only, not {method!r}; running the unfused quantized "
+                "wire")
+        if compressor not in FUSED_COMPRESSORS:
+            return "wire", (
+                "the fused wire kernel compresses with BlockTopK only, not "
+                f"{compressor!r}; running the unfused quantized wire")
+        if carrier == "fused_quant4" and block is not None and block % 2:
+            return "wire", (
+                "uint4 packing needs an even BlockTopK block; running the "
+                "unfused quantized wire")
+        return "fused_wire", ""
+    return "wire", ""                                   # quant8 / quant4
+
+
+def downlink_plan_preview(compressor: str, carrier: str) -> Tuple[str, str]:
+    """(plan, reason) of ``Carrier.plan_down_with_reason`` by name: the
+    broadcast ships C(g − h), so only the compressor gates the wire."""
+    if carrier == "dense":
+        return "dense", ""
+    if carrier == "fused":
+        return "dense", (
+            "the fused kernel fuses the UPLINK client update; the downlink "
+            "broadcast has no fused path — use dense, sparse or quant")
+    if carrier == "sparse" and compressor not in SPARSE_WIRE_OK:
+        return "dense", (
+            f"compressor {compressor!r} has no deterministic fixed-size "
+            "(values, indices) wire")
+    return "wire", ""
+
+
+# ---------------------------------------------------------------------------
+# per-group schedule: grammar and previews
+# ---------------------------------------------------------------------------
+
+def parse_schedule_flag(s: str) -> List[Dict[str, Any]]:
+    """The ``--schedule`` value as a ``groups`` list: the grammar
+    ``"embed=dense,norm|bias=dense,*=quant4:0.05"`` (comma-separated
+    ``pattern=carrier[:ratio][@compressor]``; ``dense`` with no compressor
+    ships uncompressed), or a JSON ``[...]`` list of group dicts for the
+    knobs the grammar cannot express. ``format_schedule_flag`` inverts it."""
+    if s.lstrip().startswith("["):
+        return json.loads(s)
+    out: List[Dict[str, Any]] = []
+    for part in s.split(","):
+        part = part.strip()
+        pattern, sep, rhs = part.partition("=")
+        if not sep or not pattern or not rhs:
+            raise ValueError(
+                f"bad --schedule entry {part!r}: want "
+                "'pattern=carrier[:ratio][@compressor]'")
+        comp = None
+        if "@" in rhs:
+            rhs, comp = rhs.split("@", 1)
+        carrier, sep, ratio = rhs.partition(":")
+        entry: Dict[str, Any] = {"pattern": pattern, "carrier": carrier}
+        if sep:
+            entry["ratio"] = float(ratio)
+        if comp is not None:
+            entry["compressor"] = comp
+        out.append(entry)
+    return out
+
+
+def format_schedule_flag(groups: List[Dict[str, Any]]) -> str:
+    """The canonical ``--schedule`` value: the grammar when every entry fits
+    it, JSON otherwise."""
+    parts = []
+    for e in groups:
+        if not ({"pattern", "carrier"} <= set(e)
+                and set(e) <= {"pattern", "carrier", "ratio", "compressor"}):
+            return json.dumps(groups, sort_keys=True)
+        s = f"{e['pattern']}={e['carrier']}"
+        if "ratio" in e:
+            s += f":{e['ratio']}"
+        if "compressor" in e:
+            s += f"@{e['compressor']}"
+        parts.append(s)
+    return ",".join(parts)
+
+
+def resolved_groups(spec: "RunSpec") -> List[Dict[str, Any]]:
+    """The spec's schedule with every per-group default filled in. Empty
+    ``groups`` is the one-group schedule of the single-knob fields; an
+    entry's absent key defaults from the spec, except ``compressor``
+    (``identity`` for a ``dense`` group, the spec's otherwise) and
+    ``compressor_kw`` (the spec's only when the group runs the spec's
+    compressor). The cross fields default from ``hops``."""
+    hop_car = spec.hops.get("cross_carrier", "dense") \
+        if isinstance(spec.hops, dict) else "dense"
+    hop_ratio = spec.hops.get("cross_ratio", spec.ratio) \
+        if isinstance(spec.hops, dict) else spec.ratio
+    if not spec.groups:
+        return [{"pattern": "*", "carrier": spec.carrier,
+                 "compressor": spec.compressor, "ratio": spec.ratio,
+                 "compressor_kw": dict(spec.compressor_kw),
+                 "downlink_carrier": spec.downlink_carrier,
+                 "downlink_ratio": spec.downlink_ratio,
+                 "ef_state_dtype": spec.ef_state_dtype,
+                 "cross_carrier": hop_car, "cross_ratio": hop_ratio}]
+    out = []
+    for e in spec.groups:
+        carrier = e.get("carrier", "dense")
+        comp = e.get("compressor",
+                     "identity" if carrier == "dense" else spec.compressor)
+        kw = e.get("compressor_kw",
+                   dict(spec.compressor_kw) if comp == spec.compressor
+                   else {})
+        out.append({
+            "pattern": e.get("pattern"),
+            "carrier": carrier,
+            "compressor": comp,
+            "ratio": e.get("ratio", spec.ratio),
+            "compressor_kw": kw,
+            "downlink_carrier": e.get("downlink_carrier",
+                                      spec.downlink_carrier),
+            "downlink_ratio": e.get("downlink_ratio", spec.downlink_ratio),
+            "ef_state_dtype": e.get("ef_state_dtype", spec.ef_state_dtype),
+            "cross_carrier": e.get("cross_carrier", hop_car),
+            "cross_ratio": e.get("cross_ratio", hop_ratio),
+        })
+    return out
+
+
+def _block(kw) -> Optional[int]:
+    blk = kw.get("block") if isinstance(kw, dict) else None
+    return blk if isinstance(blk, int) else None
+
+
+def schedule_preview(spec: "RunSpec") -> List[Dict[str, Any]]:
+    """One row per resolved group with the uplink and downlink plans that
+    would run (``plan_preview``, ``downlink_plan_preview``)."""
+    rows = []
+    for g in resolved_groups(spec):
+        plan, reason = plan_preview(spec.method, g["compressor"],
+                                    g["carrier"], _block(g["compressor_kw"]))
+        dplan, dreason = downlink_plan_preview(g["compressor"],
+                                               g["downlink_carrier"])
+        rows.append({**g, "plan": plan, "plan_reason": reason,
+                     "downlink_plan": dplan, "downlink_reason": dreason})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# participation and hops: grammars and previews
+# ---------------------------------------------------------------------------
+
+def parse_participation_flag(s: str) -> Dict[str, Any]:
+    """The ``--participation`` value: ``"sampled:0.25:7"``
+    (``mode[:fraction[:seed]]``) or a JSON ``{...}`` dict."""
+    if s.lstrip().startswith("{"):
+        return json.loads(s)
+    parts = s.split(":")
+    if len(parts) > 3 or not parts[0]:
+        raise ValueError(f"bad --participation value {s!r}: want "
+                         "'mode[:fraction[:seed]]' or a JSON dict")
+    out: Dict[str, Any] = {"mode": parts[0]}
+    if len(parts) >= 2:
+        out["fraction"] = float(parts[1])
+    if len(parts) == 3:
+        out["seed"] = int(parts[2])
+    return out
+
+
+def format_participation_flag(p: Dict[str, Any]) -> str:
+    """The canonical ``--participation`` value: the grammar when the keys
+    are a prefix of (mode, fraction, seed), JSON otherwise."""
+    keys = set(p)
+    if keys == {"mode"}:
+        return str(p["mode"])
+    if keys == {"mode", "fraction"}:
+        return f"{p['mode']}:{p['fraction']}"
+    if keys == {"mode", "fraction", "seed"}:
+        return f"{p['mode']}:{p['fraction']}:{p['seed']}"
+    return json.dumps(p, sort_keys=True)
+
+
+def participation_preview(spec: "RunSpec") -> Dict[str, Any]:
+    """Mode, fraction and seed with defaults filled in, the spec's n and the
+    cohort size m = max(1, round(fraction·n)) (``Participation.
+    cohort_size``'s arithmetic)."""
+    p = spec.participation
+    mode = p.get("mode", "full") if p else "full"
+    fraction = float(p.get("fraction", 1.0)) if p else 1.0
+    seed = int(p.get("seed", 0)) if p else 0
+    n = spec.n_clients_preview()
+    cohort = n if mode == "full" else max(1, int(round(fraction * n)))
+    return {"mode": mode, "fraction": fraction, "seed": seed,
+            "n": n, "cohort": cohort}
+
+
+def parse_hops_flag(s: str) -> Dict[str, Any]:
+    """The ``--hops`` value: ``"pods=2,cross=quant4:0.05"``
+    (``pods=<int>`` and ``cross=carrier[:ratio]``) or a JSON ``{...}``
+    dict."""
+    if s.lstrip().startswith("{"):
+        return json.loads(s)
+    out: Dict[str, Any] = {}
+    for part in s.split(","):
+        part = part.strip()
+        key, sep, rhs = part.partition("=")
+        if not sep or not rhs:
+            raise ValueError(f"bad --hops entry {part!r}: want "
+                             "'pods=<int>' or 'cross=carrier[:ratio]'")
+        if key == "pods":
+            out["pods"] = int(rhs)
+        elif key == "cross":
+            carrier, sep, ratio = rhs.partition(":")
+            out["cross_carrier"] = carrier
+            if sep:
+                out["cross_ratio"] = float(ratio)
+        else:
+            raise ValueError(f"bad --hops key {key!r}: want 'pods' or "
+                             "'cross'")
+    return out
+
+
+def format_hops_flag(h: Dict[str, Any]) -> str:
+    """The canonical ``--hops`` value: the grammar when the keys fit it,
+    JSON otherwise."""
+    if not set(h) <= HOP_KEYS:
+        return json.dumps(h, sort_keys=True)
+    parts = []
+    if "pods" in h:
+        parts.append(f"pods={h['pods']}")
+    if "cross_carrier" in h:
+        s = f"cross={h['cross_carrier']}"
+        if "cross_ratio" in h:
+            s += f":{h['cross_ratio']}"
+        parts.append(s)
+    elif "cross_ratio" in h:
+        return json.dumps(h, sort_keys=True)
+    return ",".join(parts)
+
+
+def hops_preview(spec: "RunSpec") -> Dict[str, Any]:
+    """Pods, cross carrier and ratio with defaults filled in, the clients a
+    pod, and ``trivial_cross`` (a dense cross ships the exact pod target:
+    the flat round, bit for bit)."""
+    h = spec.hops
+    pods = int(h.get("pods", 1)) if h else 1
+    cross_carrier = h.get("cross_carrier", "dense") if h else "dense"
+    cross_ratio = float(h.get("cross_ratio", spec.ratio)) if h else spec.ratio
+    n = spec.n_clients_preview()
+    return {"pods": pods, "cross_carrier": cross_carrier,
+            "cross_ratio": cross_ratio, "n": n,
+            "clients_per_pod": n // pods if pods and n % pods == 0 else None,
+            "hierarchical": pods > 1,
+            "trivial_cross": cross_carrier == "dense"}
+
+
+def _fused_wire_users(spec: "RunSpec") -> List[str]:
+    """The carrier and the groups that run the fused quantized wire."""
+    bad = [f"carrier={spec.carrier!r}"] \
+        if spec.carrier in FUSED_WIRE_CARRIERS else []
+    for i, e in enumerate(spec.groups if isinstance(spec.groups, list)
+                          else []):
+        if isinstance(e, dict) and e.get("carrier") in FUSED_WIRE_CARRIERS:
+            bad.append(f"groups[{i}] (pattern={e.get('pattern')!r})")
+    return bad
 
 
 @dataclasses.dataclass(frozen=True)
 class RunSpec:
     """The reference's RunSpec fields and defaults; see the module doc for
-    what this slice accepts."""
+    what the port accepts."""
 
     version: int = SCHEMA_VERSION
     arch: str = "smollm-360m"
@@ -101,10 +435,6 @@ class RunSpec:
             if val not in allowed:
                 errs.append(f"{field}={val!r} is not ported (have "
                             f"{sorted(map(repr, allowed))}); it {_LATER}")
-        for field in ("groups", "participation", "hops"):
-            if getattr(self, field):
-                errs.append(f"{field}={getattr(self, field)!r}: only the "
-                            f"default is ported; the rest {_LATER}")
         if self.overlap:
             errs.append(f"overlap=True {_LATER}")
         for kw_name, kw in [("method_kw", self.method_kw),
@@ -114,15 +444,17 @@ class RunSpec:
                     for k, v in kw.items()):
                 errs.append(f"{kw_name} must map str keys to JSON scalars, "
                             f"got {kw!r}")
-        kw = self.compressor_kw
-        fused = {self.carrier, self.downlink_carrier} & FUSED_CARRIERS
-        if isinstance(kw, dict) and fused:
-            block = kw.get("block", 1024)
-            if not isinstance(block, int) or not 1 <= block <= MAX_FUSED_BLOCK:
-                errs.append(f"block {block!r}: the fused kernels take blocks "
-                            f"of 1..{MAX_FUSED_BLOCK}")
-            elif block % 2 and "fused_quant4" in fused:
-                errs.append("uint4 packing needs an even BlockTopK block")
+        errs.extend(_fused_block_errors(
+            "", self.compressor_kw, {self.carrier, self.downlink_carrier}))
+        groups_errs = self._validate_groups()
+        errs.extend(groups_errs)
+        if not groups_errs and self.groups:
+            for i, g in enumerate(resolved_groups(self)):
+                errs.extend(_fused_block_errors(
+                    f"groups[{i}]: ", g["compressor_kw"],
+                    {g["carrier"], g["downlink_carrier"]}))
+        errs.extend(self._validate_participation())
+        errs.extend(self._validate_hops())
         if self.seq_len <= 0 or self.global_batch <= 0 or self.clients < 1:
             errs.append("seq_len, global_batch and clients must be positive")
         elif self.global_batch % self.clients:
@@ -140,6 +472,183 @@ class RunSpec:
             errs.append(f"ckpt_every must be >= 0, got {self.ckpt_every}")
         if errs:
             raise ValueError("invalid RunSpec:\n  - " + "\n  - ".join(errs))
+
+    def _validate_groups(self) -> List[str]:
+        """The schedule's construction checks (the CompressionSchedule
+        checks again in launch/build.py): keys, patterns, the catch-all
+        last, the carriers, dtypes and ratios of each entry, and the fused
+        misconfiguration of each group."""
+        errs: List[str] = []
+        if not isinstance(self.groups, list):
+            return [f"groups must be a list of dicts, got {self.groups!r}"]
+        if not self.groups:
+            return errs
+        seen = set()
+        for i, e in enumerate(self.groups):
+            if not isinstance(e, dict):
+                errs.append(f"groups[{i}] must be a dict, got {e!r}")
+                continue
+            unknown = sorted(set(e) - GROUP_KEYS)
+            if unknown:
+                errs.append(f"groups[{i}]: unknown keys {unknown}; have "
+                            f"{sorted(GROUP_KEYS)}")
+            pat = e.get("pattern")
+            if not pat or not isinstance(pat, str):
+                errs.append(f"groups[{i}] needs a non-empty 'pattern'")
+                continue
+            bad = PATTERN_RESERVED & set(pat)
+            if bad:
+                errs.append(f"groups[{i}] pattern {pat!r} uses reserved "
+                            f"characters {sorted(bad)}")
+            errs.extend(f"groups[{i}] pattern {pat!r}: {err}"
+                        for err in pattern_token_errors(pat))
+            if pat in seen:
+                errs.append(f"duplicate group pattern {pat!r}")
+            seen.add(pat)
+            if pat == "*" and i != len(self.groups) - 1:
+                errs.append("the catch-all '*' must be the LAST group "
+                            "(first-match-wins shadows everything after it)")
+            carrier = e.get("carrier", "dense")
+            if carrier not in CARRIERS:
+                errs.append(f"groups[{i}]: unknown carrier {carrier!r}")
+                continue
+            comp = e.get("compressor",
+                         "identity" if carrier == "dense"
+                         else self.compressor)
+            if comp not in COMPRESSORS:
+                errs.append(f"groups[{i}]: compressor {comp!r} is not "
+                            f"ported (have {sorted(COMPRESSORS)})")
+                continue
+            if e.get("downlink_carrier", "dense") not in DOWN_CARRIERS:
+                errs.append(f"groups[{i}]: downlink carrier "
+                            f"{e['downlink_carrier']!r} not in "
+                            f"{sorted(DOWN_CARRIERS)}")
+            if e.get("cross_carrier", "dense") not in CROSS_CARRIERS:
+                errs.append(f"groups[{i}]: cross carrier "
+                            f"{e['cross_carrier']!r} not in "
+                            f"{sorted(CROSS_CARRIERS)}")
+            if e.get("ef_state_dtype") not in GROUP_STATE_DTYPES:
+                errs.append(f"groups[{i}]: ef_state_dtype "
+                            f"{e['ef_state_dtype']!r} not in "
+                            f"{list(GROUP_STATE_DTYPES)}")
+            for key in ("ratio", "downlink_ratio", "cross_ratio"):
+                if key in e and not (isinstance(e[key], (int, float))
+                                     and 0.0 < e[key] <= 1.0):
+                    errs.append(f"groups[{i}]: {key} must be in (0, 1], "
+                                f"got {e[key]!r}")
+            kw = e.get("compressor_kw", {})
+            if not isinstance(kw, dict) or not all(
+                    isinstance(k, str) and isinstance(v, _JSON_SCALARS)
+                    for k, v in kw.items()):
+                errs.append(f"groups[{i}]: compressor_kw must map str keys "
+                            f"to JSON scalars, got {kw!r}")
+            if self.method in METHODS:
+                plan, reason = plan_preview(self.method, comp, carrier,
+                                            _block(kw))
+                if carrier == "fused" and plan != "fused":
+                    errs.append(
+                        f"groups[{i}] ({pat!r}): carrier='fused' would "
+                        f"silently run the UNFUSED dense plan: {reason}")
+                if carrier in FUSED_WIRE_CARRIERS and plan != "fused_wire":
+                    errs.append(
+                        f"groups[{i}] ({pat!r}): carrier={carrier!r} would "
+                        f"silently run a DEGRADED plan ({plan!r}): {reason}")
+        if isinstance(self.groups[-1], dict) \
+                and self.groups[-1].get("pattern") != "*":
+            errs.append("the last group must be the mandatory catch-all "
+                        "'*' so every leaf lands in exactly one group")
+        return errs
+
+    def _validate_participation(self) -> List[str]:
+        """Keys, mode, fraction and seed; mode 'async' is refused (the
+        reference's simulator is not ported), and a sampled cohort cannot
+        ride the fused quantized wire."""
+        p = self.participation
+        if not isinstance(p, dict):
+            return [f"participation must be a dict, got {p!r}"]
+        if not p:
+            return []
+        errs: List[str] = []
+        unknown = sorted(set(p) - PART_KEYS)
+        if unknown:
+            errs.append(f"participation: unknown keys {unknown}; have "
+                        f"{sorted(PART_KEYS)}")
+        mode = p.get("mode", "full")
+        if mode not in PART_MODES:
+            errs.append(f"participation: unknown mode {mode!r}; have "
+                        f"{list(PART_MODES)}")
+        if mode == "async":
+            errs.append("participation mode 'async' does not build a "
+                        "synchronous step (every round is a barrier); its "
+                        f"event-driven simulator (run_async) {_LATER}")
+        frac = p.get("fraction", 1.0)
+        if not (isinstance(frac, (int, float)) and not isinstance(frac, bool)
+                and 0.0 < frac <= 1.0):
+            errs.append(f"participation: fraction must be in (0, 1], got "
+                        f"{frac!r}")
+        seed = p.get("seed", 0)
+        if not isinstance(seed, int) or isinstance(seed, bool):
+            errs.append(f"participation: seed must be an int, got {seed!r}")
+        bad = _fused_wire_users(self)
+        if mode in ("sampled", "async") and bad:
+            errs.append(
+                f"participation mode {mode!r} cannot run the fused "
+                f"quantized wire ({', '.join(bad)}): the kernel "
+                "aggregates all clients inside, leaving no per-client "
+                "wire to mask — use carrier='quant8'/'quant4'")
+        return errs
+
+    def _validate_hops(self) -> List[str]:
+        """Keys, pods, the cross carrier and ratio; for pods > 1 the pods
+        must divide the clients, and neither a sampled cohort nor the fused
+        quantized wire composes with the pod tier."""
+        h = self.hops
+        if not isinstance(h, dict):
+            return [f"hops must be a dict, got {h!r}"]
+        if not h:
+            return []
+        errs: List[str] = []
+        unknown = sorted(set(h) - HOP_KEYS)
+        if unknown:
+            errs.append(f"hops: unknown keys {unknown}; have "
+                        f"{sorted(HOP_KEYS)}")
+        pods = h.get("pods", 1)
+        if not isinstance(pods, int) or isinstance(pods, bool) or pods < 1:
+            errs.append(f"hops: pods must be an int >= 1, got {pods!r}")
+            return errs
+        cross = h.get("cross_carrier", "dense")
+        if cross not in CROSS_CARRIERS:
+            errs.append(f"hops: unknown cross carrier {cross!r}; have "
+                        f"{sorted(CROSS_CARRIERS)}")
+        ratio = h.get("cross_ratio", self.ratio)
+        if not (isinstance(ratio, (int, float))
+                and not isinstance(ratio, bool) and 0.0 < ratio <= 1.0):
+            errs.append(f"hops: cross_ratio must be in (0, 1], got {ratio!r}")
+        if pods == 1:
+            return errs
+        n = self.n_clients_preview()
+        if n % pods != 0:
+            errs.append(f"hops: pods={pods} must divide the {n} EF clients "
+                        f"of mesh={self.mesh!r}")
+        mode = self.participation.get("mode", "full") \
+            if isinstance(self.participation, dict) else "full"
+        if mode in ("sampled", "async"):
+            errs.append(
+                f"hops: participation mode {mode!r} does not compose with "
+                "hierarchical aggregation (a partial cohort breaks the "
+                "pod-major client blocks) — use mode='full'")
+        bad = _fused_wire_users(self)
+        if bad:
+            errs.append(
+                f"hops: hierarchical aggregation cannot run the fused "
+                f"quantized wire ({', '.join(bad)}): the kernel "
+                "aggregates all clients inside, leaving no per-pod message "
+                "— use carrier='quant8'/'quant4'")
+        return errs
+
+    def n_clients_preview(self) -> int:
+        """The paper's n: the emulated clients of the one-device mesh."""
+        return self.clients
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -185,6 +694,21 @@ class RunSpec:
         return out
 
 
+def _fused_block_errors(where: str, kw, carriers) -> List[str]:
+    """The fused kernels' block limits, for a compressor_kw whose carriers
+    (uplink, downlink) include a fused one."""
+    fused = set(carriers) & FUSED_CARRIERS
+    if not isinstance(kw, dict) or not fused:
+        return []
+    block = kw.get("block", 1024)
+    if not isinstance(block, int) or not 1 <= block <= MAX_FUSED_BLOCK:
+        return [f"{where}block {block!r}: the fused kernels take blocks of "
+                f"1..{MAX_FUSED_BLOCK}"]
+    if block % 2 and "fused_quant4" in fused:
+        return [f"{where}uint4 packing needs an even BlockTopK block"]
+    return []
+
+
 _DEFAULT = RunSpec()            # the defaults spec_hash leaves out
 
 
@@ -200,6 +724,9 @@ _FLAGS = [
     ("--carrier", "carrier", str),
     ("--downlink-carrier", "downlink_carrier", str),
     ("--downlink-ratio", "downlink_ratio", float),
+    ("--schedule", "groups", parse_schedule_flag),
+    ("--participation", "participation", parse_participation_flag),
+    ("--hops", "hops", parse_hops_flag),
     ("--method-kw", "method_kw", json.loads),
     ("--compressor-kw", "compressor_kw", json.loads),
     ("--optimizer", "optimizer", str),
@@ -217,6 +744,9 @@ def add_flags(ap: argparse.ArgumentParser) -> None:
         if kind is bool:
             ap.add_argument(flag, dest=field, action="store_true",
                             default=None)
+            # --no-<flag> sets a truthy bool of a --spec file back to False
+            ap.add_argument(flag.replace("--", "--no-", 1), dest=field,
+                            action="store_false", default=None)
         else:
             ap.add_argument(flag, dest=field, type=kind, default=None)
 

@@ -10,6 +10,16 @@ src/repro/launch/train.py):
       --spec results/specs/fused_quickstart.json --compressor identity \
       --compressor-kw '{}' --carrier quant8 --downlink-carrier quant4
 
+  # a per-group schedule, sampled participation, the two-tier hierarchy
+  # (the shipped specs; --schedule, --participation and --hops take the
+  # reference's grammars, e.g. --hops pods=2,cross=quant4:0.05):
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --spec results/specs/mixed_schedule.json --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --spec results/specs/sampled_quarter.json --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --spec results/specs/hierarchy_quant4_cross.json --steps 3
+
   # checkpoints every 2 steps, then the same run resumed to step 6:
   PYTHONPATH=src python -m repro_torch.launch.train ... --steps 4 \
       --ckpt-dir /path/to/run --ckpt-every 2
@@ -89,9 +99,28 @@ def main(argv=None) -> None:
                                             ckpt_every=args.ckpt_every)
     else:
         sess = Session(spec, device=args.device)
-    print(f"carrier={sess.spec.carrier} "
-          f"downlink={sess.spec.downlink_carrier} "
-          f"optimizer={sess.spec.optimizer} "
+    # from the spec the session runs (a bare --resume takes the
+    # checkpoint's)
+    table = sess.schedule_table()
+    if table is not None:
+        print("compression schedule (first-match-wins):", flush=True)
+        print(table, flush=True)
+    else:
+        print(f"carrier={sess.spec.carrier} "
+              f"downlink={sess.spec.downlink_carrier}", flush=True)
+    pp = spec_lib.participation_preview(sess.spec)
+    if pp["mode"] != "full":
+        print(f"participation mode={pp['mode']} fraction={pp['fraction']} "
+              f"seed={pp['seed']} cohort={pp['cohort']}/{pp['n']} per round",
+              flush=True)
+    hp = spec_lib.hops_preview(sess.spec)
+    if hp["hierarchical"]:
+        print(f"hops pods={hp['pods']} cross={hp['cross_carrier']}"
+              f":{hp['cross_ratio']} "
+              f"clients_per_pod={hp['clients_per_pod']}"
+              + (" (trivial cross: flat-equivalent)"
+                 if hp["trivial_cross"] else ""), flush=True)
+    print(f"optimizer={sess.spec.optimizer} "
           f"ef_state_dtype={sess.spec.ef_state_dtype} device={sess.device}",
           flush=True)
     sess.train(args.steps, log_every=args.log_every, verbose=True)

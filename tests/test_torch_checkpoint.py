@@ -33,6 +33,7 @@ from repro_torch.core import ef as pt_ef
 from repro_torch.launch import session as pt_session
 from repro_torch.launch import spec as pt_spec
 from repro_torch.launch import train as pt_train
+from test_torch_schedule import torch_threads
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SPEC = os.path.join(ROOT, "results", "specs", "fused_quickstart.json")
@@ -252,3 +253,96 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
     with pytest.raises(ValueError, match="different RunSpec"):
         pt_train.main(["--ckpt-dir", ckpt, "--resume", "--steps", "4",
                        "--device", "cpu", "--eta", "0.9"])
+
+
+# --------------------------------------------------------------------------
+# grouped, pod and sampled state
+# --------------------------------------------------------------------------
+
+def _shipped(name):
+    with open(os.path.join(ROOT, "results", "specs", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def _leaves(sess):
+    """Every leaf of a Session's training state keyed by its npz path, as
+    (dtype name, f32 numpy): either package's."""
+    out = {}
+    for name in ("params", "opt_state", "ef_state"):
+        tree = getattr(sess, name)
+        if isinstance(sess, pt_session.Session):
+            for k, v in pt_ef.flatten({name: tree}).items():
+                out[k] = (str(v.dtype).replace("torch.", ""),
+                          v.float().numpy())
+        else:
+            flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+            for p, leaf in flat:
+                out["/".join([name] + [str(k.key) for k in p])] = (
+                    str(leaf.dtype), np.asarray(leaf.astype(jnp.float32)))
+    return out
+
+
+def _assert_same_leaves(got, want):
+    assert sorted(got) == sorted(want)
+    for k, (dt, v) in want.items():
+        assert got[k][0] == dt, k
+        np.testing.assert_array_equal(got[k][1], v, err_msg=k)
+
+
+@pytest.mark.parametrize("spec", [
+    pytest.param(_spec_dict(smoke=True, seq_len=64, groups=[
+        {"pattern": "norm|bias", "carrier": "dense"},
+        {"pattern": "embed", "carrier": "fused_quant8",
+         "downlink_carrier": "fused_quant4", "ef_state_dtype": "bfloat16"},
+        {"pattern": "*", "carrier": "fused_quant8",
+         "downlink_carrier": "fused_quant4"}]), id="grouped_bf16_group"),
+    pytest.param(_shipped("hierarchy_quant4_cross"), id="hops_pods_state"),
+])
+@torch_threads(1)
+def test_grouped_and_pod_state_cross_the_packages(tmp_path, spec):
+    """The reference saves after a step and the port resumes it, leaf for
+    leaf (a bf16 group's v and g beside f32 ones; ``ef_state/pods/{t,b}``
+    with its leading pods axis); the port trains on and saves, and the
+    reference restores that, leaf for leaf, without allow_spec_mismatch."""
+    jsess = jax_session.Session(jax_spec.RunSpec.from_dict(spec))
+    jsess.cfg = dataclasses.replace(jsess.cfg, dtype="float32")
+    jsess.train(1, log_every=1)
+    jsess.save(str(tmp_path / "jax" / "step_00000001.npz"))
+    psess = pt_session.Session.resume(str(tmp_path / "jax"), device="cpu",
+                                      dtype="float32")
+    assert psess.step == 1
+    _assert_same_leaves(_leaves(psess), _leaves(jsess))
+    keys = _leaves(psess)
+    if spec["groups"]:
+        assert keys["ef_state/clients/v/embed"][0] == "bfloat16"
+        assert keys["ef_state/clients/v/layers/mlp/w_up"][0] == "float32"
+    else:
+        assert keys["ef_state/pods/b/embed"][1].shape[0] == 2
+    psess.train(2, log_every=1)
+    path = psess.save(str(tmp_path / "pt" / "step_00000002.npz"))
+    back = jax_session.Session(jax_spec.RunSpec.from_dict(spec))
+    back.restore_from(path)
+    assert back.step == 2
+    _assert_same_leaves(_leaves(back), _leaves(psess))
+
+
+@pytest.mark.parametrize("carrier", ["dense", "fused"])
+@torch_threads(1)
+def test_sampled_run_resumes_on_the_same_cohorts(tmp_path, carrier):
+    """Kill and resume a sampled run on the CPU: 2 steps, a checkpoint, a
+    new Session from it, 2 more, bit for bit the uninterrupted 4 (the
+    reference's test_participation.py holds its own Session so)."""
+    spec = _shipped("sampled_quarter")
+    if carrier == "fused":
+        spec.update(carrier="fused",
+                    compressor_kw={"block": 1024, "k_per_block": 16})
+    whole = pt_session.Session(pt_spec.RunSpec.from_dict(spec), device="cpu")
+    want = whole.train(4, log_every=1)
+    first = pt_session.Session(pt_spec.RunSpec.from_dict(dict(
+        spec, ckpt_dir=str(tmp_path), ckpt_every=2)), device="cpu")
+    first.train(2, log_every=1)
+    resumed = pt_session.Session.resume(str(tmp_path), device="cpu")
+    assert resumed.step == 2
+    got = resumed.train(4, log_every=1)
+    assert got == want[2:]
+    _assert_same_leaves(_leaves(resumed), _leaves(whole))

@@ -94,7 +94,7 @@ def test_spec_reads_the_reference_golden_file():
 @pytest.mark.parametrize("bad", [
     {"arch": "gemma2-9b"}, {"compressor": "randk"}, {"method": "neolithic"},
     {"mesh": "pod"}, {"optimizer": "lion"}, {"overlap": True},
-    {"ef_state_dtype": "float16"}, {"participation": {"mode": "sampled"}},
+    {"ef_state_dtype": "float16"}, {"participation": {"mode": "async"}},
     {"carrier": "fused", "compressor_kw": {"block": 2048}},
     {"global_batch": 12},
 ])
