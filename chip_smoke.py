@@ -82,6 +82,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      after the step), every sampled one moved; H,
      hierarchy_quant4_cross.json with smoke off (8 clients, 2 pods, the
      quant4 cross hop);
+  6d. phase P, the paper's simulator (core/simulate.py, core/problems.py,
+     participation.run_async) at the experiments' shapes, each run's
+     launches equal to ``expected_launches`` of its EF config a round, its
+     ms a step, one round's device busy ms and idle share under
+     torch.profiler (the mean of 5 rounds), its peak bytes and ‖∇f‖²:
+     P-fig1 (Theorem 1's
+     quadratic, Top-1, n 1 and 8, EF21-SGD and EF21-SGDM, 8000 steps, 2
+     seeds; Figure 1's inequalities must hold), P-exp1 (logistic
+     regression at MNIST's shape, EF21-SGDM with BlockTopK(1024, 1) on
+     carriers fused and quant4 at B 1 and 128, 500 steps), P-async
+     (run_async on P-exp1's problem, heavy-tailed arrivals, 20 rounds: the
+     events equal a CPU run's and beat the barrier), P-exp3 (Algorithm 2's
+     quadratics at n 100, d 1000, EF14 and EF21-SGDM, TopK 50, 1000 steps),
+     P-exp4 (the MLP at CIFAR-10's width and d 10,510,346 on fused_quant8
+     up and fused_quant4 down, B 32, 200 steps), and the simulator free of
+     randomness on card and CPU (fused, fused_quant8/fused_quant4, quant4;
+     50 steps within rtol 1e-3);
   7. serving, card against CPU at smoke size (f32 activations): the greedy
      tokens must be equal and the prefill logits agree within rtol 1e-4;
   8. serving full-width smollm-360m from fresh weights: batch 8, prompt
@@ -110,7 +127,8 @@ from its EF config by ``expected_launches``: per group of a schedule, per
 leaf its plans, per pod its cross hop), that losses, parameters and logits
 are finite, and prints its times, peak memory and step breakdown. Then the
 script prints a ``kernels`` JSON line (each kernel's launches on the main
-path and, under ``launches_by_phase``, on phases G, M, S and H), the card
+path and, under ``launches_by_phase``, on phases G, M, S, H and each cell
+of P), the card
 line, and the final ``{"ok": true, ...}`` line. Imports nothing of JAX or
 of src/repro.
 """
@@ -132,6 +150,7 @@ import traceback
 # allocator free its cache and retry (a synchronize each)
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -159,6 +178,17 @@ G_GROUPS = [{"pattern": "norm|bias", "carrier": "dense"},
             {"pattern": "*", "carrier": "fused_quant8",
              "downlink_carrier": "fused_quant4"}]
 CKPT_FREE_BYTES = 40e9         # a full-width checkpoint is about 30 GB
+# phase P: the paper's simulator at the experiments' published shapes
+P_FIG1 = dict(gamma=1e-3, steps=8000, seeds=2, ns=(1, 8))
+P_EXP1 = dict(n=10, m_per_client=6000, l=784, c=10)       # MNIST's shape
+P_EXP1_STEPS = 500
+P_EXP3 = dict(n=100, d=1000)                              # Algorithm 2's
+P_EXP3_STEPS = 1000
+P_EXP4 = dict(n=5, m_per_client=10000, in_dim=3072, hidden=2048, c=10)
+P_EXP4_STEPS = 200
+P_ASYNC_ROUNDS = 20
+P_TOL = 1e-3                   # card against CPU, as phase 3's smoke paths
+P_PROFILED = 5                 # rounds a P run times and profiles after it
 
 
 def fail(msg: str) -> None:
@@ -1483,6 +1513,335 @@ def _resume_path(Session, spec_lib, ops, ckpt_dir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase P: the paper's simulator (core/problems.py, core/simulate.py,
+# participation.run_async) on the card
+# ---------------------------------------------------------------------------
+
+def sim_run(ops, label, problem, method, cfg, seed=0):
+    """One simulator run on the card through ``simulate.Simulation`` (the
+    entry point ``simulate.run`` drives): the launches of its rounds must
+    equal ``expected_launches`` of the run's EF config a round; prints the
+    steps, ms a step (host clock, ending in a synchronize), one round's
+    device busy ms and idle share under torch.profiler (the mean of
+    ``P_PROFILED`` more rounds against as many timed unprofiled), the peak
+    bytes and the ‖∇f‖² of the first and last rounds. Returns (result,
+    launches)."""
+    from repro_torch.core import simulate
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sim = simulate.Simulation(problem, method, cfg, seed)
+    per_step = expected_launches(sim.efc, sim.x)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.time()
+    for _ in range(cfg.steps):
+        sim.step()
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / cfg.steps
+    launches = dict(ops.launches)
+    check_launches(launches, per_step, cfg.steps, label)
+    out = sim.result()
+    gn = out["grad_norm_sq"].cpu()
+    if gn.shape != (cfg.steps,) or not bool(torch.isfinite(gn).all()) or \
+            not bool(torch.isfinite(out["loss"]).all()):
+        fail(f"{label}: non-finite or misshapen metrics")
+    peak = torch.cuda.max_memory_allocated()
+    # P_PROFILED more rounds by the host clock, then as many under the
+    # profiler: one round's device busy ms and idle share, their mean
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(P_PROFILED):
+        sim.step()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3 / P_PROFILED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(P_PROFILED):
+            sim.step()
+        torch.cuda.synchronize()
+    busy = device_ms(prof)[0] / P_PROFILED
+    prof_txt = (f"device busy ms {busy:.4f} of {wall:.4f} unprofiled wall "
+                f"ms (idle share {1 - busy / wall:.3f}; mean of "
+                f"{P_PROFILED} rounds)" if busy > 0 else
+                "device busy not measured (no device time in the trace)")
+    print(f"{label}: steps {cfg.steps} ms_a_step {ms:.4f}; one step "
+          f"{prof_txt}; max_memory_allocated {peak}; grad_norm_sq "
+          f"{float(gn[0]):.6e} -> {float(gn[-1]):.6e}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (expected a step "
+          f"{per_step})", flush=True)
+    return out, launches
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+# the problem of each simulator cell: (class in core/problems.py, kwargs)
+P_PROBLEMS = {"P-fig1": ("QuadraticT1", {}),
+              "P-exp1": ("LogisticRegression", P_EXP1),
+              "P-exp3": ("RandomQuadratics", P_EXP3),
+              "P-exp4": ("MLPClassification", P_EXP4)}
+
+
+def p_runs(simulate, ef_lib, comp_lib):
+    """Phase P's simulator runs, [(cell, label, method, SimConfig)]: the
+    launch counts of each are derived from its config
+    (tests/test_torch_chip_smoke.py holds the derivation to the wrappers'
+    calls)."""
+    top1 = comp_lib.TopK(k=1)
+    btk1 = comp_lib.BlockTopK(block=1024, k_per_block=1)
+    runs = []
+    for n in P_FIG1["ns"]:
+        for name, m in (("ef21_sgd", ef_lib.EF21SGD(compressor=top1)),
+                        ("ef21_sgdm", ef_lib.EF21SGDM(compressor=top1,
+                                                      eta=1e-3))):
+            runs.append(("P-fig1", f"n {n} {name}", m, simulate.SimConfig(
+                n=n, batch_size=1, gamma=P_FIG1["gamma"],
+                steps=P_FIG1["steps"])))
+    m1 = ef_lib.EF21SGDM(compressor=btk1, eta=0.1)
+    for carrier in ("fused", "quant4"):
+        for B in (1, 128):
+            runs.append(("P-exp1", f"{carrier} B {B}", m1, simulate.SimConfig(
+                n=P_EXP1["n"], batch_size=B, gamma=0.05, steps=P_EXP1_STEPS,
+                carrier=carrier)))
+    topk = comp_lib.TopK(k=50)
+    for name, m in (("ef14_sgd", ef_lib.EF14SGD(compressor=topk)),
+                    ("ef21_sgdm", ef_lib.EF21SGDM(compressor=topk,
+                                                  eta=0.02))):
+        runs.append(("P-exp3", name, m, simulate.SimConfig(
+            n=P_EXP3["n"], batch_size=1, gamma=0.05, steps=P_EXP3_STEPS,
+            b_init=4)))
+    runs.append(("P-exp4", "fused_quant8/fused_quant4 B 32",
+                 ef_lib.EF21SGDM(compressor=comp_lib.BlockTopK(
+                     block=1024, ratio=0.2), eta=0.1),
+                 simulate.SimConfig(
+                     n=P_EXP4["n"], batch_size=32, gamma=0.05,
+                     steps=P_EXP4_STEPS, carrier="fused_quant8",
+                     down_carrier="fused_quant4",
+                     down_compressor=comp_lib.BlockTopK(block=1024,
+                                                        ratio=0.05))))
+    btk = comp_lib.BlockTopK(block=16, k_per_block=4)
+    for up, down, _ in P_SMOKE:
+        runs.append(("P-smoke", f"{up}/{down}",
+                     ef_lib.EF21SGDM(compressor=btk, eta=0.2),
+                     simulate.SimConfig(
+                         n=4, gamma=0.05, steps=50, carrier=up,
+                         down_carrier=down,
+                         down_compressor=btk if down != "dense" else None)))
+    return runs
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def p_fig1(ops, problems, runs):
+    """P-fig1: Theorem 1's quadratic, Top-1, B 1, n 1 and 8, EF21-SGD and
+    EF21-SGDM, seeds on the card's generator; test_fig1's two inequalities
+    at n 1, and at every n EF21-SGD ends above twice its start (Figure
+    1b)."""
+    prob = problems.QuadraticT1(device="cuda")
+    total, ends, starts = {}, {}, {}
+    for _, label, m, cfg in runs:
+        curves = []
+        for seed in range(P_FIG1["seeds"]):
+            out, launches = sim_run(ops, f"P-fig1 {label} seed {seed}", prob,
+                                    m, cfg, seed)
+            _add(total, launches)
+            curves.append(out["grad_norm_sq"].cpu().numpy())
+        ends[(cfg.n, m.name)] = _median([float(c[-500:].mean())
+                                         for c in curves])
+        starts[(cfg.n, m.name)] = _median([float(c[0]) for c in curves])
+    for n in P_FIG1["ns"]:
+        sgd, sgdm = ends[(n, "ef21_sgd")], ends[(n, "ef21_sgdm")]
+        start = starts[(n, "ef21_sgd")]
+        print(f"P-fig1 n {n}: start {start:.6e}; end (last 500 steps, "
+              f"median over seeds) ef21_sgd {sgd:.6e} ef21_sgdm {sgdm:.6e}",
+              flush=True)
+        if n == 1 and not (sgd > 10 * start and sgdm < sgd / 3):
+            fail("P-fig1: Figure 1's inequalities do not hold on the card")
+        if sgd <= 2 * start:
+            fail(f"P-fig1: EF21-SGD converged at n {n} (Figure 1b)")
+    return total
+
+
+def p_exp1(ops, problems, runs):
+    """P-exp1: logistic regression at MNIST's shape (n 10, 6000 samples a
+    client, 784 features, 10 classes: d 7,850, 188 MB of data), EF21-SGDM
+    η 0.1 with BlockTopK(1024, k_per_block 1), on carrier fused (K2) and
+    quant4 (K5/K6), at B 1 and 128."""
+    t0 = time.time()
+    prob = problems.LogisticRegression(device="cuda", **P_EXP1)
+    torch.cuda.synchronize()
+    print(f"P-exp1 problem: d {prob.dim}, data bytes "
+          f"{prob._A.numel() * 4 + prob._Y.numel() * 4}, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    total = {}
+    for _, label, m, cfg in runs:
+        out, launches = sim_run(ops, f"P-exp1 {label}", prob, m, cfg)
+        _add(total, launches)
+        print(f"P-exp1 {label}: coords a round {out['coords_per_round']}, "
+              f"wire words up {out['wire_words_up_per_round']}", flush=True)
+    return prob, total
+
+
+def p_exp3(ops, problems, runs):
+    """P-exp3: Algorithm 2's quadratics at its size (n 100, d 1000: Q is
+    400 MB), EF14-SGD against EF21-SGDM (η 0.02), TopK(k 50), the dense
+    plan, every client's Qᵢx one batched product."""
+    t0 = time.time()
+    prob = problems.RandomQuadratics(device="cuda", **P_EXP3)
+    torch.cuda.synchronize()
+    print(f"P-exp3 problem: Q bytes {prob._Q.numel() * 4}, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    total, ends = {}, {}
+    for _, label, m, cfg in runs:
+        out, launches = sim_run(ops, f"P-exp3 {label}", prob, m, cfg)
+        _add(total, launches)
+        ends[label] = float(out["grad_norm_sq"][-200:].mean())
+    print(f"P-exp3 end grad_norm_sq (last 200): {ends}", flush=True)
+    return total
+
+
+def p_exp4(ops, problems, runs):
+    """P-exp4: the MLP at CIFAR-10's input width and ResNet-18's size (n 5,
+    10,000 samples a client, 3072 in, 2048 hidden, 10 classes: d
+    10,510,346, 614 MB of data), EF21-SGDM η 0.1, BlockTopK(1024, ratio
+    0.2) on fused_quant8 up (K3, K6) and fused_quant4 down at ratio 0.05
+    (K5, K4), B 32, f32 products."""
+    t0 = time.time()
+    prob = problems.MLPClassification(device="cuda", **P_EXP4)
+    d = sum(v.numel() for v in prob.init_x().values())
+    torch.cuda.synchronize()
+    print(f"P-exp4 problem: d {d}, data bytes {prob._A.numel() * 4}, "
+          f"built in {time.time() - t0:.1f} s", flush=True)
+    ((_, label, m, cfg),) = runs
+    out, launches = sim_run(ops, f"P-exp4 {label}", prob, m, cfg)
+    acc = float(prob.accuracy(out["x_final"]))
+    print(f"P-exp4: loss {float(out['loss'][0]):.6f} -> "
+          f"{float(out['loss'][-1]):.6f}, accuracy {acc:.4f}; wire words up "
+          f"{out['wire_words_up_per_round']} down "
+          f"{out['wire_words_down_per_round']} a round", flush=True)
+    return launches
+
+
+def p_async(ops, problems, ef_lib, comp_lib, part_lib, prob):
+    """P-async: run_async on P-exp1's problem, 10 clients, heavy-tailed
+    arrivals, 20 rounds; the event accounting must equal a CPU run's with
+    the same seed (the event queue is numpy's), and the async wall clock
+    must beat the barrier's."""
+    m = ef_lib.EF21SGDM(compressor=comp_lib.BlockTopK(block=1024,
+                                                      k_per_block=1),
+                        eta=0.1)
+    kw = dict(n=P_EXP1["n"], gamma=0.05, rounds=P_ASYNC_ROUNDS,
+              arrival=part_lib.ArrivalModel(kind="heavy_tail"), seed=3)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    card = part_lib.run_async(prob, m, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        part_lib.run_async(prob, m, **kw)
+        torch.cuda.synchronize()
+    busy = device_ms(prof)[0]
+    small = problems.LogisticRegression(n=P_EXP1["n"], m_per_client=32, l=8,
+                                        c=10, device="cpu")
+    cpu = part_lib.run_async(small, m, **kw)
+    keys = ("wall_clock", "rounds", "arrivals_applied", "arrivals_dropped",
+            "arrivals_discarded", "max_staleness", "mean_staleness",
+            "sync_wall_clock")
+    diff = [k for k in keys if card[k] != cpu[k]]
+    if diff or not (card["stale_age_hist"] == cpu["stale_age_hist"]).all():
+        fail(f"P-async: event accounting differs from the CPU run's: {diff}")
+    if not card["wall_clock"] < card["sync_wall_clock"]:
+        fail("P-async: the async wall clock does not beat the barrier's")
+    if any(launches.values()):
+        fail(f"P-async: kernels launched {launches}; the single-client "
+             "update runs none")
+    prof_txt = (f"device busy ms {busy:.3f} over a second run (idle share "
+                f"{1 - busy / (wall * 1e3):.3f})" if busy > 0 else
+                "device busy not measured (no device time in the trace)")
+    print(f"P-async: {card['arrivals_applied']} uploads in {wall * 1e3:.1f} "
+          f"ms ({wall * 1e3 / card['arrivals_applied']:.3f} ms an upload); "
+          f"{prof_txt}; max_memory_allocated {peak}; "
+          f"wall_clock {card['wall_clock']:.4f} sync_wall_clock "
+          f"{card['sync_wall_clock']:.4f}; max_staleness "
+          f"{card['max_staleness']} mean {card['mean_staleness']:.3f}; "
+          f"grad_norm_sq {card['grad_norm_sq']:.6e}; equal to the CPU run's "
+          f"events", flush=True)
+    return launches
+
+
+P_SMOKE = [  # (carrier, downlink carrier, kernels the card run launches)
+    ("fused", "dense", ("ef21_sgdm_update",)),
+    ("fused_quant8", "fused_quant4", ("ef21_sgdm_topk_quant", "dequant_add",
+                                      "block_quantize", "block_dequantize")),
+    ("quant4", "dense", ("block_quantize", "block_dequantize")),
+]
+
+
+def p_card_vs_cpu(ops, problems, simulate, runs):
+    """The simulator free of randomness (σ = 0 quadratics: the noise is
+    drawn and multiplied by 0) on the card and on the CPU, 50 steps, per
+    carrier: ‖∇f‖² and loss within rtol 1e-3; each card run launches its
+    carrier's kernels."""
+    total = {}
+    for (_, label, m, cfg), (_, _, kernels) in zip(runs, P_SMOKE):
+        out = {}
+        for device in ("cuda", "cpu"):
+            prob = problems.RandomQuadratics(n=cfg.n, d=64, lam=0.05,
+                                             sigma=0.0, seed=0, device=device)
+            ops.reset_launches()
+            out[device] = simulate.run_numpy(prob, m, cfg, seed=0)
+            if device == "cuda":
+                _add(total, ops.launches)
+                idle = [k for k in kernels if not ops.launches[k]]
+                if idle:
+                    fail(f"P smoke {label}: {idle} never launched")
+        for key in ("grad_norm_sq", "loss"):
+            a, b = out["cuda"][key], out["cpu"][key]
+            err = float(np.max(np.abs(a - b) / np.abs(b)))
+            print(f"P smoke {label} {key}: max rel err card vs cpu "
+                  f"{err:.3e} over {cfg.steps} steps", flush=True)
+            if not np.isfinite(a).all() or err > P_TOL:
+                fail(f"P smoke {label} {key}: card vs cpu {err} > {P_TOL}")
+    return total
+
+
+def sim_phase(ops):
+    """Phase P, cell by cell; returns {cell: launches}."""
+    from repro_torch.core import compressors as comp_lib
+    from repro_torch.core import ef as ef_lib
+    from repro_torch.core import participation as part_lib
+    from repro_torch.core import problems, simulate
+    t0 = time.time()
+    runs = {}
+    for row in p_runs(simulate, ef_lib, comp_lib):
+        runs.setdefault(row[0], []).append(row)
+    cells = {"P-fig1": p_fig1(ops, problems, runs["P-fig1"])}
+    prob, cells["P-exp1"] = p_exp1(ops, problems, runs["P-exp1"])
+    cells["P-async"] = p_async(ops, problems, ef_lib, comp_lib, part_lib,
+                               prob)
+    del prob
+    cells["P-exp3"] = p_exp3(ops, problems, runs["P-exp3"])
+    cells["P-exp4"] = p_exp4(ops, problems, runs["P-exp4"])
+    cells["P-smoke"] = p_card_vs_cpu(ops, problems, simulate,
+                                     runs["P-smoke"])
+    print(f"phase P: {time.time() - t0:.1f} s; launches by cell "
+          f"{ {c: {k: v for k, v in n.items() if v} for c, n in cells.items()} }",
+          flush=True)
+    return cells
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -1599,6 +1958,13 @@ def main() -> None:
         by_phase["H"] = main_path(Session, spec_lib, ops, 3,
                                   spec_name="hierarchy_quant4_cross",
                                   smoke=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("P: the paper's simulator on the card (fig1, exp1, async, "
+               "exp3, exp4 at the experiments' shapes; card against cpu)"):
+        by_phase.update(sim_phase(ops))
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("serving, cuda against cpu (smoke size)"):
         serve_smoke_check(Session, spec_lib, model_lib, ops)
     with phase("serving full-width smollm-360m: batch 8, prompt 1024, "
@@ -1626,7 +1992,7 @@ def main() -> None:
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name],
-                    launches_by_phase={p: c[name]
+                    launches_by_phase={p: c.get(name, 0)
                                        for p, c in by_phase.items()},
                     **{k: results[key][k] for k in keys})
                for name, key, src, rep, counts in rows]

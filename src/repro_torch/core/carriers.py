@@ -27,7 +27,12 @@ server) and the downlink (server → clients) alike.
 
 Plans — ``carrier.plan(method, eta)``: 'dense' (the method's own update,
 then the dense mean), 'wire' (pre_compress, then per leaf encode → local_c →
-aggregate, then post_compress), 'fused' (K2) and 'fused_wire' (K3).
+aggregate, then post_compress), 'fused' (K2) and 'fused_wire' (K3). The
+fused kernels take η as a constant: a tensor η (a time-varying schedule,
+the reference's traced ηₜ) degrades 'fused' to 'dense' and 'fused_wire' to
+'wire', as the reference's plans do. Randomized compressors have no wire
+format: their carriers degrade to 'dense', where C draws from the round's
+generator.
 
 Wires may carry a leading client axis: ``encode`` takes a flat (d,) leaf or
 an (n, d) stack of clients and folds the clients into kernel rows, so one
@@ -52,9 +57,15 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.core import compressors as comp_lib
+from repro_torch.core import rng as rng_lib
 from repro_torch.kernels import ops
 
 Tree = Dict[str, torch.Tensor]
+
+# the downlink's stream: fold_in(round rng, DOWNLINK_FOLD), taken off the
+# round's stream before any per-client or per-leaf fold (the reference's
+# constant)
+DOWNLINK_FOLD = 1 << 20
 
 
 def _pad_rows(x: torch.Tensor, dp: int, d: int, nb: int, block: int
@@ -80,6 +91,12 @@ def _unrows(rows: torch.Tensor, lead: torch.Size, d: int) -> torch.Tensor:
     """Inverse of :func:`_rows`: (*lead, d), the pad dropped."""
     n = math.prod(lead)
     return rows.reshape(n, -1)[:, :d].reshape(*lead, d)
+
+
+def _static_eta(eta) -> bool:
+    """True when η can be baked into a fused kernel: a Python number (or
+    None, the method's own)."""
+    return not isinstance(eta, torch.Tensor)
 
 
 def _fused_leaves(method, grads: Tree, state: Dict[str, Tree], eta, launch):
@@ -336,6 +353,10 @@ class FusedPallasCarrier(DenseCarrier):
             return "dense", (
                 f"the fused kernel compresses with BlockTopK only, not "
                 f"{type(method.compressor).__name__}")
+        if not _static_eta(eta):
+            return "dense", ("momentum η is a tensor (time-varying "
+                             "schedule); the kernel needs a static η to "
+                             "bake in")
         return "fused", ""
 
     def plan_down_with_reason(self, comp):
@@ -552,6 +573,11 @@ class FusedQuantCarrier(QuantCarrier):
                 f"the fused wire kernel compresses with BlockTopK only, not "
                 f"{type(method.compressor).__name__}; running the unfused "
                 "quantized wire")
+        if not _static_eta(eta):
+            return "wire", (
+                "momentum η is a tensor (time-varying schedule); the kernel "
+                "needs a static η to bake in — running the unfused "
+                "quantized wire")
         if self.bits == 4 and method.compressor.block % 2:
             return "wire", ("uint4 packing needs an even BlockTopK block; "
                             "running the unfused quantized wire")
@@ -610,15 +636,40 @@ def wire_round_batched(carrier: Carrier, comp, deltas: Tree, dp: int
 # downlink (server → client broadcast)
 # ---------------------------------------------------------------------------
 
-def downlink_encode(carrier: Carrier, comp, delta: Tree) -> List:
+def _leaf_rng(comp, rng, i: int):
+    """Leaf i's stream, derived only for a compressor that draws."""
+    return rng_lib.fold_in(rng, i) if comp.needs_rng else None
+
+
+def downlink_round(carrier: Carrier, comp, delta: Tree, rng=None) -> Tree:
+    """One broadcast WITHOUT memory: the decode of the wire of C(δ) per
+    leaf (the dense C(δ) on the degraded plan), leaf i drawing from
+    ``fold_in(rng, i)``. The naive baseline of ``downlink_sync(...,
+    memory=False)``."""
+    plan = carrier.plan_down(comp)
+    out: Tree = {}
+    for i, key in enumerate(sorted(delta)):
+        leaf = delta[key]
+        flat = leaf.reshape(-1)
+        if plan == "wire":
+            dec = carrier.decode(comp, carrier.encode(comp, flat),
+                                 d=flat.numel(), dtype=flat.dtype)
+        else:
+            dec = comp(flat, _leaf_rng(comp, rng, i)).to(flat.dtype)
+        out[key] = dec.reshape(leaf.shape)
+    return out
+
+
+def downlink_encode(carrier: Carrier, comp, delta: Tree, rng=None) -> List:
     """The per-leaf wires of one broadcast (sorted leaf order): the
-    carrier's encode of C(δ) on the 'wire' plan, the dense C(δ) otherwise."""
+    carrier's encode of C(δ) on the 'wire' plan, the dense C(δ) otherwise
+    (leaf i drawing from ``fold_in(rng, i)``)."""
     plan = carrier.plan_down(comp)
     wires = []
-    for key in sorted(delta):
+    for i, key in enumerate(sorted(delta)):
         flat = delta[key].reshape(-1)
         wires.append(carrier.encode(comp, flat) if plan == "wire"
-                     else comp(flat).to(flat.dtype))
+                     else comp(flat, _leaf_rng(comp, rng, i)).to(flat.dtype))
     return wires
 
 
@@ -638,10 +689,10 @@ def downlink_apply(carrier: Carrier, comp, wires: List, h: Tree) -> Tree:
     return out
 
 
-def downlink_round_integrate(carrier: Carrier, comp, delta: Tree, h: Tree
-                             ) -> Tree:
-    return downlink_apply(carrier, comp, downlink_encode(carrier, comp, delta),
-                          h)
+def downlink_round_integrate(carrier: Carrier, comp, delta: Tree, h: Tree,
+                             rng=None) -> Tree:
+    return downlink_apply(carrier, comp,
+                          downlink_encode(carrier, comp, delta, rng), h)
 
 
 def downlink_words(carrier: Carrier, comp, d: int) -> float:

@@ -2,11 +2,12 @@
 
 Compressors act on flat 1-D tensors and return a dense tensor of the same
 shape, C(x); the TopK family also exposes ``sparse()``, the fixed-size
-(values, indices) form. This slice ports the six deterministic compressors
-of the reference. ``randk`` and ``natural`` draw randomness inside
-``__call__``: they arrive with the slice that threads a ``torch.Generator``
-through ``ef_round`` (ROADMAP Queue 1), and naming one raises
-``NotImplementedError``.
+(values, indices) form. Randomized compressors (``RandK``,
+``NaturalCompression``) draw from the ``torch.Generator`` they are given,
+on the tensor's device (core/rng.py); deterministic ones ignore it.
+``batched`` applies C to each row of an (n, d) stack of clients in one
+pass, and a randomized compressor draws all the rows' randomness in one
+call.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ def top_order(ab: torch.Tensor, k: int) -> torch.Tensor:
 class Compressor:
     """Base class. Subclasses implement ``__call__``."""
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor,
+                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         raise NotImplementedError
 
     def alpha(self, d: int) -> float:
@@ -56,10 +58,11 @@ class Compressor:
         ride the deterministic wire formats (the carriers degrade to dense)."""
         return False
 
-    def batched(self, x: torch.Tensor) -> torch.Tensor:
+    def batched(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """C applied to each row of an (n, d) tensor (one client a row), in
         one pass (``torch.func.vmap``; a compressor that launches a kernel
-        folds the rows itself)."""
+        or draws randomness folds the rows itself)."""
         return torch.func.vmap(self)(x)
 
 
@@ -67,10 +70,10 @@ class Compressor:
 class Identity(Compressor):
     """C(x) = x. α = 1; EF21-SGDM with Identity reduces to plain SGDM."""
 
-    def __call__(self, x):
+    def __call__(self, x, rng=None):
         return x
 
-    def batched(self, x):
+    def batched(self, x, rng=None):
         return x
 
 
@@ -98,10 +101,75 @@ class TopK(Compressor):
         idx = top_order(x.abs(), self._k(x.numel()))
         return x[idx], idx.to(torch.int32)
 
-    def __call__(self, x):
+    def __call__(self, x, rng=None):
         ax = x.abs()
         thresh = torch.topk(ax, self._k(x.numel())).values[-1]
         return torch.where(ax >= thresh, x, torch.zeros_like(x))
+
+    def batched(self, x, rng=None):
+        # each row's threshold mask, as __call__ on the row
+        ax = x.abs()
+        thresh = torch.topk(ax, self._k(x.shape[1]), dim=1).values[:, -1:]
+        return torch.where(ax >= thresh, x, torch.zeros_like(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class RandK(Compressor):
+    """Uniformly random K-sparsification: K coordinates drawn without
+    replacement. ``scaled=False`` is contractive with α = K/d;
+    ``scaled=True`` multiplies the kept values by d/K, which makes C
+    unbiased (E‖C(x) − x‖² = (d/K − 1)‖x‖², not contractive for K < d/2).
+    A row's K coordinates are those of its K largest uniform keys, so all
+    rows of a batch draw in one call."""
+
+    ratio: float = 0.01
+    k: Optional[int] = None
+    scaled: bool = False
+
+    def _k(self, d: int) -> int:
+        return _k_for(d, self.ratio, self.k)
+
+    def alpha(self, d: int) -> float:
+        return self._k(d) / d if not self.scaled else 0.0
+
+    @property
+    def is_contractive(self) -> bool:
+        return not self.scaled
+
+    @property
+    def has_sparse_carrier(self) -> bool:
+        return True
+
+    @property
+    def needs_rng(self) -> bool:
+        return True
+
+    def _draw(self, x: torch.Tensor, rng) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(values, int64 indices), each (n, K), of an (n, d) stack."""
+        if rng is None:
+            raise ValueError("RandK draws its coordinates: pass a "
+                             "torch.Generator")
+        n, d = x.shape
+        k = self._k(d)
+        keys = torch.rand((n, d), generator=rng, device=x.device)
+        idx = torch.topk(keys, k, dim=1, sorted=False).indices
+        vals = torch.gather(x, 1, idx)
+        if self.scaled:
+            vals = vals * torch.tensor(d / k, dtype=x.dtype)
+        return vals, idx
+
+    def sparse(self, x: torch.Tensor, rng=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(values, int32 indices) of K coordinates of a flat x."""
+        vals, idx = self._draw(x.reshape(1, -1), rng)
+        return vals[0], idx[0].to(torch.int32)
+
+    def __call__(self, x, rng=None):
+        return self.batched(x.reshape(1, -1), rng).reshape(x.shape)
+
+    def batched(self, x, rng=None):
+        vals, idx = self._draw(x, rng)
+        return torch.zeros_like(x).scatter_(1, idx, vals)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,12 +218,19 @@ class BlockTopK(Compressor):
         gidx = idx + torch.arange(xb.shape[0], device=x.device)[:, None] * block
         return vals.reshape(-1), gidx.reshape(-1).to(torch.int32)
 
-    def __call__(self, x):
-        xb = self._blocks(x)
+    def __call__(self, x, rng=None):
+        return self.batched(x.reshape(1, -1)).reshape(x.shape)
+
+    def batched(self, x, rng=None):
+        # every row's blocks folded into the rows of one threshold mask
+        n, d = x.shape
+        nb, block, kb = self.geom(d)
+        xb = torch.nn.functional.pad(x, (0, nb * block - d)).reshape(
+            n * nb, block)
         ab = xb.abs()
-        thresh = torch.topk(ab, self.geom(x.numel())[2], dim=1).values[:, -1:]
+        thresh = torch.topk(ab, kb, dim=1).values[:, -1:]
         out = torch.where(ab >= thresh, xb, torch.zeros_like(xb))
-        return out.reshape(-1)[: x.numel()].reshape(x.shape)
+        return out.reshape(n, nb * block)[:, :d]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,11 +247,43 @@ class HardThreshold(Compressor):
     def delta(self, d: int) -> float:
         return self.lam * (d ** 0.5)
 
-    def __call__(self, x):
+    def __call__(self, x, rng=None):
         return torch.where(x.abs() >= self.lam, x, torch.zeros_like(x))
 
-    def batched(self, x):
+    def batched(self, x, rng=None):
         return self(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class NaturalCompression(Compressor):
+    """Natural compression: |x| rounded at random to one of the two powers
+    of two around it, with the probabilities that make C unbiased (sign
+    and exponent kept, the mantissa dropped: 9 bits a coordinate). E‖C(x) −
+    x‖² ≤ ‖x‖²/8, so Definition 1 holds with α = 7/8."""
+
+    def alpha(self, d: int) -> float:
+        return 7.0 / 8.0
+
+    @property
+    def needs_rng(self) -> bool:
+        return True
+
+    def __call__(self, x, rng=None):
+        if rng is None:
+            raise ValueError("NaturalCompression rounds at random: pass a "
+                             "torch.Generator")
+        ax = x.abs()
+        lo = torch.where(ax > 0, torch.exp2(torch.floor(torch.log2(
+            torch.clamp(ax, min=1e-38)))), torch.zeros_like(ax))
+        hi = 2.0 * lo
+        p_hi = torch.where(lo > 0, (ax - lo) / torch.clamp(hi - lo, min=1e-38),
+                           torch.zeros_like(ax))
+        u = torch.rand(x.shape, generator=rng, device=x.device)
+        mag = torch.where(u < p_hi, hi, lo)
+        return (torch.sign(x) * mag).to(x.dtype)
+
+    def batched(self, x, rng=None):
+        return self(x, rng)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,10 +296,10 @@ class Rank1(Compressor):
     def alpha(self, d: int) -> float:
         return 1.0 / max(2, min(self.rows, d // max(1, self.rows)))
 
-    def __call__(self, x):
+    def __call__(self, x, rng=None):
         return self.batched(x.reshape(1, -1)).reshape(x.shape)
 
-    def batched(self, x):
+    def batched(self, x, rng=None):
         # the products as broadcast multiplies and sums, whose order does
         # not depend on the number of rows: a row's result is the same
         # alone or among others (a batched matmul may sum otherwise)
@@ -227,10 +334,10 @@ class BlockQuant(Compressor):
     def is_contractive(self) -> bool:
         return self.alpha(self.block) > 0.0
 
-    def __call__(self, x):
+    def __call__(self, x, rng=None):
         return self.batched(x.reshape(1, -1)).reshape(x.shape)
 
-    def batched(self, x):
+    def batched(self, x, rng=None):
         # the codec works row by row, so the n rows' blocks fold into the
         # rows of one K5 and one K6 launch
         n, d = x.shape
@@ -245,23 +352,16 @@ class BlockQuant(Compressor):
 REGISTRY = {
     "identity": Identity,
     "topk": TopK,
+    "randk": RandK,
     "block_topk": BlockTopK,
     "hard_threshold": HardThreshold,
+    "natural": NaturalCompression,
     "rank1": Rank1,
     "block_quant": BlockQuant,
 }
 
-# compressors that draw randomness: they wait for the rng plumbing
-_LATER = ("randk", "natural")
-
 
 def make(name: str, **kwargs) -> Compressor:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"compressor {name!r} draws randomness and is not ported yet "
-            f"(this port runs {sorted(REGISTRY)}); it arrives with the later "
-            "slice that threads a torch.Generator through ef_round "
-            "(ROADMAP Queue 1)")
     if name not in REGISTRY:
         raise ValueError(f"unknown compressor {name!r}; have "
                          f"{sorted(REGISTRY)}")

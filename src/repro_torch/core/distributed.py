@@ -10,8 +10,11 @@ per-parameter-group schedule (core/schedule.py, every group on its own
 plan), sampled participation (core/participation.py, a seeded cohort a
 round, the other clients frozen) and the two-tier hierarchy
 (core/hierarchy.py, per-pod means and a compressed cross-pod hop), then the
-downlink. The sharded multi-device runtime arrives with a later slice
-(ROADMAP Queue 1).
+downlink. An optional ``torch.Generator`` feeds the randomized compressors:
+the clients' and groups' streams come off it, the downlink's off
+``fold_in(rng, DOWNLINK_FOLD)`` and each pod's cross hop off ``CROSS_FOLD``
+(core/rng.py), as the reference folds its key. The sharded multi-device
+runtime arrives with a later slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.core import compressors as comp_lib
 from repro_torch.core import ef as ef_lib
 from repro_torch.core import hierarchy as hier_lib
 from repro_torch.core import participation as part_lib
+from repro_torch.core import rng as rng_lib
 from repro_torch.core import schedule as sched_lib
 
 Tree = Dict[str, torch.Tensor]
@@ -134,8 +138,8 @@ def _participation_mask(efc: EFConfig, n: int, step, device
     if part.mode == "async":
         raise ValueError(
             "participation mode 'async' does not run on the synchronous "
-            "runtimes (every round is a barrier); its event-driven "
-            "simulator (run_async) arrives with a later slice of the port")
+            "runtimes (every round is a barrier); drive the event-driven "
+            "simulator instead: repro_torch.core.participation.run_async")
     if step is None:
         raise ValueError(
             "sampled participation derives the round cohort from the step "
@@ -143,25 +147,28 @@ def _participation_mask(efc: EFConfig, n: int, step, device
     return part_lib.cohort_mask(part, n, int(step), device)
 
 
-def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
-             eta: Optional[float] = None, step: Optional[int] = None
-             ) -> Tuple[Tree, Dict]:
-    """One round on per-client grads (dp leading). Returns (the estimate
-    gᵗ⁺¹ the model steps with, the new ef_state). The client state is
-    updated in place (the fused plans write v and g, the others replace
-    them leaf by leaf). ``step`` picks a sampled round's cohort.
+def ef_round(efc: EFConfig, grads, ef_state: Dict,
+             eta=None, step: Optional[int] = None,
+             rng: Optional[torch.Generator] = None) -> Tuple[Tree, Dict]:
+    """One round on per-client grads (dp leading; a pair of such trees for
+    the paired-gradient methods). Returns (the estimate gᵗ⁺¹ the model
+    steps with, the new ef_state). The client state is updated in place
+    (the fused plans write v and g, the others replace them leaf by leaf).
+    ``step`` picks a sampled round's cohort; ``rng`` is the round's stream
+    for randomized compressors; ``eta`` may be a 0-d tensor (a
+    time-varying schedule, which runs the unfused plans).
 
     The reference's branches, in its order: the cohort mask, the pod
     topology, the grouped engine or the carrier's plan (one client leg,
     ``schedule.batched_leg``, serves both), the participation postlude, the
     pod tier or the server step, the downlink."""
     method = efc.method
-    dp = next(iter(grads.values())).shape[0]
+    first = next(iter(sched_lib.base_grads(grads, method).values()))
+    dp = first.shape[0]
     clients, server = ef_state["clients"], ef_state["server"]
     carrier = carrier_lib.make(efc.carrier)
     plan = carrier.plan(method, eta)
-    mask = _participation_mask(efc, dp, step,
-                               next(iter(grads.values())).device)
+    mask = _participation_mask(efc, dp, step, first.device)
 
     # under a NON-trivial cross hop the intra aggregation gives per-pod
     # means (pods leading, pod-major client blocks); a trivial cross keeps
@@ -186,11 +193,11 @@ def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
     if efc.schedule is not None:
         msg_mean, new_clients = sched_lib.round_batched(
             efc.schedule, method, grads, clients, dp, eta, mask=mask,
-            pods=pods)
+            pods=pods, rng=rng)
     else:
         msg_mean, new_clients = sched_lib.batched_leg(
             method, carrier, plan, grads, clients, dp, eta, mask=mask,
-            pods=pods)
+            pods=pods, rng=rng)
 
     if mask is not None:
         # Bells & Whistles: delta methods fold (1/n)·Σ_S as it is, absolute
@@ -200,7 +207,8 @@ def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
             method, msg_mean, dp, efc.participation.cohort_size(dp))
     if want_pods:
         new_pods, new_server = hier_lib.round_pods_batched(
-            hops, efc.schedule, method, msg_mean, ef_state["pods"], server)
+            hops, efc.schedule, method, msg_mean, ef_state["pods"], server,
+            rng)
     else:
         new_server = ef_lib.server_step(method, server, msg_mean)
     new_state = {"clients": new_clients, "server": new_server}
@@ -209,28 +217,31 @@ def ef_round(efc: EFConfig, grads: Tree, ef_state: Dict,
             hier_lib.trivial_bookkeeping(method, ef_state["pods"], msg_mean)
     if not efc.has_downlink:
         return new_server, new_state
+    r_down = rng_lib.fold_in(rng, carrier_lib.DOWNLINK_FOLD)
     if efc.schedule is not None:
         g_est, h_new = sched_lib.downlink_round_grouped(
-            efc.schedule, new_server, ef_state["h"])
+            efc.schedule, new_server, ef_state["h"], r_down)
     else:
         g_est, h_new = ef_lib.downlink_sync(
             carrier_lib.make(efc.down_carrier), efc.down_comp(), new_server,
-            ef_state["h"])
+            ef_state["h"], rng=r_down)
     new_state["h"] = h_new
     return g_est, new_state
 
 
 def make_train_step(loss_fn: Callable, efc: EFConfig, optimizer, dp: int,
                     eta: Optional[float] = None):
-    """Returns train_step(params, opt_state, ef_state, batch, step) →
-    (params, opt_state, ef_state, metrics). The reference's rng argument has
-    no counterpart: no compressor of this slice draws randomness."""
+    """Returns train_step(params, opt_state, ef_state, batch, step, rng) →
+    (params, opt_state, ef_state, metrics). ``rng`` is the step's
+    generator (``rng.round_generator(seed, step)``, or None when no
+    compressor draws); the round draws from ``fold_in(rng, 1)``, as the
+    reference's ``r_comp``."""
     from repro_torch.optim.optimizer import apply_updates
 
-    def train_step(params, opt_state, ef_state, batch, step):
+    def train_step(params, opt_state, ef_state, batch, step, rng=None):
         loss, grads = per_client_value_and_grad(loss_fn, params, batch, dp)
         g_est, ef_state = ef_round(efc, grads, ef_state, eta=eta,
-                                   step=step)
+                                   step=step, rng=rng_lib.fold_in(rng, 1))
         del grads                      # free the per-client stack early
         updates, opt_state = optimizer.update(g_est, opt_state, params, step)
         params = apply_updates(params, updates)

@@ -7,15 +7,19 @@ reference's npz keys line up one for one.
 
 A method is ``(init, pre_compress → C(·) → post_compress)`` per client; its
 ``mode`` names the server rule: 'delta' methods (the EF21 family) integrate
-the mean message, gᵗ⁺¹ = gᵗ + meanᵢ cᵢ, 'absolute' ones (EF14, SGD, SGDM)
-replace the estimate, gᵗ⁺¹ = meanᵢ msgᵢ. This slice ports seven of the
-reference's ten methods with the server rule and the downlink (server →
-client broadcast) sync. ``ef21_sgdm_ideal`` and ``ef21_storm`` take paired
-gradients and ``neolithic`` runs R compression rounds a step: they arrive
-with later slices (ROADMAP Queue 1), and naming one raises
-``NotImplementedError``. The client EF state follows the grads' dtype, or
-the method's ``state_dtype`` (bfloat16 at LLM scale): every method casts its
-state where the reference does, in ``init`` and after each step.
+the mean message, gᵗ⁺¹ = gᵗ + meanᵢ cᵢ, 'absolute' ones (EF14, SGD, SGDM,
+the ideal method, NEOLITHIC) replace the estimate, gᵗ⁺¹ = meanᵢ msgᵢ. All
+ten of the reference's methods are here, with the server rule and the
+downlink (server → client broadcast) sync. ``ef21_sgdm_ideal`` and
+``ef21_storm`` take paired gradients (a tuple of two trees) and
+``neolithic`` runs R compression rounds a step, each on its own stream.
+``update(..., batched=True)`` runs one step on client-stacked trees (the
+clients on a leading axis), the compressor on each client's row. A
+randomized compressor draws from the ``torch.Generator`` passed as ``rng``,
+one stream a leaf (core/rng.py). The client EF state follows the grads'
+dtype, or the method's ``state_dtype`` (bfloat16 at LLM scale): every
+method casts its state where the reference does, in ``init`` and after each
+step.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import compressors as comp_lib
+from repro_torch.core import rng as rng_lib
 from repro_torch.kernels import ops
 
 Tree = Dict[str, torch.Tensor]
@@ -62,18 +67,29 @@ def tree_sub(a: Tree, b: Tree) -> Tree:
     return tree_map(torch.sub, a, b)
 
 
-def tree_lerp(a: Tree, b: Tree, eta: float) -> Tree:
-    """(1-eta)*a + eta*b — the Polyak momentum update, leaf-wise, in f32."""
-    c1, c2 = ops.momentum_coeffs(eta)
+def tree_lerp(a: Tree, b: Tree, eta) -> Tree:
+    """(1-eta)*a + eta*b — the Polyak momentum update, leaf-wise, in f32.
+    ``eta`` is a Python float, or an f32 tensor under a time-varying
+    schedule (then 1 - eta is taken in f32, as the reference's traced ηₜ
+    is)."""
+    if isinstance(eta, torch.Tensor):
+        c1, c2 = 1.0 - eta.float(), eta.float()
+    else:
+        c1, c2 = ops.momentum_coeffs(eta)
     return tree_map(lambda x, y: (c1 * x.float() + c2 * y.float()).to(x.dtype),
                     a, b)
 
 
-def tree_scale(a: Tree, s: float) -> Tree:
+def tree_scale(a: Tree, s) -> Tree:
     """x * s leaf-wise, with s rounded to x's dtype first: the reference
     multiplies by a weakly typed Python scalar, which JAX converts to the
-    array's dtype (a bfloat16 leaf is scaled by bf16(s))."""
-    return tree_map(lambda x: x * torch.tensor(s, dtype=x.dtype), a)
+    array's dtype (a bfloat16 leaf is scaled by bf16(s)). ``s`` may be a
+    0-d tensor (a time-varying η)."""
+    def one(x):
+        f = s.to(x.dtype) if isinstance(s, torch.Tensor) \
+            else torch.tensor(s, dtype=x.dtype)
+        return x * f
+    return tree_map(one, a)
 
 
 def tree_cast(tree: Tree, dtype: Optional[torch.dtype]) -> Tree:
@@ -96,9 +112,23 @@ def tree_norm_sq(tree: Tree) -> torch.Tensor:
     return sum(torch.sum(torch.square(tree[k].float())) for k in sorted(tree))
 
 
-def tree_compress(comp: comp_lib.Compressor, tree: Tree) -> Tree:
-    """Apply a flat-vector compressor leaf-wise (budget ∝ leaf size)."""
-    return tree_map(lambda x: comp(x.reshape(-1)).reshape(x.shape), tree)
+def tree_compress(comp: comp_lib.Compressor, tree: Tree,
+                  rng: Optional[torch.Generator] = None,
+                  batched: bool = False) -> Tree:
+    """Apply a flat-vector compressor leaf-wise (budget ∝ leaf size); leaf i
+    (sorted order) draws from ``fold_in(rng, i)``, as the reference splits
+    its key over the leaves. ``batched``: the leaves carry the client axis
+    and C runs on each client's flat row (``Compressor.batched``)."""
+    out: Tree = {}
+    for i, k in enumerate(sorted(tree)):
+        x = tree[k]
+        r = rng_lib.fold_in(rng, i) if comp.needs_rng else None
+        if batched:
+            out[k] = comp.batched(x.reshape(x.shape[0], -1), r).reshape(
+                x.shape)
+        else:
+            out[k] = comp(x.reshape(-1), r).reshape(x.shape)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -138,22 +168,40 @@ class Method:
         """→ (msg, new state)."""
         raise NotImplementedError
 
-    def update(self, grads: Tree, state: Dict[str, Tree], *, eta=None
-               ) -> Tuple[Tree, Dict[str, Tree]]:
+    def update(self, grads, state: Dict[str, Tree],
+               rng: Optional[torch.Generator] = None, *, eta=None,
+               batched: bool = False) -> Tuple[Tree, Dict[str, Tree]]:
+        """One client step: pre_compress → C → post_compress. ``batched``:
+        the trees carry the client axis, C runs on each client's row."""
         delta, ctx = self.pre_compress(grads, state, eta=eta)
-        return self.post_compress(tree_compress(self.compressor, delta), ctx)
+        return self.post_compress(
+            tree_compress(self.compressor, delta, rng, batched), ctx)
 
-    def coords_per_message(self, d: int) -> float:
+    def coords_per_message(self, d: int, carrier=None, direction: str = "up",
+                           compressor=None) -> float:
         """Idealized transmitted-coordinate count of one message over a
-        (d,) leaf (the paper's x-axis): TopK's k, BlockTopK's nb·kb, else d
-        (HardThreshold's is data-dependent: d bounds it). The words that
-        actually travel are the carrier's ``wire_words``."""
-        c = self.compressor
-        if isinstance(c, comp_lib.TopK):
+        (d,) leaf (the paper's x-axis) when ``carrier`` is None: TopK's and
+        RandK's k, BlockTopK's nb·kb, natural compression's 9 bits of 32,
+        else d (HardThreshold's is data-dependent: d bounds it). With a
+        ``carrier``, the words its wire ships (``Carrier.wire_words``);
+        ``direction='down'`` counts one broadcast message
+        (``carriers.downlink_words``). ``compressor`` accounts another
+        compressor than the method's."""
+        c = compressor if compressor is not None else self.compressor
+        if direction == "down" or carrier is not None:
+            from repro_torch.core import carriers as carrier_lib
+            car = carrier_lib.make(carrier if carrier is not None
+                                   else "dense")
+            if direction == "down":
+                return carrier_lib.downlink_words(car, c, d)
+            return car.wire_words(c, d)
+        if isinstance(c, (comp_lib.TopK, comp_lib.RandK)):
             return c._k(d)
         if isinstance(c, comp_lib.BlockTopK):
             nb, _, kb = c.geom(d)
             return nb * kb
+        if isinstance(c, comp_lib.NaturalCompression):
+            return d * 9.0 / 32.0
         return d
 
     def _eta(self, eta):
@@ -227,6 +275,29 @@ class EF21SGD2M(Method):
 
 
 @dataclasses.dataclass(frozen=True)
+class EF21SGDMIdeal(Method):
+    """EF21-SGDM-ideal — eq (14)+(15), the conceptual method of Theorem 4
+    (η = 1 is EF21-SGD-ideal, Theorem 1):
+    gᵢ = ∇fᵢ(x) + C(η·(∇fᵢ(x, ξ) − ∇fᵢ(x))). It needs exact gradients:
+    ``update`` takes ``grads = (stochastic, exact)``. No client state; the
+    message is ∇fᵢ + c, not c."""
+    eta: float = 1.0
+    name: str = "ef21_sgdm_ideal"
+    mode: str = "absolute"
+    needs_paired_grads: bool = True
+    wire_is_msg: bool = False
+
+    def init(self, params_like, init_grads=None):
+        return {}
+
+    def update(self, grads, state, rng=None, *, eta=None, batched=False):
+        g_stoch, g_exact = grads
+        noise = tree_scale(tree_sub(g_stoch, g_exact), self._eta(eta))
+        c = tree_compress(self.compressor, noise, rng, batched)
+        return tree_add(g_exact, c), state
+
+
+@dataclasses.dataclass(frozen=True)
 class EF21SGDMAbs(Method):
     """EF21-SGDM with an absolute compressor — Algorithm 4:
     c = γ·C((v' − g)/γ). Its message is a transform of the wire."""
@@ -247,6 +318,30 @@ class EF21SGDMAbs(Method):
     def post_compress(self, c, ctx):
         c = tree_scale(c, self.gamma)
         return c, {"v": self._cast(ctx["v"]),
+                   "g": self._cast(tree_add(ctx["g"], c))}
+
+
+@dataclasses.dataclass(frozen=True)
+class EF21STORM(Method):
+    """EF21-STORM/MVR — Algorithm 5, eq (12):
+    w' = ∇f(x', ξ') + (1 − η)(w − ∇f(x, ξ')); c = C(w' − g); g' = g + c.
+    The two gradients share ONE draw ξ': ``grads = (at x', at x)``."""
+    eta: float = 0.1
+    name: str = "ef21_storm"
+    needs_paired_grads: bool = True
+
+    def init(self, params_like, init_grads=None):
+        w = self._first(params_like, init_grads)
+        return {"w": w, "g": tree_clone(w)}
+
+    def pre_compress(self, grads, state, *, eta=None):
+        g_new, g_prev = grads
+        w_new = tree_add(g_new, tree_scale(tree_sub(state["w"], g_prev),
+                                           1.0 - self._eta(eta)))
+        return tree_sub(w_new, state["g"]), {"w": w_new, "g": state["g"]}
+
+    def post_compress(self, c, ctx):
+        return c, {"w": self._cast(ctx["w"]),
                    "g": self._cast(tree_add(ctx["g"], c))}
 
 
@@ -302,29 +397,53 @@ class SGD(Method):
         return c, {}
 
 
+@dataclasses.dataclass(frozen=True)
+class Neolithic(Method):
+    """NEOLITHIC-style baseline: R rounds of residual compression a step,
+    round r on its own stream ``fold_in(rng, r)``; the message is the sum
+    of the R compressed pieces. R = ⌈d/K⌉ transmits every coordinate, which
+    is why it loses per bit; its uplink words are R messages'."""
+    rounds: int = 4
+    name: str = "neolithic"
+    mode: str = "absolute"
+    wire_is_msg: bool = False
+
+    def init(self, params_like, init_grads=None):
+        return {}
+
+    def update(self, grads, state, rng=None, *, eta=None, batched=False):
+        acc = tree_zeros_like(grads)
+        resid = grads
+        for r in range(self.rounds):
+            c = tree_compress(self.compressor, resid,
+                              rng_lib.fold_in(rng, r), batched)
+            acc = tree_add(acc, c)
+            resid = tree_sub(resid, c)
+        return acc, state
+
+    def coords_per_message(self, d, carrier=None, direction="up",
+                           compressor=None):
+        base = super().coords_per_message(d, carrier, direction, compressor)
+        if direction == "down":
+            return base     # one broadcast, whatever the uplink's R rounds
+        return self.rounds * base
+
+
 REGISTRY = {
+    "ef21_sgdm_ideal": EF21SGDMIdeal,
     "ef21_sgd": EF21SGD,
     "ef21_sgdm": EF21SGDM,
     "ef21_sgd2m": EF21SGD2M,
     "ef21_sgdm_abs": EF21SGDMAbs,
+    "ef21_storm": EF21STORM,
     "ef14_sgd": EF14SGD,
     "sgdm": SGDM,
     "sgd": SGD,
-}
-
-_LATER = {
-    "ef21_sgdm_ideal": "takes paired (stochastic, exact) gradients",
-    "ef21_storm": "takes paired gradients under one noise draw",
-    "neolithic": "runs R compression rounds a step outside the two-phase API",
+    "neolithic": Neolithic,
 }
 
 
 def make(name: str, **kwargs) -> Method:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"EF method {name!r} {_LATER[name]} and is not ported yet (this "
-            f"port runs {sorted(REGISTRY)}); it arrives with a later slice "
-            "(ROADMAP Queue 1)")
     if name not in REGISTRY:
         raise ValueError(f"unknown EF method {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name](**kwargs)
@@ -358,11 +477,16 @@ def downlink_init(g_server: Tree) -> Tree:
 
 
 def downlink_sync(carrier, comp: comp_lib.Compressor, g_server: Tree,
-                  h: Tree) -> Tuple[Tree, Tree]:
-    """One downlink broadcast with memory (EF21-BC): the server ships the wire
-    of C(g - h) and everyone integrates h' = h + decode(wire). Returns
-    ``(g_est, h_new)``; both are h'."""
+                  h: Optional[Tree], rng: Optional[torch.Generator] = None,
+                  memory: bool = True) -> Tuple[Tree, Optional[Tree]]:
+    """One downlink broadcast. With ``memory`` (EF21-BC) the server ships
+    the wire of C(g - h) and everyone integrates h' = h + decode(wire);
+    returns ``(g_est, h_new)``, both h'. Without it (the naive baseline the
+    paper-claims tests stall) the broadcast is C(g) itself, nothing absorbs
+    the compression error, and ``h_new`` is None."""
     from repro_torch.core import carriers as carrier_lib
+    if not memory:
+        return carrier_lib.downlink_round(carrier, comp, g_server, rng), None
     h_new = carrier_lib.downlink_round_integrate(
-        carrier, comp, tree_sub(g_server, h), h)
+        carrier, comp, tree_sub(g_server, h), h, rng)
     return h_new, h_new

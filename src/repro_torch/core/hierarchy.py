@@ -18,9 +18,9 @@ A TRIVIAL cross hop (dense carrier, identity compressor) makes the pod
 aggregator transparent: b_p' = t_p', the round runs the flat aggregation's
 operations, and the pod memories only track the global innovation
 (:func:`trivial_bookkeeping`). ``pods=1`` (or no Hops) runs no
-hierarchical machinery at all. The port draws no randomness, so the
-reference's ``CROSS_FOLD`` rng fold has no stream to fold yet; it is kept
-so the rng slice folds the same one.
+hierarchical machinery at all. Pod p's cross hop draws from
+``fold_in(fold_in(rng, CROSS_FOLD), p)`` off the round's generator, as the
+reference folds its key.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import torch
 from repro_torch.core import carriers as carrier_lib
 from repro_torch.core import compressors as comp_lib
 from repro_torch.core import ef as ef_lib
+from repro_torch.core import rng as rng_lib
 
 Tree = Dict[str, torch.Tensor]
 
@@ -102,15 +103,16 @@ def pod_message(method, b: Tree, b_new: Tree) -> Tree:
     return b_new
 
 
-def cross_sync(hops: Hops, schedule, t_new: Tree, b: Tree) -> Tree:
+def cross_sync(hops: Hops, schedule, t_new: Tree, b: Tree, rng=None
+               ) -> Tree:
     """The cross hop for ONE pod: b' = b + decode(C_cross(t' − b)). Under a
     schedule the groups' cross fields rule (``schedule.cross_round_grouped``),
-    otherwise the Hops' own."""
+    otherwise the Hops' own. ``rng`` is the pod's stream."""
     if schedule is not None:
         from repro_torch.core import schedule as sched_lib
-        return sched_lib.cross_round_grouped(schedule, t_new, b)
+        return sched_lib.cross_round_grouped(schedule, t_new, b, rng)
     return ef_lib.downlink_sync(carrier_lib.make(hops.cross_carrier),
-                                hops.cross_comp(), t_new, b)[1]
+                                hops.cross_comp(), t_new, b, rng=rng)[1]
 
 
 def cross_is_trivial(hops: Hops, schedule) -> bool:
@@ -122,18 +124,21 @@ def cross_is_trivial(hops: Hops, schedule) -> bool:
 
 
 def round_pods_batched(hops: Hops, schedule, method, u_pods: Tree,
-                       pods_st: Dict[str, Tree], g_server: Tree
+                       pods_st: Dict[str, Tree], g_server: Tree, rng=None
                        ) -> Tuple[Dict[str, Tree], Tree]:
     """The pod tier: per pod the target update and the cross hop, then the
     server integrates the pods' mean message. ``u_pods`` and ``pods_st``
-    carry pods on a leading axis. Returns (new_pods_st, new_server)."""
+    carry pods on a leading axis; ``rng`` is the round's generator.
+    Returns (new_pods_st, new_server)."""
+    r_cross = rng_lib.fold_in(rng, CROSS_FOLD)
     t_out, b_out, msgs = [], [], []
     for p in range(hops.pods):
         def take(tree, p=p):
             return {k: x[p] for k, x in tree.items()}
         t_p, b_p = take(pods_st["t"]), take(pods_st["b"])
         t_new = pod_target(method, t_p, take(u_pods))
-        b_new = cross_sync(hops, schedule, t_new, b_p)
+        b_new = cross_sync(hops, schedule, t_new, b_p,
+                           rng_lib.fold_in(r_cross, p))
         t_out.append(t_new)
         b_out.append(b_new)
         msgs.append(pod_message(method, b_p, b_new))

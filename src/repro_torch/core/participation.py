@@ -14,15 +14,22 @@ threefry2x32 stream (the partitionable key derivation, JAX's default) and
 the sort-based shuffle are written out below in numpy ``uint32`` arithmetic
 with a stable argsort, so the port's cohorts need no JAX.
 
-``mode='async'`` names the reference's event-driven simulator
-(``run_async``), which arrives with the simulator slice of the port
-(ROADMAP Queue 1); the synchronous runtime refuses it.
+``mode='async'`` never runs on the synchronous runtimes (they are barrier
+loops); :func:`run_async` is the event-driven simulator: each client
+computes for a time drawn from an :class:`ArrivalModel` (uniform,
+heavy-tailed, or with lost computes), the server folds each accepted upload
+c/n as it arrives, an optional cap discards stale uploads, and the wall
+clock is compared with a synchronous barrier's
+(:func:`sync_barrier_wallclock`). Its event queue draws from numpy's
+``RandomState`` exactly as the reference's does, so every event count, the
+staleness histogram and both wall clocks equal the reference's; only the
+gradients and compressors draw from the port's generators.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -185,3 +192,181 @@ def rescale_message(method, msg_mean: Tree, n: int, m: int) -> Tree:
         return msg_mean
     from repro_torch.core import ef as ef_lib
     return ef_lib.tree_scale(msg_mean, float(n) / float(m))
+
+
+# ---------------------------------------------------------------------------
+# event-driven asynchronous rounds (mode='async')
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ArrivalModel:
+    """Per-client compute-time model of the async event loop.
+
+    'uniform'     τ ~ U[0.5, 1.5]·mean: a homogeneous fleet
+    'heavy_tail'  τ ~ Pareto(alpha) scaled to E[τ] = mean: stragglers, whose
+                  per-round maximum (what a barrier pays) is far above the
+                  mean an async server pays
+    'dropout'     uniform times, each compute LOST with prob drop_prob
+    """
+
+    kind: str = "uniform"
+    mean: float = 1.0
+    alpha: float = 1.3
+    drop_prob: float = 0.2
+
+    def __post_init__(self):
+        if self.kind not in ("uniform", "heavy_tail", "dropout"):
+            raise ValueError(f"unknown arrival kind {self.kind!r}")
+        if self.kind == "heavy_tail" and self.alpha <= 1.0:
+            raise ValueError("heavy_tail needs alpha > 1 (finite mean), "
+                             f"got {self.alpha}")
+        if not 0.0 <= self.drop_prob < 1.0:
+            raise ValueError("drop_prob must be in [0, 1) — a client that "
+                             f"always drops deadlocks, got {self.drop_prob}")
+
+    def sample(self, rs: np.random.RandomState, size: int) -> np.ndarray:
+        if self.kind == "heavy_tail":
+            # Pareto(alpha) with minimum xm has mean xm·alpha/(alpha-1)
+            xm = self.mean * (self.alpha - 1.0) / self.alpha
+            return xm * (1.0 + rs.pareto(self.alpha, size=size))
+        return self.mean * rs.uniform(0.5, 1.5, size=size)
+
+    def dropped(self, rs: np.random.RandomState, size: int) -> np.ndarray:
+        if self.kind != "dropout":
+            return np.zeros(size, dtype=bool)
+        return rs.uniform(size=size) < self.drop_prob
+
+
+def sync_barrier_wallclock(arrival: ArrivalModel, n: int, rounds: int,
+                           seed: int = 0) -> float:
+    """What a synchronous barrier pays under the same compute-time model:
+    each round waits for the SLOWEST client, a lost compute retried within
+    the round."""
+    rs = np.random.RandomState(seed)
+    total = 0.0
+    for _ in range(rounds):
+        t = arrival.sample(rs, n)
+        pending = arrival.dropped(rs, n)
+        while pending.any():                 # resample lost computes
+            k = int(pending.sum())
+            t[pending] += arrival.sample(rs, k)
+            pending[pending] = arrival.dropped(rs, k)
+        total += float(t.max())
+    return total
+
+
+def run_async(problem, method, n: int, gamma: float, rounds: int,
+              arrival: ArrivalModel = ArrivalModel(),
+              batch_size: int = 1, b_init: int = 1, eta=None,
+              staleness_cap: Optional[int] = None, seed: int = 0
+              ) -> Dict[str, Any]:
+    """Event-driven asynchronous EF rounds, an ADPSGD-style client loop.
+
+    Every client forever fetches x, computes a stochastic gradient for a
+    time τ ~ ``arrival`` and uploads. The server takes uploads in arrival
+    order: an accepted upload folds the client's compressed innovation,
+    g ← g + c/n (the Bells & Whistles rule with a cohort of one), and steps
+    x ← x − γ·g. A ROUND is n accepted uploads; the wall clock is the event
+    time of the last one. An upload's staleness is the server's model
+    version now less the one the client fetched; above ``staleness_cap`` it
+    is discarded (the client refetches). A lost compute ('dropout')
+    reschedules at once. Delta-mode (EF21-family) methods only.
+
+    Compute k (the k-th fetch) draws its gradient from
+    ``generator(derive(seed, k))`` and its compressor from that folded with
+    1, on the problem's device; the event queue draws from
+    ``RandomState(seed)`` as the reference's does."""
+    from repro_torch.core import ef as ef_lib
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.core import simulate
+
+    if method.mode == "absolute":
+        raise ValueError(
+            f"run_async supports delta-mode (EF21-family) methods only; "
+            f"{method.name!r} is absolute-mode — its server state is a "
+            "cohort mean, which has no per-arrival incremental fold")
+
+    rs = np.random.RandomState(seed)
+    x = problem.init_x()
+    dev = next(iter(x.values())).device
+    base = rng_lib.generator(seed, dev)
+    # Alg 1 line 2 handshake (synchronous, as the synchronous simulator's)
+    g0 = simulate.init_grads(problem, x, base, n, batch_size, b_init)
+    states = [method.init(x, init_grads={k: v[i].clone()
+                                         for k, v in g0.items()})
+              for i in range(n)]
+    g_server = ef_lib.server_init(
+        method, x, {k: v.sum(0) / n for k, v in g0.items()})
+
+    counter = [0]
+    version = [0]                # server model version (accepted uploads)
+    x_now = [x]
+    clients: Dict[int, Dict[str, Any]] = {}
+
+    def start_compute(i, now):
+        """Client i fetches the current model and schedules its upload."""
+        gen = rng_lib.fold_in(base, counter[0])
+        counter[0] += 1
+        tau = float(arrival.sample(rs, 1)[0])
+        clients[i] = {"arrival": now + tau, "version": version[0],
+                      "x": x_now[0], "rng": gen,
+                      "lost": bool(arrival.dropped(rs, 1)[0])}
+
+    for i in range(n):
+        start_compute(i, 0.0)
+
+    target = n * rounds
+    applied = dropped = discarded = 0
+    wall_clock = 0.0
+    ages: list = []
+    gns_round = []
+    while applied < target:
+        i = min(clients, key=lambda c: clients[c]["arrival"])
+        ev = clients[i]
+        now = ev["arrival"]
+        if ev["lost"]:                      # dropout: never arrived
+            dropped += 1
+            start_compute(i, now)
+            continue
+        age = version[0] - ev["version"]
+        if staleness_cap is not None and age > staleness_cap:
+            discarded += 1                   # too stale: refetch, recompute
+            start_compute(i, now)
+            continue
+        # the client's EF update against the model it saw
+        grads = problem.stoch_grad(ev["x"], ev["rng"], batch_size,
+                                   range(i, i + 1))
+        grads = {k: v[0] for k, v in grads.items()}
+        msg, states[i] = method.update(
+            grads, states[i], rng_lib.fold_in(ev["rng"], 1), eta=eta)
+        g_server = ef_lib.tree_add(
+            g_server, ef_lib.tree_map(lambda c: c / n, msg))
+        x_now[0] = {k: p - gamma * g_server[k] for k, p in x_now[0].items()}
+        version[0] += 1
+        applied += 1
+        wall_clock = now
+        ages.append(age)
+        if applied % n == 0:
+            gns_round.append(ef_lib.tree_norm_sq(problem.full_grad(x_now[0])))
+        start_compute(i, now)
+
+    ages_arr = np.asarray(ages, dtype=np.int64)
+    hist = np.bincount(ages_arr) if ages_arr.size else np.zeros(1, np.int64)
+    gns = torch.stack(gns_round).cpu().numpy() if gns_round \
+        else np.zeros(0, np.float32)
+    return {
+        "wall_clock": wall_clock,
+        "rounds": rounds,
+        "arrivals_applied": applied,
+        "arrivals_dropped": dropped,
+        "arrivals_discarded": discarded,
+        "stale_age_hist": hist,
+        "max_staleness": int(ages_arr.max()) if ages_arr.size else 0,
+        "mean_staleness": float(ages_arr.mean()) if ages_arr.size else 0.0,
+        "grad_norm_sq_per_round": gns,
+        "grad_norm_sq": float(gns[-1]) if gns.size else float("nan"),
+        "loss": float(problem.loss(x_now[0])),
+        "x_final": {k: v.cpu().numpy() for k, v in x_now[0].items()},
+        "sync_wall_clock": sync_barrier_wallclock(arrival, n, rounds,
+                                                  seed=seed + 1),
+    }

@@ -18,9 +18,12 @@ and dense plans replace the state's entries leaf by leaf, so a group runs
 exactly the operations the ungrouped round runs on the same leaves: a
 one-group schedule is bit-identical to the ungrouped round.
 
-``round_local`` (the shard_map layout) waits for the multi-GPU slice. No
-ported compressor draws randomness, so no rng is threaded; :func:`_group_rng`
-keeps the reference's one-group identity for the slice that adds one.
+``round_local`` (the shard_map layout) waits for the multi-GPU slice. The
+round's ``torch.Generator`` (core/rng.py) reaches every group: one group
+draws from it untouched (bit-identity with the ungrouped round), several
+decorrelate by group index (:func:`_group_rng`). Paired-gradient methods
+(STORM, the ideal method) take a tuple of two trees, split per group as
+the reference's ``_take_grads`` does.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.core import compressors as comp_lib
 from repro_torch.core import ef as ef_lib
 from repro_torch.core import hierarchy as hier_lib
 from repro_torch.core import participation as part_lib
+from repro_torch.core import rng as rng_lib
 
 Tree = Dict[str, torch.Tensor]
 
@@ -234,6 +238,19 @@ def _take(tree: Tree, keys: List[str]) -> Tree:
     return {k: tree[k] for k in keys}
 
 
+def _take_grads(grads, method, keys: List[str]):
+    """One group's grads: a tree, or a pair of trees for paired-gradient
+    methods."""
+    if method.needs_paired_grads:
+        return (_take(grads[0], keys), _take(grads[1], keys))
+    return _take(grads, keys)
+
+
+def base_grads(grads, method) -> Tree:
+    """The tree that names the leaves: the first of a pair."""
+    return grads[0] if method.needs_paired_grads else grads
+
+
 def _take_state(state: Dict[str, Tree], keys: List[str]) -> Dict[str, Tree]:
     return {name: _take(tree, keys) for name, tree in state.items()}
 
@@ -243,13 +260,11 @@ def _sorted(tree: Tree) -> Tree:
 
 
 def _group_rng(rng, gi: int, n_groups: int):
-    """One group → the round rng untouched (bit-identity with the ungrouped
-    round); several → the rng slice decorrelates them by group index. No
-    ported compressor draws randomness, so ``rng`` is None today."""
+    """One group → the round's generator untouched (bit-identity with the
+    ungrouped round); several → decorrelated by group index."""
     if rng is None or n_groups == 1:
         return rng
-    raise NotImplementedError("per-group rng streams arrive with the rng "
-                              "slice of the port (ROADMAP Queue 1)")
+    return rng_lib.fold_in(rng, gi)
 
 
 # ---------------------------------------------------------------------------
@@ -284,34 +299,37 @@ def _agg(x: torch.Tensor, pods: int) -> torch.Tensor:
         else ef_lib.client_mean(x)
 
 
-def _leafwise(method, carrier, plan: str, grads: Tree,
+def _leafwise(method, carrier, plan: str, grads,
               clients: Dict[str, Tree], dp: int, eta, mask,
-              pods: int) -> Tree:
+              pods: int, rng=None) -> Tree:
     """The 'wire' and 'dense' plans one leaf at a time: pre_compress, then
-    the carrier's encode → local_c → aggregate ('wire') or the compressor on
-    each client's flat leaf as one row (``Compressor.batched``, 'dense'),
-    then post_compress. Every method acts leaf by leaf, so this is the
-    reference's whole-tree round; one leaf's temporaries are alive at a
-    time, and each leaf's new client state replaces the old entry of
-    ``clients`` IN PLACE. Under a cohort ``mask`` the non-sampled clients'
-    deltas ('wire') or messages ('dense') are zeroed before the aggregate
-    and their state is frozen leaf by leaf (the old leaf is alive until its
-    new one is frozen). Returns the aggregated message."""
+    the carrier's encode → local_c → aggregate ('wire'), then
+    post_compress; or the method's whole client-stacked step
+    (``Method.update(..., batched=True)``: C on each client's flat leaf as
+    one row, 'dense'), leaf i drawing from ``fold_in(rng, i)``. Every method
+    acts leaf by leaf, so this is the reference's whole-tree round; one
+    leaf's temporaries are alive at a time, and each leaf's new client state
+    replaces the old entry of ``clients`` IN PLACE. Under a cohort ``mask``
+    the non-sampled clients' deltas ('wire') or messages ('dense') are
+    zeroed before the aggregate and their state is frozen leaf by leaf (the
+    old leaf is alive until its new one is frozen). Returns the aggregated
+    message."""
     out: Tree = {}
-    for key in sorted(grads):
+    for i, key in enumerate(sorted(base_grads(grads, method))):
         old = {name: {key: tree[key]} for name, tree in clients.items()}
-        delta, ctx = method.pre_compress({key: grads[key]}, old, eta=eta)
+        g_leaf = _take_grads(grads, method, [key])
         if plan == "wire":
+            delta, ctx = method.pre_compress(g_leaf, old, eta=eta)
             if mask is not None:
                 delta = part_lib.apply_mask(mask, delta)
             c, mean = carrier_lib.wire_round_batched(
                 carrier, method.compressor, delta, dp)
+            del delta
+            msgs, new = method.post_compress(c, ctx)
         else:
-            x = delta[key]
-            c = {key: method.compressor.batched(
-                x.reshape(x.shape[0], -1)).reshape(x.shape)}
-        del delta
-        msgs, new = method.post_compress(c, ctx)
+            r = rng_lib.fold_in(rng, i) \
+                if method.compressor.needs_rng else None
+            msgs, new = method.update(g_leaf, old, r, eta=eta, batched=True)
         if plan == "wire":
             # the carrier's own aggregate, or per-pod means of the decoded
             # client messages (local_c IS the decode of what traveled)
@@ -351,9 +369,9 @@ def _fused_cohort(carrier, method, grads: Tree, clients: Dict[str, Tree],
     return c_tree
 
 
-def batched_leg(method, carrier, plan: str, grads: Tree,
+def batched_leg(method, carrier, plan: str, grads,
                 clients: Dict[str, Tree], dp: int, eta=None, mask=None,
-                pods: int = 1) -> Tuple[Tree, Dict[str, Tree]]:
+                pods: int = 1, rng=None) -> Tuple[Tree, Dict[str, Tree]]:
     """One carrier's round on the client-stacked leaves given, the clients on
     a leading axis: the ungrouped round runs it on the whole tree and
     :func:`round_batched` on each group's leaves. ``mask`` is an optional
@@ -361,7 +379,8 @@ def batched_leg(method, carrier, plan: str, grads: Tree,
     and their state stays frozen (the rescale for absolute methods stays
     with the caller). ``pods > 1`` returns per-pod means on a leading pods
     axis (pod-major client blocks) instead of the mean over all clients.
-    The client state is updated in place; returns (msg_mean, clients)."""
+    ``rng`` feeds a randomized compressor (the dense plan's). The client
+    state is updated in place; returns (msg_mean, clients)."""
     if plan == "fused":
         if mask is None:
             c_tree, _ = carrier.fused_update(method, grads, clients, eta=eta)
@@ -382,29 +401,35 @@ def batched_leg(method, carrier, plan: str, grads: Tree,
                                                eta=eta)
         return msg_mean, clients
     return _leafwise(method, carrier, plan, grads, clients, dp, eta, mask,
-                     pods), clients
+                     pods, rng), clients
 
 
-def round_batched(schedule: CompressionSchedule, method, grads: Tree,
+def round_batched(schedule: CompressionSchedule, method, grads,
                   states: Dict[str, Tree], dp: int, eta=None, mask=None,
-                  pods: int = 1) -> Tuple[Tree, Dict[str, Tree]]:
+                  pods: int = 1, rng=None) -> Tuple[Tree, Dict[str, Tree]]:
     """Per-group client legs, each group on its own carrier's plan, merged
     back by key. A group's sub-dicts hold the state's own tensors, so the
     fused plans' in-place writes land in ``states``; the wire and dense
-    plans' new entries are copied back into it. ``mask`` and ``pods`` as in
-    :func:`batched_leg`. Returns (msg_mean, states)."""
+    plans' new entries are copied back into it. ``mask``, ``pods`` and
+    ``rng`` as in :func:`batched_leg` (each group on its
+    :func:`_group_rng`). Returns (msg_mean, states)."""
     if pods > 1 and dp % pods:
         raise ValueError(f"pods={pods} must divide the client count {dp}")
     msg_mean: Tree = {}
-    for grp, keys in zip(schedule.groups, group_keys(schedule, grads)):
+    n_groups = len(schedule.groups)
+    for gi, (grp, keys) in enumerate(zip(
+            schedule.groups,
+            group_keys(schedule, base_grads(grads, method)))):
         if not keys:
             continue
         m_g = group_method(method, grp)
         carrier = carrier_lib.make(grp.carrier)
         plan = carrier.plan(m_g, eta)
         sub = _take_state(states, keys)
-        agg_g, new_st = batched_leg(m_g, carrier, plan, _take(grads, keys),
-                                    sub, dp, eta, mask=mask, pods=pods)
+        agg_g, new_st = batched_leg(m_g, carrier, plan,
+                                    _take_grads(grads, method, keys), sub,
+                                    dp, eta, mask=mask, pods=pods,
+                                    rng=_group_rng(rng, gi, n_groups))
         msg_mean.update(agg_g)
         for name, tree in new_st.items():
             states[name].update(tree)
@@ -416,14 +441,18 @@ def round_batched(schedule: CompressionSchedule, method, grads: Tree,
 # ---------------------------------------------------------------------------
 
 def downlink_round_grouped(schedule: CompressionSchedule, g_server: Tree,
-                           h: Tree) -> Tuple[Tree, Tree]:
+                           h: Tree, rng=None, memory: bool = True
+                           ) -> Tuple[Tree, Tree]:
     """Per-group downlink legs: groups with a downlink carrier run
-    ``ef.downlink_sync`` on their leaves; groups without ship the implicit
-    dense broadcast (g_est is g_server and h tracks it). Returns (g_est,
-    h_new)."""
+    ``ef.downlink_sync`` on their leaves (``memory=False``: the naive
+    broadcast of C(g), h tracking the decode); groups without ship the
+    implicit dense broadcast (g_est is g_server and h tracks it). Returns
+    (g_est, h_new)."""
     est: Tree = {}
     h_out: Tree = {}
-    for grp, keys in zip(schedule.groups, group_keys(schedule, g_server)):
+    n_groups = len(schedule.groups)
+    for gi, (grp, keys) in enumerate(zip(schedule.groups,
+                                         group_keys(schedule, g_server))):
         if not keys:
             continue
         s_g = _take(g_server, keys)
@@ -433,20 +462,23 @@ def downlink_round_grouped(schedule: CompressionSchedule, g_server: Tree,
             continue
         est_g, h_new_g = ef_lib.downlink_sync(
             carrier_lib.make(grp.down_carrier), grp.down_comp(), s_g,
-            _take(h, keys))
+            _take(h, keys), rng=_group_rng(rng, gi, n_groups), memory=memory)
         est.update(est_g)
-        h_out.update(h_new_g)
+        h_out.update(h_new_g if h_new_g is not None else est_g)
     return _sorted(est), _sorted(h_out)
 
 
 def cross_round_grouped(schedule: CompressionSchedule, t_new: Tree,
-                        b: Tree) -> Tree:
+                        b: Tree, rng=None) -> Tree:
     """Per-group cross-pod hop for ONE pod aggregator: groups with a
     non-trivial cross carrier ship C_cross(t' − b) and integrate its decode
     (``ef.downlink_sync``); trivial groups are transparent, b' = t'.
-    Returns the new broadcast state b'."""
+    ``rng`` is the pod's cross stream. Returns the new broadcast state
+    b'."""
     out: Tree = {}
-    for grp, keys in zip(schedule.groups, group_keys(schedule, t_new)):
+    n_groups = len(schedule.groups)
+    for gi, (grp, keys) in enumerate(zip(schedule.groups,
+                                         group_keys(schedule, t_new))):
         if not keys:
             continue
         t_g = _take(t_new, keys)
@@ -455,7 +487,7 @@ def cross_round_grouped(schedule: CompressionSchedule, t_new: Tree,
             continue
         _, b_new_g = ef_lib.downlink_sync(
             carrier_lib.make(grp.cross_carrier), grp.cross_comp(), t_g,
-            _take(b, keys))
+            _take(b, keys), rng=_group_rng(rng, gi, n_groups))
         out.update(b_new_g)
     return _sorted(out)
 

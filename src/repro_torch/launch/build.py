@@ -263,8 +263,8 @@ def ef_config(spec: RunSpec) -> dist.EFConfig:
     if participation is not None and participation.mode == "async":
         raise ValueError(
             "participation mode 'async' does not build a synchronous step "
-            "(every round is a barrier); its event-driven simulator "
-            "(run_async) arrives with a later slice of the port")
+            "(every round is a barrier); drive the event-driven simulator "
+            "instead: repro_torch.core.participation.run_async")
     sampling = participation is not None and participation.is_sampling
     if sampling and fused_wire:
         raise ValueError(

@@ -28,6 +28,7 @@ import torch
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import base as cb
 from repro_torch.core import distributed as dist
+from repro_torch.core import rng as rng_lib
 from repro_torch.core import schedule as sched_lib
 from repro_torch.data import pipeline as pipe_lib
 from repro_torch.launch import build as build_lib
@@ -143,8 +144,11 @@ class Session:
         """Advance exactly one training step; returns the step metrics."""
         tr = self._ensure_train()
         batch = self.batch_for(self.step)
+        # the step's stream, pure in (seed, step): a resumed run replays it
+        rng = rng_lib.round_generator(self.spec.seed, self.step, self.device)
         tr["params"], tr["opt_state"], tr["ef_state"], m = tr["step_fn"](
-            tr["params"], tr["opt_state"], tr["ef_state"], batch, self.step)
+            tr["params"], tr["opt_state"], tr["ef_state"], batch, self.step,
+            rng)
         self.step += 1
         self._params_changed()
         return m

@@ -6,15 +6,16 @@ The port's RunSpec has the reference's field names, defaults and JSON
 (schema v5), so ``results/specs/*.json`` load as they are, and its
 ``spec_hash`` is the reference's (the same sparse canonical form), so a
 checkpoint written by either package names its experiment for both. It
-accepts smollm-360m, seven EF methods, the six deterministic compressors,
-the seven carriers (``fused`` uplink only), f32 or bfloat16 EF state, SGD
-and AdamW, per-parameter-group schedules (``groups``), sampled
-participation and the two-tier hierarchy (``hops``), with the reference's
-grammars, previews and cross-field refusals. It refuses, loudly and at
-construction, what the port does not run yet: a ``mesh`` beyond ``smoke``
-(and the client granularity and state sharding of one), ``overlap``,
-``moe_impl``, ``shape``, ``tp_pad_heads`` and participation mode
-``async``. ``compressor_kw`` and ``method_kw`` must map names to JSON
+accepts smollm-360m, the ten EF methods, the eight compressors, the seven
+carriers (``fused`` uplink only), f32 or bfloat16 EF state, SGD and AdamW,
+per-parameter-group schedules (``groups``), the participation modes
+(``async`` names the event-driven simulator, which ``build`` refuses as
+the reference's does) and the two-tier hierarchy (``hops``), with the
+reference's grammars, previews and cross-field refusals. It refuses,
+loudly and at construction, what the port does not run yet: a ``mesh``
+beyond ``smoke`` (and the client granularity and state sharding of one),
+``overlap``, ``moe_impl``, ``shape`` and ``tp_pad_heads``.
+``compressor_kw`` and ``method_kw`` must map names to JSON
 scalars; which names the compressor and the method take is checked where
 they are built (launch/build.py).
 """
@@ -30,10 +31,14 @@ from repro_torch.configs import base as cb
 
 SCHEMA_VERSION = 5
 
-METHODS = frozenset({"ef21_sgd", "ef21_sgdm", "ef21_sgd2m", "ef21_sgdm_abs",
-                     "ef14_sgd", "sgdm", "sgd"})
-COMPRESSORS = frozenset({"identity", "topk", "block_topk", "hard_threshold",
-                         "rank1", "block_quant"})
+METHODS = frozenset({
+    "ef21_sgdm_ideal", "ef21_sgd", "ef21_sgdm", "ef21_sgd2m", "ef21_sgdm_abs",
+    "ef21_storm", "ef14_sgd", "sgdm", "sgd", "neolithic",
+})
+COMPRESSORS = frozenset({
+    "identity", "topk", "randk", "block_topk", "hard_threshold", "natural",
+    "rank1", "block_quant",
+})
 FUSED_CARRIERS = frozenset({"fused", "fused_quant8", "fused_quant4"})
 FUSED_WIRE_CARRIERS = frozenset({"fused_quant8", "fused_quant4"})
 CARRIERS = frozenset({"dense", "sparse", "quant8", "quant4"}) | FUSED_CARRIERS
@@ -51,8 +56,8 @@ GROUP_KEYS = frozenset({"pattern", "carrier", "compressor", "ratio",
                         "ef_state_dtype", "cross_carrier", "cross_ratio"})
 GROUP_STATE_DTYPES = (None, "bfloat16", "float32")
 PATTERN_RESERVED = set("=,:@")
-# participation (core/participation.py): 'async' names the reference's
-# event-driven simulator, which the port refuses until its slice
+# participation (core/participation.py): 'async' names the event-driven
+# simulator (participation.run_async), which launch/build.py refuses
 PART_MODES = ("full", "sampled", "async")
 PART_KEYS = frozenset({"mode", "fraction", "seed"})
 # the two-tier hierarchy (core/hierarchy.py): the cross hop is one message
@@ -61,10 +66,11 @@ HOP_KEYS = frozenset({"pods", "cross_carrier", "cross_ratio"})
 CROSS_CARRIERS = DOWN_CARRIERS
 
 # the carriers' plan rules by name (core/carriers.py plan_with_reason):
-# methods whose message is a transform of c, compressors with the block
-# wire, and what the fused kernels implement. No ported compressor draws
-# randomness, so the reference's rng rule has nothing to refuse here.
-WIRE_IS_NOT_MSG = frozenset({"ef21_sgdm_abs"})
+# methods whose message is a transform of c, compressors that draw
+# randomness (no quantized wire ships them), compressors with the block
+# wire, and what the fused kernels implement
+WIRE_IS_NOT_MSG = frozenset({"ef21_sgdm_ideal", "ef21_sgdm_abs", "neolithic"})
+NEEDS_RNG = frozenset({"randk", "natural"})
 SPARSE_WIRE_OK = frozenset({"topk", "block_topk"})
 FUSED_METHODS = frozenset({"ef21_sgdm", "ef21_sgd"})
 FUSED_COMPRESSORS = frozenset({"block_topk"})
@@ -110,6 +116,11 @@ def plan_preview(method: str, compressor: str, carrier: str,
             return "dense", ("the fused kernel compresses with BlockTopK "
                              f"only, not {compressor!r}")
         return "fused", ""
+    # quant8 / quant4 / fused_quant8 / fused_quant4
+    if compressor in NEEDS_RNG:
+        return "dense", (
+            f"compressor {compressor!r} draws randomness inside encode; the "
+            "quantized wire ships deterministic compressors only")
     if carrier in FUSED_WIRE_CARRIERS:
         if method not in FUSED_METHODS:
             return "wire", (
@@ -137,10 +148,16 @@ def downlink_plan_preview(compressor: str, carrier: str) -> Tuple[str, str]:
         return "dense", (
             "the fused kernel fuses the UPLINK client update; the downlink "
             "broadcast has no fused path — use dense, sparse or quant")
-    if carrier == "sparse" and compressor not in SPARSE_WIRE_OK:
+    if carrier == "sparse":
+        if compressor not in SPARSE_WIRE_OK:
+            return "dense", (
+                f"compressor {compressor!r} has no deterministic fixed-size "
+                "(values, indices) wire")
+        return "wire", ""
+    if compressor in NEEDS_RNG:                    # quant8 / quant4
         return "dense", (
-            f"compressor {compressor!r} has no deterministic fixed-size "
-            "(values, indices) wire")
+            f"compressor {compressor!r} draws randomness inside encode; the "
+            "quantized wire ships deterministic compressors only")
     return "wire", ""
 
 
@@ -560,8 +577,7 @@ class RunSpec:
         return errs
 
     def _validate_participation(self) -> List[str]:
-        """Keys, mode, fraction and seed; mode 'async' is refused (the
-        reference's simulator is not ported), and a sampled cohort cannot
+        """Keys, mode, fraction and seed; a sampled or async cohort cannot
         ride the fused quantized wire."""
         p = self.participation
         if not isinstance(p, dict):
@@ -577,10 +593,6 @@ class RunSpec:
         if mode not in PART_MODES:
             errs.append(f"participation: unknown mode {mode!r}; have "
                         f"{list(PART_MODES)}")
-        if mode == "async":
-            errs.append("participation mode 'async' does not build a "
-                        "synchronous step (every round is a barrier); its "
-                        f"event-driven simulator (run_async) {_LATER}")
         frac = p.get("fraction", 1.0)
         if not (isinstance(frac, (int, float)) and not isinstance(frac, bool)
                 and 0.0 < frac <= 1.0):

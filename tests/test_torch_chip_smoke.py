@@ -97,3 +97,83 @@ def test_the_full_width_phases_launch_their_stated_counts():
             tree = pt_model.init_params(sess.cfg, None, "meta")
             got = CS.expected_launches(pt_build.ef_config(spec), tree)
             assert {k: v for k, v in got.items() if v} == want[p.id], p.id
+
+
+# ---------------------------------------------------------------------------
+# phase P: the simulator's runs
+# ---------------------------------------------------------------------------
+
+# each cell's problem at a CPU size (the same class and client count)
+P_SMALL = {"P-fig1": {},
+           "P-exp1": dict(n=10, m_per_client=8, l=20, c=10),
+           "P-exp3": dict(n=100, d=8),
+           "P-exp4": dict(n=5, m_per_client=8, in_dim=40, hidden=24, c=10),
+           "P-smoke": dict(n=4, d=64, sigma=0.0)}
+
+
+def _p_runs():
+    from repro_torch.core import compressors as comp_lib
+    from repro_torch.core import ef as ef_lib
+    from repro_torch.core import simulate
+    return CS.p_runs(simulate, ef_lib, comp_lib)
+
+
+@pytest.mark.parametrize("row", _p_runs(), ids=lambda r: f"{r[0]} {r[1]}")
+def test_phase_p_counts_equal_the_simulator_calls(monkeypatch, row):
+    """Each run of phase P, at a CPU size for 2 rounds: the wrappers'
+    calls equal ``expected_launches`` of the run's EF config a round."""
+    import dataclasses
+    from repro_torch.core import problems, simulate
+    cell, _, method, cfg = row
+    calls = dict.fromkeys(KERNELS, 0)
+    for kernel in KERNELS:
+        def counted(*a, _fn=getattr(ops, kernel), _k=kernel, **kw):
+            calls[_k] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, kernel, counted)
+    cls = CS.P_PROBLEMS.get(cell, ("RandomQuadratics",))[0]
+    prob = getattr(problems, cls)(device="cpu", **P_SMALL[cell])
+    sim = simulate.Simulation(prob, method,
+                              dataclasses.replace(cfg, steps=2), seed=0)
+    per_step = CS.expected_launches(sim.efc, sim.x)
+    for k in calls:
+        calls[k] = 0
+    for _ in range(2):
+        sim.step()
+    assert calls == {k: 2 * per_step.get(k, 0) for k in KERNELS}
+
+
+def test_phase_p_launches_its_stated_counts():
+    """At the cells' full shapes: P-exp1 fused K2 once a round, quant4 K5
+    and K6 once (one leaf); P-exp4 K3, K6, K5 and K4 once a leaf (6
+    leaves); P-fig1 and P-exp3 none (TopK on the dense plan)."""
+    import torch
+    from repro_torch.core import simulate
+
+    def meta(shapes):
+        return {k: torch.empty(s, device="meta") for k, s in shapes.items()}
+    e1, e4 = CS.P_EXP1, CS.P_EXP4
+    trees = {"P-fig1": meta({"": (2,)}),
+             "P-exp1": meta({"": (e1["c"], e1["l"] + 1)}),
+             "P-exp3": meta({"": (CS.P_EXP3["d"],)}),
+             "P-exp4": meta({"b1": (e4["hidden"],), "b2": (e4["hidden"],),
+                             "b3": (e4["c"],),
+                             "w1": (e4["in_dim"], e4["hidden"]),
+                             "w2": (e4["hidden"], e4["hidden"]),
+                             "w3": (e4["hidden"], e4["c"])})}
+    want = {("P-exp1", "fused"): {"ef21_sgdm_update": 1},
+            ("P-exp1", "quant4"): {"block_quantize": 1,
+                                   "block_dequantize": 1},
+            ("P-exp4", "fused_quant8"): {"ef21_sgdm_topk_quant": 6,
+                                         "block_dequantize": 6,
+                                         "block_quantize": 6,
+                                         "dequant_add": 6}}
+    assert sum(v.numel() for v in trees["P-exp4"].values()) == 10_510_346
+    for cell, label, method, cfg in _p_runs():
+        if cell not in trees:
+            continue
+        got = CS.expected_launches(simulate.ef_config(cfg, method),
+                                   trees[cell])
+        key = (cell, cfg.carrier)
+        assert {k: v for k, v in got.items() if v} == want.get(key, {}), \
+            (cell, label)

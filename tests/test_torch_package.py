@@ -92,15 +92,29 @@ def test_spec_reads_the_reference_golden_file():
 
 
 @pytest.mark.parametrize("bad", [
-    {"arch": "gemma2-9b"}, {"compressor": "randk"}, {"method": "neolithic"},
+    {"arch": "gemma2-9b"},
     {"mesh": "pod"}, {"optimizer": "lion"}, {"overlap": True},
-    {"ef_state_dtype": "float16"}, {"participation": {"mode": "async"}},
+    {"ef_state_dtype": "float16"},
     {"carrier": "fused", "compressor_kw": {"block": 2048}},
     {"global_batch": 12},
 ])
 def test_spec_rejects_what_this_slice_does_not_run(bad):
     with pytest.raises(ValueError, match="invalid RunSpec"):
         pt_spec.RunSpec(**bad)
+
+
+@pytest.mark.parametrize("fields", [
+    {"compressor": "randk"}, {"method": "neolithic"},
+    {"participation": {"mode": "async"}},
+])
+def test_spec_takes_what_was_refused_before_the_simulator(fields):
+    """The rng compressors, the paired and R-round methods and mode 'async'
+    were refused until the simulator's slice: the port's spec now takes
+    each as the reference's does, under the same spec_hash."""
+    from repro.launch import spec as jax_spec
+    spec = pt_spec.RunSpec(**fields)
+    assert spec.spec_hash() == jax_spec.RunSpec(**fields).spec_hash()
+    assert pt_spec.RunSpec.from_json(spec.to_json()) == spec
 
 
 def test_spec_rejects_unknown_keys():

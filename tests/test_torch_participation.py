@@ -18,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import ef as jax_ef
 from repro.core import participation as jax_part
+from repro.launch import build as jax_build
 from repro.launch import spec as jax_spec
 from repro_torch.core import distributed as pt_dist
 from repro_torch.core import participation as pt_part
@@ -88,10 +90,23 @@ def test_bad_participation_is_refused_by_both_packages(d):
 
 
 def test_async_is_refused_with_the_reference_message():
+    """Mode 'async' is a spec both packages take; neither builds a
+    synchronous step from it, and the port's words are the reference's
+    (naming its own run_async)."""
     d = dict(BASE, participation={"mode": "async"})
-    jax_spec.RunSpec.from_dict(d)        # the reference's spec takes it …
-    with pytest.raises(ValueError, match="does not build a synchronous"):
-        pt_spec.RunSpec.from_dict(d)     # … the port's refuses it
+    jspec = jax_spec.RunSpec.from_dict(d)
+    pspec = pt_spec.RunSpec.from_dict(d)     # the port's spec takes it too
+    assert pspec.spec_hash() == jspec.spec_hash()
+    with pytest.raises(ValueError,
+                       match="does not build a synchronous") as want:
+        jax_build.default_ef_config(
+            None, None, method=jax_ef.make("ef21_sgdm"),
+            participation=jax_part.Participation("async"))
+    with pytest.raises(ValueError,
+                       match="does not build a synchronous") as got:
+        pt_build.ef_config(pspec)
+    assert str(got.value) == str(want.value).replace(
+        "repro.core.participation", "repro_torch.core.participation")
     efc = pt_dist.EFConfig(
         method=pt_build.make_method(pt_spec.RunSpec.from_dict(BASE)),
         participation=pt_part.Participation("async"))
