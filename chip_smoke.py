@@ -86,7 +86,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      participation.run_async) at the experiments' shapes, each run's
      launches equal to ``expected_launches`` of its EF config a round, its
      ms a step, one round's device busy ms and idle share under
-     torch.profiler (the mean of 5 rounds), its peak bytes and ‖∇f‖²:
+     torch.profiler (the mean of 5 rounds), its peak bytes and ‖∇f‖²,
+     and one more round with every kernel wrapper's call recorded and held
+     bit for bit against the plain version on the same inputs (each
+     kernel at the widths, k and row counts the run gives it):
      P-fig1 (Theorem 1's
      quadratic, Top-1, n 1 and 8, EF21-SGD and EF21-SGDM, 8000 steps, 2
      seeds; Figure 1's inequalities must hold), P-exp1 (logistic
@@ -134,6 +137,7 @@ of src/repro.
 """
 import contextlib
 import gc
+import inspect
 import json
 import math
 import os
@@ -1518,6 +1522,72 @@ def _resume_path(Session, spec_lib, ops, ckpt_dir):
 # participation.run_async) on the card
 # ---------------------------------------------------------------------------
 
+SIM_KERNELS = ("block_topk", "ef21_sgdm_update", "ef21_sgdm_topk_quant",
+               "dequant_add", "block_quantize", "block_dequantize")
+
+
+@contextlib.contextmanager
+def recorded_calls(ops, names=SIM_KERNELS):
+    """Within: every call of the wrappers ``names`` runs as before and is
+    kept as (name, bound arguments, outputs), the tensors cloned at the
+    call (a state update in place overwrites its inputs)."""
+    calls, saved = [], {n: getattr(ops, n) for n in names}
+
+    def wrap(name, fn):
+        sig = inspect.signature(fn)
+
+        def rec(*a, **kw):
+            bound = sig.bind(*a, **kw)
+            bound.apply_defaults()
+            args = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                    for k, v in bound.arguments.items()}
+            out = fn(*a, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            calls.append((name, args, tuple(t.clone() for t in outs)))
+            return out
+        return rec
+    for n, fn in saved.items():
+        setattr(ops, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def _call_shape(name, args) -> str:
+    if name in ("ef21_sgdm_update", "ef21_sgdm_topk_quant"):
+        return f"{tuple(args['grad'].shape)} k {args['k']}" + (
+            f" bits {args['bits']}" if "bits" in args else "")
+    if name == "dequant_add":
+        return (f"{tuple(args['q'].shape)} d {args['base'].numel()} block "
+                f"{args['block']} bits {args['bits']} alpha {args['alpha']}")
+    if name == "block_quantize":
+        return f"{tuple(args['x_rows'].shape)} bits {args['bits']}"
+    if name == "block_dequantize":
+        return f"{tuple(args['q'].shape)} cols {args['cols']} bits " \
+               f"{args['bits']}"
+    return f"{tuple(args['x'].shape)} block {args['block']} k {args['k']}"
+
+
+def check_calls_plain(ref, label, calls):
+    """Each recorded wrapper call against its kernel's plain version
+    (``ref.<name>_plain``) on the same inputs: bit for bit, or the run
+    fails. Returns {kernel: sorted shapes it ran at}."""
+    shapes = {}
+    for name, args, outs in calls:
+        plain = getattr(ref, f"{name}_plain")
+        params = inspect.signature(plain).parameters
+        kw = {p: args["x_rows" if p == "x" and name == "block_quantize"
+                      else p] for p in params}
+        want = plain(**kw)
+        want = want if isinstance(want, tuple) else (want,)
+        where = _call_shape(name, args)
+        check_equal(f"{label}: {name} {where}", outs, want)
+        shapes.setdefault(name, set()).add(where)
+    return {k: sorted(v) for k, v in shapes.items()}
+
+
 def sim_run(ops, label, problem, method, cfg, seed=0):
     """One simulator run on the card through ``simulate.Simulation`` (the
     entry point ``simulate.run`` drives): the launches of its rounds must
@@ -1525,8 +1595,9 @@ def sim_run(ops, label, problem, method, cfg, seed=0):
     steps, ms a step (host clock, ending in a synchronize), one round's
     device busy ms and idle share under torch.profiler (the mean of
     ``P_PROFILED`` more rounds against as many timed unprofiled), the peak
-    bytes and the ‖∇f‖² of the first and last rounds. Returns (result,
-    launches)."""
+    bytes and the ‖∇f‖² of the first and last rounds; one more round's
+    kernel calls are held against the plain versions
+    (:func:`check_calls_plain`). Returns (result, launches)."""
     from repro_torch.core import simulate
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1548,6 +1619,25 @@ def sim_run(ops, label, problem, method, cfg, seed=0):
             not bool(torch.isfinite(out["loss"]).all()):
         fail(f"{label}: non-finite or misshapen metrics")
     peak = torch.cuda.max_memory_allocated()
+    # one more round with every wrapper call kept: each kernel at the
+    # shapes this run gives it, against its plain version on the same
+    # inputs, bit for bit
+    from repro_torch.kernels import ref
+    with recorded_calls(ops) as calls:
+        sim.step()
+    torch.cuda.synchronize()
+    counts = {}
+    for name, _, _ in calls:
+        counts[name] = counts.get(name, 0) + 1
+    if counts != {k: v for k, v in per_step.items() if v}:
+        fail(f"{label}: the recorded round called {counts}, expected "
+             f"{per_step}")
+    shapes = check_calls_plain(ref, label, calls)
+    del calls
+    if shapes:
+        print(f"{label}: one round's {sum(counts.values())} kernel calls "
+              f"bit-identical to the plain versions on the same inputs: "
+              f"{shapes}", flush=True)
     # P_PROFILED more rounds by the host clock, then as many under the
     # profiler: one round's device busy ms and idle share, their mean
     torch.cuda.synchronize()

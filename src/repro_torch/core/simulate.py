@@ -48,7 +48,6 @@ class SimConfig:
     steps: int = 1000               # T
     b_init: int = 1                 # initial batch size B_init (Alg 1 line 2)
     time_varying: bool = False      # γₜ = γ/√(t+1), ηₜ = 1/√(t+1) (App. J)
-    record_every: int = 1           # the reference's field; every step is kept
     carrier: str = "dense"          # any core/carriers.py REGISTRY name
     # the downlink (server → client broadcast): 'dense' with no compressor
     # runs none; down_memory=False is the naive ablation (C(g) broadcast,
@@ -63,17 +62,6 @@ class SimConfig:
     participation: Optional[part_lib.Participation] = None
     # two-tier hierarchy (clients → pod aggregator → server)
     hops: Optional[hier_lib.Hops] = None
-
-    @property
-    def effective_hops(self) -> Optional[hier_lib.Hops]:
-        return hier_lib.effective(self.hops)
-
-    @property
-    def has_downlink(self) -> bool:
-        if self.schedule is not None:
-            return self.schedule.has_downlink
-        return (self.down_carrier != "dense"
-                or self.down_compressor is not None)
 
 
 def ef_config(cfg: SimConfig, method: ef_lib.Method) -> dist.EFConfig:
@@ -193,7 +181,7 @@ class Simulation:
         full, fl = self.problem.full_grad_and_loss(x_next)
         self.gns.append(ef_lib.tree_norm_sq(full))
         self.fls.append(fl)
-        if cfg.has_downlink:
+        if self.efc.has_downlink:
             r_down = rng_lib.fold_in(r_comp, carrier_lib.DOWNLINK_FOLD)
             if cfg.schedule is not None:
                 g_est, _ = sched_lib.downlink_round_grouped(
@@ -242,7 +230,7 @@ def accounting(x0, method: ef_lib.Method, cfg: SimConfig) -> Dict[str, Any]:
     m_cohort = part.cohort_size(cfg.n) if sampling else cfg.n
     eta_static = None if cfg.time_varying else (
         cfg.eta if cfg.eta is not None else getattr(method, "eta", 1.0))
-    has_down = cfg.has_downlink
+    efc = ef_config(cfg, method)
     if cfg.schedule is not None:
         up_per, up_each = sched_lib.wire_words_tree(
             cfg.schedule, method, x0, "up", eta_static)
@@ -264,11 +252,11 @@ def accounting(x0, method: ef_lib.Method, cfg: SimConfig) -> Dict[str, Any]:
             else comp_lib.Identity()
         down_each = carrier_lib.downlink_words(
             carrier_lib.make(cfg.down_carrier), down_comp, d_total) \
-            if has_down else float(d_total)
+            if efc.has_downlink else float(d_total)
         down_words = down_each * cfg.n
         coords = method.coords_per_message(d_total) * m_cohort
         group_words = {}
-    hops = cfg.effective_hops
+    hops = efc.effective_hops
     if hops is None:
         intra_words, cross_words = 0.0, up_words
     else:

@@ -4,6 +4,7 @@ schedule, per pod of a cross hop) against the wrappers' actual calls on the
 CPU, where every wrapper runs its kernel's plain version: each call of a
 wrapper is one launch on the card. Every training path of chip_smoke.py,
 at smoke size, 2 steps."""
+import functools
 import importlib.util
 import json
 import os
@@ -177,3 +178,64 @@ def test_phase_p_launches_its_stated_counts():
         key = (cell, cfg.carrier)
         assert {k: v for k, v in got.items() if v} == want.get(key, {}), \
             (cell, label)
+
+
+def _small_sim(row):
+    from repro_torch.core import problems, simulate
+    cell, _, method, cfg = row
+    cls = CS.P_PROBLEMS.get(cell, ("RandomQuadratics",))[0]
+    prob = getattr(problems, cls)(device="cpu", **P_SMALL[cell])
+    return simulate.Simulation(prob, method, cfg, seed=0)
+
+
+@pytest.mark.parametrize("row", [r for r in _p_runs()
+                                 if r[0] in ("P-exp1", "P-exp4")],
+                         ids=lambda r: f"{r[0]} {r[1]}")
+def test_phase_p_round_check_covers_every_call(row):
+    """The recorded round of each kernel-launching P run: every wrapper
+    call is kept with its inputs and checked against the plain version
+    (on the CPU the wrapper runs it, so all are equal), and the calls
+    equal ``expected_launches`` a round."""
+    from repro_torch.kernels import ref
+    sim = _small_sim(row)
+    sim.step()
+    with CS.recorded_calls(ops) as calls:
+        sim.step()
+    per_step = CS.expected_launches(sim.efc, sim.x)
+    names = [c[0] for c in calls]
+    assert {k: names.count(k) for k in set(names)} == \
+        {k: v for k, v in per_step.items() if v}
+    shapes = CS.check_calls_plain(ref, row[1], calls)
+    assert set(shapes) == set(names)
+    for name in KERNELS:                        # the wrappers are restored
+        assert getattr(ops, name).__module__ == ops.__name__
+
+
+@pytest.mark.parametrize("kernel", ["ef21_sgdm_topk_quant", "dequant_add",
+                                    "block_quantize", "block_dequantize"])
+def test_phase_p_round_check_fails_on_a_wrong_kernel(monkeypatch, kernel):
+    """A wrapper whose output is one ulp off at one value fails P-exp4's
+    recorded-round check."""
+    import torch
+    from repro_torch.kernels import ref
+    row = next(r for r in _p_runs() if r[0] == "P-exp4")
+    sim = _small_sim(row)
+    sim.step()
+
+    fn = getattr(ops, kernel)
+
+    @functools.wraps(fn)
+    def off(*a, **kw):
+        out = fn(*a, **kw)
+        first = out[0] if isinstance(out, tuple) else out
+        flat = first.view(-1)
+        if first.dtype.is_floating_point:
+            flat[0] = torch.nextafter(flat[0], flat[0] + 1)
+        else:
+            flat[0] ^= 1
+        return out
+    monkeypatch.setattr(ops, kernel, off)
+    with CS.recorded_calls(ops) as calls:
+        sim.step()
+    with pytest.raises(SystemExit):
+        CS.check_calls_plain(ref, "mutated", calls)
