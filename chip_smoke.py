@@ -114,7 +114,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      f32 prefill of the same fresh weights and prompts
      (Session(spec, dtype="float32")): K7's f32 route must launch exactly
      32 times and the logits must be finite; torch.profiler reads one more
-     such prefill: device busy ms and K7's kernel row.
+     such prefill: device busy ms and K7's kernel row;
+  F. the wire stream and the serving fleet (core/stream.py,
+     launch/transport.py, launch/fleet.py, launch/replica_worker.py):
+     full-width smollm-360m on fused_quant8 up and fused_quant4 down, 8
+     clients, publishes into a temporary stream directory (a bootstrap at
+     step 0, about 27.5 GB, deleted at the end; it needs 40 GB free), then
+     3 steps, each published (re-encoded, verified bit for bit against the
+     step's own h, written as npz; publish ms, of it the npz write, the
+     record's bytes against a dense f32 push); two in-process replicas
+     (launch/fleet.py ServeReplica, lags 0 and 1) join from the bootstrap
+     and after every sync equal the trainer's post-step params at their
+     step (torch.equal, all 11 leaves; apply ms); Fleet.run serves 16
+     requests of 1024 tokens, 32 new, decode budget 256, batches of 8
+     (every request completes, each batch's first tokens the argmax of a
+     prefill under that replica's params, K7 32 launches a prefill; p50,
+     p99, staleness); the trainer takes a step while r0 decodes with
+     continuous sync (mid_applied at least 1, params equal after); one
+     publish's K5 and K4 calls and one replica apply's K4 calls are
+     recorded and held bit for bit against kernels/ref.py, their counts
+     derived from the EF config (``stream_launches``); two worker
+     processes on the card (lags 0 and 1) digest-match the trainer, serve
+     8 requests while one is killed by SIGKILL and restarted, and
+     digest-match again; a smoke-size stream (quant8 up, quant4 down: K6
+     in each apply) served over a TailServer on loopback, a tcp:// replica
+     and a directory replica equal to the trainer bit for bit; the phase's
+     seconds, peak bytes, bootstrap and join seconds.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
 shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, a ragged S of 1000,
@@ -130,8 +155,8 @@ from its EF config by ``expected_launches``: per group of a schedule, per
 leaf its plans, per pod its cross hop), that losses, parameters and logits
 are finite, and prints its times, peak memory and step breakdown. Then the
 script prints a ``kernels`` JSON line (each kernel's launches on the main
-path and, under ``launches_by_phase``, on phases G, M, S, H and each cell
-of P), the card
+path and, under ``launches_by_phase``, on phases G, M, S, H, each cell
+of P and F), the card
 line, and the final ``{"ok": true, ...}`` line. Imports nothing of JAX or
 of src/repro.
 """
@@ -146,6 +171,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -1932,6 +1958,428 @@ def sim_phase(ops):
     return cells
 
 
+# ---------------------------------------------------------------------------
+# phase F: the wire stream and the serving fleet (core/stream.py,
+# launch/transport.py, launch/fleet.py, launch/replica_worker.py)
+# ---------------------------------------------------------------------------
+
+F_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4")
+F_STEPS = 3                    # published steps before the serve
+F_SERVE = dict(n=16, prompt_len=1024, max_new_tokens=32)
+F_BUDGET, F_BATCH = 256, 8     # decode budget, max batch (8 x 32 = 256)
+F_PROC = dict(n=8, rate=4.0, max_batch=4, kill_after_s=1.0)
+# the smoke-size stream served over tcp://: the sparse payload down (K6
+# integrates it)
+F_TCP = dict(smoke=True, seq_len=64, carrier="quant8",
+             downlink_carrier="quant4")
+STREAM_KERNELS = ("block_quantize", "block_dequantize", "dequant_add")
+
+
+def _codec_apply(carrier_lib, car, comp):
+    """Launches of one leaf's integrate (``carriers.downlink_apply``): K6
+    decodes the sparse payload, K4 integrates the dense one; the dense plan
+    adds C(δ) as it is."""
+    if car.plan_down(comp) == "wire" and isinstance(
+            car, carrier_lib.QuantCarrier):
+        sparse = carrier_lib.has_block_wire(comp) and not isinstance(
+            car, carrier_lib.FusedQuantCarrier)
+        return {"block_dequantize" if sparse else "dequant_add": 1}
+    return {}
+
+
+def stream_launches(efc, tree):
+    """(publish, apply): the kernel launches of one publish (the re-encode
+    and its verify run ``ef.downlink_sync``'s operations a leaf) and of one
+    replica apply (``downlink_apply`` a leaf), derived from the EF config's
+    downlink legs (``stream.resolve_legs``)."""
+    from repro_torch.core import carriers as carrier_lib
+    from repro_torch.core import compressors as comp_lib
+    from repro_torch.core import stream as stream_lib
+    pub, app = {}, {}
+    for leg in stream_lib.resolve_legs(
+            tree, schedule=efc.schedule, down_carrier=efc.down_carrier,
+            down_compressor=efc.down_compressor):
+        if leg.carrier is None:
+            continue
+        for counts, launches in (
+                (pub, _codec_down(carrier_lib, comp_lib, leg.carrier,
+                                  leg.comp)),
+                (app, _codec_apply(carrier_lib, leg.carrier, leg.comp))):
+            for name, n in launches.items():
+                counts[name] = counts.get(name, 0) + n * len(leg.keys)
+    return pub, app
+
+
+def _merged(*counts):
+    out = {}
+    for c in counts:
+        _add(out, c)
+    return out
+
+
+def _call_counts(calls):
+    out = {}
+    for name, _, _ in calls:
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def publish_call_check(ops, ref, sess, h_prev, label):
+    """One publish of the trainer's latest step again (verified equal to the
+    record on disk: nothing written), every kernel call recorded and held
+    bit for bit against its plain version on the same inputs
+    (:func:`check_calls_plain`); the calls must equal
+    :func:`stream_launches`' publish. ``h_prev`` is the trainer's h before
+    its latest step. Returns {kernel: shapes}."""
+    from repro_torch.launch import build as build_lib
+    pub, _ = stream_launches(build_lib.ef_config(sess.spec), sess.params)
+    with recorded_calls(ops, STREAM_KERNELS) as calls:
+        written = sess.publisher.publish(
+            sess.step, sess.ef_state["server"], h_prev, sess.ef_state["h"])
+    if written:
+        fail(f"{label}: the republish of step {sess.step} wrote {written} "
+             "records; the log already holds them")
+    if _call_counts(calls) != {k: v for k, v in pub.items() if v}:
+        fail(f"{label}: one publish called {_call_counts(calls)}, expected "
+             f"{pub}")
+    return check_calls_plain(ref, f"{label} publish", calls)
+
+
+def apply_call_check(ops, ref, rep, label):
+    """One replica apply (the replica's next record), every kernel call
+    recorded and held against its plain version; the calls must equal
+    :func:`stream_launches`' apply. Returns {kernel: shapes}."""
+    from repro_torch.launch import build as build_lib
+    _, app = stream_launches(build_lib.ef_config(rep.spec), rep.params)
+    step = rep.step
+    with recorded_calls(ops, STREAM_KERNELS) as calls:
+        rep.sync(upto=step + 1)
+    if rep.step != step + 1:
+        fail(f"{label}: the replica went from step {step} to {rep.step}, "
+             "expected one record")
+    if _call_counts(calls) != {k: v for k, v in app.items() if v}:
+        fail(f"{label}: one apply called {_call_counts(calls)}, expected "
+             f"{app}")
+    return check_calls_plain(ref, f"{label} apply", calls)
+
+
+def _equal_trees(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _timed(obj, name, sink):
+    """Wrap ``obj.name`` to append its ms (ending in a synchronize) to
+    ``sink``."""
+    real = getattr(obj, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append((time.time() - t0) * 1e3)
+        return out
+    setattr(obj, name, timed)
+
+
+def fleet_phase(Session, spec_lib, ops, model_lib):
+    """Phase F: the wire stream and the serving fleet on the card; see the
+    module doc. Returns the launches of its runs (the comparisons with
+    the plain versions not counted)."""
+    base = tempfile.gettempdir()
+    free = shutil.disk_usage(base).free
+    print(f"F: stream directory under {base}: {free} bytes free", flush=True)
+    if free < CKPT_FREE_BYTES:
+        fail(f"{base} has {free} bytes free; the stream's bootstrap needs "
+             f"{CKPT_FREE_BYTES:.0f}")
+    stream_dir = tempfile.mkdtemp(prefix="chip_smoke_wire_", dir=base)
+    try:
+        return _fleet_phase(Session, spec_lib, ops, model_lib, stream_dir)
+    finally:
+        shutil.rmtree(stream_dir, ignore_errors=True)
+
+
+def _fleet_phase(Session, spec_lib, ops, model_lib, stream_dir):
+    from repro_torch.core import stream as stream_lib
+    from repro_torch.kernels import ref
+    from repro_torch.launch import build as build_lib
+    from repro_torch.launch import fleet as fleet_lib
+    from repro_torch.launch import replica_worker as worker_lib
+    t_phase = time.time()
+    total = {}
+    spec = load_spec(spec_lib, **F_PATH)
+    sess = Session(spec, device="cuda")
+    n_params = sum(p.numel() for p in sess.params.values())
+    efc = build_lib.ef_config(spec)
+    per_step = expected_launches(efc, sess.params)
+    pub, app = stream_launches(efc, sess.params)
+    label = f"F {spec.carrier}/{spec.downlink_carrier}"
+    print(f"{label}: {len(sess.params)} leaves, {n_params} parameters; "
+          f"launches a step {per_step}, a publish {pub}, a replica apply "
+          f"{app}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. publish: the bootstrap at step 0, then every step's records
+    t0 = time.time()
+    log = sess.publish_to(stream_dir)
+    bootstrap_s = time.time() - t0
+    boot_bytes = os.path.getsize(log.bootstrap_path(0))
+    print(f"{label}: bootstrap at step 0: {boot_bytes} bytes, saved in "
+          f"{bootstrap_s:.2f} s", flush=True)
+    pub_ms, append_ms, apply_ms = [], [], []
+    _timed(sess.publisher, "publish", pub_ms)
+    _timed(sess.publisher.log, "append", append_ms)
+    words = stream_lib.legs_wire_words(sess.publisher.legs, sess.params)
+
+    # 2. join: two in-process replicas at lags 0 and 1
+    t0 = time.time()
+    fleet = fleet_lib.Fleet(stream_dir, n_replicas=2, lags=(0, 1),
+                            decode_budget=F_BUDGET, max_batch=F_BATCH,
+                            prompt_len=F_SERVE["prompt_len"], device="cuda")
+    torch.cuda.synchronize()
+    join_s = time.time() - t0
+    r0, r1 = fleet.replicas
+    print(f"{label}: 2 replicas joined at steps {r0.step}, {r1.step} in "
+          f"{join_s:.2f} s (each restores params, opt_state and h alone)",
+          flush=True)
+    for rep in fleet.replicas:
+        _timed(rep.sub, "sync", apply_ms)
+    prev = None
+    for _ in range(F_STEPS):
+        ops.reset_launches()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        t0 = time.time()
+        m = sess.step_once()
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t0) * 1e3
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - \
+            retries
+        launches = dict(ops.launches)
+        check_launches(launches, _merged(per_step, pub), 1,
+                       f"{label} published step")
+        _add(total, launches)
+        if not math.isfinite(float(m["loss"])):
+            fail(f"{label}: non-finite loss at step {sess.step - 1}")
+        rec = log.read_step(sess.step)
+        nbytes = sum(stream_lib.record_nbytes(r) for r in rec)
+        disk = sum(os.path.getsize(log.record_path(sess.step, r.group_index))
+                   for r in rec)
+        if nbytes != 4 * words:
+            fail(f"{label}: a record holds {nbytes} bytes, the legs' wire "
+                 f"words say {4 * words:.0f}")
+        ops.reset_launches()
+        r0.sync()
+        r1.sync()
+        launches = dict(ops.launches)
+        check_launches(launches, app, 1 + (sess.step > 1),
+                       f"{label} replica apply")
+        _add(total, launches)
+        if r0.step != sess.step or not _equal_trees(r0.params, sess.params):
+            fail(f"{label}: replica r0 at step {r0.step} differs from the "
+                 f"trainer at step {sess.step}")
+        if prev is not None and (r1.step != sess.step - 1
+                                 or not _equal_trees(r1.params, prev)):
+            fail(f"{label}: replica r1 at step {r1.step} differs from the "
+                 f"trainer at step {sess.step - 1}")
+        print(f"{label}: step {sess.step} step_ms {step_ms:.1f} (publish "
+              f"{pub_ms[-1]:.1f} ms, of it the npz write {append_ms[-1]:.1f}"
+              f"; alloc_retries {retries}); record {nbytes} bytes ({disk} on disk) against a dense "
+              f"f32 push of {4 * n_params} ({4 * n_params / nbytes:.2f}x "
+              f"fewer); replica apply_ms {[round(x, 2) for x in apply_ms[-2:]]}"
+              f"; replicas at {r0.step}, {r1.step}, all "
+              f"{len(sess.params)} leaves equal", flush=True)
+        prev = {k: v.clone() for k, v in sess.params.items()}
+
+    # 3. serve: 16 requests of 1024 tokens, 32 new, batches of 8
+    served = []
+    for rep in fleet.replicas:
+        def serve_batch(batch, prompt_len, decode_steps,
+                        sync_during_decode=False, _rep=rep,
+                        _real=rep.serve_batch):
+            ops.reset_launches()
+            out = _real(batch, prompt_len, decode_steps,
+                        sync_during_decode=sync_during_decode)
+            served.append((_rep, batch, out, dict(ops.launches)))
+            return out
+        rep.serve_batch = serve_batch
+    reqs = fleet_lib.synthetic_requests(
+        F_SERVE["n"], prompt_len=F_SERVE["prompt_len"],
+        max_new_tokens=F_SERVE["max_new_tokens"],
+        vocab_size=sess.cfg.vocab_size)
+    out = fleet.run(reqs, sync_every=1)
+    if len(out["requests"]) != F_SERVE["n"] or out["short_requests"]:
+        fail(f"{label}: {len(out['requests'])} of {F_SERVE['n']} requests "
+             f"completed, {out['short_requests']} short")
+    for rep, batch, res, launches in served:
+        check_serve_launches(ops, launches, f"{label} {rep.name} serve",
+                             sess.cfg.num_layers)
+        _add(total, launches)
+        tokens = torch.from_numpy(np.stack([r.tokens for r in batch]))
+        first_token_check(model_lib, sess.cfg, rep.params, tokens.cuda(),
+                          res, f"{label} {rep.name} batch")
+    print(f"{label}: served {len(out['requests'])} requests in "
+          f"{out['batches']} batches ({[len(s[1]) for s in served]} a batch)"
+          f": qps {out['qps']:.3f} p50_ms {out['p50_ms']:.1f} p99_ms "
+          f"{out['p99_ms']:.1f} staleness mean {out['staleness_mean']} max "
+          f"{out['staleness_max']}; K7 {[s[3]['flash_attention'] for s in served]}"
+          f" launches a prefill; first tokens the argmax under each "
+          f"replica's params", flush=True)
+
+    # 4. the trainer steps while r0 decodes (continuous sync)
+    state = {}
+    real_sync = r0.sync
+
+    def sync_after_a_step(upto=None):
+        if "h_prev" not in state:
+            state["h_prev"] = sess.ef_state["h"]
+            sess.step_once()
+        return real_sync(upto)
+    r0.sync = sync_after_a_step
+    snap = prev
+    served.clear()
+    res = r0.serve_batch(reqs[:F_BATCH], F_SERVE["prompt_len"],
+                         F_SERVE["max_new_tokens"], sync_during_decode=True)
+    r0.sync = real_sync
+    launches = served[-1][3]
+    want = _merged(per_step, pub, app,
+                   {"flash_attention": sess.cfg.num_layers})
+    check_launches(launches, want, 1, f"{label} mid-decode serve")
+    _add(total, launches)
+    if res["mid_applied"] < 1 or r0.step != sess.step or \
+            not _equal_trees(r0.params, sess.params):
+        fail(f"{label}: mid-decode sync applied {res['mid_applied']}, "
+             f"replica at {r0.step}, trainer at {sess.step}")
+    print(f"{label}: the trainer took step {sess.step} while r0 decoded: "
+          f"mid_applied {res['mid_applied']}, r0 at step {r0.step}, params "
+          f"equal; decode_ms_per_token "
+          f"{res['decode_s'] * 1e3 / F_SERVE['max_new_tokens']:.2f}",
+          flush=True)
+
+    # 6. one publish and one replica apply, every kernel call against its
+    # plain version (r1 applies step head - 1)
+    shapes = {"publish": publish_call_check(ops, ref, sess, state["h_prev"],
+                                            label),
+              "apply": apply_call_check(ops, ref, r1, label)}
+    if not _equal_trees(r1.params, snap):
+        fail(f"{label}: r1 at step {r1.step} differs from the trainer")
+    print(f"{label}: one publish's and one apply's kernel calls "
+          f"bit-identical to the plain versions: {shapes}", flush=True)
+    digests = {sess.step: worker_lib.params_digest(sess.params),
+               sess.step - 1: worker_lib.params_digest(snap)}
+    peak = torch.cuda.max_memory_allocated()
+    del fleet, r0, r1, served, prev, snap, state, real_sync
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. two worker processes on the card, one killed and restarted
+    t0 = time.time()
+    with fleet_lib.ProcessFleet(stream_dir, n_workers=2, lags=(0, 1),
+                                decode_budget=F_BUDGET,
+                                max_batch=F_PROC["max_batch"],
+                                prompt_len=F_SERVE["prompt_len"],
+                                device="cuda") as pf:
+        start_s = time.time() - t0
+        pf.sync()
+        got = pf.digests()
+        steps = [w.call({"cmd": "sync"})["step"] for w in pf.workers]
+        if steps != [sess.step, sess.step - 1] or \
+                got != [digests[s] for s in steps]:
+            fail(f"{label}: worker digests at steps {steps} differ from the "
+                 "trainer's")
+        preqs = fleet_lib.synthetic_requests(
+            F_PROC["n"], rate=F_PROC["rate"],
+            prompt_len=F_SERVE["prompt_len"],
+            max_new_tokens=F_SERVE["max_new_tokens"],
+            vocab_size=sess.cfg.vocab_size, seed=1)
+        killer = threading.Timer(F_PROC["kill_after_s"],
+                                 pf.workers[1].kill)
+        killer.start()
+        pout = pf.run(preqs)
+        killer.cancel()
+        pf.sync()
+        after = pf.digests()
+        if sorted(r.rid for r in pout["requests"]) != list(range(
+                F_PROC["n"])) or pout["restarts"] < 1 or \
+                pout["short_requests"] or after != got:
+            fail(f"{label}: worker processes: "
+                 f"{len(pout['requests'])} of {F_PROC['n']} requests, "
+                 f"restarts {pout['restarts']}, digests after "
+                 f"{'equal' if after == got else 'differ'}")
+        print(f"{label}: 2 worker processes on the card (lags 0, 1) up in "
+              f"{start_s:.1f} s at steps {steps}, digests equal the "
+              f"trainer's; served {len(pout['requests'])} requests with w1 "
+              f"killed by SIGKILL after {F_PROC['kill_after_s']} s: restarts "
+              f"{pout['restarts']}, p50_ms {pout['p50_ms']:.1f} p99_ms "
+              f"{pout['p99_ms']:.1f}, mid_applied {pout['mid_applied']}; "
+              f"digests after the restart equal", flush=True)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. smoke size over tcp:// (the sparse payload down: K6 integrates)
+    _add(total, fleet_tcp_smoke(Session, spec_lib, ops, stream_lib,
+                                fleet_lib))
+    print(f"{label}: phase F {time.time() - t_phase:.1f} s; peak "
+          f"max_memory_allocated {peak} (trainer, 2 replicas, serving); "
+          f"bootstrap_s {bootstrap_s:.2f} join_s {join_s:.2f} publish_ms "
+          f"{[round(x, 1) for x in pub_ms]} (npz write "
+          f"{[round(x, 1) for x in append_ms]}) apply_ms "
+          f"{[round(x, 2) for x in apply_ms]}", flush=True)
+    return total
+
+
+def fleet_tcp_smoke(Session, spec_lib, ops, stream_lib, fleet_lib):
+    """Phase F, 7: a smoke-size stream on the card (``F_TCP``), served over
+    a TailServer on loopback: a replica over ``tcp://`` and one on the
+    directory land on the trainer's params bit for bit after every record;
+    each apply launches :func:`stream_launches`. Returns the launches."""
+    from repro_torch.launch import build as build_lib
+    from repro_torch.launch import transport as transport_lib
+    spec = load_spec(spec_lib, **F_TCP)
+    d = tempfile.mkdtemp(prefix="chip_smoke_tcp_")
+    srv = None
+    total = {}
+    try:
+        sess = Session(spec, device="cuda")
+        sess.publish_to(os.path.join(d, "wire"))
+        srv = transport_lib.TailServer(os.path.join(d, "wire")).start()
+        tail = transport_lib.make_tail(srv.address,
+                                       cache_dir=os.path.join(d, "mirror"))
+        reps = [fleet_lib.ServeReplica(tail, name="tcp", device="cuda"),
+                fleet_lib.ServeReplica(os.path.join(d, "wire"), name="dir",
+                                       device="cuda")]
+        efc = build_lib.ef_config(spec)
+        pub, app = stream_launches(efc, sess.params)
+        per_step = _merged(expected_launches(efc, sess.params), pub)
+        for _ in range(3):
+            ops.reset_launches()
+            sess.step_once()
+            check_launches(dict(ops.launches), per_step, 1,
+                           "F tcp smoke published step")
+            _add(total, dict(ops.launches))
+            for rep in reps:
+                ops.reset_launches()
+                rep.sync()
+                check_launches(dict(ops.launches), app, 1,
+                               f"F tcp smoke {rep.name} apply")
+                _add(total, dict(ops.launches))
+                if rep.step != sess.step or not _equal_trees(rep.params,
+                                                             sess.params):
+                    fail(f"F tcp smoke: replica {rep.name} at step "
+                         f"{rep.step} differs from the trainer")
+        print(f"F tcp smoke ({spec.carrier}/{spec.downlink_carrier}, "
+              f"{srv.address}): the tcp:// and directory replicas equal the "
+              f"trainer bit for bit after each of 3 records; an apply "
+              f"launches {app}", flush=True)
+        tail.close()
+    finally:
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA card")
@@ -2060,6 +2508,13 @@ def main() -> None:
     with phase("serving full-width smollm-360m: batch 8, prompt 1024, "
                "32 decode steps; then one f32 prefill"):
         served, served_f32 = serve_full(Session, spec_lib, model_lib, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("F: the wire stream and the serving fleet (3 published "
+               "full-width fused_quant8/fused_quant4 steps, 2 replicas, 16 "
+               "requests, a step mid-decode, 2 worker processes with one "
+               "killed, tcp:// at smoke size)"):
+        by_phase["F"] = fleet_phase(Session, spec_lib, ops, model_lib)
 
     csrc = "src/repro_torch/kernels/csrc"
     rows = [

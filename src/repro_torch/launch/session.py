@@ -1,9 +1,10 @@
 """Session: the runtime facade over a RunSpec (counterpart of
-src/repro/launch/session.py: training with checkpoints, and static
-serving).
+src/repro/launch/session.py: training with checkpoints, the wire stream it
+publishes, and static serving).
 
     spec = RunSpec.from_json(open("results/specs/fused_quickstart.json").read())
     sess = Session(spec)              # on cuda; Session(spec, device="cpu")
+    sess.publish_to("/tmp/wire")      # every step's downlink wire, logged
     sess.train(3)                     # saves under spec.ckpt_dir when set
     sess = Session.resume(spec.ckpt_dir)     # the same run, from its latest
     sess.serve(batch=8, prompt_len=1024, decode_steps=32)
@@ -68,6 +69,8 @@ class Session:
         # cast again and a changed one is never served stale
         self._serve_params: Optional[Dict[str, torch.Tensor]] = None
         self._serve_src: Optional[Dict[str, torch.Tensor]] = None
+        self._publisher = None             # core/stream.py, see publish_to
+        self._bootstrap_every = 0
 
     @property
     def n_clients(self) -> int:
@@ -118,7 +121,7 @@ class Session:
                 loss_fn, params, pipe.batch(0, self.device), n)
             ef_state = dist.init_ef_state(efc, params, n, init_grads=g0)
         self._tr = {
-            "pipe": pipe, "loss_fn": loss_fn,
+            "pipe": pipe, "loss_fn": loss_fn, "efc": efc,
             "step_fn": dist.make_train_step(loss_fn, efc, opt, n),
             "params": params, "opt_state": opt.init(params),
             "ef_state": ef_state,
@@ -146,11 +149,23 @@ class Session:
         batch = self.batch_for(self.step)
         # the step's stream, pure in (seed, step): a resumed run replays it
         rng = rng_lib.round_generator(self.spec.seed, self.step, self.device)
+        # the step leaves the old h's tensors untouched (the downlink builds
+        # new ones), so holding the dict keeps the pre-step h
+        h_prev = tr["ef_state"].get("h") if self._publisher is not None \
+            else None
         tr["params"], tr["opt_state"], tr["ef_state"], m = tr["step_fn"](
             tr["params"], tr["opt_state"], tr["ef_state"], batch, self.step,
             rng)
         self.step += 1
         self._params_changed()
+        if self._publisher is not None:
+            # this round's downlink wire, verified bit for bit against the
+            # step's own h before anything reaches the log
+            self._publisher.publish(self.step, tr["ef_state"]["server"],
+                                    h_prev, tr["ef_state"].get("h"))
+            if self._bootstrap_every \
+                    and self.step % self._bootstrap_every == 0:
+                self._write_bootstrap(self._publisher.log)
         return m
 
     def train(self, steps: int, log_every: int = 10, verbose: bool = False
@@ -254,6 +269,49 @@ class Session:
         # step, and they supersede an injected serving tree
         self._serve_src = None
         self._params_changed()
+
+    # -------------------------------------------------------- wire streaming
+    def publish_to(self, stream_dir: str, bootstrap_every: int = 0):
+        """Attach a core/stream.py Publisher: every later ``step_once``
+        appends this round's downlink wire records to ``stream_dir`` (one a
+        transport leg, verified bit for bit against the step's own h).
+        Writes a full-state bootstrap checkpoint into the stream when the
+        log has no record at or past the current step, so a replica can
+        join from the stream directory alone (checkpoint + replay);
+        ``bootstrap_every`` adds one every that many steps, for cheaper
+        mid-stream joins and gap resyncs. Returns the WireLog."""
+        from repro_torch.core import stream as stream_lib
+        tr = self._ensure_train()
+        efc = tr["efc"]
+        legs = stream_lib.resolve_legs(
+            tr["params"], schedule=efc.schedule,
+            down_carrier=efc.down_carrier,
+            down_compressor=efc.down_compressor)
+        log = stream_lib.WireLog(stream_dir)
+        last = log.last_step()
+        if last is None or last < self.step:
+            # nothing in the log reaches this trainer's state by replay:
+            # anchor the stream here so subscribers have a join point
+            self._write_bootstrap(log)
+        self._bootstrap_every = int(bootstrap_every)
+        self._publisher = stream_lib.Publisher(
+            log, self.spec.spec_hash(), legs, self.spec.seed)
+        return log
+
+    @property
+    def publisher(self):
+        """The attached core/stream.py Publisher, or None."""
+        return self._publisher
+
+    def _write_bootstrap(self, log) -> str:
+        """One full-state checkpoint INSIDE the stream directory of ``log``
+        — what replicas join from and resync to (the spec embedded, as in a
+        ckpt_dir checkpoint)."""
+        path = log.bootstrap_path(self.step)
+        if not os.path.exists(path):
+            ckpt_lib.save(path, self._state(), step=self.step,
+                          spec=self.spec)
+        return path
 
     @classmethod
     def resume(cls, ckpt_dir: str, spec: Optional[RunSpec] = None,

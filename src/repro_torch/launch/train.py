@@ -26,6 +26,12 @@ src/repro/launch/train.py):
   PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir /path/to/run \
       --resume --steps 6
 
+  # publish every step's downlink wire for a serving fleet
+  # (python -m repro_torch.launch.serve --serve-stream /path/to/wire):
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --spec results/specs/fused_quickstart.json --carrier fused_quant8 \
+      --downlink-carrier fused_quant4 --steps 3 --publish-stream /path/to/wire
+
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions on the CPU (use ``--smoke`` there). Prints the reference CLI's
 ``step N loss … g_norm …`` lines.
@@ -38,11 +44,17 @@ to an experiment-defining field is refused unless ``--allow-spec-mismatch``.
 An empty or absent ``--ckpt-dir`` starts a fresh run. ``--ckpt-every`` on
 the resume command line applies (checkpoint policy is not part of the
 experiment).
+
+``--publish-stream DIR`` appends each step's downlink wire records to a
+wire stream (core/stream.py) with a bootstrap checkpoint to join from, and
+one more every ``--bootstrap-every`` steps; ``--metrics-out FILE`` writes
+the logged steps' loss and g_norm as JSON.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 
 from repro_torch.launch import spec as spec_lib
@@ -66,6 +78,17 @@ def main(argv=None) -> None:
                     help="resume even when the spec differs from the "
                          "checkpoint's")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--metrics-out", default=None, metavar="FILE",
+                    help="write the logged steps' loss and g_norm here "
+                         "(JSON)")
+    ap.add_argument("--publish-stream", default=None, metavar="DIR",
+                    help="publish every downlink wire record to this stream "
+                         "dir (core/stream.py) so serving replicas can "
+                         "subscribe (launch/fleet.py)")
+    ap.add_argument("--bootstrap-every", type=int, default=0,
+                    help="with --publish-stream: also write a bootstrap "
+                         "checkpoint into the stream every N steps (0 = "
+                         "only the initial one)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
@@ -123,9 +146,18 @@ def main(argv=None) -> None:
     print(f"optimizer={sess.spec.optimizer} "
           f"ef_state_dtype={sess.spec.ef_state_dtype} device={sess.device}",
           flush=True)
+    if args.publish_stream:
+        sess.publish_to(args.publish_stream,
+                        bootstrap_every=args.bootstrap_every)
+        print(f"publishing wire records to {args.publish_stream}",
+              flush=True)
     sess.train(args.steps, log_every=args.log_every, verbose=True)
     if sess.spec.ckpt_dir:
         print(f"saved checkpoint @ {sess.step}", flush=True)
+    if args.metrics_out:
+        os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
+        with open(args.metrics_out, "w") as f:
+            json.dump(sess.history, f, indent=1)
 
 
 if __name__ == "__main__":

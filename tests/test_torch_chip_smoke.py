@@ -239,3 +239,159 @@ def test_phase_p_round_check_fails_on_a_wrong_kernel(monkeypatch, kernel):
         sim.step()
     with pytest.raises(SystemExit):
         CS.check_calls_plain(ref, "mutated", calls)
+
+
+# ---------------------------------------------------------------------------
+# phase F: the wire stream's publish and a replica's apply
+# ---------------------------------------------------------------------------
+
+F_PATHS = [
+    pytest.param("fused_quickstart", CS.F_PATH, id="F"),
+    pytest.param("fused_quickstart", {k: v for k, v in CS.F_TCP.items()
+                                      if k not in ("smoke", "seq_len")},
+                 id="F-tcp"),
+    pytest.param("fused_quickstart", {"carrier": "quant8",
+                                      "downlink_carrier": "quant4",
+                                      "compressor": "identity",
+                                      "compressor_kw": {}},
+                 id="dense-payload"),
+    pytest.param("mixed_schedule", {}, id="mixed_schedule"),
+    pytest.param("fused_quickstart", {"carrier": "fused"}, id="no-downlink"),
+]
+
+
+def _published(name, overrides, tmp_path, steps=2):
+    """A smoke-size Session publishing ``steps`` steps on the CPU, a replica
+    at step 0, and the trainer's h before its last step."""
+    from repro_torch.launch import fleet as fleet_lib
+    with open(os.path.join(ROOT, "results", "specs", f"{name}.json")) as f:
+        spec = pt_spec.RunSpec.from_dict(dict(
+            json.load(f), smoke=True, seq_len=32, **overrides))
+    sess = pt_session.Session(spec, device="cpu")
+    sess.publish_to(str(tmp_path))
+    rep = fleet_lib.ServeReplica(str(tmp_path), device="cpu")
+    h_prev = None
+    for _ in range(steps):
+        h_prev = sess.ef_state.get("h")
+        sess.step_once()
+    return sess, rep, h_prev
+
+
+@pytest.mark.parametrize("name,overrides", F_PATHS)
+def test_phase_f_counts_equal_the_stream_calls(monkeypatch, tmp_path, name,
+                                               overrides):
+    """A published step calls the wrappers ``expected_launches`` plus
+    ``stream_launches``' publish; a replica's apply its apply."""
+    from repro_torch.launch import fleet as fleet_lib
+    calls = dict.fromkeys(KERNELS, 0)
+    for kernel in KERNELS:
+        def counted(*a, _fn=getattr(ops, kernel), _k=kernel, **kw):
+            calls[_k] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, kernel, counted)
+    sess, _, _ = _published(name, overrides, tmp_path, steps=0)
+    efc = pt_build.ef_config(sess.spec)
+    per_step = CS.expected_launches(efc, sess.params)
+    pub, app = CS.stream_launches(efc, sess.params)
+    for k in calls:
+        calls[k] = 0
+    sess.train(2, log_every=0)
+    assert calls == {k: 2 * (per_step.get(k, 0) + pub.get(k, 0))
+                     for k in KERNELS}
+    rep = fleet_lib.ServeReplica(str(tmp_path), bootstrap_step=0,
+                                 device="cpu")
+    for k in calls:
+        calls[k] = 0
+    assert rep.sync() == 2
+    assert calls == {k: 2 * app.get(k, 0) for k in KERNELS}
+    if efc.has_downlink:
+        assert sum(pub.values()) and sum(app.values())
+
+
+@pytest.mark.parametrize("name,overrides", F_PATHS[:4])
+def test_phase_f_call_check_covers_every_call(tmp_path, name, overrides):
+    """Phase F's recorded publish (a republish: nothing written) and apply:
+    every wrapper call kept with its inputs and held against the plain
+    version (on the CPU the wrapper runs it, so all are equal); the calls
+    equal ``stream_launches``; the replica lands one record further."""
+    from repro_torch.kernels import ref
+    sess, rep, h_prev = _published(name, overrides, tmp_path)
+    records = os.path.join(str(tmp_path), "records")
+    before = sorted(os.listdir(records))
+    shapes = CS.publish_call_check(ops, ref, sess, h_prev, name)
+    assert sorted(os.listdir(records)) == before
+    assert CS.apply_call_check(ops, ref, rep, name)
+    assert rep.step == 1
+    pub, app = CS.stream_launches(pt_build.ef_config(sess.spec), sess.params)
+    assert set(shapes) == {k for k, v in pub.items() if v}
+    for name in KERNELS:                        # the wrappers are restored
+        assert getattr(ops, name).__module__ == ops.__name__
+
+
+def _off_by_one(monkeypatch, kernel):
+    """Make ``ops.<kernel>`` return one ulp (or one bit) off at one value."""
+    import torch
+    fn = getattr(ops, kernel)
+
+    @functools.wraps(fn)
+    def off(*a, **kw):
+        out = fn(*a, **kw)
+        first = out[0] if isinstance(out, tuple) else out
+        flat = first.view(-1)
+        if first.dtype.is_floating_point:
+            flat[0] = torch.nextafter(flat[0], flat[0] + 1)
+        else:
+            flat[0] ^= 1
+        return out
+    monkeypatch.setattr(ops, kernel, off)
+
+
+@pytest.mark.parametrize("kernel", ["block_quantize", "dequant_add"])
+def test_phase_f_publish_refuses_a_wrong_kernel(monkeypatch, tmp_path,
+                                                kernel):
+    """A wrong K5 or K4 in the republish: its wires no longer integrate to
+    the trainer's h, and the Publisher's verify refuses them."""
+    from repro_torch.core import stream as stream_lib
+    from repro_torch.kernels import ref
+    sess, _, h_prev = _published("fused_quickstart", CS.F_PATH, tmp_path)
+    _off_by_one(monkeypatch, kernel)
+    with pytest.raises(stream_lib.StreamIntegrityError):
+        CS.publish_call_check(ops, ref, sess, h_prev, "mutated")
+
+
+@pytest.mark.parametrize("name,overrides,kernel", [
+    pytest.param("fused_quickstart", CS.F_PATH, "dequant_add", id="K4"),
+    pytest.param("fused_quickstart", F_PATHS[1].values[1],
+                 "block_dequantize", id="K6")])
+def test_phase_f_apply_check_fails_on_a_wrong_kernel(monkeypatch, tmp_path,
+                                                     name, overrides,
+                                                     kernel):
+    """A wrong K4 (fused_quant4's dense payload) or K6 (quant4's sparse
+    payload) in a replica's apply fails the recorded calls' check."""
+    from repro_torch.kernels import ref
+    _, rep, _ = _published(name, overrides, tmp_path)
+    _off_by_one(monkeypatch, kernel)
+    with pytest.raises(SystemExit):
+        CS.apply_call_check(ops, ref, rep, "mutated")
+
+
+def test_phase_f_launches_its_stated_counts():
+    """At full width, phase F's fused_quant4 downlink: a publish K5 and K4
+    once a leaf (11), an apply K4 11; its tcp smoke (quant4, the sparse
+    payload): a publish K5 and K6 11, an apply K6 11."""
+    for overrides, smoke, want_pub, want_app in (
+            (CS.F_PATH, False, {"block_quantize": 11, "dequant_add": 11},
+             {"dequant_add": 11}),
+            ({k: v for k, v in CS.F_TCP.items() if k != "seq_len"}, True,
+             {"block_quantize": 11, "block_dequantize": 11},
+             {"block_dequantize": 11})):
+        with open(os.path.join(ROOT, "results", "specs",
+                               "fused_quickstart.json")) as f:
+            spec = pt_spec.RunSpec.from_dict(dict(json.load(f),
+                                                  **overrides))
+        assert spec.smoke == smoke
+        sess = pt_session.Session(spec, device="cpu")
+        tree = pt_model.init_params(sess.cfg, None, "meta")
+        pub, app = CS.stream_launches(pt_build.ef_config(spec), tree)
+        assert ({k: v for k, v in pub.items() if v},
+                {k: v for k, v in app.items() if v}) == (want_pub, want_app)

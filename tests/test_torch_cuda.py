@@ -483,3 +483,83 @@ def _flat_state(sess):
     from repro_torch.core.ef import flatten
     return flatten({"params": sess.params, "opt_state": sess.opt_state,
                     "ef_state": sess.ef_state})
+
+
+STREAM_DOWNLINKS = [
+    pytest.param({"carrier": "fused_quant8",
+                  "downlink_carrier": "fused_quant4"}, "dequant_add",
+                 id="fused_quant4"),
+    pytest.param({"carrier": "quant8", "downlink_carrier": "quant4"},
+                 "block_dequantize", id="quant4")]
+
+
+def _stream_spec(overrides):
+    import json
+    import os
+    from repro_torch.launch.spec import RunSpec
+    root = os.path.join(os.path.dirname(__file__), "..")
+    with open(os.path.join(root, "results", "specs",
+                           "fused_quickstart.json")) as f:
+        return RunSpec.from_dict(dict(json.load(f), smoke=True, seq_len=64,
+                                      **overrides))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides,apply_kernel", STREAM_DOWNLINKS)
+def test_cuda_publish_subscribe_bit_for_bit(cuda_device, tmp_path, overrides,
+                                            apply_kernel):
+    """The wire stream on the card at smoke size: a trainer publishes 3
+    steps (its re-encode's verify holds K5/K4 to the step's own h); a
+    replica on the card lands on the trainer's params bit for bit after
+    every record, its apply launching K4 (fused_quant4's dense payload) or
+    K6 (quant4's sparse payload) once a leaf."""
+    from repro_torch.launch import fleet as fleet_lib
+    from repro_torch.launch.session import Session
+    sess = Session(_stream_spec(overrides), device="cuda")
+    sess.publish_to(str(tmp_path))
+    rep = fleet_lib.ServeReplica(str(tmp_path), device="cuda")
+    for _ in range(3):
+        sess.step_once()
+        ops.reset_launches()
+        assert rep.sync() == 1
+        assert ops.launches[apply_kernel] == len(sess.params)
+        assert all(torch.equal(rep.params[k], sess.params[k])
+                   for k in sess.params)
+    assert rep.step == 3 and rep.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides,apply_kernel", STREAM_DOWNLINKS)
+def test_cuda_published_records_equal_the_cpu_records(cuda_device, tmp_path,
+                                                      overrides,
+                                                      apply_kernel):
+    """From the same start — one (server, h_prev) pair, its h_new from the
+    CPU's integrate — the Publisher on the card writes the records the CPU
+    writes, array for array: K5 and K4 against their plain versions
+    through the whole publish, verify included."""
+    from repro_torch.core import stream as stream_lib
+    from repro_torch.launch import build as build_lib
+    from repro_torch.launch.session import Session
+    from repro_torch.models import model as model_lib
+    spec = _stream_spec(overrides)
+    efc = build_lib.ef_config(spec)
+    gen = torch.Generator().manual_seed(0)
+    like = model_lib.init_params(Session(spec, device="cpu").cfg, None,
+                                 "meta")
+    server = {k: torch.randn(v.shape, generator=gen) for k, v in like.items()}
+    h_prev = {k: v - 0.01 * torch.randn(v.shape, generator=gen)
+              for k, v in server.items()}
+    legs = stream_lib.resolve_legs(like, schedule=efc.schedule,
+                                   down_carrier=efc.down_carrier,
+                                   down_compressor=efc.down_compressor)
+    h_new = stream_lib.encode_leg(legs[0], server, h_prev)[1]
+    recs = {}
+    for device in ("cpu", "cuda"):
+        on = {name: {k: v.to(device) for k, v in tree.items()}
+              for name, tree in (("s", server), ("h", h_prev),
+                                 ("n", h_new))}
+        log = stream_lib.WireLog(str(tmp_path / device))
+        pub = stream_lib.Publisher(log, spec.spec_hash(), legs, spec.seed)
+        assert pub.publish(1, on["s"], on["h"], on["n"]) == 1
+        recs[device] = log.read(1, 0)
+    assert stream_lib.records_equal(recs["cuda"], recs["cpu"])

@@ -325,8 +325,74 @@ def test_serve_cli_on_cpu(capsys):
     assert "sample generations (token ids):" in out
 
 
-def test_serve_cli_refuses_fleet_mode(capsys):
-    with pytest.raises(SystemExit):
-        pt_serve.main(["--serve-stream", "/nonexistent", "--replicas", "2",
-                       "--device", "cpu"])
-    assert "core/stream.py" in capsys.readouterr().err
+def test_serve_cli_refuses_fleet_mode(tmp_path):
+    """Fleet mode refuses a stream it cannot join: one with no bootstrap
+    checkpoint (params never travel on the wire)."""
+    from repro_torch.core import stream as stream_lib
+    with pytest.raises(stream_lib.StreamError, match="no bootstrap"):
+        pt_serve.main(["--serve-stream", str(tmp_path / "nonexistent"),
+                       "--replicas", "2", "--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def cli_stream(tmp_path_factory):
+    """``train --publish-stream`` on the CPU: 3 steps of a quant4 downlink,
+    bootstraps at 0 and 2, the logged steps in ``--metrics-out``."""
+    from repro_torch.launch import train as pt_train
+    from test_torch_schedule import torch_threads
+    root = tmp_path_factory.mktemp("cli_wire")
+    metrics = root / "out" / "metrics.json"
+    with torch_threads(1):
+        pt_train.main(["--smoke", "--steps", "3", "--clients", "2",
+                       "--global-batch", "4", "--seq", "32",
+                       "--log-every", "1", "--compressor", "block_topk",
+                       "--ratio", "0.1", "--downlink-carrier", "quant4",
+                       "--downlink-ratio", "0.05", "--device", "cpu",
+                       "--publish-stream", str(root / "wire"),
+                       "--bootstrap-every", "2",
+                       "--metrics-out", str(metrics)])
+    return {"dir": str(root / "wire"), "metrics": str(metrics)}
+
+
+def test_train_cli_publishes_a_stream_and_writes_metrics(cli_stream):
+    import json
+    from repro_torch.core import stream as stream_lib
+    log = stream_lib.WireLog(cli_stream["dir"])
+    assert log.last_step() == 3 and log.bootstrap_steps() == [0, 2]
+    with open(cli_stream["metrics"]) as f:
+        hist = json.load(f)
+    assert [r["step"] for r in hist] == [0, 1, 2]
+    assert all(np.isfinite(r["loss"]) and r["g_norm"] > 0 for r in hist)
+
+
+@pytest.mark.parametrize("processes,tcp", [(False, False), (True, False),
+                                           (True, True)],
+                         ids=["in-process", "processes", "tcp-processes"])
+def test_serve_cli_fleet_mode_on_cpu(cli_stream, capsys, monkeypatch,
+                                     processes, tcp):
+    """``serve --serve-stream --replicas 2 --lags 0,1`` (replicas in this
+    process, or ``--processes``: worker processes; the stream a directory
+    or ``tcp://`` of a TailServer), on the CPU: the fleet line names each
+    replica's step, and every request completes."""
+    from repro_torch.launch import transport as transport_lib
+    from test_torch_schedule import torch_threads
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    srv = transport_lib.TailServer(cli_stream["dir"]).start() if tcp \
+        else None
+    argv = ["--serve-stream", srv.address if tcp else cli_stream["dir"],
+            "--replicas", "2",
+            "--lags", "0,1", "--requests", "4", "--rate", "0",
+            "--prompt-len", "8", "--max-new-tokens", "2",
+            "--decode-budget", "4", "--batch", "2", "--device", "cpu"]
+    try:
+        with torch_threads(1):
+            pt_serve.main(argv + (["--processes"] if processes else []))
+    finally:
+        if srv is not None:
+            srv.stop()
+    out = capsys.readouterr().out
+    if processes:
+        assert "fleet of 2 worker PROCESSES" in out
+    else:
+        assert "(head step 3): r0@3(lag 0), r1@2(lag 1)" in out
+    assert "4 requests in 2 batches" in out and "SHORT" not in out
