@@ -56,8 +56,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   5. main path B: the same with the identity compressor (the dense
      payload, K4 on the downlink), 2 steps;
   6. the fused paths: carrier fused_quant8 up and fused_quant4 down, 3
-     steps, then one more step timed and one under torch.profiler (device
-     busy ms, idle share, the five ops with the most device time); and
+     steps, then one more step timed and one under torch.profiler after
+     one that warms the tracer up (device busy ms, idle share, the five
+     ops with the most device time); and
      carrier fused, 2 steps, after which the live training tree
      serves one small batch (batch 2, prompt 256, 8 decode steps) whose
      first token must be the argmax of a prefill with the trained params;
@@ -82,11 +83,41 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      after the step), every sampled one moved; H,
      hierarchy_quant4_cross.json with smoke off (8 clients, 2 pods, the
      quant4 cross hop);
-  6d. phase P, the paper's simulator (core/simulate.py, core/problems.py,
+  6d. phase R, block recompute: full-width smollm-360m, 8 clients,
+     fused_quant8 up and fused_quant4 down, one step with ``cfg.remat``
+     off and one with it on, each from seed 0 (the batch-0 gradients under
+     its own setting): params and every EF state leaf equal bit for bit,
+     the peak lower with recompute; each run's step ms and peak, and the
+     client pass alone (median of 3) with its ms and peak;
+  6e. the other dense configs: h2o-danube-3-4b, granite-34b and
+     gemma2-9b at smoke size on the card against the CPU through phase
+     7's check (f32, a sequence of 160 past the smoke window of 128: 2
+     fused_quant8/fused_quant4 steps within rtol 1e-3, then both serve
+     the CPU's trained tree, a prefill and 8 decode steps: greedy tokens
+     equal, prefill logits within rtol 1e-4); then each at full width
+     cut in depth and clients (the
+     Session's config replaced before the first step), 3 steps of
+     fused_quant8/fused_quant4 and a serve of the trained model:
+     D-danube 2 layers, 8 clients, serve batch 2, prompt 6144 (past the
+     4096 window: the banded prefill and the ring cache wrap), 32 decode
+     steps; D-granite 1 layer, 4 clients, serve batch 8, prompt 1024, 32
+     decode steps (K7 in the prefill: 48 query heads on 1 kv head, hd
+     128); D-gemma2 2 layers (one [local, global] super-layer), 2
+     clients, serve batch 2, prompt 6144, 32 decode steps. Each prints
+     its parameters, peak, step breakdown, launches, prefill and decode
+     tok/s and cache_bytes; K7's launches a prefill are the layers whose
+     prefill runs it (``model.flash_layers``: no window, no soft cap, hd
+     32, 64 or 128), on every serving path. The shapes of each D phase's
+     K3-K6 calls are recorded, and once its Session is freed every
+     distinct call runs again on random inputs of its shapes and is held
+     bit for bit against its plain version (gemma2's embedding: K3 and K6
+     on 1,792,000 rows, K5 and K4 on 896,000);
+  6f. phase P, the paper's simulator (core/simulate.py, core/problems.py,
      participation.run_async) at the experiments' shapes, each run's
      launches equal to ``expected_launches`` of its EF config a round, its
      ms a step, one round's device busy ms and idle share under
-     torch.profiler (the mean of 5 rounds), its peak bytes and ‖∇f‖²,
+     torch.profiler (the mean of 5 rounds after 5 that warm the tracer
+     up), its peak bytes and ‖∇f‖²,
      and one more round with every kernel wrapper's call recorded and held
      bit for bit against the plain version on the same inputs (each
      kernel at the widths, k and row counts the run gives it):
@@ -102,19 +133,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      up and fused_quant4 down, B 32, 200 steps), and the simulator free of
      randomness on card and CPU (fused, fused_quant8/fused_quant4, quant4;
      50 steps within rtol 1e-3);
-  7. serving, card against CPU at smoke size (f32 activations): the greedy
-     tokens must be equal and the prefill logits agree within rtol 1e-4;
+  7. serving, card against CPU at smoke size (f32 activations, the same
+     fresh weights): the greedy tokens must be equal and the prefill
+     logits agree within rtol 1e-4;
   8. serving full-width smollm-360m from fresh weights: batch 8, prompt
      1024, 32 decode steps, nothing cut, twice (the second reading is free
      of warm-up); K7 must launch exactly 32 times in the prefill (once a
      layer) and never in decode; then torch.profiler reads one more
-     prefill and two decode steps on the tree serve() ran (its matrices
+     prefill and two decode steps, each after as many that warm the
+     tracer up, on the tree serve() ran (its matrices
      cast to bf16 once for the params version): device busy time, the
      decode's idle share, device time by op and of aten::copy_. Then one
      f32 prefill of the same fresh weights and prompts
      (Session(spec, dtype="float32")): K7's f32 route must launch exactly
      32 times and the logits must be finite; torch.profiler reads one more
-     such prefill: device busy ms and K7's kernel row;
+     such prefill after one that warms the tracer up: device busy ms and
+     K7's kernel row, which must hold its 32 launches;
   F. the wire stream and the serving fleet (core/stream.py,
      launch/transport.py, launch/fleet.py, launch/replica_worker.py):
      full-width smollm-360m on fused_quant8 up and fused_quant4 down, 8
@@ -142,12 +176,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      seconds, peak bytes, bootstrap and join seconds.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
-shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, a ragged S of 1000,
+shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, granite-34b's
+prefill (B 8, S 1024, H 48, KV 1, hd 128) in bf16, a ragged S of 1000,
 hd 128 and hd 32; the bf16 (tensor-core) route also within a stated
 elementwise bound of the plain version that rounds P as it does
-(round_p=True); and times both routes at the full-width shape beside the
-library's scaled_dot_product_attention in the same dtype (a yardstick,
-never the path), the two in turns over three rounds, medians kept.
+(round_p=True); and times both routes at the full-width shape, and the
+bf16 route at granite's, beside the library's
+scaled_dot_product_attention in the same dtype (a yardstick, never the
+path), the two in turns over three rounds, medians kept.
 Each training or serving path resets the launch counts just before it,
 checks that every kernel launched exactly as often as the path's code
 calls it (and the others not at all; a training path's counts are derived
@@ -155,12 +191,13 @@ from its EF config by ``expected_launches``: per group of a schedule, per
 leaf its plans, per pod its cross hop), that losses, parameters and logits
 are finite, and prints its times, peak memory and step breakdown. Then the
 script prints a ``kernels`` JSON line (each kernel's launches on the main
-path and, under ``launches_by_phase``, on phases G, M, S, H, each cell
-of P and F), the card
+path and, under ``launches_by_phase``, on phases G, M, S, H, R, the D
+phases, each cell of P and F), the card
 line, and the final ``{"ok": true, ...}`` line. Imports nothing of JAX or
 of src/repro.
 """
 import contextlib
+import dataclasses
 import gc
 import inspect
 import json
@@ -175,9 +212,9 @@ import threading
 import time
 import traceback
 
-# as the training CLI (repro_torch/launch/train.py) sets it: the training
-# paths' peak is some 67 GB, where fixed segments make the caching
-# allocator free its cache and retry (a synchronize each)
+# as the training CLI (repro_torch/launch/train.py) sets it: near a
+# training path's peak, fixed segments make the caching allocator free its
+# cache and retry (a synchronize each)
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
@@ -195,10 +232,24 @@ QBLOCK = 256                   # the quantized carriers' dense-payload row
 TOPK_EMBED_K = 2_359_296       # plain TopK's k at ratio 0.05 on the embed leaf
 SERVE_FULL = dict(batch=8, prompt_len=1024, decode_steps=32)
 FLASH_FULL = (8, 1024, 15, 5, 64)   # (B, S, H, KV, hd) of its prefill
+FLASH_GRANITE = (8, 1024, 48, 1, 128)   # phase D-granite's prefill
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the resumable path: bf16 EF state and AdamW on the fused quantized wire
 RESUME_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
                    ef_state_dtype="bfloat16", optimizer="adamw", lr=1e-3)
+# phases R and D: the fused quantized wire, fused_quant8 up and
+# fused_quant4 down, on fused_quickstart.json
+R_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4")
+D_STEPS = 3
+D_CELLS = [  # (phase, arch, depth cut, clients, serve shape)
+    ("D-danube", "h2o-danube-3-4b", {"num_layers": 2}, 8,
+     dict(batch=2, prompt_len=6144, decode_steps=32)),
+    ("D-granite", "granite-34b", {"num_layers": 1}, 4,
+     dict(batch=8, prompt_len=1024, decode_steps=32)),
+    ("D-gemma2", "gemma2-9b", {"num_layers": 2}, 2,
+     dict(batch=2, prompt_len=6144, decode_steps=32)),
+]
+D_SMOKE = dict(seq_len=160, prompt_len=160)  # past the smoke window of 128
 # phase G: the norms dense, the embedding and the matrices on the fused
 # wire, the embedding's EF state in bf16 beside the others' f32
 G_GROUPS = [{"pattern": "norm|bias", "carrier": "dense"},
@@ -666,6 +717,7 @@ def flash_checks(ops, ref, results):
     for shape, dtype in ((smoke, torch.float32), (smoke, torch.bfloat16),
                          (FLASH_FULL, torch.bfloat16),
                          (FLASH_FULL, torch.float32),
+                         (FLASH_GRANITE, torch.bfloat16),
                          ((8, 1000, 15, 5, 64), torch.bfloat16),
                          ((2, 512, 8, 2, 128), torch.bfloat16),
                          ((2, 512, 8, 2, 128), torch.float32),
@@ -692,15 +744,18 @@ def flash_checks(ops, ref, results):
                      f"worst err/bound {ratio:.4f}")
             del want_r
         print(f"flash_attention {shape} {dtype}: {line}", flush=True)
-        if shape == FLASH_FULL:
-            err[dtype] = e
+        if shape in (FLASH_FULL, FLASH_GRANITE):
+            err[shape, dtype] = e
         del q, k, v, got, want
 
-    B, S, H, KV, hd = FLASH_FULL
-    n_ops = 4 * B * H * hd * S * (S + 1) / 2                  # causal
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for dtype, peak, key in ((torch.bfloat16, BF16_TC_OPS_S, "flash_attention"),
-                             (torch.float32, F32_OPS_S, "flash_attention/f32")):
+    for shape, dtype, peak, key in (
+            (FLASH_FULL, torch.bfloat16, BF16_TC_OPS_S, "flash_attention"),
+            (FLASH_FULL, torch.float32, F32_OPS_S, "flash_attention/f32"),
+            (FLASH_GRANITE, torch.bfloat16, BF16_TC_OPS_S,
+             "flash_attention/granite")):
+        B, S, H, KV, hd = shape
+        n_ops = 4 * B * H * hd * S * (S + 1) / 2              # causal
         q, k, v = inputs(B, S, H, KV, hd, dtype)
         size = 2 if dtype == torch.bfloat16 else 4
         n_bytes = size * (2 * B * S * H * hd + 2 * B * S * KV * hd)
@@ -727,14 +782,15 @@ def flash_checks(ops, ref, results):
             turns["library_ms"].append(time_ms(
                 lambda: sdpa(qt, kt, vt, is_causal=True), reps))
         results[key] = {
-            "max_abs_err": err[dtype], "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "max_abs_err": err[shape, dtype],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ms": sorted(turns["ms"])[1],
             "plain_ms": time_ms(lambda: ref.flash_attention_plain(
                 q, k, v, round_p=round_p), 3),
             "library_ms": sorted(turns["library_ms"])[1]}
         r = results[key]
-        print(f"kernel flash_attention [{FLASH_FULL} {dtype}, causal, "
+        print(f"kernel flash_attention [{shape} {dtype}, causal, "
               f"{'tensor cores' if round_p else 'CUDA cores'}]: ms "
               f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
               f"{r['library_ms']:.4f} (medians of the turns "
@@ -810,38 +866,65 @@ def first_token_check(model_lib, cfg, params, tokens, out, label) -> None:
              f"argmax {first} of the prefill under these params")
 
 
-def serve_smoke_check(Session, spec_lib, model_lib, ops):
-    """Phase 7: serving on the card against the CPU at smoke size, f32."""
-    spec = load_spec(spec_lib, smoke=True)
-    outs, logits, tokens = {}, {}, None
+def serve_smoke_check(Session, spec_lib, model_lib, ops, label="smoke",
+                      prompt_len=64, train_steps=0, **overrides):
+    """Phase 7 (and 6e's smoke part, ``train_steps`` 2 on another arch):
+    Sessions at smoke size on the card and on the CPU, f32 activations,
+    through the same calls. ``train_steps`` steps first when given, their
+    loss and g_norm within phase 3's rtol 1e-3 (:func:`compare_runs`) and
+    the card's launches those of ``expected_launches``; then a serve of a
+    (2, ``prompt_len``) prompt and 8 decode steps, both Sessions serving
+    the same weights (the fresh ones of the spec's seed, or the CPU's
+    trained tree: the two trained trees differ where the runs' roundings
+    did): the greedy tokens equal, K7 ``model.flash_layers`` launches a
+    prefill, the prefill logits within rtol 1e-4."""
+    from repro_torch.launch import build as build_lib
+    spec = load_spec(spec_lib, smoke=True, **overrides)
+    sessions, runs, outs, logits = {}, {}, {}, {}
     for device in ("cuda", "cpu"):
-        sess = Session(spec, device=device, dtype="float32")
-        if tokens is None:
-            tokens = torch.randint(0, sess.cfg.vocab_size, (2, 64),
-                                   generator=torch.Generator().manual_seed(0))
+        sess = sessions[device] = Session(spec, device=device,
+                                          dtype="float32")
+        if train_steps:
+            per_step = expected_launches(build_lib.ef_config(spec),
+                                         sess.params)
+            ops.reset_launches()
+            runs[device] = sess.train(train_steps, log_every=1)
+            if device == "cuda":
+                check_launches(dict(ops.launches), per_step, train_steps,
+                               label)
+    if train_steps:
+        compare_runs(runs, label)
+        sessions["cuda"].set_serve_params(
+            {k: t.to("cuda") for k, t in
+             sessions["cpu"].serve_source().items()})
+    tokens = torch.randint(0, sessions["cpu"].cfg.vocab_size,
+                           (2, prompt_len),
+                           generator=torch.Generator().manual_seed(0))
+    for device, sess in sessions.items():
         ops.reset_launches()
         outs[device] = sess.serve(tokens=tokens, decode_steps=8)
         if device == "cuda":
-            check_serve_launches(ops, dict(ops.launches), "the smoke serve",
-                                 sess.cfg.num_layers)
-        cache = model_lib.init_cache(sess.cfg, 2, 64, device=device)
+            check_serve_launches(ops, dict(ops.launches),
+                                 f"the {label} serve",
+                                 model_lib.flash_layers(sess.cfg))
+        cache = model_lib.init_cache(sess.cfg, 2, prompt_len, device=device)
         logits[device] = model_lib.prefill(
             sess.cfg, sess.serve_source(), {"tokens": tokens.to(device)},
             cache)[0].cpu()
     a, b = outs["cuda"]["tokens"], outs["cpu"]["tokens"]
-    print(f"smoke serve tokens: cuda {a.tolist()} cpu {b.tolist()}",
+    print(f"{label} serve tokens: cuda {a.tolist()} cpu {b.tolist()}",
           flush=True)
     if a.shape != (2, 9) or (a != b).any():
-        fail("smoke serve: the card's greedy tokens differ from the CPU's")
+        fail(f"{label} serve: the card's greedy tokens differ from the CPU's")
     # rtol 1e-4, and atol 1e-4 of the largest logit for the ones near zero
     diff = (logits["cuda"] - logits["cpu"]).abs()
     lim = 1e-4 * (logits["cpu"].abs() + logits["cpu"].abs().max())
-    print(f"smoke serve prefill logits: max abs diff {float(diff.max())}",
-          flush=True)
+    print(f"{label} serve prefill logits: max abs diff {float(diff.max())} "
+          f"(largest {float(logits['cpu'].abs().max())})", flush=True)
     if not bool(torch.isfinite(logits["cuda"]).all()) or \
             bool((diff > lim).any()):
-        fail("smoke serve: prefill logits on the card differ from the CPU's "
-             "beyond rtol 1e-4")
+        fail(f"{label} serve: prefill logits on the card differ from the "
+             "CPU's beyond rtol 1e-4")
 
 
 def serve_full(Session, spec_lib, model_lib, ops):
@@ -874,9 +957,9 @@ def serve_full(Session, spec_lib, model_lib, ops):
               f"{out['decode_tok_s']:.1f} cache_bytes {out['cache_bytes']} "
               f"max_memory_allocated {peak} launches {launches}", flush=True)
         check_serve_launches(ops, at_decode, "the full-width prefill",
-                             sess.cfg.num_layers)
+                             model_lib.flash_layers(sess.cfg))
         check_serve_launches(ops, launches, "the full-width serve (prefill "
-                             "and decode)", sess.cfg.num_layers)
+                             "and decode)", model_lib.flash_layers(sess.cfg))
         toks = out["tokens"]
         if toks.shape != (B, steps + 1) or toks.min() < 0 or \
                 toks.max() >= sess.cfg.vocab_size:
@@ -905,10 +988,10 @@ def serve_full(Session, spec_lib, model_lib, ops):
 def prefill_f32(Session, spec, model_lib, ops, tokens):
     """Phase 8, f32: one prefill of the same fresh weights and prompts in
     f32 activations, the path of K7's f32 route: exactly 32 launches (one
-    a layer), finite logits; then torch.profiler around one more prefill
-    reads the device busy ms and K7's kernel row. Returns the launches."""
+    a layer), finite logits; then torch.profiler around two more
+    prefills, the first while the tracer warms up, reads the second's
+    device busy ms and K7's kernel row. Returns the launches."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     sess = Session(spec, device="cuda", dtype="float32")
     cfg, params = sess.cfg, sess.serving_params()
     B, S = tokens.shape
@@ -924,16 +1007,13 @@ def prefill_f32(Session, spec, model_lib, ops, tokens):
     wall = (time.time() - t0) * 1e3
     launches = dict(ops.launches)
     check_serve_launches(ops, launches, "the full-width f32 prefill",
-                         cfg.num_layers)
+                         model_lib.flash_layers(cfg))
     if logits.dtype != torch.float32 or \
             tuple(logits.shape) != (B, 1, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         fail(f"full-width f32 prefill: logits {logits.dtype} "
              f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    prof = profiled(run)
     busy, by_op = device_ms(prof)
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and "flash_attention_kernel" in e.key]
@@ -945,9 +1025,13 @@ def prefill_f32(Session, spec, model_lib, ops, tokens):
           f"kernel row {count} launches, {k7_ms:.3f} ms "
           f"({k7_ms / count if count else float('nan'):.4f} ms a launch); "
           f"by op {[(k[:40], round(t, 3)) for k, t in top]}", flush=True)
-    if count != cfg.num_layers:
+    if count != model_lib.flash_layers(cfg):
+        kernels = sorted(((e.key[:60], e.count) for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda kc: -kc[1])
         fail(f"the f32 prefill's trace holds {count} K7 kernel rows, "
-             f"expected {cfg.num_layers}")
+             f"expected {model_lib.flash_layers(cfg)}; the trace's kernel "
+             f"rows by launches: {kernels[:12]}")
     del sess, params, logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -957,11 +1041,13 @@ def prefill_f32(Session, spec, model_lib, ops, tokens):
 def device_ms(prof):
     """(device busy ms, {op: ms of the kernels it launched}) of a
     torch.profiler run. Busy time sums the kernel rows only: an aten op's
-    row repeats the time of the kernels it launched."""
+    row repeats the time of the kernels it launched, and so does the
+    device row of a profiler schedule's step (``ProfilerStep#n``)."""
     from torch.autograd import DeviceType
     busy, by_op = 0.0, {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and \
+                not e.key.startswith("ProfilerStep"):
             busy += e.device_time_total / 1e3
         # K7's kernels (flash_attention_kernel, flash_tc_kernel) and the ops
         if "flash_" in e.key or e.device_type != DeviceType.CUDA:
@@ -973,33 +1059,49 @@ def device_ms(prof):
     return busy, by_op
 
 
+def profiled(fn):
+    """torch.profiler (CPU and CUDA activity) around ``fn()`` run twice,
+    the first while the tracer warms up (its events dropped): a fresh trace
+    can lose the kernels at its very start. Returns the profile of the
+    second run."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
 def serve_profile(model_lib, cfg, params, tokens, decode_s_per_step) -> None:
     """Where serving's time goes, from torch.profiler (CPU and CUDA
-    activity) around one full-width prefill and 2 decode steps: the
-    device's busy time, K7's share of the prefill, the casts' (aten::copy_)
-    device time, and the decode step's device time against its unprofiled
-    wall time (the idle share)."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    activity, :func:`profiled`) around one full-width prefill and 2 decode
+    steps: the device's busy time, K7's share of the prefill, the casts'
+    (aten::copy_) device time, and the decode step's device time against
+    its unprofiled wall time (the idle share)."""
     B, S = tokens.shape
-    cache = model_lib.init_cache(cfg, B, S + 2, device="cuda")
-    with profile(activities=acts) as prof:
-        logits, cache = model_lib.prefill(cfg, params, {"tokens": tokens},
-                                          cache)
-        torch.cuda.synchronize()
-    busy, by_op = device_ms(prof)
+    state = {}
+
+    def prefill():
+        cache = model_lib.init_cache(cfg, B, S + 4, device="cuda")
+        state["logits"], state["cache"] = model_lib.prefill(
+            cfg, params, {"tokens": tokens}, cache)
+        state["pos"] = S
+    busy, by_op = device_ms(profiled(prefill))
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
     print(f"profile prefill: device busy ms {busy:.3f}; by op "
           f"{[(k[:40], round(t, 3)) for k, t in top]}; aten::copy_ "
           f"{by_op.get('aten::copy_', 0.0):.3f}", flush=True)
-    tok = logits[:, -1].argmax(-1)[:, None]
-    with profile(activities=acts) as prof:
-        for i in range(2):
-            logits, cache = model_lib.decode_step(cfg, params, cache, tok,
-                                                  S + i)
-            tok = logits[:, -1].argmax(-1)[:, None]
-        torch.cuda.synchronize()
-    busy, by_op = device_ms(prof)
+
+    def decode_2():
+        for _ in range(2):
+            tok = state["logits"][:, -1].argmax(-1)[:, None]
+            state["logits"], state["cache"] = model_lib.decode_step(
+                cfg, params, state["cache"], tok, state["pos"])
+            state["pos"] += 1
+    busy, by_op = device_ms(profiled(decode_2))
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
     wall = decode_s_per_step * 1e3
     if busy > 0:
@@ -1021,11 +1123,124 @@ def serve_trained(sess, model_lib, ops) -> None:
     ops.reset_launches()
     out = sess.serve(tokens=tokens, decode_steps=8)
     check_serve_launches(ops, dict(ops.launches), "the trained-model serve",
-                         sess.cfg.num_layers)
+                         model_lib.flash_layers(sess.cfg))
     first_token_check(model_lib, sess.cfg, sess.params, tokens.cuda(), out,
                       "trained-model serve")
     print(f"served the trained model (step {sess.step}): tokens "
           f"{out['tokens'].tolist()}", flush=True)
+
+
+def recompute_phase(Session, spec_lib, ops):
+    """Phase R: full-width smollm-360m, 8 clients, fused_quant8 up and
+    fused_quant4 down, one step from seed 0 with block recompute off, then
+    one with it on (each Session builds its state from the batch-0
+    gradients under its own setting). Params and every EF state leaf must
+    be equal bit for bit (the first run's leaves kept on the host,
+    compared leaf by leaf on the card), and the peak lower with recompute.
+    Prints each run's step ms and peak, and the client pass alone (the
+    next batch, median of 3) with its ms and peak. Returns the launches of
+    the step with recompute."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.ef import flatten
+    from repro_torch.launch import build as build_lib
+    from repro_torch.models import model as model_lib
+    spec = load_spec(spec_lib, **R_PATH)
+    want, peaks, out = None, {}, {}
+    for on in (False, True):
+        label = f"R remat={on}"
+        sess = Session(spec, device="cuda")
+        sess.cfg = dataclasses.replace(sess.cfg, remat=on)
+        per_step = expected_launches(build_lib.ef_config(spec), sess.params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        ops.reset_launches()
+        t0 = time.time()
+        m = sess.step_once()
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t0) * 1e3
+        out[on] = dict(ops.launches)
+        check_launches(out[on], per_step, 1, label)
+        peaks[on] = torch.cuda.max_memory_allocated()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - \
+            retries
+        batch = sess.batch_for(sess.step)
+        pass_ms = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, grads = dist.per_client_value_and_grad(
+                lambda p, b: model_lib.train_loss(sess.cfg, p, b),
+                sess.params, batch, sess.n_clients)
+            torch.cuda.synchronize()
+            pass_ms.append((time.time() - t0) * 1e3)
+            del grads
+        pass_peak = torch.cuda.max_memory_allocated()
+        print(f"{label}: loss {float(m['loss']):.6f} step_ms {step_ms:.1f} "
+              f"max_memory_allocated {peaks[on]} alloc_retries {retries}; "
+              f"client pass ms {[round(t, 1) for t in pass_ms]} (median "
+              f"{sorted(pass_ms)[1]:.1f}) max_memory_allocated {pass_peak}",
+              flush=True)
+        flat = flatten({"params": sess.params, "ef_state": sess.ef_state})
+        if want is None:
+            want = {k: t.cpu() for k, t in flat.items()}
+        else:
+            bad = [k for k in want
+                   if not torch.equal(flat[k], want[k].to("cuda"))]
+            if sorted(flat) != sorted(want) or bad:
+                fail(f"R: leaves differ with recompute: {bad[:5]}")
+            print(f"R: {len(flat)} leaves of params and EF state bit-"
+                  f"identical with and without recompute; peak "
+                  f"{peaks[False]} -> {peaks[True]} bytes", flush=True)
+        del sess, m, flat
+        gc.collect()
+        torch.cuda.empty_cache()
+    if peaks[True] >= peaks[False]:
+        fail(f"R: the peak with recompute {peaks[True]} is not below "
+             f"{peaks[False]}")
+    return out[True]
+
+
+def serve_dense(sess, model_lib, ops, label, batch, prompt_len,
+                decode_steps):
+    """A D phase's serve of its trained model: K7 exactly
+    ``model.flash_layers`` launches in the prefill and none in decode;
+    prefill and decode tok/s, cache_bytes and the peak; the first tokens
+    the argmax of a prefill under the trained params (that check prefill's
+    launches do not count). Returns the serve's launches."""
+    tokens = torch.randint(0, sess.cfg.vocab_size, (batch, prompt_len),
+                           generator=torch.Generator().manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    at_decode = {}
+
+    def hook(i):
+        if i == 0:                              # the prefill's launches
+            at_decode.update(ops.launches)
+    out = sess.serve(tokens=tokens, decode_steps=decode_steps,
+                     decode_hook=hook)
+    launches = dict(ops.launches)
+    want = model_lib.flash_layers(sess.cfg)
+    check_serve_launches(ops, at_decode, f"the {label} prefill", want)
+    check_serve_launches(ops, launches, f"the {label} serve", want)
+    print(f"{label} serve (batch {batch}, prompt {prompt_len}, "
+          f"{decode_steps} decode steps): prefill_ms "
+          f"{out['prefill_s'] * 1e3:.3f} prefill_tok_s "
+          f"{out['prefill_tok_s']:.1f} decode_ms_per_token "
+          f"{out['decode_s'] * 1e3 / decode_steps:.3f} decode_tok_s "
+          f"{out['decode_tok_s']:.1f} cache_bytes {out['cache_bytes']} "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} "
+          f"launches {launches} (K7 layers {want} of "
+          f"{sess.cfg.num_layers})", flush=True)
+    toks = out["tokens"]
+    if toks.shape != (batch, decode_steps + 1) or toks.min() < 0 or \
+            toks.max() >= sess.cfg.vocab_size:
+        fail(f"{label} serve: tokens of shape {toks.shape} in "
+             f"[{toks.min()}, {toks.max()}]")
+    first_token_check(model_lib, sess.cfg, sess.params, tokens.cuda(), out,
+                      f"{label} serve")
+    return launches
 
 
 def load_spec(spec_lib, name="fused_quickstart", **overrides):
@@ -1157,14 +1372,19 @@ def reference_check(Session, spec_lib, ops):
                 idle = [k for k in kernels if not ops.launches[k]]
                 if idle:
                     fail(f"smoke {label}: {idle} never launched on cuda")
-        for key in ("loss", "g_norm"):
-            a = [r[key] for r in runs["cuda"]]
-            b = [r[key] for r in runs["cpu"]]
-            print(f"smoke {label} {key}: cuda {a} cpu {b}", flush=True)
-            if not all(math.isfinite(x) for x in a) or any(
-                    abs(x - y) > 1e-3 * abs(y) for x, y in zip(a, b)):
-                fail(f"smoke {label} {key} on cuda {a} != cpu {b} "
-                     "(rtol 1e-3)")
+        compare_runs(runs, f"smoke {label}")
+
+
+def compare_runs(runs, label) -> None:
+    """Phase 3's tolerance: each step's loss and g_norm on the card finite
+    and within rtol 1e-3 of the CPU's."""
+    for key in ("loss", "g_norm"):
+        a = [r[key] for r in runs["cuda"]]
+        b = [r[key] for r in runs["cpu"]]
+        print(f"{label} {key}: cuda {a} cpu {b}", flush=True)
+        if not all(math.isfinite(x) for x in a) or any(
+                abs(x - y) > 1e-3 * abs(y) for x, y in zip(a, b)):
+            fail(f"{label} {key} on cuda {a} != cpu {b} (rtol 1e-3)")
 
 
 def card_bit_checks(spec_lib):
@@ -1243,19 +1463,30 @@ def describe(sess, spec, efc) -> None:
 
 
 def main_path(Session, spec_lib, ops, steps, serve=None, profile=False,
-              spec_name="fused_quickstart", step_hook=None, **overrides):
-    """Phases 4-6 and 6c: full-width smollm-360m through the port's Session.
+              spec_name="fused_quickstart", step_hook=None, cut=None,
+              plain_check=False, **overrides):
+    """Phases 4-6, 6c and D: a full-width arch through the port's Session.
     Every kernel must launch exactly as often as ``expected_launches``
-    derives from the path's EF config, and no other. ``profile`` adds a
-    torch.profiler reading of one more step; ``serve(sess)``, when given,
-    runs on the trained session at the end; ``step_hook(sess)``, when
-    given, runs before each step and returns a check run after it."""
+    derives from the path's EF config, and no other. ``cut`` replaces
+    fields of the Session's arch config (the depth) before the state is
+    built. ``profile`` adds a torch.profiler reading of one more step;
+    ``serve(sess)``, when given, runs on the trained session at the end
+    and may return its launches, which join the path's; ``step_hook(sess)``,
+    when given, runs before each step and returns a check run after it.
+    ``plain_check`` records the shapes of the steps' kernel calls and, once
+    the Session is freed, holds each distinct call against its plain
+    version on random inputs of those shapes (:func:`check_shapes_plain`);
+    those launches come after the path's count and are not in it."""
     from repro_torch.launch import build as build_lib
     spec = load_spec(spec_lib, spec_name, **overrides)
     label = (f"{spec_name} " if spec_name != "fused_quickstart" else "") + \
+        (f"{spec.arch} " if spec.arch != "smollm-360m" else "") + \
         f"{spec.carrier}/{spec.downlink_carrier} {spec.compressor}" + \
         (" grouped" if spec.groups else "")
     sess = Session(spec, device="cuda")
+    if cut:
+        sess.cfg = dataclasses.replace(sess.cfg, **cut)
+        label += f" cut {cut}"
     t0 = time.time()
     n_leaves = len(sess.params)                     # builds the train state
     torch.cuda.synchronize()
@@ -1270,19 +1501,21 @@ def main_path(Session, spec_lib, ops, steps, serve=None, profile=False,
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     ops.reset_launches()
     step_ms = []
-    for _ in range(steps):
-        after = step_hook(sess) if step_hook is not None else None
-        t0 = time.time()
-        m = sess.step_once()
-        loss, g_norm = float(m["loss"]), float(m["g_norm"])
-        torch.cuda.synchronize()
-        step_ms.append((time.time() - t0) * 1e3)
-        print(f"step {sess.step - 1} loss {loss:.6f} g_norm {g_norm:.6e} "
-              f"step_ms {step_ms[-1]:.1f}", flush=True)
-        if not (math.isfinite(loss) and math.isfinite(g_norm)):
-            fail(f"non-finite loss/g_norm at step {sess.step - 1}")
-        if after is not None:
-            after()
+    with (recorded_calls(ops, ROW_KERNELS, shapes_only=True) if plain_check
+          else contextlib.nullcontext([])) as calls:
+        for _ in range(steps):
+            after = step_hook(sess) if step_hook is not None else None
+            t0 = time.time()
+            m = sess.step_once()
+            loss, g_norm = float(m["loss"]), float(m["g_norm"])
+            torch.cuda.synchronize()
+            step_ms.append((time.time() - t0) * 1e3)
+            print(f"step {sess.step - 1} loss {loss:.6f} g_norm "
+                  f"{g_norm:.6e} step_ms {step_ms[-1]:.1f}", flush=True)
+            if not (math.isfinite(loss) and math.isfinite(g_norm)):
+                fail(f"non-finite loss/g_norm at step {sess.step - 1}")
+            if after is not None:
+                after()
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
     # allocations the caching allocator retried after freeing its cache
@@ -1297,10 +1530,23 @@ def main_path(Session, spec_lib, ops, steps, serve=None, profile=False,
     if profile:
         step_profile(sess, label)
     if serve is not None:
-        serve(sess)
+        launches = _merged(launches, serve(sess) or {})
     del sess, m
     gc.collect()
     torch.cuda.empty_cache()
+    if plain_check:
+        from repro_torch.kernels import ref
+        if _call_counts(calls) != {k: v * steps for k, v in per_step.items()
+                                   if v}:
+            fail(f"{label}: recorded calls {_call_counts(calls)}, expected "
+                 f"{per_step} a step")
+        t0 = time.time()
+        shapes = check_shapes_plain(ops, ref, label, calls)
+        print(f"{label}: every distinct kernel call of the steps "
+              f"bit-identical to the plain version on random inputs of its "
+              f"shapes ({time.time() - t0:.1f} s): {shapes}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1394,20 +1640,15 @@ def step_breakdown(sess, spec, label) -> None:
 def step_profile(sess, label) -> None:
     """Where a training step's time goes: one more step timed by the host
     clock (ending in a synchronize), then torch.profiler (CPU and CUDA
-    activity) around the next one: the device's busy ms against the
-    unprofiled wall ms (the idle share) and the five ops with the most
-    device time."""
-    from torch.profiler import ProfilerActivity, profile
+    activity) around the next two, the second read (:func:`profiled`): the
+    device's busy ms against the unprofiled wall ms (the idle share) and
+    the five ops with the most device time."""
     torch.cuda.synchronize()
     t0 = time.time()
     sess.step_once()
     torch.cuda.synchronize()
     wall = (time.time() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sess.step_once()
-        torch.cuda.synchronize()
-    busy, by_op = device_ms(prof)
+    busy, by_op = device_ms(profiled(sess.step_once))
     if busy <= 0:
         print(f"profile {label} step: no device time in the trace (not "
               "measured)", flush=True)
@@ -1553,11 +1794,26 @@ SIM_KERNELS = ("block_topk", "ef21_sgdm_update", "ef21_sgdm_topk_quant",
 
 
 @contextlib.contextmanager
-def recorded_calls(ops, names=SIM_KERNELS):
+def recorded_calls(ops, names=SIM_KERNELS, shapes_only=False):
     """Within: every call of the wrappers ``names`` runs as before and is
     kept as (name, bound arguments, outputs), the tensors cloned at the
-    call (a state update in place overwrites its inputs)."""
+    call (a state update in place overwrites its inputs). ``shapes_only``
+    keeps each tensor argument as a meta tensor of its shape and dtype (one
+    that is an earlier argument, as ``v_out`` is ``v`` in place, as that
+    argument's name) and no outputs."""
     calls, saved = [], {n: getattr(ops, n) for n in names}
+
+    def shapes(arguments):
+        args, seen = {}, {}
+        for k, v in arguments.items():
+            if isinstance(v, torch.Tensor) and id(v) in seen:
+                args[k] = seen[id(v)]
+            elif isinstance(v, torch.Tensor):
+                seen[id(v)] = k
+                args[k] = torch.empty(v.shape, dtype=v.dtype, device="meta")
+            else:
+                args[k] = v
+        return args
 
     def wrap(name, fn):
         sig = inspect.signature(fn)
@@ -1565,6 +1821,9 @@ def recorded_calls(ops, names=SIM_KERNELS):
         def rec(*a, **kw):
             bound = sig.bind(*a, **kw)
             bound.apply_defaults()
+            if shapes_only:
+                calls.append((name, shapes(bound.arguments), ()))
+                return fn(*a, **kw)
             args = {k: v.clone() if isinstance(v, torch.Tensor) else v
                     for k, v in bound.arguments.items()}
             out = fn(*a, **kw)
@@ -1614,6 +1873,85 @@ def check_calls_plain(ref, label, calls):
     return {k: sorted(v) for k, v in shapes.items()}
 
 
+ROW_KERNELS = SIM_KERNELS[1:]   # K2-K6: (rows, ...) in, rows independent
+PLAIN_ROWS = 1 << 18            # rows a plain-version call of a leaf check
+
+
+def _random_input(arg, t, gen, device):
+    """A tensor of meta tensor ``t``'s shape and dtype: mantissas over their
+    whole range, scales in [0, 1e-3), other values normal."""
+    if t.dtype in (torch.int8, torch.uint8):
+        lo, hi = (-127, 128) if t.dtype == torch.int8 else (0, 256)
+        return torch.randint(lo, hi, t.shape, generator=gen, device=device,
+                             dtype=t.dtype)
+    if arg == "scales":
+        return torch.rand(t.shape, generator=gen, device=device) * 1e-3
+    return torch.randn(t.shape, generator=gen, device=device).to(t.dtype)
+
+
+def _rows(name, args, r0, r1, outs=None):
+    """Rows r0:r1 of a K2-K6 call's tensor arguments (``outs``: of its
+    outputs); K4's flat base and output hold ``block`` values a row."""
+    def cut(k, t):
+        if name == "dequant_add" and k in ("base", None):
+            return t[r0 * args["block"]:r1 * args["block"]]
+        return t[r0:r1]
+    if outs is not None:
+        return [cut(None, t) for t in outs]
+    return {k: cut(k, v) if isinstance(v, torch.Tensor) else v
+            for k, v in args.items()}
+
+
+def check_shapes_plain(ops, ref, label, calls, device="cuda"):
+    """Each distinct call of a shape-only record (:func:`recorded_calls`)
+    of K2-K6, run again on random inputs of its shapes and dtypes (in place
+    where the recorded call was) and held bit for bit against the plain
+    version on the same inputs, ``PLAIN_ROWS`` rows at a time (a leaf's
+    plain temporaries stay small beside its inputs). Returns {kernel:
+    sorted shapes}."""
+    distinct = {}
+    for name, meta, _ in calls:
+        key = repr((name, {k: (tuple(v.shape), v.dtype)
+                           if isinstance(v, torch.Tensor) else v
+                           for k, v in meta.items()}))
+        distinct.setdefault(key, (name, meta))
+    gen = torch.Generator(device=device).manual_seed(0)
+    shapes = {}
+    for name, meta in distinct.values():
+        args = {k: _random_input(k, v, gen, device)
+                if isinstance(v, torch.Tensor) else v
+                for k, v in meta.items() if not isinstance(v, str)}
+        # the kernel writes copies of what it updates in place; the plain
+        # version reads the originals
+        kw = dict(args)
+        for k, v in meta.items():
+            if isinstance(v, str):                  # v_out is v
+                if kw[v] is args[v]:
+                    kw[v] = args[v].clone()
+                kw[k] = kw[v]
+        outs = getattr(ops, name)(**kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        del kw
+        plain = getattr(ref, f"{name}_plain")
+        params = inspect.signature(plain).parameters
+        where = _call_shape(name, args)
+        rows = args["x_rows" if name == "block_quantize" else
+                    "q" if "q" in args else "grad"].shape[0]
+        for r0 in range(0, rows, PLAIN_ROWS):
+            r1 = min(rows, r0 + PLAIN_ROWS)
+            part = _rows(name, args, r0, r1)
+            want = plain(**{p: part["x_rows" if p == "x" and
+                                    name == "block_quantize" else p]
+                            for p in params})
+            want = want if isinstance(want, tuple) else (want,)
+            check_equal(f"{label}: {name} {where} rows {r0}:{r1}",
+                        _rows(name, args, r0, r1, outs), want)
+            del part, want
+        shapes.setdefault(name, set()).add(where)
+        del args, outs
+    return {k: sorted(v) for k, v in shapes.items()}
+
+
 def sim_run(ops, label, problem, method, cfg, seed=0):
     """One simulator run on the card through ``simulate.Simulation`` (the
     entry point ``simulate.run`` drives): the launches of its rounds must
@@ -1625,7 +1963,6 @@ def sim_run(ops, label, problem, method, cfg, seed=0):
     kernel calls are held against the plain versions
     (:func:`check_calls_plain`). Returns (result, launches)."""
     from repro_torch.core import simulate
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sim = simulate.Simulation(problem, method, cfg, seed)
@@ -1672,12 +2009,8 @@ def sim_run(ops, label, problem, method, cfg, seed=0):
         sim.step()
     torch.cuda.synchronize()
     wall = (time.time() - t0) * 1e3 / P_PROFILED
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(P_PROFILED):
-            sim.step()
-        torch.cuda.synchronize()
-    busy = device_ms(prof)[0] / P_PROFILED
+    busy = device_ms(profiled(
+        lambda: [sim.step() for _ in range(P_PROFILED)]))[0] / P_PROFILED
     prof_txt = (f"device busy ms {busy:.4f} of {wall:.4f} unprofiled wall "
                 f"ms (idle share {1 - busy / wall:.3f}; mean of "
                 f"{P_PROFILED} rounds)" if busy > 0 else
@@ -1863,12 +2196,7 @@ def p_async(ops, problems, ef_lib, comp_lib, part_lib, prob):
     wall = time.time() - t0
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        part_lib.run_async(prob, m, **kw)
-        torch.cuda.synchronize()
-    busy = device_ms(prof)[0]
+    busy = device_ms(profiled(lambda: part_lib.run_async(prob, m, **kw)))[0]
     small = problems.LogisticRegression(n=P_EXP1["n"], m_per_client=32, l=8,
                                         c=10, device="cpu")
     cpu = part_lib.run_async(small, m, **kw)
@@ -2213,7 +2541,7 @@ def _fleet_phase(Session, spec_lib, ops, model_lib, stream_dir):
              f"completed, {out['short_requests']} short")
     for rep, batch, res, launches in served:
         check_serve_launches(ops, launches, f"{label} {rep.name} serve",
-                             sess.cfg.num_layers)
+                             model_lib.flash_layers(sess.cfg))
         _add(total, launches)
         tokens = torch.from_numpy(np.stack([r.tokens for r in batch]))
         first_token_check(model_lib, sess.cfg, rep.params, tokens.cuda(),
@@ -2243,7 +2571,7 @@ def _fleet_phase(Session, spec_lib, ops, model_lib, stream_dir):
     r0.sync = real_sync
     launches = served[-1][3]
     want = _merged(per_step, pub, app,
-                   {"flash_attention": sess.cfg.num_layers})
+                   {"flash_attention": model_lib.flash_layers(sess.cfg)})
     check_launches(launches, want, 1, f"{label} mid-decode serve")
     _add(total, launches)
     if res["mid_applied"] < 1 or r0.step != sess.step or \
@@ -2498,6 +2826,27 @@ def main() -> None:
                                   smoke=False)
     gc.collect()
     torch.cuda.empty_cache()
+    with phase("R: block recompute on the full-width fused_quant8/"
+               "fused_quant4 path, 8 clients: a step without and one with, "
+               "bit for bit"):
+        by_phase["R"] = recompute_phase(Session, spec_lib, ops)
+    with phase("D smoke: h2o-danube-3-4b, granite-34b and gemma2-9b, cuda "
+               "against cpu (smoke size, past the window)"):
+        for _, arch, _, _, _ in D_CELLS:
+            serve_smoke_check(Session, spec_lib, model_lib, ops,
+                              label=f"{arch} smoke", train_steps=2,
+                              arch=arch, **D_SMOKE, **R_PATH)
+    for name, arch, cut, clients, serve in D_CELLS:
+        with phase(f"{name}: {arch} at full width cut to {cut}, {clients} "
+                   f"clients, {D_STEPS} fused_quant8/fused_quant4 steps, "
+                   f"then serve {serve}"):
+            by_phase[name] = main_path(
+                Session, spec_lib, ops, D_STEPS, arch=arch, clients=clients,
+                cut=cut, plain_check=True,
+                serve=lambda s, name=name, shape=serve: serve_dense(
+                    s, model_lib, ops, name, **shape), **R_PATH)
+        gc.collect()
+        torch.cuda.empty_cache()
     with phase("P: the paper's simulator on the card (fig1, exp1, async, "
                "exp3, exp4 at the experiments' shapes; card against cpu)"):
         by_phase.update(sim_phase(ops))
@@ -2603,6 +2952,11 @@ def main() -> None:
         "and l of a row in one lane")
     kernels[6]["resources"] = {n: r for n, r in redesigned.items()
                                if "flash_tc_kernel" in n}
+    # granite-34b's prefill: 48 query heads on one kv head, hd 128
+    kernels[6]["granite_prefill"] = dict(
+        shape=list(FLASH_GRANITE),
+        launches=by_phase["D-granite"]["flash_attention"],
+        **{k: results["flash_attention/granite"][k] for k in keys})
     kernels[6]["f32_route"]["resources"] = {
         n: r for n, r in redesigned.items()
         if "efk_flash::flash_attention_kernel" in n}

@@ -1,7 +1,9 @@
 """Architecture configuration: the dense-family fields of the reference's
 ``ArchConfig`` (a copy, not an import) and the registry for the archs this
-port runs. Only smollm-360m is ported so far; the other families arrive
-with later slices (ROADMAP Queue 1)."""
+port runs: the four dense configs (smollm-360m, h2o-danube-3-4b,
+granite-34b and gemma2-9b), with sliding windows, gemma2's [local, global]
+layers, soft caps and block recompute (``remat``). The other families
+arrive with later slices (ROADMAP Queue 1)."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,12 +26,19 @@ class ArchConfig:
     head_dim: Optional[int] = None   # default d_model // num_heads
     d_ff: int = 4096
     vocab_size: int = 32000
+
+    # attention flavour
+    sliding_window: Optional[int] = None     # SWA width (h2o-danube, gemma2 local)
+    local_global: bool = False               # gemma2: alternate local/global layers
+    logit_softcap: Optional[float] = None    # gemma2 attn softcap
+    final_softcap: Optional[float] = None    # gemma2 final-logit softcap
     rope_theta: float = 10000.0
 
-    # numerics
+    # numerics / memory
     dtype: str = "bfloat16"          # activation dtype
     param_dtype: str = "float32"
     norm_eps: float = 1e-6
+    remat: bool = True               # recompute each block in the backward
     attn_chunk: int = 512            # chunked-attention query block
 
     @property
@@ -48,7 +57,9 @@ class ArchConfig:
 
 
 # public --arch ids → module names
-ARCH_ALIASES = {"smollm-360m": "smollm_360m"}
+ARCH_ALIASES = {"smollm-360m": "smollm_360m",
+                "h2o-danube-3-4b": "h2o_danube3_4b",
+                "granite-34b": "granite_34b", "gemma2-9b": "gemma2_9b"}
 
 
 def _module(arch: str):

@@ -13,4 +13,4 @@ CONFIG = ArchConfig(
 def smoke_config() -> ArchConfig:
     return dataclasses.replace(
         CONFIG, num_layers=2, d_model=192, num_heads=3, num_kv_heads=1,
-        d_ff=512, vocab_size=256, attn_chunk=64)
+        d_ff=512, vocab_size=256, remat=False, attn_chunk=64)

@@ -6,7 +6,8 @@ The port's RunSpec has the reference's field names, defaults and JSON
 (schema v5), so ``results/specs/*.json`` load as they are, and its
 ``spec_hash`` is the reference's (the same sparse canonical form), so a
 checkpoint written by either package names its experiment for both. It
-accepts smollm-360m, the ten EF methods, the eight compressors, the seven
+accepts the four dense archs (smollm-360m, h2o-danube-3-4b, granite-34b,
+gemma2-9b), the ten EF methods, the eight compressors, the seven
 carriers (``fused`` uplink only), f32 or bfloat16 EF state, SGD and AdamW,
 per-parameter-group schedules (``groups``), the participation modes
 (``async`` names the event-driven simulator, which ``build`` refuses as

@@ -61,10 +61,11 @@ from repro_torch.launch import spec as spec_lib
 
 
 def main(argv=None) -> None:
-    # the clients' one batched pass holds all their activations at once
-    # (some 67 GB at the peak of a full-width step): segments that grow in
-    # place keep the caching allocator from freeing its cache and retrying,
-    # which synchronizes the card (set before the first CUDA allocation)
+    # the clients' one batched pass holds all their gradients and, between
+    # recomputed blocks, their activations at once (a full-width step peaks
+    # at 46 to 79 GB): segments that grow in place keep the caching
+    # allocator from freeing its cache and retrying, which synchronizes the
+    # card (set before the first CUDA allocation)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     ap = argparse.ArgumentParser("repro_torch.launch.train")

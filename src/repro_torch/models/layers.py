@@ -1,18 +1,23 @@
 """Transformer building blocks of the dense family (counterpart of
 src/repro/models/layers.py): RMSNorm, split-half RoPE (its cos and sin
-read from tables cached per head dim, theta, device and length), causal
-GQA attention (chunked, and decode against a KV cache) and the SwiGLU MLP.
+read from tables cached per head dim, theta, device and length), soft
+caps, causal GQA attention (chunked, full or banded to a sliding window,
+and decode against a KV cache, a ring buffer under a window) and the
+SwiGLU MLP.
 
 Training runs ``chunked_attention``, plain PyTorch as it is plain JAX in the
-reference; its large products go to ``torch.einsum``. Serving's prefill
-runs the hand flash-attention kernel K7 (``kernels/ops.flash_attention``)
-where the reference runs ``chunked_attention``: the same causal softmax
-attention. In bf16, K7 (on the tensor cores) rounds P to bf16 for P.V as
-chunked attention rounds it to v's dtype, but unnormalised, against its
-running max, with l summed from the f32 P; in f32 neither rounds P. K7 has
-no backward, so training keeps chunked attention. Decode is plain PyTorch,
-as in the reference. Sliding windows and soft caps arrive with the slice
-that brings the families using them (gemma2, h2o-danube).
+reference; its large products go to ``torch.einsum``. A sliding-window
+layer runs the reference's banded schedule: each query chunk attends to a
+``window + chunk`` slice of the keys. Serving's prefill runs the hand
+flash-attention kernel K7 (``kernels/ops.flash_attention``) where the
+reference runs ``chunked_attention`` on the layers K7 computes: no window,
+no soft cap, a head dim K7 is built for (``ops.FLASH_HEAD_DIMS``); every
+other layer prefills with ``chunked_attention``, as the reference does. In
+bf16, K7 (on the tensor cores) rounds P to bf16 for P.V as chunked
+attention rounds it to v's dtype, but unnormalised, against its running
+max, with l summed from the f32 P; in f32 neither rounds P. K7 has no
+backward, so training keeps chunked attention. Decode is plain PyTorch,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -87,63 +92,112 @@ def rope_at(positions: torch.Tensor, hd: int, theta: float, length: int
     return cos[positions][..., None, :], sin[positions][..., None, :]
 
 
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """cap * tanh(x / cap); x itself without a cap."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, cap: Optional[float]
+                ) -> torch.Tensor:
+    """q (B,Sq,KV,G,hd), k (B,Skv,KV,hd) -> f32 scores (B,KV,G,Sq,Skv),
+    soft-capped."""
+    s = torch.einsum("bqngd,bknd->bngqk", q.float() / (q.shape[-1] ** 0.5),
+                     k.float())
+    return softcap(s, cap)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      chunk: int = 512) -> torch.Tensor:
+                      chunk: int = 512, window: Optional[int] = None,
+                      cap: Optional[float] = None) -> torch.Tensor:
     """Causal GQA attention, one block of ``chunk`` queries at a time so the
-    live score tensor stays (B, KV, G, chunk, S). q: (B,S,H,hd); k, v:
-    (B,S,KV,hd). Scores and softmax in f32, probabilities in v's dtype."""
+    live score tensor stays (B, KV, G, chunk, keys). q: (B,S,H,hd); k, v:
+    (B,S,KV,hd). Scores and softmax in f32 (soft-capped by ``cap`` before
+    the mask), probabilities in v's dtype.
+
+    ``window`` W: query i sees keys i-W < j <= i, and each query chunk
+    reads the reference's band of W + chunk keys, starting at
+    clip(end of the chunk - (W + chunk), 0, S - (W + chunk))."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     chunk = min(chunk, Sq)
+    ws = Skv if window is None else min(window + chunk, Skv)
     kf = k.float()
-    kv_pos = torch.arange(Skv, device=q.device)
     outs = []
     for start in range(0, Sq, chunk):
         qi = q[:, start:start + chunk]
         cq = qi.shape[1]
-        qi = qi.reshape(B, cq, KV, G, hd).float() / (hd ** 0.5)
-        s = torch.einsum("bqngd,bknd->bngqk", qi, kf)
-        q_pos = start + torch.arange(cq, device=q.device)
-        bias = torch.where(kv_pos[None, :] <= q_pos[:, None], 0.0, -1e30)
+        # the band ends with the chunk, as long as a full chunk would be
+        k0 = 0 if window is None else min(max(start + chunk - ws, 0),
+                                          Skv - ws)
+        ks, vs = kf[:, k0:k0 + ws], v[:, k0:k0 + ws]
+        s = _gqa_scores(qi.reshape(B, cq, KV, G, hd), ks, cap)
+        q_pos = start + torch.arange(cq, device=q.device)[:, None]
+        k_pos = k0 + torch.arange(ws, device=q.device)[None, :]
+        valid = k_pos <= q_pos
+        if window is not None:
+            valid = valid & (k_pos > q_pos - window)
+        bias = torch.where(valid, 0.0, -1e30)
         p = torch.softmax(s + bias, dim=-1).to(v.dtype)
-        o = torch.einsum("bngqk,bknd->bqngd", p, v)
+        o = torch.einsum("bngqk,bknd->bqngd", p, vs)
         outs.append(o.reshape(B, cq, H, hd))
     return torch.cat(outs, dim=1)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos: int, *,
+                     window: Optional[int] = None,
+                     cap: Optional[float] = None) -> torch.Tensor:
     """One-token attention against a cache. q: (B,1,H,hd); caches
-    (B,S,KV,hd) holding position p at slot p; ``pos`` is the new token's
-    position. Scores and softmax in f32 over the slots <= pos, P rounded to
-    the cache's dtype before P.V (the reference's ``_gqa_out``)."""
+    (B,S,KV,hd); ``pos`` is the new token's position. A full cache holds
+    position p at slot p and attends to the slots <= pos; a sliding-window
+    cache is a ring of S slots holding p at slot p % S, every slot valid
+    once pos >= S. Scores and softmax in f32 (soft-capped by ``cap``), P
+    rounded to the cache's dtype before P.V (the reference's ``_gqa_out``)."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(B, 1, KV, H // KV, hd).float() / (hd ** 0.5)
-    s = torch.einsum("bqngd,bknd->bngqk", qg, k_cache.float())
+    s = _gqa_scores(q.reshape(B, 1, KV, H // KV, hd), k_cache, cap)
     slot = torch.arange(S, device=q.device)
-    bias = torch.where(slot <= pos, 0.0, -1e30)
+    valid = slot <= pos
+    if window is not None and pos >= S:     # a full ring: every slot
+        valid = torch.ones_like(valid)
+    bias = torch.where(valid, 0.0, -1e30)
     p = torch.softmax(s + bias, dim=-1).to(v_cache.dtype)
     o = torch.einsum("bngqk,bknd->bqngd", p, v_cache)
     return o.reshape(B, 1, H, hd)
 
 
+def prefill_runs_flash(hd: int, window: Optional[int],
+                       cap: Optional[float]) -> bool:
+    """Whether a layer's prefill runs K7: it computes plain causal attention
+    at the head dims it is built for, with no window and no soft cap."""
+    return window is None and cap is None and hd in ops.FLASH_HEAD_DIMS
+
+
 def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                rope_cs: Tuple[torch.Tensor, torch.Tensor], *, eps: float,
-               chunk: int, cache: Optional[Cache] = None,
+               chunk: int, window: Optional[int] = None,
+               cap: Optional[float] = None, cache: Optional[Cache] = None,
                pos: Optional[int] = None) -> torch.Tensor:
     """Pre-norm attention sub-block; returns the residual delta.
-    ``rope_cs``: the cos and sin of x's positions (:func:`rope_at`).
+    ``rope_cs``: the cos and sin of x's positions (:func:`rope_at`);
+    ``window``: the layer's sliding window; ``cap``: its score soft cap.
 
     Modes:
       cache None                → training: chunked attention, no cache;
-      cache (k, v), pos None    → prefill of x's S tokens: K7 on the fresh
-                                  k and v, then slots [0, S) of the cache
-                                  are written in the cache's dtype;
+      cache (k, v), pos None    → prefill of x's S tokens: K7 where
+                                  :func:`prefill_runs_flash`, else chunked
+                                  attention; then slots [0, S) of the
+                                  cache are written in its dtype, or, when
+                                  a windowed cache is shorter than S, its
+                                  last slots' keys rolled so position p
+                                  sits at slot p % slots;
       cache (k, v), pos an int  → decode of one token at position ``pos``:
-                                  slot ``pos`` is written, then attention
-                                  runs over the cache.
+                                  slot ``pos`` (``pos % slots`` under a
+                                  window) is written, then attention runs
+                                  over the cache.
     The cache tensors are written IN PLACE (the reference returns updated
     copies).
     """
@@ -154,17 +208,31 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
     if cache is None:
-        out = chunked_attention(q, k, v, chunk=chunk)
+        out = chunked_attention(q, k, v, chunk=chunk, window=window, cap=cap)
     elif pos is None:
-        out = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True)
-        n = min(k.shape[1], cache[0].shape[1])   # as the reference: k[:, :S]
-        cache[0][:, :n] = k[:, :n]
-        cache[1][:, :n] = v[:, :n]
+        # K7 has no window, no soft cap and only some head dims; the other
+        # layers prefill as the reference prefills every layer
+        if prefill_runs_flash(q.shape[-1], window, cap):
+            out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=True)
+        else:
+            out = chunked_attention(q, k, v, chunk=chunk, window=window,
+                                    cap=cap)
+        S, slots = k.shape[1], cache[0].shape[1]
+        if window is not None and S > slots:
+            # the last `slots` keys, position p at slot p % slots
+            for c, t in zip(cache, (k, v)):
+                c.copy_(torch.roll(t[:, -slots:], S % slots, dims=1))
+        else:
+            n = min(S, slots)           # as the reference: k[:, :slots]
+            cache[0][:, :n] = k[:, :n]
+            cache[1][:, :n] = v[:, :n]
     else:
-        cache[0][:, pos] = k[:, 0]
-        cache[1][:, pos] = v[:, 0]
-        out = decode_attention(q, cache[0], cache[1], pos)
+        slot = pos if window is None else pos % cache[0].shape[1]
+        cache[0][:, slot] = k[:, 0]
+        cache[1][:, slot] = v[:, 0]
+        out = decode_attention(q, cache[0], cache[1], pos, window=window,
+                               cap=cap)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(out.dtype))
 
 

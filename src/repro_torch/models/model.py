@@ -5,10 +5,17 @@ Parameters are a flat dict keyed by the reference's ``/``-joined leaf paths,
 with each layer's weights STACKED on a leading (num_layers, ...) axis under
 the reference's leaf names (``layers/attn/wq``, ``layers/mlp/w_up``, …).
 Every EF leaf's size sets its Block-TopK geometry and its wire, so
-per-layer leaves would change the algorithm.
+per-layer leaves would change the algorithm. gemma2's [local, global]
+super-layers read the same stacked leaves: layer 2i is local (the sliding
+window), layer 2i+1 global. Training recomputes each block (a super-layer
+under ``local_global``) in the backward when ``cfg.remat`` is set
+(models/remat.py), as the reference checkpoints each scanned body, and
+each cross-entropy chunk too: under ``torch.func`` the f32 logits would
+otherwise live until the whole pass returns.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -16,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import remat as remat_lib
 
 CE_CHUNK = 256          # sequence chunk of the cross-entropy
 
@@ -72,42 +80,93 @@ def cast_matrices(cfg: ArchConfig, params: Dict[str, torch.Tensor]
 
 def _embed(cfg: ArchConfig, params: Dict[str, torch.Tensor],
            tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["embed"]).to(
-        cfg.activation_dtype)
+    adt = cfg.activation_dtype
+    h = F.embedding(tokens.long(), params["embed"]).to(adt)
+    if cfg.name.startswith("gemma"):
+        # sqrt(d_model) rounded to the activation dtype first, as the
+        # reference's jnp.asarray(..., adt): 59.75 in bf16 at d 3584
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=adt, device=h.device)
+    return h
+
+
+def layer_window(cfg: ArchConfig, i: int) -> Optional[int]:
+    """Layer i's sliding window: every layer's under a window, the even
+    (local) layers' only under ``local_global``."""
+    if cfg.local_global and i % 2:
+        return None
+    return cfg.sliding_window
+
+
+def flash_layers(cfg: ArchConfig) -> int:
+    """The layers whose prefill runs K7 (``layers.prefill_runs_flash``):
+    K7's launches a prefill."""
+    return sum(L.prefill_runs_flash(cfg.head_dim_, layer_window(cfg, i),
+                                    cfg.logit_softcap)
+               for i in range(cfg.num_layers))
+
+
+def _layer_cache(cfg: ArchConfig, cache: Dict[str, torch.Tensor], i: int):
+    if not cfg.local_global:
+        return cache["k"][i], cache["v"][i]
+    kind = "global" if i % 2 else "local"
+    return cache[f"k_{kind}"][i // 2], cache[f"v_{kind}"][i // 2]
 
 
 def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                h: torch.Tensor, positions: torch.Tensor,
                cache: Optional[Dict[str, torch.Tensor]] = None,
-               pos: Optional[int] = None) -> torch.Tensor:
+               pos: Optional[int] = None, train: bool = False
+               ) -> torch.Tensor:
     """The layers, one after another, for training (no cache), prefill
     (cache, no ``pos``) and decode (cache and ``pos``); see
     ``layers.attn_apply``. The cache is written in place. RoPE's cos and
     sin are gathered once for all layers from the cached tables; positions
-    run below S, or up to ``pos`` in decode."""
+    run below S, or up to ``pos`` in decode. With ``train`` and
+    ``cfg.remat`` each block (a [local, global] pair under
+    ``local_global``) is recomputed in the backward."""
     length = h.shape[1] if pos is None else pos + 1
-    rope_cs = L.rope_at(positions, cfg.head_dim_, cfg.rope_theta, length)
+    cos, sin = L.rope_at(positions, cfg.head_dim_, cfg.rope_theta, length)
     # one unbind per stacked leaf: its backward is a single stack
-    per_layer = {k[len("layers/"):]: params[k].unbind(0)
-                 for k in params if k.startswith("layers/")}
-    for i in range(cfg.num_layers):
-        attn = {k[len("attn/"):]: v[i] for k, v in per_layer.items()
-                if k.startswith("attn/")}
-        mlp = {k[len("mlp/"):]: v[i] for k, v in per_layer.items()
-               if k.startswith("mlp/")}
-        layer_cache = None if cache is None else (cache["k"][i],
-                                                  cache["v"][i])
-        h = h + L.attn_apply(attn, h, rope_cs, eps=cfg.norm_eps,
-                             chunk=cfg.attn_chunk, cache=layer_cache,
-                             pos=pos)
-        h = h + L.mlp_apply(mlp, h, cfg.norm_eps)
+    names = sorted(k[len("layers/"):] for k in params
+                   if k.startswith("layers/"))
+    per_layer = {n: params["layers/" + n].unbind(0) for n in names}
+
+    def block(first: int, h: torch.Tensor, *flat: torch.Tensor
+              ) -> torch.Tensor:
+        *leaves, cos, sin = flat
+        for j in range(len(leaves) // len(names)):
+            i = first + j
+            p = dict(zip(names, leaves[j * len(names):]))
+            attn = {n[len("attn/"):]: t for n, t in p.items()
+                    if n.startswith("attn/")}
+            mlp = {n[len("mlp/"):]: t for n, t in p.items()
+                   if n.startswith("mlp/")}
+            h = h + L.attn_apply(
+                attn, h, (cos, sin), eps=cfg.norm_eps, chunk=cfg.attn_chunk,
+                window=layer_window(cfg, i), cap=cfg.logit_softcap,
+                cache=None if cache is None else _layer_cache(cfg, cache, i),
+                pos=pos)
+            h = h + L.mlp_apply(mlp, h, cfg.norm_eps)
+        return h
+
+    group = 2 if cfg.local_global else 1
+    for first in range(0, cfg.num_layers, group):
+        leaves = [per_layer[n][i] for i in range(first, first + group)
+                  for n in names]
+        fn = functools.partial(block, first)
+        if train and cfg.remat:
+            h = remat_lib.checkpoint(fn, (h, *leaves), (cos, sin))
+        else:
+            h = fn(h, *leaves, cos, sin)
     return h
 
 
-def _logits(embed: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """f32 logits through the tied embedding, already cast to h's dtype
-    (no soft cap in this family)."""
-    return torch.einsum("bsd,vd->bsv", h, embed).float()
+def _logits(cfg: ArchConfig, embed: torch.Tensor, h: torch.Tensor
+            ) -> torch.Tensor:
+    """f32 logits through the tied embedding, already cast to h's dtype,
+    soft-capped by ``cfg.final_softcap``."""
+    lg = torch.einsum("bsd,vd->bsv", h, embed).float()
+    return L.softcap(lg, cfg.final_softcap)
 
 
 def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
@@ -117,33 +176,54 @@ def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     B, S = tokens.shape
     h = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
-    h = _run_stack(cfg, params, h, positions)
+    h = _run_stack(cfg, params, h, positions, train=True)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
 
-    # chunked cross-entropy: never materialize (B, S, V) in full
+    # chunked cross-entropy: never materialize (B, S, V) in full; under
+    # recompute a chunk's f32 logits live only in its forward and backward
+    def ce_sum(embed, hc, lc):
+        lg = _logits(cfg, embed, hc)
+        gold = torch.gather(lg, -1, lc[..., None])[..., 0]
+        return (torch.logsumexp(lg, dim=-1) - gold).sum()
+
     embed = params["embed"].to(h.dtype)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for start in range(0, S, CE_CHUNK):
-        lg = _logits(embed, h[:, start:start + CE_CHUNK])
+        hc = h[:, start:start + CE_CHUNK]
         lc = labels[:, start:start + CE_CHUNK]
-        gold = torch.gather(lg, -1, lc[..., None])[..., 0]
-        total = total + (torch.logsumexp(lg, dim=-1) - gold).sum()
+        if cfg.remat:
+            total = total + remat_lib.checkpoint(ce_sum, (embed, hc), (lc,))
+        else:
+            total = total + ce_sum(embed, hc, lc)
     return total / (B * S)
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device="cpu"
                ) -> Dict[str, torch.Tensor]:
-    """Zero KV cache of the dense family: k and v (L, B, max_seq, KV, hd),
-    bfloat16 by default as in the reference. Two tensors, since the port
-    writes them in place."""
+    """Zero KV cache of the dense family, bfloat16 by default as in the
+    reference: k and v (L, B, S, KV, hd), S = min(max_seq, window) under a
+    sliding window; under ``local_global`` the local layers' ring
+    (k_local, v_local: L/2 x min(max_seq, window) slots) and the global
+    layers' full cache (k_global, v_global: L/2 x max_seq). Separate
+    tensors, since the port writes them in place."""
     if cfg.family != "dense":
         raise NotImplementedError(f"the {cfg.family!r} cache arrives with a "
                                   "later slice")
-    shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads,
-             cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    KV, hd = cfg.num_kv_heads, cfg.head_dim_
+    ring = min(max_seq, cfg.sliding_window) if cfg.sliding_window \
+        else max_seq
+
+    def zeros(n, S):
+        return torch.zeros((n, batch_size, S, KV, hd), dtype=dtype,
+                           device=device)
+    if cfg.local_global:
+        n2 = cfg.num_layers // 2
+        return {"k_local": zeros(n2, ring), "v_local": zeros(n2, ring),
+                "k_global": zeros(n2, max_seq),
+                "v_global": zeros(n2, max_seq)}
+    return {"k": zeros(cfg.num_layers, ring),
+            "v": zeros(cfg.num_layers, ring)}
 
 
 @torch.no_grad()
@@ -151,7 +231,8 @@ def prefill(cfg: ArchConfig, params: Dict[str, torch.Tensor],
             batch: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the whole prompt; returns (last-token logits (B,1,V) f32,
-    the cache with slots [0, S) filled).
+    the cache with slots [0, S) filled, or a ring with the last positions
+    under a window).
 
     ``batch["prompt_lens"]`` (optional, (B,) true lengths) takes each row's
     logits at its last REAL token, ``len - 1``, instead of the rightmost
@@ -170,7 +251,7 @@ def prefill(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     else:
         idx = lens.to(device=h.device, dtype=torch.long) - 1
         h_last = h[torch.arange(B, device=h.device), idx][:, None]
-    return _logits(params["embed"].to(h.dtype), h_last), cache
+    return _logits(cfg, params["embed"].to(h.dtype), h_last), cache
 
 
 def _decode_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
@@ -189,4 +270,4 @@ def decode_step(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     h = _embed(cfg, params, tokens)
     h = _decode_stack(cfg, params, h, pos, cache)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(params["embed"].to(h.dtype), h), cache
+    return _logits(cfg, params["embed"].to(h.dtype), h), cache

@@ -4,6 +4,7 @@ schedule, per pod of a cross hop) against the wrappers' actual calls on the
 CPU, where every wrapper runs its kernel's plain version: each call of a
 wrapper is one launch on the card. Every training path of chip_smoke.py,
 at smoke size, 2 steps."""
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -49,6 +50,9 @@ PATHS = [
     pytest.param("fused_quickstart", {"participation": {
         "mode": "sampled", "fraction": 0.25, "seed": 7}}, id="S"),
     pytest.param("hierarchy_quant4_cross", {}, id="H"),
+    *[pytest.param("fused_quickstart", dict(CS.R_PATH, arch=arch,
+                                            clients=clients), id=name)
+      for name, arch, _, clients, _ in CS.D_CELLS],
     pytest.param("fused_quickstart", {"carrier": "dense",
                                       "compressor": "block_quant",
                                       "compressor_kw": {"bits": 8,
@@ -98,6 +102,85 @@ def test_the_full_width_phases_launch_their_stated_counts():
             tree = pt_model.init_params(sess.cfg, None, "meta")
             got = CS.expected_launches(pt_build.ef_config(spec), tree)
             assert {k: v for k, v in got.items() if v} == want[p.id], p.id
+
+
+def test_the_d_phases_launch_their_stated_counts():
+    """R and the D phases at full width, cut as chip_smoke.py cuts them:
+    K3, K6, K5 and K4 once a leaf a step (11); K7 once a layer of the
+    prefill only where the layer has no window, no soft cap and hd 32, 64
+    or 128: every layer of smollm-360m (32) and granite-34b (1), none of
+    h2o-danube-3-4b (windows, hd 120) or gemma2-9b (windows and caps, hd
+    256)."""
+    fused = {"ef21_sgdm_topk_quant": 11, "block_dequantize": 11,
+             "block_quantize": 11, "dequant_add": 11}
+    cells = [("R", "smollm-360m", {}, 8, 32)] + [
+        (name, arch, cut, clients, {"D-granite": 1}.get(name, 0))
+        for name, arch, cut, clients, _ in CS.D_CELLS]
+    for name, arch, cut, clients, flash in cells:
+        with open(os.path.join(ROOT, "results", "specs",
+                               "fused_quickstart.json")) as f:
+            spec = pt_spec.RunSpec.from_dict(dict(
+                json.load(f), arch=arch, clients=clients, **CS.R_PATH))
+        sess = pt_session.Session(spec, device="cpu")
+        cfg = dataclasses.replace(sess.cfg, **cut)
+        tree = pt_model.init_params(cfg, None, "meta")
+        got = CS.expected_launches(pt_build.ef_config(spec), tree)
+        assert {k: v for k, v in got.items() if v} == fused, name
+        assert pt_model.flash_layers(cfg) == flash, name
+
+
+def _d_smoke_calls(arch):
+    """A smoke-size Session of ``arch`` on the D phases' wire, 2 clients,
+    one step with its K2-K6 calls recorded shape-only; and the step's
+    ``expected_launches``."""
+    with open(os.path.join(ROOT, "results", "specs",
+                           "fused_quickstart.json")) as f:
+        spec = pt_spec.RunSpec.from_dict(dict(
+            json.load(f), smoke=True, seq_len=32, arch=arch, clients=2,
+            global_batch=2, **CS.R_PATH))
+    sess = pt_session.Session(spec, device="cpu")
+    per_step = CS.expected_launches(pt_build.ef_config(spec), sess.params)
+    with CS.recorded_calls(ops, CS.ROW_KERNELS, shapes_only=True) as calls:
+        sess.train(1, log_every=0)
+    return calls, {k: v for k, v in per_step.items() if v}
+
+
+@pytest.mark.parametrize("arch", [a for _, a, *_ in CS.D_CELLS])
+def test_the_d_phases_plain_check_covers_every_call(monkeypatch, arch):
+    """A D phase's shape-only record holds every kernel call of its steps
+    (meta tensors, the in-place outputs by name), and each distinct call,
+    run again on random inputs of its shapes, equals the plain version
+    taken a few rows at a time: on the CPU the wrapper runs the plain
+    version on the whole call, so this holds the row cuts (K4's flat base
+    among them) to it."""
+    import torch
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(CS, "PLAIN_ROWS", 5)
+    calls, per_step = _d_smoke_calls(arch)
+    assert CS._call_counts(calls) == per_step
+    for name, args, outs in calls:
+        assert outs == ()
+        assert all(t.device.type == "meta" for t in args.values()
+                   if isinstance(t, torch.Tensor)), name
+        if name == "ef21_sgdm_topk_quant":
+            assert (args["v_out"], args["g_out"]) == ("v", "g")
+    shapes = CS.check_shapes_plain(ops, ref, arch, calls, device="cpu")
+    assert set(shapes) == set(per_step)
+    for name in KERNELS:                        # the wrappers are restored
+        assert getattr(ops, name).__module__ == ops.__name__
+
+
+@pytest.mark.parametrize("kernel", ["ef21_sgdm_topk_quant", "dequant_add",
+                                    "block_quantize", "block_dequantize"])
+def test_the_d_phases_plain_check_fails_on_a_wrong_kernel(monkeypatch,
+                                                          kernel):
+    """A wrapper one ulp (or one bit) off at one value fails D-gemma2's
+    check of its recorded calls."""
+    from repro_torch.kernels import ref
+    calls, _ = _d_smoke_calls("gemma2-9b")
+    _off_by_one(monkeypatch, kernel)
+    with pytest.raises(SystemExit):
+        CS.check_shapes_plain(ops, ref, "mutated", calls, device="cpu")
 
 
 # ---------------------------------------------------------------------------
