@@ -89,13 +89,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      its own setting): params and every EF state leaf equal bit for bit,
      the peak lower with recompute; each run's step ms and peak, and the
      client pass alone (median of 3) with its ms and peak;
-  6e. the other dense configs: h2o-danube-3-4b, granite-34b and
-     gemma2-9b at smoke size on the card against the CPU through phase
-     7's check (f32, a sequence of 160 past the smoke window of 128: 2
-     fused_quant8/fused_quant4 steps within rtol 1e-3, then both serve
-     the CPU's trained tree, a prefill and 8 decode steps: greedy tokens
-     equal, prefill logits within rtol 1e-4); then each at full width
-     cut in depth and clients (the
+  6e. the other configs: h2o-danube-3-4b, granite-34b, gemma2-9b,
+     musicgen-medium, olmoe-1b-7b, internvl2-76b, grok-1-314b and olmoe
+     on the dense-expert ``moe_impl``, at smoke size on the card against
+     the CPU through phase 7's check (f32, a sequence of 160 past the
+     smoke window of 128: under MoE the chosen experts of every layer
+     equal at the fresh weights on batch 0; 2 fused_quant8/fused_quant4
+     steps within rtol 1e-3, then both serve the CPU's trained tree, a
+     prefill (after a frontend's prefix) and 8 decode steps: the chosen
+     experts equal, greedy tokens equal, prefill logits within rtol
+     1e-4); then each D cell at full width cut in depth and clients (the
      Session's config replaced before the first step), 3 steps of
      fused_quant8/fused_quant4 and a serve of the trained model:
      D-danube 2 layers, 8 clients, serve batch 2, prompt 6144 (past the
@@ -103,7 +106,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      steps; D-granite 1 layer, 4 clients, serve batch 8, prompt 1024, 32
      decode steps (K7 in the prefill: 48 query heads on 1 kv head, hd
      128); D-gemma2 2 layers (one [local, global] super-layer), 2
-     clients, serve batch 2, prompt 6144, 32 decode steps. Each prints
+     clients, serve batch 2, prompt 6144, 32 decode steps; D-musicgen 12
+     layers, 8 clients, a training prefix of 8 zero rows (frontend_proj's
+     params and EF state bit-unchanged after every step: its gradient is
+     exactly zero), serve batch 8, prompt 1024 after a prefix of 64 (K7
+     12 times a prefill); D-olmoe 1 layer of 64 experts (top 8), 8
+     clients, each step's aux values (every client's dropped_frac) from a
+     forward of the step's batch, serve batch 8, prompt 1024 with the
+     prefill's and decode's drop fractions; D-internvl2 1 layer (1.97 B
+     parameters), serve only (training does not fit the card): a fresh
+     init drawn, placed and cast (timed apart), serve batch 8, prompt
+     1024 after a prefix of 256, no training state built. Each prints
      its parameters, peak, step breakdown, launches, prefill and decode
      tok/s and cache_bytes; K7's launches a prefill are the layers whose
      prefill runs it (``model.flash_layers``: no window, no soft cap, hd
@@ -176,12 +189,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      seconds, peak bytes, bootstrap and join seconds.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
-shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, granite-34b's
-prefill (B 8, S 1024, H 48, KV 1, hd 128) in bf16, a ragged S of 1000,
-hd 128 and hd 32; the bf16 (tensor-core) route also within a stated
+shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, each D phase's
+prefill in bf16 (granite-34b's B 8, S 1024, H 48, KV 1, hd 128;
+musicgen-medium's 8, 1088, 24, 24, 64; olmoe-1b-7b's 8, 1024, 16, 16,
+128; internvl2-76b's 8, 1280, 64, 8, 128), a ragged S of 1000, hd 128
+and hd 32; the bf16 (tensor-core) route also within a stated
 elementwise bound of the plain version that rounds P as it does
 (round_p=True); and times both routes at the full-width shape, and the
-bf16 route at granite's, beside the library's
+bf16 route at each D phase's prefill, beside the library's
 scaled_dot_product_attention in the same dtype (a yardstick, never the
 path), the two in turns over three rounds, medians kept.
 Each training or serving path resets the launch counts just before it,
@@ -233,6 +248,14 @@ TOPK_EMBED_K = 2_359_296       # plain TopK's k at ratio 0.05 on the embed leaf
 SERVE_FULL = dict(batch=8, prompt_len=1024, decode_steps=32)
 FLASH_FULL = (8, 1024, 15, 5, 64)   # (B, S, H, KV, hd) of its prefill
 FLASH_GRANITE = (8, 1024, 48, 1, 128)   # phase D-granite's prefill
+FLASH_MUSICGEN = (8, 1088, 24, 24, 64)  # D-musicgen's: a prefix of 64
+FLASH_OLMOE = (8, 1024, 16, 16, 128)    # D-olmoe's
+FLASH_INTERNVL2 = (8, 1280, 64, 8, 128)  # D-internvl2's: a prefix of 256
+# K7 at each D phase's prefill shape, bf16: (results key, shape, phase)
+FLASH_D = [("flash_attention/granite", FLASH_GRANITE, "D-granite"),
+           ("flash_attention/musicgen", FLASH_MUSICGEN, "D-musicgen"),
+           ("flash_attention/olmoe", FLASH_OLMOE, "D-olmoe"),
+           ("flash_attention/internvl2", FLASH_INTERNVL2, "D-internvl2")]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the resumable path: bf16 EF state and AdamW on the fused quantized wire
 RESUME_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
@@ -241,15 +264,25 @@ RESUME_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
 # fused_quant4 down, on fused_quickstart.json
 R_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4")
 D_STEPS = 3
-D_CELLS = [  # (phase, arch, depth cut, clients, serve shape)
+D_CELLS = [  # (phase, arch, depth cut, clients or None: serve only, serve)
     ("D-danube", "h2o-danube-3-4b", {"num_layers": 2}, 8,
      dict(batch=2, prompt_len=6144, decode_steps=32)),
     ("D-granite", "granite-34b", {"num_layers": 1}, 4,
      dict(batch=8, prompt_len=1024, decode_steps=32)),
     ("D-gemma2", "gemma2-9b", {"num_layers": 2}, 2,
      dict(batch=2, prompt_len=6144, decode_steps=32)),
+    ("D-musicgen", "musicgen-medium", {"num_layers": 12}, 8,
+     dict(SERVE_FULL)),
+    ("D-olmoe", "olmoe-1b-7b", {"num_layers": 1}, 8, dict(SERVE_FULL)),
+    # 1.97 B parameters at one layer: training does not fit the card
+    ("D-internvl2", "internvl2-76b", {"num_layers": 1}, None,
+     dict(SERVE_FULL)),
 ]
 D_SMOKE = dict(seq_len=160, prompt_len=160)  # past the smoke window of 128
+# the smoke check's runs (card against CPU): each D phase's arch, grok-1
+# (CPU parity alone at full width) and olmoe on the dense-expert impl
+D_SMOKE_RUNS = [(arch, {}) for _, arch, *_ in D_CELLS] + [
+    ("grok-1-314b", {}), ("olmoe-1b-7b", {"moe_impl": "dense"})]
 # phase G: the norms dense, the embedding and the matrices on the fused
 # wire, the embedding's EF state in bf16 beside the others' f32
 G_GROUPS = [{"pattern": "norm|bias", "carrier": "dense"},
@@ -717,7 +750,7 @@ def flash_checks(ops, ref, results):
     for shape, dtype in ((smoke, torch.float32), (smoke, torch.bfloat16),
                          (FLASH_FULL, torch.bfloat16),
                          (FLASH_FULL, torch.float32),
-                         (FLASH_GRANITE, torch.bfloat16),
+                         *((shape, torch.bfloat16) for _, shape, _ in FLASH_D),
                          ((8, 1000, 15, 5, 64), torch.bfloat16),
                          ((2, 512, 8, 2, 128), torch.bfloat16),
                          ((2, 512, 8, 2, 128), torch.float32),
@@ -744,7 +777,7 @@ def flash_checks(ops, ref, results):
                      f"worst err/bound {ratio:.4f}")
             del want_r
         print(f"flash_attention {shape} {dtype}: {line}", flush=True)
-        if shape in (FLASH_FULL, FLASH_GRANITE):
+        if shape == FLASH_FULL or shape in [f for _, f, _ in FLASH_D]:
             err[shape, dtype] = e
         del q, k, v, got, want
 
@@ -752,8 +785,8 @@ def flash_checks(ops, ref, results):
     for shape, dtype, peak, key in (
             (FLASH_FULL, torch.bfloat16, BF16_TC_OPS_S, "flash_attention"),
             (FLASH_FULL, torch.float32, F32_OPS_S, "flash_attention/f32"),
-            (FLASH_GRANITE, torch.bfloat16, BF16_TC_OPS_S,
-             "flash_attention/granite")):
+            *((shape, torch.bfloat16, BF16_TC_OPS_S, key)
+              for key, shape, _ in FLASH_D)):
         B, S, H, KV, hd = shape
         n_ops = 4 * B * H * hd * S * (S + 1) / 2              # causal
         q, k, v = inputs(B, S, H, KV, hd, dtype)
@@ -852,12 +885,24 @@ def check_serve_launches(ops, launches, label, want_flash) -> None:
             fail(f"{name} launched {count} times on {label}, expected {want}")
 
 
+def serve_batch(cfg, tokens):
+    """A prefill's batch as Session.serve builds it: the tokens after the
+    frontend's zero prefix at serving's padding (none without a
+    frontend); and the prefix's length."""
+    from repro_torch.data import pipeline as pipe_lib
+    pad = pipe_lib.PREFIX_PAD_SPEC
+    return (pipe_lib.with_prefix_embeds(cfg, {"tokens": tokens}, pad_to=pad),
+            pipe_lib.prefix_token_count(cfg, pad))
+
+
 def first_token_check(model_lib, cfg, params, tokens, out, label) -> None:
     """The served first tokens are the argmax of a prefill's logits under
-    ``params``, and the logits are finite."""
+    ``params`` (after the frontend's prefix, as served), and the logits
+    are finite."""
     B, S = tokens.shape
-    cache = model_lib.init_cache(cfg, B, S, device="cuda")
-    logits, _ = model_lib.prefill(cfg, params, {"tokens": tokens}, cache)
+    batch, n_prefix = serve_batch(cfg, tokens)
+    cache = model_lib.init_cache(cfg, B, n_prefix + S, device=tokens.device)
+    logits, _ = model_lib.prefill(cfg, params, batch, cache)
     if not bool(torch.isfinite(logits).all()):
         fail(f"{label}: non-finite prefill logits")
     first = logits[:, -1].argmax(-1).cpu().numpy()
@@ -877,13 +922,24 @@ def serve_smoke_check(Session, spec_lib, model_lib, ops, label="smoke",
     the same weights (the fresh ones of the spec's seed, or the CPU's
     trained tree: the two trained trees differ where the runs' roundings
     did): the greedy tokens equal, K7 ``model.flash_layers`` launches a
-    prefill, the prefill logits within rtol 1e-4."""
+    prefill, the prefill logits within rtol 1e-4. A frontend's prefix goes
+    before the prompts, as served. Under MoE the chosen experts of every
+    layer are held equal first, at the fresh weights on batch 0 and in the
+    prefill of the served tree, so that a routing flip is told apart from
+    an arithmetic error."""
     from repro_torch.launch import build as build_lib
+    from repro_torch.models import moe as moe_lib
     spec = load_spec(spec_lib, smoke=True, **overrides)
-    sessions, runs, outs, logits = {}, {}, {}, {}
+    sessions, runs, outs, logits, routes = {}, {}, {}, {}, {}
     for device in ("cuda", "cpu"):
         sess = sessions[device] = Session(spec, device=device,
                                           dtype="float32")
+        if sess.cfg.family == "moe":
+            # the state first: its batch-0 gradients run under the vmap
+            params, batch = sess.params, sess.batch_for(0)
+            with torch.no_grad(), moe_lib.capture_routing() as seen:
+                model_lib.train_loss(sess.cfg, params, batch)
+            routes[device] = seen
         if train_steps:
             per_step = expected_launches(build_lib.ef_config(spec),
                                          sess.params)
@@ -892,6 +948,7 @@ def serve_smoke_check(Session, spec_lib, model_lib, ops, label="smoke",
             if device == "cuda":
                 check_launches(dict(ops.launches), per_step, train_steps,
                                label)
+    same_routes(routes, label, "the fresh weights on batch 0")
     if train_steps:
         compare_runs(runs, label)
         sessions["cuda"].set_serve_params(
@@ -907,10 +964,14 @@ def serve_smoke_check(Session, spec_lib, model_lib, ops, label="smoke",
             check_serve_launches(ops, dict(ops.launches),
                                  f"the {label} serve",
                                  model_lib.flash_layers(sess.cfg))
-        cache = model_lib.init_cache(sess.cfg, 2, prompt_len, device=device)
-        logits[device] = model_lib.prefill(
-            sess.cfg, sess.serve_source(), {"tokens": tokens.to(device)},
-            cache)[0].cpu()
+        batch, n_prefix = serve_batch(sess.cfg, tokens.to(device))
+        cache = model_lib.init_cache(sess.cfg, 2, n_prefix + prompt_len,
+                                     device=device)
+        with moe_lib.capture_routing() as seen:
+            logits[device] = model_lib.prefill(
+                sess.cfg, sess.serve_source(), batch, cache)[0].cpu()
+        routes[device] = seen
+    same_routes(routes, label, "the served tree's prefill")
     a, b = outs["cuda"]["tokens"], outs["cpu"]["tokens"]
     print(f"{label} serve tokens: cuda {a.tolist()} cpu {b.tolist()}",
           flush=True)
@@ -925,6 +986,27 @@ def serve_smoke_check(Session, spec_lib, model_lib, ops, label="smoke",
             bool((diff > lim).any()):
         fail(f"{label} serve: prefill logits on the card differ from the "
              "CPU's beyond rtol 1e-4")
+
+
+def same_routes(routes, label, where) -> None:
+    """The card's and the CPU's chosen experts (models/moe.py
+    ``capture_routing``), every routed call, equal; nothing without MoE."""
+    if not routes or not routes.get("cuda"):
+        return
+    a, b = routes["cuda"], routes["cpu"]
+    if len(a) != len(b):
+        fail(f"{label}: {len(a)} routed calls on the card, {len(b)} on the "
+             "CPU")
+    for i, ((ea, _), (eb, pb)) in enumerate(zip(a, b)):
+        diff = (ea.cpu() != eb).any(-1)
+        if bool(diff.any()):
+            n = int(diff.nonzero()[0])
+            fail(f"{label}: routing flip at {where}, call {i}, token {n}: "
+                 f"card {ea[n].tolist()} cpu {eb[n].tolist()} (cpu router "
+                 f"probabilities {pb[n].tolist()})")
+    print(f"{label} routing at {where}: {len(a)} calls, "
+          f"{sum(e.shape[0] for e, _ in a)} tokens, the chosen experts equal "
+          "on card and CPU", flush=True)
 
 
 def serve_full(Session, spec_lib, model_lib, ops):
@@ -1170,7 +1252,7 @@ def recompute_phase(Session, spec_lib, ops):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.time()
-            _, grads = dist.per_client_value_and_grad(
+            _, _, grads = dist.per_client_value_and_grad(
                 lambda p, b: model_lib.train_loss(sess.cfg, p, b),
                 sess.params, batch, sess.n_clients)
             torch.cuda.synchronize()
@@ -1202,13 +1284,31 @@ def recompute_phase(Session, spec_lib, ops):
     return out[True]
 
 
+def routed_drops(cfg, seen):
+    """dropped_frac of each captured routing call (models/moe.py
+    ``capture_routing``): an expert keeps its first C assignments in the
+    stable sort's order, C from the call's tokens."""
+    from repro_torch.models import moe as moe_lib
+    out = []
+    for top_e, _ in seen:
+        N, k = top_e.shape
+        counts = torch.bincount(top_e.reshape(-1),
+                                minlength=cfg.num_experts)
+        over = (counts - moe_lib.capacity(cfg, N)).clamp(min=0)
+        out.append(float(over.sum()) / (N * k))
+    return out
+
+
 def serve_dense(sess, model_lib, ops, label, batch, prompt_len,
                 decode_steps):
-    """A D phase's serve of its trained model: K7 exactly
-    ``model.flash_layers`` launches in the prefill and none in decode;
-    prefill and decode tok/s, cache_bytes and the peak; the first tokens
-    the argmax of a prefill under the trained params (that check prefill's
-    launches do not count). Returns the serve's launches."""
+    """A D phase's serve of its model (trained, or a fresh init): K7
+    exactly ``model.flash_layers`` launches in the prefill and none in
+    decode; prefill and decode tok/s, cache_bytes and the peak; under MoE
+    the prefill's and the decode steps' drop fractions (from the captured
+    routing); the first tokens the argmax of a prefill under the served
+    tree (that check prefill's launches do not count). Returns the serve's
+    launches."""
+    from repro_torch.models import moe as moe_lib
     tokens = torch.randint(0, sess.cfg.vocab_size, (batch, prompt_len),
                            generator=torch.Generator().manual_seed(1))
     torch.cuda.reset_peak_memory_stats()
@@ -1218,8 +1318,9 @@ def serve_dense(sess, model_lib, ops, label, batch, prompt_len,
     def hook(i):
         if i == 0:                              # the prefill's launches
             at_decode.update(ops.launches)
-    out = sess.serve(tokens=tokens, decode_steps=decode_steps,
-                     decode_hook=hook)
+    with moe_lib.capture_routing() as seen:
+        out = sess.serve(tokens=tokens, decode_steps=decode_steps,
+                         decode_hook=hook)
     launches = dict(ops.launches)
     want = model_lib.flash_layers(sess.cfg)
     check_serve_launches(ops, at_decode, f"the {label} prefill", want)
@@ -1233,14 +1334,104 @@ def serve_dense(sess, model_lib, ops, label, batch, prompt_len,
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} "
           f"launches {launches} (K7 layers {want} of "
           f"{sess.cfg.num_layers})", flush=True)
+    if seen:
+        L = sess.cfg.num_layers
+        drops = routed_drops(sess.cfg, seen)
+        n_pre = seen[0][0].shape[0]
+        print(f"{label} serve routing: prefill {n_pre} tokens, capacity "
+              f"{moe_lib.capacity(sess.cfg, n_pre)}, dropped_frac "
+              f"{drops[:L]}; decode {seen[L][0].shape[0]} tokens a step, "
+              f"capacity {moe_lib.capacity(sess.cfg, seen[L][0].shape[0])}"
+              f", dropped_frac mean {np.mean(drops[L:]):.4f} min "
+              f"{min(drops[L:]):.4f} max {max(drops[L:]):.4f}", flush=True)
     toks = out["tokens"]
     if toks.shape != (batch, decode_steps + 1) or toks.min() < 0 or \
             toks.max() >= sess.cfg.vocab_size:
         fail(f"{label} serve: tokens of shape {toks.shape} in "
              f"[{toks.min()}, {toks.max()}]")
-    first_token_check(model_lib, sess.cfg, sess.params, tokens.cuda(), out,
-                      f"{label} serve")
+    first_token_check(model_lib, sess.cfg, sess.serving_params(),
+                      tokens.cuda(), out, f"{label} serve")
     return launches
+
+
+def serve_phase(Session, spec_lib, model_lib, ops, label, arch, cut,
+                shape):
+    """A serve-only D phase: the Session has no training tree and serves a
+    fresh init of the spec's seed at full width cut in depth. The draw on
+    the host's generator, its move to the card and the cast are timed
+    apart from the serve (:func:`serve_dense`). Returns the serve's
+    launches."""
+    spec = load_spec(spec_lib, arch=arch, **R_PATH)
+    sess = Session(spec, device="cuda")
+    sess.cfg = dataclasses.replace(sess.cfg, **cut)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tree = sess.serving_params()
+    torch.cuda.synchronize()
+    print(f"{label}: {arch} cut {cut}, serve only: "
+          f"{sum(t.numel() for t in tree.values())} parameters drawn on the "
+          f"host's generator, placed and cast in {time.time() - t0:.1f} s "
+          f"(max_memory_allocated {torch.cuda.max_memory_allocated()})",
+          flush=True)
+    del tree
+    launches = serve_dense(sess, model_lib, ops, label, **shape)
+    if sess._tr is not None:
+        fail(f"{label}: the serve-only phase built a training state")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def frontend_unchanged(sess):
+    """D-musicgen's step hook: a zero prefix gives ``frontend_proj`` an
+    exactly zero gradient, so after each step its params and every EF
+    state leaf of it (the clients' v and g, the server's g and h) must be
+    what they were, bit for bit (K3-K6 on all-zero rows)."""
+    from repro_torch.core.ef import flatten
+
+    def leaves():
+        return {k: t for k, t in flatten({"params": sess.params,
+                                          "ef_state": sess.ef_state}).items()
+                if "frontend_proj" in k}
+    before = {k: t.clone() for k, t in leaves().items()}
+    step = sess.step
+
+    def after():
+        now = leaves()
+        changed = [k for k, t in before.items() if not torch.equal(now[k], t)]
+        print(f"step {step}: frontend_proj's {len(before)} leaves (params "
+              f"and EF state) bit-unchanged: {not changed}", flush=True)
+        if changed or len(before) < 4:
+            fail(f"step {step}: frontend_proj changed at {changed} (of "
+                 f"{sorted(before)})")
+    return after
+
+
+def moe_step_aux(sess):
+    """D-olmoe's step hook: the aux values of the step about to run, from
+    the clients' forward on its batch at its params (the vmap the step's
+    gradients run, without the gradients): each client's dropped_frac
+    and the means of the three values over the clients."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+    batch, dp, params = sess.batch_for(sess.step), sess.n_clients, \
+        sess.params
+    sub = {n: x.reshape(dp, x.shape[0] // dp, *x.shape[1:])
+           for n, x in batch.items()}
+    with torch.no_grad():
+        _, aux = torch.func.vmap(
+            lambda b: model_lib.train_loss(sess.cfg, params, b))(sub)
+    n = sub["tokens"].shape[1] * sub["tokens"].shape[2]
+    print(f"step {sess.step} routing: {n} tokens a client, capacity "
+          f"{moe_lib.capacity(sess.cfg, n)}; dropped_frac a client "
+          f"{[round(float(x), 5) for x in aux['dropped_frac']]} (mean "
+          f"{float(aux['dropped_frac'].mean()):.5f}); load_balance mean "
+          f"{float(aux['load_balance'].mean()):.5f}; router_z mean "
+          f"{float(aux['router_z'].mean()):.5f}", flush=True)
+
+
+D_HOOKS = {"D-musicgen": frontend_unchanged, "D-olmoe": moe_step_aux}
 
 
 def load_spec(spec_lib, name="fused_quickstart", **overrides):
@@ -1618,7 +1809,7 @@ def step_breakdown(sess, spec, label) -> None:
     opt = opt_lib.make(spec.optimizer, lr=spec.lr)
     batch = sess.batch_for(sess.step)
     t = [time.time()]
-    _, grads = dist.per_client_value_and_grad(
+    _, _, grads = dist.per_client_value_and_grad(
         lambda p, b: model_lib.train_loss(sess.cfg, p, b), sess.params, batch,
         sess.n_clients)
     torch.cuda.synchronize()
@@ -2830,21 +3021,33 @@ def main() -> None:
                "fused_quant4 path, 8 clients: a step without and one with, "
                "bit for bit"):
         by_phase["R"] = recompute_phase(Session, spec_lib, ops)
-    with phase("D smoke: h2o-danube-3-4b, granite-34b and gemma2-9b, cuda "
-               "against cpu (smoke size, past the window)"):
-        for _, arch, _, _, _ in D_CELLS:
+    with phase("D smoke: the other dense configs, the frontends and MoE "
+               "(both moe_impl), cuda against cpu (smoke size, past the "
+               "window)"):
+        for arch, extra in D_SMOKE_RUNS:
             serve_smoke_check(Session, spec_lib, model_lib, ops,
-                              label=f"{arch} smoke", train_steps=2,
-                              arch=arch, **D_SMOKE, **R_PATH)
+                              label=" ".join([arch, *map(str, extra.values()),
+                                              "smoke"]),
+                              train_steps=2, arch=arch, **D_SMOKE, **R_PATH,
+                              **extra)
     for name, arch, cut, clients, serve in D_CELLS:
-        with phase(f"{name}: {arch} at full width cut to {cut}, {clients} "
-                   f"clients, {D_STEPS} fused_quant8/fused_quant4 steps, "
-                   f"then serve {serve}"):
-            by_phase[name] = main_path(
-                Session, spec_lib, ops, D_STEPS, arch=arch, clients=clients,
-                cut=cut, plain_check=True,
-                serve=lambda s, name=name, shape=serve: serve_dense(
-                    s, model_lib, ops, name, **shape), **R_PATH)
+        t0 = time.time()
+        if clients is None:
+            with phase(f"{name}: {arch} at full width cut to {cut}, serve "
+                       f"only {serve}"):
+                by_phase[name] = serve_phase(Session, spec_lib, model_lib,
+                                             ops, name, arch, cut, serve)
+        else:
+            with phase(f"{name}: {arch} at full width cut to {cut}, "
+                       f"{clients} clients, {D_STEPS} fused_quant8/"
+                       f"fused_quant4 steps, then serve {serve}"):
+                by_phase[name] = main_path(
+                    Session, spec_lib, ops, D_STEPS, arch=arch,
+                    clients=clients, cut=cut, plain_check=True,
+                    step_hook=D_HOOKS.get(name),
+                    serve=lambda s, name=name, shape=serve: serve_dense(
+                        s, model_lib, ops, name, **shape), **R_PATH)
+        print(f"{name}: {time.time() - t0:.1f} s", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
     with phase("P: the paper's simulator on the card (fig1, exp1, async, "
@@ -2952,11 +3155,13 @@ def main() -> None:
         "and l of a row in one lane")
     kernels[6]["resources"] = {n: r for n, r in redesigned.items()
                                if "flash_tc_kernel" in n}
-    # granite-34b's prefill: 48 query heads on one kv head, hd 128
-    kernels[6]["granite_prefill"] = dict(
-        shape=list(FLASH_GRANITE),
-        launches=by_phase["D-granite"]["flash_attention"],
-        **{k: results["flash_attention/granite"][k] for k in keys})
+    # each D phase's prefill: granite-34b's 48 query heads on one kv
+    # head (hd 128), musicgen's 1088 positions (a prefix of 64), olmoe's
+    # 16 heads of 128, internvl2's 64 query heads on 8 (a prefix of 256)
+    for key, shape, name in FLASH_D:
+        kernels[6][key.split("/")[1] + "_prefill"] = dict(
+            shape=list(shape), launches=by_phase[name]["flash_attention"],
+            **{k: results[key][k] for k in keys})
     kernels[6]["f32_route"]["resources"] = {
         n: r for n, r in redesigned.items()
         if "efk_flash::flash_attention_kernel" in n}

@@ -1,9 +1,11 @@
-"""Architecture configuration: the dense-family fields of the reference's
-``ArchConfig`` (a copy, not an import) and the registry for the archs this
-port runs: the four dense configs (smollm-360m, h2o-danube-3-4b,
-granite-34b and gemma2-9b), with sliding windows, gemma2's [local, global]
-layers, soft caps and block recompute (``remat``). The other families
-arrive with later slices (ROADMAP Queue 1)."""
+"""Architecture configuration: the reference's ``ArchConfig`` fields for the
+families this port runs (a copy, not an import) and the registry of its
+archs: the four dense configs (smollm-360m, h2o-danube-3-4b, granite-34b
+and gemma2-9b), with sliding windows, gemma2's [local, global] layers,
+soft caps and block recompute (``remat``); the modality frontends
+(musicgen-medium's audio and internvl2-76b's vision stubs); and the
+mixture-of-experts configs (olmoe-1b-7b, grok-1-314b). The SSM and hybrid
+families arrive with a later slice (ROADMAP Queue 1)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # only 'dense' in this port so far
+    family: str                      # dense | audio | vlm | moe
     citation: str
 
     num_layers: int = 12
@@ -33,6 +35,16 @@ class ArchConfig:
     logit_softcap: Optional[float] = None    # gemma2 attn softcap
     final_softcap: Optional[float] = None    # gemma2 final-logit softcap
     rope_theta: float = 10000.0
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_impl: str = "dispatch"        # 'dispatch' | 'dense' (models/moe.py)
+
+    # modality frontend stub: None | 'audio' | 'vision'
+    frontend: Optional[str] = None
+    frontend_tokens: int = 0                 # vision: patch embeddings prepended
 
     # numerics / memory
     dtype: str = "bfloat16"          # activation dtype
@@ -59,15 +71,18 @@ class ArchConfig:
 # public --arch ids → module names
 ARCH_ALIASES = {"smollm-360m": "smollm_360m",
                 "h2o-danube-3-4b": "h2o_danube3_4b",
-                "granite-34b": "granite_34b", "gemma2-9b": "gemma2_9b"}
+                "granite-34b": "granite_34b", "gemma2-9b": "gemma2_9b",
+                "musicgen-medium": "musicgen_medium",
+                "internvl2-76b": "internvl2_76b",
+                "olmoe-1b-7b": "olmoe_1b_7b", "grok-1-314b": "grok1_314b"}
 
 
 def _module(arch: str):
     if arch not in ARCH_ALIASES:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (this port runs "
-            f"{sorted(ARCH_ALIASES)}); the other families arrive with a "
-            "later slice (ROADMAP Queue 1)")
+            f"{sorted(ARCH_ALIASES)}); the SSM and hybrid families arrive "
+            "with a later slice (ROADMAP Queue 1)")
     return importlib.import_module(
         f"repro_torch.configs.{ARCH_ALIASES[arch]}")
 

@@ -73,10 +73,11 @@ class EFConfig:
 
 def per_client_value_and_grad(loss_fn: Callable, params: Tree,
                               batch: Dict[str, torch.Tensor], dp: int
-                              ) -> Tuple[torch.Tensor, Tree]:
-    """loss_fn(params, sub_batch) -> scalar loss. Returns (mean loss over the
-    clients, per-client grads with a leading dp axis, contiguous, in the
-    params' dtypes).
+                              ) -> Tuple[torch.Tensor, Tree, Tree]:
+    """loss_fn(params, sub_batch) -> (scalar loss, aux: a dict of scalars).
+    Returns (mean loss over the clients, aux averaged over the clients,
+    per-client grads with a leading dp axis, contiguous, in the params'
+    dtypes).
 
     The clients run as ONE pass, as the reference's ``jax.vmap`` of
     ``value_and_grad``: ``torch.func.vmap`` of ``grad_and_value`` over the
@@ -88,9 +89,11 @@ def per_client_value_and_grad(loss_fn: Callable, params: Tree,
     if b % dp:
         raise ValueError(f"global batch {b} not divisible by dp={dp}")
     sub = {n: x.reshape(dp, b // dp, *x.shape[1:]) for n, x in batch.items()}
-    grads, losses = torch.func.vmap(torch.func.grad_and_value(loss_fn),
-                                    in_dims=(None, 0))(params, sub)
-    return losses.mean(), {k: g.contiguous() for k, g in grads.items()}
+    grads, (losses, auxs) = torch.func.vmap(
+        torch.func.grad_and_value(loss_fn, has_aux=True),
+        in_dims=(None, 0))(params, sub)
+    return (losses.mean(), {k: a.mean(0) for k, a in auxs.items()},
+            {k: g.contiguous() for k, g in grads.items()})
 
 
 def init_ef_state(efc: EFConfig, params: Tree, dp: int,
@@ -239,7 +242,8 @@ def make_train_step(loss_fn: Callable, efc: EFConfig, optimizer, dp: int,
     from repro_torch.optim.optimizer import apply_updates
 
     def train_step(params, opt_state, ef_state, batch, step, rng=None):
-        loss, grads = per_client_value_and_grad(loss_fn, params, batch, dp)
+        loss, _, grads = per_client_value_and_grad(loss_fn, params, batch,
+                                                   dp)
         g_est, ef_state = ef_round(efc, grads, ef_state, eta=eta,
                                    step=step, rng=rng_lib.fold_in(rng, 1))
         del grads                      # free the per-client stack early

@@ -12,20 +12,37 @@ import numpy as np
 import torch
 
 
-# the production alignment of the frontend prefix (DESIGN.md §5), which
-# serving pads to, as the reference's Session.serve does
+# the frontend prefix's padding (the reference's DESIGN.md §5): the
+# modality-frontend archs (musicgen, internvl2) carry precomputed frame or
+# patch embeddings before the tokens. Training pads the prefix to at least
+# PREFIX_PAD_MIN tokens; serving pads to the production alignment
+# PREFIX_PAD_SPEC, as the reference's Session.serve does.
+PREFIX_PAD_MIN = 8
 PREFIX_PAD_SPEC = 64
 
 
-def prefix_token_count(cfg, pad_to: int = PREFIX_PAD_SPEC) -> int:
-    """Number of prefix-embedding tokens a batch for ``cfg`` carries, the
-    prefix padded to ``pad_to``: 0 for the dense family, which has no
-    modality frontend (the frontends arrive with the families that use
-    them)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the prefix of family {cfg.family!r} "
-                                  "arrives with a later slice")
-    return 0
+def prefix_token_count(cfg, pad_to: int = PREFIX_PAD_MIN) -> int:
+    """Number of prefix-embedding tokens a batch for ``cfg`` carries: 0 for
+    an arch without a modality frontend, else its ``frontend_tokens``
+    padded up to ``pad_to``."""
+    if cfg.frontend is None:
+        return 0
+    return max(cfg.frontend_tokens, pad_to)
+
+
+def with_prefix_embeds(cfg, batch: Dict[str, torch.Tensor],
+                       pad_to: int = PREFIX_PAD_MIN
+                       ) -> Dict[str, torch.Tensor]:
+    """``batch`` with the zero bf16 ``prefix_embeds`` stub (B, n, d_model)
+    added on the tokens' device when ``cfg`` has a modality frontend, n
+    ``prefix_token_count(cfg, pad_to)``; ``batch`` itself otherwise."""
+    n = prefix_token_count(cfg, pad_to)
+    if n == 0:
+        return batch
+    tokens = batch["tokens"]
+    return dict(batch, prefix_embeds=torch.zeros(
+        (tokens.shape[0], n, cfg.d_model), dtype=torch.bfloat16,
+        device=tokens.device))
 
 
 @dataclasses.dataclass(frozen=True)

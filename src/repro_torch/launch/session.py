@@ -57,7 +57,7 @@ class Session:
                  dtype: Optional[str] = None):
         self.spec = spec
         self.device = resolve_device(device)
-        cfg = cb.get_smoke(spec.arch) if spec.smoke else cb.get(spec.arch)
+        cfg = self._arch_config(spec)
         self.cfg = dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
         self.step = 0                      # the data cursor: pipe.batch(step)
         self.history: List[Dict[str, float]] = []
@@ -71,6 +71,15 @@ class Session:
         self._serve_src: Optional[Dict[str, torch.Tensor]] = None
         self._publisher = None             # core/stream.py, see publish_to
         self._bootstrap_every = 0
+
+    @staticmethod
+    def _arch_config(spec: RunSpec) -> cb.ArchConfig:
+        """The spec's arch config (its smoke variant under ``spec.smoke``),
+        with the spec's ``moe_impl``."""
+        cfg = cb.get_smoke(spec.arch) if spec.smoke else cb.get(spec.arch)
+        if spec.moe_impl != "dispatch":
+            cfg = dataclasses.replace(cfg, moe_impl=spec.moe_impl)
+        return cfg
 
     @property
     def n_clients(self) -> int:
@@ -117,8 +126,8 @@ class Session:
             params = model_lib.init_params(
                 cfg, torch.Generator().manual_seed(spec.seed), self.device)
             # Alg 1 line 2: v⁰ᵢ = g⁰ᵢ = the clients' gradients on batch 0
-            _, g0 = dist.per_client_value_and_grad(
-                loss_fn, params, pipe.batch(0, self.device), n)
+            b0 = pipe_lib.with_prefix_embeds(cfg, pipe.batch(0, self.device))
+            _, _, g0 = dist.per_client_value_and_grad(loss_fn, params, b0, n)
             ef_state = dist.init_ef_state(efc, params, n, init_grads=g0)
         self._tr = {
             "pipe": pipe, "loss_fn": loss_fn, "efc": efc,
@@ -141,7 +150,10 @@ class Session:
         return self._ensure_train()["ef_state"]
 
     def batch_for(self, step: int) -> Dict[str, torch.Tensor]:
-        return self._ensure_train()["pipe"].batch(step, self.device)
+        """The global batch of ``step`` (deterministic in (seed, step)),
+        with the frontend's zero prefix padded to ``PREFIX_PAD_MIN``."""
+        return pipe_lib.with_prefix_embeds(
+            self.cfg, self._ensure_train()["pipe"].batch(step, self.device))
 
     def step_once(self) -> Dict[str, torch.Tensor]:
         """Advance exactly one training step; returns the step metrics."""
@@ -207,9 +219,10 @@ class Session:
         tr = self._ensure_train()
         pipe = self._pipe(self.spec.seed + 1)
         with torch.no_grad():
-            losses = [float(tr["loss_fn"](tr["params"],
-                                          pipe.batch(i, self.device)))
-                      for i in range(batches)]
+            losses = [float(tr["loss_fn"](
+                tr["params"], pipe_lib.with_prefix_embeds(
+                    self.cfg, pipe.batch(i, self.device)))[0])
+                for i in range(batches)]
         return sum(losses) / max(len(losses), 1)
 
     # ---------------------------------------------------------- checkpoints
@@ -406,12 +419,14 @@ class Session:
                 generator=torch.Generator().manual_seed(self.spec.seed))
         tokens = torch.as_tensor(tokens, device=self.device)
         B, S = tokens.shape
-        n_prefix = pipe_lib.prefix_token_count(cfg,
-                                               pad_to=pipe_lib.PREFIX_PAD_SPEC)
+        # the production padding of the frontend prefix, as the reference
+        pad = pipe_lib.PREFIX_PAD_SPEC
+        n_prefix = pipe_lib.prefix_token_count(cfg, pad_to=pad)
         prefill = build_lib.build_prefill(cfg)
         decode = build_lib.build_decode(cfg)
         params = self.serving_params()
-        batch_in = {"tokens": tokens}
+        batch_in = pipe_lib.with_prefix_embeds(cfg, {"tokens": tokens},
+                                               pad_to=pad)
         if prompt_lens is not None:
             batch_in["prompt_lens"] = torch.as_tensor(prompt_lens,
                                                       device=self.device)

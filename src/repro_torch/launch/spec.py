@@ -6,8 +6,9 @@ The port's RunSpec has the reference's field names, defaults and JSON
 (schema v5), so ``results/specs/*.json`` load as they are, and its
 ``spec_hash`` is the reference's (the same sparse canonical form), so a
 checkpoint written by either package names its experiment for both. It
-accepts the four dense archs (smollm-360m, h2o-danube-3-4b, granite-34b,
-gemma2-9b), the ten EF methods, the eight compressors, the seven
+accepts the eight attention archs (smollm-360m, h2o-danube-3-4b,
+granite-34b, gemma2-9b, musicgen-medium, internvl2-76b, olmoe-1b-7b,
+grok-1-314b) with either ``moe_impl``, the ten EF methods, the eight compressors, the seven
 carriers (``fused`` uplink only), f32 or bfloat16 EF state, SGD and AdamW,
 per-parameter-group schedules (``groups``), the participation modes
 (``async`` names the event-driven simulator, which ``build`` refuses as
@@ -15,7 +16,7 @@ the reference's does) and the two-tier hierarchy (``hops``), with the
 reference's grammars, previews and cross-field refusals. It refuses,
 loudly and at construction, what the port does not run yet: a ``mesh``
 beyond ``smoke`` (and the client granularity and state sharding of one),
-``overlap``, ``moe_impl``, ``shape`` and ``tp_pad_heads``.
+``overlap``, ``shape`` and ``tp_pad_heads``.
 ``compressor_kw`` and ``method_kw`` must map names to JSON
 scalars; which names the compressor and the method take is checked where
 they are built (launch/build.py).
@@ -47,6 +48,7 @@ CARRIERS = frozenset({"dense", "sparse", "quant8", "quant4"}) | FUSED_CARRIERS
 DOWN_CARRIERS = CARRIERS - {"fused"}
 OPTIMIZERS = frozenset({"sgd", "adamw"})
 EF_STATE_DTYPES = (None, "bfloat16")
+MOE_IMPLS = ("dispatch", "dense")
 MAX_FUSED_BLOCK = 1024    # widest row of the fused kernels (kernels/ops.py)
 _JSON_SCALARS = (bool, int, float, str, type(None))
 
@@ -447,12 +449,14 @@ class RunSpec:
                 ("client_granularity", self.client_granularity, ("group",)),
                 ("state_sharding", self.state_sharding, ("client",)),
                 ("ef_state_dtype", self.ef_state_dtype, EF_STATE_DTYPES),
-                ("moe_impl", self.moe_impl, ("dispatch",)),
                 ("shape", self.shape, (None,)),
                 ("tp_pad_heads", self.tp_pad_heads, (0,))]:
             if val not in allowed:
                 errs.append(f"{field}={val!r} is not ported (have "
                             f"{sorted(map(repr, allowed))}); it {_LATER}")
+        if self.moe_impl not in MOE_IMPLS:
+            errs.append(f"moe_impl={self.moe_impl!r} not in "
+                        f"{list(MOE_IMPLS)}")
         if self.overlap:
             errs.append(f"overlap=True {_LATER}")
         for kw_name, kw in [("method_kw", self.method_kw),
@@ -742,6 +746,7 @@ _FLAGS = [
     ("--hops", "hops", parse_hops_flag),
     ("--method-kw", "method_kw", json.loads),
     ("--compressor-kw", "compressor_kw", json.loads),
+    ("--moe-impl", "moe_impl", str),
     ("--optimizer", "optimizer", str),
     ("--lr", "lr", float), ("--heterogeneity", "heterogeneity", float),
     ("--seed", "seed", int),

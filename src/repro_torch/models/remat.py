@@ -25,9 +25,11 @@ and values equal that pass's bit for bit.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple, Union
 
 import torch
+
+Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 class _Recompute(torch.autograd.Function):
@@ -44,20 +46,26 @@ class _Recompute(torch.autograd.Function):
         ctx.save_for_backward(*args)
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, *grad_outs):
         args = ctx.saved_tensors
         diff = [t.detach() for t in args[:ctx.n_diff]]
         const = args[ctx.n_diff:]
-        _, vjp = torch.func.vjp(lambda *d: ctx.fn(*d, *const), *diff)
-        return (None, None, *vjp(grad_out.detach()),
+        out, vjp = torch.func.vjp(lambda *d: ctx.fn(*d, *const), *diff)
+        cot = tuple(g.detach() for g in grad_outs)
+        return (None, None,
+                *vjp(cot if isinstance(out, tuple) else cot[0]),
                 *([None] * len(const)))
 
 
-def checkpoint(fn: Callable[..., torch.Tensor],
-               diff: Sequence[torch.Tensor],
-               const: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-    """``fn(*diff, *const)``, one tensor out, keeping only the inputs for
-    the backward, which recomputes ``fn``. Gradients flow to ``diff``;
-    ``const`` takes none. ``fn`` must be pure (no in-place writes to its
-    inputs, no state), since the backward calls it again."""
+def checkpoint(fn: Callable[..., Outputs], diff: Sequence[torch.Tensor],
+               const: Sequence[torch.Tensor] = ()) -> Outputs:
+    """``fn(*diff, *const)``, keeping only the inputs for the backward,
+    which recomputes ``fn``. ``fn`` returns one tensor or a tuple of them
+    (a block: the hidden state and its MoE aux scalars); the backward
+    takes a gradient for each output, zero for one the loss does not use
+    or one that carries none (``dropped_frac``, made of integers).
+    Gradients flow to ``diff``; ``const`` takes none. ``fn`` must be pure
+    (no in-place writes to its inputs, no state) and deterministic, since
+    the backward calls it again: an MoE block recomputes exactly the
+    forward's routing (same inputs, a stable sort, the same top-k)."""
     return _Recompute.apply(fn, len(diff), *diff, *const)

@@ -52,7 +52,7 @@ PATHS = [
     pytest.param("hierarchy_quant4_cross", {}, id="H"),
     *[pytest.param("fused_quickstart", dict(CS.R_PATH, arch=arch,
                                             clients=clients), id=name)
-      for name, arch, _, clients, _ in CS.D_CELLS],
+      for name, arch, _, clients, _ in CS.D_CELLS if clients],
     pytest.param("fused_quickstart", {"carrier": "dense",
                                       "compressor": "block_quant",
                                       "compressor_kw": {"bits": 8,
@@ -106,27 +106,64 @@ def test_the_full_width_phases_launch_their_stated_counts():
 
 def test_the_d_phases_launch_their_stated_counts():
     """R and the D phases at full width, cut as chip_smoke.py cuts them:
-    K3, K6, K5 and K4 once a leaf a step (11); K7 once a layer of the
-    prefill only where the layer has no window, no soft cap and hd 32, 64
-    or 128: every layer of smollm-360m (32) and granite-34b (1), none of
-    h2o-danube-3-4b (windows, hd 120) or gemma2-9b (windows and caps, hd
-    256)."""
-    fused = {"ef21_sgdm_topk_quant": 11, "block_dequantize": 11,
-             "block_quantize": 11, "dequant_add": 11}
-    cells = [("R", "smollm-360m", {}, 8, 32)] + [
-        (name, arch, cut, clients, {"D-granite": 1}.get(name, 0))
+    K3, K6, K5 and K4 once a leaf a step (11 leaves; 12 with musicgen's
+    frontend_proj, or olmoe's five MoE leaves in place of the MLP's four);
+    K7 once a layer of the prefill only where the layer has no window, no
+    soft cap and hd 32, 64 or 128: every layer of smollm-360m (32),
+    granite-34b (1), musicgen-medium (12 of hd 64), olmoe-1b-7b and
+    internvl2-76b (1 of hd 128), none of h2o-danube-3-4b (windows, hd 120)
+    or gemma2-9b (windows and caps, hd 256). The serve-only D-internvl2
+    takes no step."""
+    leaves = {"D-musicgen": 12, "D-olmoe": 12}
+    flash = {"R": 32, "D-granite": 1, "D-musicgen": 12, "D-olmoe": 1,
+             "D-internvl2": 1}
+    cells = [("R", "smollm-360m", {}, 8)] + [
+        (name, arch, cut, clients)
         for name, arch, cut, clients, _ in CS.D_CELLS]
-    for name, arch, cut, clients, flash in cells:
+    for name, arch, cut, clients in cells:
         with open(os.path.join(ROOT, "results", "specs",
                                "fused_quickstart.json")) as f:
             spec = pt_spec.RunSpec.from_dict(dict(
-                json.load(f), arch=arch, clients=clients, **CS.R_PATH))
+                json.load(f), arch=arch, **CS.R_PATH))
         sess = pt_session.Session(spec, device="cpu")
         cfg = dataclasses.replace(sess.cfg, **cut)
+        assert pt_model.flash_layers(cfg) == flash.get(name, 0), name
+        if clients is None:
+            assert name == "D-internvl2"
+            continue
+        n = leaves.get(name, 11)
         tree = pt_model.init_params(cfg, None, "meta")
+        assert len(tree) == n, name
         got = CS.expected_launches(pt_build.ef_config(spec), tree)
-        assert {k: v for k, v in got.items() if v} == fused, name
-        assert pt_model.flash_layers(cfg) == flash, name
+        assert {k: v for k, v in got.items() if v} == {
+            "ef21_sgdm_topk_quant": n, "block_dequantize": n,
+            "block_quantize": n, "dequant_add": n}, name
+
+
+@pytest.mark.parametrize("name,params,cache_bytes,prefill", [
+    ("D-musicgen", 458_528_256, 660_602_880, CS.FLASH_MUSICGEN),
+    ("D-olmoe", 522_590_208, 69_206_016, CS.FLASH_OLMOE),
+    ("D-internvl2", 1_973_444_608, 42_991_616, CS.FLASH_INTERNVL2)])
+def test_the_new_d_cells_are_their_stated_sizes(name, params, cache_bytes,
+                                                prefill):
+    """The cut configs' parameters (the meta tree, nothing drawn), their
+    serve's cache bytes (the prefix at serving's padding, the prompt and
+    the decode budget) and K7's (B, S, H, KV, hd) at their prefill."""
+    from repro_torch.data import pipeline as pipe_lib
+    row = {r[0]: r for r in CS.D_CELLS}[name]
+    _, arch, cut, _, serve = row
+    cfg = dataclasses.replace(pt_session.Session(
+        pt_spec.RunSpec(arch=arch), device="cpu").cfg, **cut)
+    tree = pt_model.init_params(cfg, None, "meta")
+    assert sum(t.numel() for t in tree.values()) == params
+    n_prefix = pipe_lib.prefix_token_count(cfg, pipe_lib.PREFIX_PAD_SPEC)
+    cache = pt_model.init_cache(cfg, serve["batch"], pt_build.cache_len(
+        serve["prompt_len"], serve["decode_steps"], n_prefix), device="meta")
+    assert sum(t.numel() * t.element_size()
+               for t in cache.values()) == cache_bytes
+    assert prefill == (serve["batch"], n_prefix + serve["prompt_len"],
+                       cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+    assert (name, prefill) in {(n, s) for _, s, n in CS.FLASH_D}
 
 
 def _d_smoke_calls(arch):
@@ -145,7 +182,7 @@ def _d_smoke_calls(arch):
     return calls, {k: v for k, v in per_step.items() if v}
 
 
-@pytest.mark.parametrize("arch", [a for _, a, *_ in CS.D_CELLS])
+@pytest.mark.parametrize("arch", [a for _, a, _, c, _ in CS.D_CELLS if c])
 def test_the_d_phases_plain_check_covers_every_call(monkeypatch, arch):
     """A D phase's shape-only record holds every kernel call of its steps
     (meta tensors, the in-place outputs by name), and each distinct call,
@@ -181,6 +218,106 @@ def test_the_d_phases_plain_check_fails_on_a_wrong_kernel(monkeypatch,
     _off_by_one(monkeypatch, kernel)
     with pytest.raises(SystemExit):
         CS.check_shapes_plain(ops, ref, "mutated", calls, device="cpu")
+
+
+def _no_card(monkeypatch):
+    """chip_smoke.py's card calls as no-ops on the CPU."""
+    import torch
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
+
+
+def test_the_serve_only_phase_takes_no_training_step(monkeypatch, capsys):
+    """D-internvl2's phase (serve_phase) at smoke size on the CPU: the
+    Session serves its fresh init without building a training state
+    (serve_phase fails if it does) and never steps; K7 once a layer, none
+    in decode."""
+    _no_card(monkeypatch)
+
+    def no_step(self):
+        raise AssertionError("a serve-only phase took a training step")
+    monkeypatch.setattr(pt_session.Session, "step_once", no_step)
+
+    def smoke_session(spec, device):
+        return pt_session.Session(dataclasses.replace(spec, smoke=True),
+                                  device="cpu")
+    def counted(*a, _fn=ops.flash_attention, **kw):
+        ops.launches["flash_attention"] += 1     # a launch on the card
+        return _fn(*a, **kw)
+    monkeypatch.setattr(ops, "flash_attention", counted)
+    name, arch, cut, clients, _ = CS.D_CELLS[-1]
+    assert (name, clients) == ("D-internvl2", None)
+    from repro_torch.models import model as model_lib
+    launches = CS.serve_phase(smoke_session, pt_spec, model_lib, ops, name,
+                              arch, cut, dict(batch=2, prompt_len=24,
+                                              decode_steps=3))
+    assert {k: v for k, v in launches.items() if v} == {"flash_attention": 1}
+    out = capsys.readouterr().out
+    assert "serve only" in out and "cache_bytes" in out
+
+
+def test_routed_drops_are_moe_apply_s_dropped_frac():
+    """The drop fraction chip_smoke.py reads off captured routing equals
+    the dropped_frac moe_apply computes, at capacities that drop and one
+    that does not."""
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.models import moe
+    for cf in (0.5, 1.0, 4.0):
+        cfg = dataclasses.replace(cb.get_smoke("olmoe-1b-7b"),
+                                  moe_capacity_factor=cf)
+        params = pt_model.init_params(cfg, torch.Generator().manual_seed(0))
+        p = {k[len("layers/moe/"):]: t[0] for k, t in params.items()
+             if k.startswith("layers/moe/")}
+        x = torch.randn(3, 20, cfg.d_model,
+                        generator=torch.Generator().manual_seed(1))
+        with moe.capture_routing() as seen:
+            _, aux = moe.moe_apply(p, x, k=cfg.num_experts_per_tok, cf=cf,
+                                   eps=cfg.norm_eps)
+        got, = CS.routed_drops(cfg, seen)
+        assert abs(got - float(aux["dropped_frac"])) < 1e-6, cf
+
+
+def _smoke_session(arch, **overrides):
+    with open(os.path.join(ROOT, "results", "specs",
+                           "fused_quickstart.json")) as f:
+        spec = pt_spec.RunSpec.from_dict(dict(
+            json.load(f), smoke=True, seq_len=32, arch=arch, clients=2,
+            global_batch=4, **CS.R_PATH, **overrides))
+    return pt_session.Session(spec, device="cpu")
+
+
+def test_moe_step_aux_prints_the_step_s_aux(capsys):
+    """D-olmoe's hook: the aux of the vmap forward (no gradients, block
+    recompute on) is the aux of the step's own client pass."""
+    from repro_torch.core import distributed as dist
+    sess = _smoke_session("olmoe-1b-7b")
+    sess.cfg = dataclasses.replace(sess.cfg, remat=True,
+                                   moe_capacity_factor=1.0)
+    assert CS.moe_step_aux(sess) is None
+    out = capsys.readouterr().out
+    _, aux, _ = dist.per_client_value_and_grad(
+        lambda p, b: pt_model.train_loss(sess.cfg, p, b), sess.params,
+        sess.batch_for(sess.step), sess.n_clients)
+    assert f"(mean {float(aux['dropped_frac']):.5f})" in out
+    assert f"load_balance mean {float(aux['load_balance']):.5f}" in out
+    assert float(aux["dropped_frac"]) > 0
+
+
+def test_frontend_hook_holds_frontend_proj_unchanged(monkeypatch):
+    """D-musicgen's hook passes over real steps on the CPU, and fails when
+    a step moves frontend_proj."""
+    sess = _smoke_session("musicgen-medium")
+    for _ in range(2):
+        after = CS.frontend_unchanged(sess)
+        sess.step_once()
+        after()
+    after = CS.frontend_unchanged(sess)
+    sess.params["frontend_proj"].add_(1.0)
+    with pytest.raises(SystemExit):
+        after()
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,7 @@ def _loop(loss_fn, params, batch, dp):
         sub = {n: x.reshape(dp, b // dp, *x.shape[1:])[i]
                for n, x in batch.items()}
         leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
-        loss = loss_fn(leaves, sub)
+        loss, _ = loss_fn(leaves, sub)
         for k, gk in zip(keys, torch.autograd.grad(
                 loss, [leaves[k] for k in keys])):
             grads[k][i].copy_(gk)
@@ -68,7 +68,8 @@ def _setup(dtype, seed=0, batch_size=4, seq=32):
 def test_batched_pass_matches_the_client_loop(dtype, dp):
     loss_fn, params, batch = _setup(dtype)
     want_loss, want = _loop(loss_fn, params, batch, dp)
-    loss, grads = dist.per_client_value_and_grad(loss_fn, params, batch, dp)
+    loss, _, grads = dist.per_client_value_and_grad(loss_fn, params, batch,
+                                                    dp)
     np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
     assert sorted(grads) == sorted(params)
     for k, g in grads.items():
@@ -83,11 +84,12 @@ def test_batched_pass_matches_the_client_loop(dtype, dp):
 def test_clients_see_their_own_batch_rows():
     """Client i's gradient is the gradient of client i's rows alone."""
     loss_fn, params, batch = _setup("float32", seed=1)
-    _, grads = dist.per_client_value_and_grad(loss_fn, params, batch, 2)
+    _, _, grads = dist.per_client_value_and_grad(loss_fn, params, batch, 2)
     sub = {n: x[2:] for n, x in batch.items()}      # client 1's rows
     leaves = {k: p.clone().requires_grad_(True) for k, p in params.items()}
     keys = sorted(leaves)
-    want = torch.autograd.grad(loss_fn(leaves, sub), [leaves[k] for k in keys])
+    want = torch.autograd.grad(loss_fn(leaves, sub)[0],
+                               [leaves[k] for k in keys])
     for k, w in zip(keys, want):
         torch.testing.assert_close(grads[k][1], w, rtol=1e-5,
                                    atol=1e-5 * float(w.abs().max()))

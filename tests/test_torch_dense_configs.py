@@ -116,7 +116,7 @@ def test_dryrun_sparse_pod_is_refused_for_mesh_and_shape_only():
 
 def test_archs_not_yet_ported_still_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt_cb.get("olmoe-1b-7b")
+        pt_cb.get("falcon-mamba-7b")
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +225,7 @@ def test_train_loss_matches_reference(arch):
     labels = rng.randint(0, jcfg.vocab_size, (2, SEQ)).astype(np.int32)
     want, _ = jax_model.train_loss(jcfg, jparams, {
         "tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
-    got = pt_model.train_loss(pcfg, pparams, {
+    got, _ = pt_model.train_loss(pcfg, pparams, {
         "tokens": torch.tensor(tokens), "labels": torch.tensor(labels)})
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
@@ -327,7 +327,7 @@ def test_gemma_embedding_scale_is_rounded_to_the_activation_dtype():
     tokens = np.arange(64, dtype=np.int32).reshape(2, 32)
     want, _ = jax_model._embed(jcfg, {"embed": jnp.asarray(embed)},
                                jnp.asarray(tokens), None)
-    got = pt_model._embed(pcfg, {"embed": torch.tensor(embed)},
+    got, _ = pt_model._embed(pcfg, {"embed": torch.tensor(embed)},
                           torch.tensor(tokens))
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(_np(got), _np(want))

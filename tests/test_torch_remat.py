@@ -57,8 +57,8 @@ def test_client_pass_is_bit_identical_with_recompute(arch, dtype):
             lambda p, b, cfg=cfg: pt_model.train_loss(cfg, p, b), params,
             _batch(cfg), 2)
     assert torch.equal(out[True][0], out[False][0])
-    for k, g in out[False][1].items():
-        assert torch.equal(out[True][1][k], g), k
+    for k, g in out[False][2].items():
+        assert torch.equal(out[True][2][k], g), k
 
 
 def test_session_steps_are_bit_identical_with_recompute():
