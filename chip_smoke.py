@@ -90,10 +90,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      the peak lower with recompute; each run's step ms and peak, and the
      client pass alone (median of 3) with its ms and peak;
   6e. the other configs: h2o-danube-3-4b, granite-34b, gemma2-9b,
-     musicgen-medium, olmoe-1b-7b, internvl2-76b, grok-1-314b and olmoe
-     on the dense-expert ``moe_impl``, at smoke size on the card against
-     the CPU through phase 7's check (f32, a sequence of 160 past the
-     smoke window of 128: under MoE the chosen experts of every layer
+     musicgen-medium, olmoe-1b-7b, falcon-mamba-7b, zamba2-1.2b,
+     internvl2-76b, grok-1-314b and olmoe on the dense-expert
+     ``moe_impl``, at smoke size on the card against the CPU through
+     phase 7's check (f32, a sequence of 160 past the smoke window of
+     128, or for the two SSM archs 192, three chunks of their smoke
+     scan's 64: under MoE the chosen experts of every layer
      equal at the fresh weights on batch 0; 2 fused_quant8/fused_quant4
      steps within rtol 1e-3, then both serve the CPU's trained tree, a
      prefill (after a frontend's prefix) and 8 decode steps: the chosen
@@ -113,7 +115,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      12 times a prefill); D-olmoe 1 layer of 64 experts (top 8), 8
      clients, each step's aux values (every client's dropped_frac) from a
      forward of the step's batch, serve batch 8, prompt 1024 with the
-     prefill's and decode's drop fractions; D-internvl2 1 layer (1.97 B
+     prefill's and decode's drop fractions; D-falcon-mamba 1 of 64
+     Mamba1 layers (371,646,464 parameters), 8 clients, serve batch 8,
+     prompt 1024 (two scan chunks of 512), no K7; D-zamba2 13 of 38
+     layers (two groups of 6 Mamba2 blocks, each ending in the shared
+     attention block, and a tail block; 465,220,544 parameters), 8
+     clients, serve batch 8, prompt 1024 (K7 twice a prefill, once an
+     application of the shared block); D-internvl2 1 layer (1.97 B
      parameters), serve only (training does not fit the card): a fresh
      init drawn, placed and cast (timed apart), serve batch 8, prompt
      1024 after a prefix of 256, no training state built. Each prints
@@ -192,7 +200,8 @@ Phase 2 also holds K7 flash_attention against its plain version within
 shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, each D phase's
 prefill in bf16 (granite-34b's B 8, S 1024, H 48, KV 1, hd 128;
 musicgen-medium's 8, 1088, 24, 24, 64; olmoe-1b-7b's 8, 1024, 16, 16,
-128; internvl2-76b's 8, 1280, 64, 8, 128), a ragged S of 1000, hd 128
+128; internvl2-76b's 8, 1280, 64, 8, 128; zamba2-1.2b's shared block's 8,
+1024, 32, 32, 64), a ragged S of 1000, hd 128
 and hd 32; the bf16 (tensor-core) route also within a stated
 elementwise bound of the plain version that rounds P as it does
 (round_p=True); and times both routes at the full-width shape, and the
@@ -251,11 +260,13 @@ FLASH_GRANITE = (8, 1024, 48, 1, 128)   # phase D-granite's prefill
 FLASH_MUSICGEN = (8, 1088, 24, 24, 64)  # D-musicgen's: a prefix of 64
 FLASH_OLMOE = (8, 1024, 16, 16, 128)    # D-olmoe's
 FLASH_INTERNVL2 = (8, 1280, 64, 8, 128)  # D-internvl2's: a prefix of 256
+FLASH_ZAMBA2 = (8, 1024, 32, 32, 64)    # D-zamba2's shared block, twice
 # K7 at each D phase's prefill shape, bf16: (results key, shape, phase)
 FLASH_D = [("flash_attention/granite", FLASH_GRANITE, "D-granite"),
            ("flash_attention/musicgen", FLASH_MUSICGEN, "D-musicgen"),
            ("flash_attention/olmoe", FLASH_OLMOE, "D-olmoe"),
-           ("flash_attention/internvl2", FLASH_INTERNVL2, "D-internvl2")]
+           ("flash_attention/internvl2", FLASH_INTERNVL2, "D-internvl2"),
+           ("flash_attention/zamba2", FLASH_ZAMBA2, "D-zamba2")]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the resumable path: bf16 EF state and AdamW on the fused quantized wire
 RESUME_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
@@ -274,11 +285,21 @@ D_CELLS = [  # (phase, arch, depth cut, clients or None: serve only, serve)
     ("D-musicgen", "musicgen-medium", {"num_layers": 12}, 8,
      dict(SERVE_FULL)),
     ("D-olmoe", "olmoe-1b-7b", {"num_layers": 1}, 8, dict(SERVE_FULL)),
+    # Mamba1, attention-free: no K7
+    ("D-falcon-mamba", "falcon-mamba-7b", {"num_layers": 1}, 8,
+     dict(SERVE_FULL)),
+    # two groups of 6 Mamba2 blocks, each ending in the shared attention
+    # block (applied twice: its gradient sums both), and a tail block
+    ("D-zamba2", "zamba2-1.2b", {"num_layers": 13}, 8, dict(SERVE_FULL)),
     # 1.97 B parameters at one layer: training does not fit the card
     ("D-internvl2", "internvl2-76b", {"num_layers": 1}, None,
      dict(SERVE_FULL)),
 ]
 D_SMOKE = dict(seq_len=160, prompt_len=160)  # past the smoke window of 128
+# the SSM archs' chunked scan takes a multiple of its smoke chunk of 64
+# (the reference asserts it): three chunks
+D_SMOKE_SCAN = dict(seq_len=192, prompt_len=192)
+SCAN_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b")
 # the smoke check's runs (card against CPU): each D phase's arch, grok-1
 # (CPU parity alone at full width) and olmoe on the dense-expert impl
 D_SMOKE_RUNS = [(arch, {}) for _, arch, *_ in D_CELLS] + [
@@ -3021,14 +3042,16 @@ def main() -> None:
                "fused_quant4 path, 8 clients: a step without and one with, "
                "bit for bit"):
         by_phase["R"] = recompute_phase(Session, spec_lib, ops)
-    with phase("D smoke: the other dense configs, the frontends and MoE "
-               "(both moe_impl), cuda against cpu (smoke size, past the "
-               "window)"):
+    with phase("D smoke: the other dense configs, the frontends, MoE "
+               "(both moe_impl) and the SSM families, cuda against cpu "
+               "(smoke size, past the window and over several scan "
+               "chunks)"):
         for arch, extra in D_SMOKE_RUNS:
+            sizes = D_SMOKE_SCAN if arch in SCAN_ARCHS else D_SMOKE
             serve_smoke_check(Session, spec_lib, model_lib, ops,
                               label=" ".join([arch, *map(str, extra.values()),
                                               "smoke"]),
-                              train_steps=2, arch=arch, **D_SMOKE, **R_PATH,
+                              train_steps=2, arch=arch, **sizes, **R_PATH,
                               **extra)
     for name, arch, cut, clients, serve in D_CELLS:
         t0 = time.time()

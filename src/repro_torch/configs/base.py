@@ -3,9 +3,11 @@ families this port runs (a copy, not an import) and the registry of its
 archs: the four dense configs (smollm-360m, h2o-danube-3-4b, granite-34b
 and gemma2-9b), with sliding windows, gemma2's [local, global] layers,
 soft caps and block recompute (``remat``); the modality frontends
-(musicgen-medium's audio and internvl2-76b's vision stubs); and the
-mixture-of-experts configs (olmoe-1b-7b, grok-1-314b). The SSM and hybrid
-families arrive with a later slice (ROADMAP Queue 1)."""
+(musicgen-medium's audio and internvl2-76b's vision stubs); the
+mixture-of-experts configs (olmoe-1b-7b, grok-1-314b); and the SSM
+families: falcon-mamba-7b's Mamba1 (``ssm``) and zamba2-1.2b's Mamba2
+with one shared attention block (``hybrid``). Every arch of the
+reference's registry is here."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | audio | vlm | moe
+    family: str                      # dense | audio | vlm | moe | ssm | hybrid
     citation: str
 
     num_layers: int = 12
@@ -42,6 +44,17 @@ class ArchConfig:
     moe_capacity_factor: float = 1.25
     moe_impl: str = "dispatch"        # 'dispatch' | 'dense' (models/moe.py)
 
+    # SSM
+    ssm_variant: Optional[str] = None        # 'mamba1' | 'mamba2'
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64                   # mamba2 head size
+    ssm_dt_rank: Optional[int] = None        # mamba1: default ceil(d_model/16)
+
+    # hybrid (zamba2): one SHARED attention block applied every k SSM layers
+    hybrid_attn_every: int = 0
+
     # modality frontend stub: None | 'audio' | 'vision'
     frontend: Optional[str] = None
     frontend_tokens: int = 0                 # vision: patch embeddings prepended
@@ -57,7 +70,16 @@ class ArchConfig:
     def head_dim_(self) -> int:
         if self.head_dim is not None:
             return self.head_dim
-        return self.d_model // self.num_heads
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank if self.ssm_dt_rank is not None \
+            else -(-self.d_model // 16)
 
     @property
     def activation_dtype(self) -> torch.dtype:
@@ -74,15 +96,15 @@ ARCH_ALIASES = {"smollm-360m": "smollm_360m",
                 "granite-34b": "granite_34b", "gemma2-9b": "gemma2_9b",
                 "musicgen-medium": "musicgen_medium",
                 "internvl2-76b": "internvl2_76b",
-                "olmoe-1b-7b": "olmoe_1b_7b", "grok-1-314b": "grok1_314b"}
+                "olmoe-1b-7b": "olmoe_1b_7b", "grok-1-314b": "grok1_314b",
+                "falcon-mamba-7b": "falcon_mamba_7b",
+                "zamba2-1.2b": "zamba2_1p2b"}
 
 
 def _module(arch: str):
     if arch not in ARCH_ALIASES:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (this port runs "
-            f"{sorted(ARCH_ALIASES)}); the SSM and hybrid families arrive "
-            "with a later slice (ROADMAP Queue 1)")
+            f"unknown arch {arch!r} (this port runs {sorted(ARCH_ALIASES)})")
     return importlib.import_module(
         f"repro_torch.configs.{ARCH_ALIASES[arch]}")
 

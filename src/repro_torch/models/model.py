@@ -1,7 +1,8 @@
-"""The attention families' model (counterpart of src/repro/models/model.py):
-parameter init, the training loss, and serving's KV cache, prefill and
-decode step, for the dense family, the modality frontends (audio, vlm) and
-mixture-of-experts (moe).
+"""The model (counterpart of src/repro/models/model.py): parameter init,
+the training loss, and serving's cache, prefill and decode step, for every
+family of the reference: dense, the modality frontends (audio, vlm),
+mixture-of-experts (moe), the Mamba1 stack (ssm) and the hybrid (Mamba2
+blocks with one shared attention block).
 
 Parameters are a flat dict keyed by the reference's ``/``-joined leaf paths,
 with each layer's weights STACKED on a leading (num_layers, ...) axis under
@@ -21,6 +22,20 @@ precomputed ``prefix_embeds`` (B, P, d_model) (data/pipeline.py), which
 token positions only. An MoE block runs models/moe.py in place of the
 MLP, its aux values summed over the layers in layer order; an MoE loss
 adds 0.01 of the load-balance sum and 0.001 of the router-z sum.
+
+The SSM families (models/ssm.py) stack their mixer blocks under
+``layers/mamba/``. The hybrid runs G = num_layers // hybrid_attn_every
+groups, each of ``hybrid_attn_every`` Mamba2 blocks followed by THE shared
+attention and MLP block (``shared_attn/``, unstacked: one set of
+parameters applied G times, so its gradient sums the applications), then
+the tail of the remaining Mamba2 blocks. Recompute takes each mamba block
+on its own, as the reference checkpoints each mamba body; the shared
+block is not recomputed, as in the reference. Their cache holds each
+layer's ``ssm`` state (f32) and ``conv`` state, and the hybrid's
+``k_attn``/``v_attn`` one slot a group. A prefill runs the state over the
+whole padded row: ``prompt_lens`` picks the first token's logits, and a
+right-padded row's states go on to include its padding, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -34,16 +49,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import remat as remat_lib
+from repro_torch.models import ssm as ssm_lib
 
 CE_CHUNK = 256          # sequence chunk of the cross-entropy
-FAMILIES = ("dense", "audio", "vlm", "moe")
+FAMILIES = ("dense", "audio", "vlm", "moe", "ssm", "hybrid")
 LB_COEF, Z_COEF = 0.01, 0.001   # an MoE loss's load-balance and z weights
+# leaves serving keeps in their own dtype (cast_matrices)
+F32_LEAVES = ("norm", "moe/router", "mamba/A_log", "mamba/D",
+              "mamba/dt_bias")
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"model family {cfg.family!r} arrives with "
-                                  "a later slice")
+        raise NotImplementedError(f"unknown model family {cfg.family!r} "
+                                  f"(have {FAMILIES})")
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -64,24 +83,42 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             return torch.empty(*shape, dtype=dtype, device="meta")
         return (torch.randn(*shape, generator=generator) * std).to(dtype)
 
-    params = {
-        "embed": normal(cfg.vocab_size, d, std=d ** -0.5),
-        "final_norm": torch.zeros(d, dtype=dt),
-        "layers/attn/norm": torch.zeros(n, d, dtype=dt),
-        "layers/attn/wk": normal(n, d, KV, hd, std=d ** -0.5),
-        "layers/attn/wo": normal(n, H, hd, d, std=(H * hd) ** -0.5),
-        "layers/attn/wq": normal(n, d, H, hd, std=d ** -0.5),
-        "layers/attn/wv": normal(n, d, KV, hd, std=d ** -0.5),
-    }
-    if cfg.family == "moe":
-        params.update({"layers/moe/" + k: t for k, t in moe_lib.moe_init(
-            normal, d, ff, cfg.num_experts, n, dt).items()})
+    def attn(prefix, *lead):
+        return {prefix + "norm": torch.zeros(*lead, d, dtype=dt),
+                prefix + "wk": normal(*lead, d, KV, hd, std=d ** -0.5),
+                prefix + "wo": normal(*lead, H, hd, d, std=(H * hd) ** -0.5),
+                prefix + "wq": normal(*lead, d, H, hd, std=d ** -0.5),
+                prefix + "wv": normal(*lead, d, KV, hd, std=d ** -0.5)}
+
+    def mlp(prefix, *lead):
+        return {prefix + "norm": torch.zeros(*lead, d, dtype=dt),
+                prefix + "w_down": normal(*lead, ff, d, std=ff ** -0.5),
+                prefix + "w_gate": normal(*lead, d, ff, std=d ** -0.5),
+                prefix + "w_up": normal(*lead, d, ff, std=d ** -0.5)}
+
+    def under(prefix, leaves):
+        return {prefix + k: t for k, t in leaves.items()}
+
+    params = {"embed": normal(cfg.vocab_size, d, std=d ** -0.5),
+              "final_norm": torch.zeros(d, dtype=dt)}
+    if cfg.family == "ssm":
+        params.update(under("layers/mamba/", ssm_lib.mamba1_init(
+            normal, n, d, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+            cfg.ssm_conv, dt)))
+    elif cfg.family == "hybrid":
+        params.update(under("layers/mamba/", ssm_lib.mamba2_init(
+            normal, n, d, cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim,
+            cfg.ssm_conv, dt)))
+        # the ONE shared block, unstacked
+        params.update(attn("shared_attn/attn/"))
+        params.update(mlp("shared_attn/mlp/"))
     else:
-        params.update({
-            "layers/mlp/norm": torch.zeros(n, d, dtype=dt),
-            "layers/mlp/w_down": normal(n, ff, d, std=ff ** -0.5),
-            "layers/mlp/w_gate": normal(n, d, ff, std=d ** -0.5),
-            "layers/mlp/w_up": normal(n, d, ff, std=d ** -0.5)})
+        params.update(attn("layers/attn/", n))
+        if cfg.family == "moe":
+            params.update(under("layers/moe/", moe_lib.moe_init(
+                normal, d, ff, cfg.num_experts, n, dt)))
+        else:
+            params.update(mlp("layers/mlp/", n))
     if cfg.frontend is not None:
         params["frontend_proj"] = normal(d, d, std=d ** -0.5)
     return {k: params[k].to(device) for k in sorted(params)}
@@ -89,17 +126,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 def cast_matrices(cfg: ArchConfig, params: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
-    """``params`` with every matrix leaf (the embedding, the attention, MLP
-    and expert weights, the frontend's projection) cast to the activation
-    dtype; the norm scales kept (``rms_norm`` reads them in f32), and the
-    MoE router kept in f32, which routing multiplies in. The model uses
-    each matrix in the
-    activation dtype, and a cast commutes with the embedding's gather and
+    """``params`` with every matrix leaf (the embedding, the attention, MLP,
+    expert and mamba weights, the frontend's projection) cast to the
+    activation dtype; kept: the norm scales (``rms_norm`` reads them in
+    f32), the MoE router, which routing multiplies in f32, and a mamba
+    block's ``A_log``, ``D`` and ``dt_bias``, which its scan reads in f32
+    (a round trip through bf16 would change the served logits). The model
+    uses each matrix in the activation dtype, and a cast commutes with the
+    embedding's gather and
     with the slice of a stacked leaf, so this tree gives the same numbers
     as ``params`` without a cast a call: serving runs it, cast once per
     params version. A leaf already in that dtype is not copied."""
     act = cfg.activation_dtype
-    return {k: t if k.endswith(("norm", "moe/router")) else t.to(act)
+    return {k: t if k.endswith(F32_LEAVES) else t.to(act)
             for k, t in params.items()}
 
 
@@ -131,11 +170,23 @@ def layer_window(cfg: ArchConfig, i: int) -> Optional[int]:
 
 
 def flash_layers(cfg: ArchConfig) -> int:
-    """The layers whose prefill runs K7 (``layers.prefill_runs_flash``):
-    K7's launches a prefill."""
+    """The attention applications whose prefill runs K7
+    (``layers.prefill_runs_flash``): K7's launches a prefill. None in the
+    attention-free ``ssm`` family; the hybrid's shared block applied G
+    times counts G times."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return _hybrid_groups(cfg) * L.prefill_runs_flash(
+            cfg.head_dim_, cfg.sliding_window, cfg.logit_softcap)
     return sum(L.prefill_runs_flash(cfg.head_dim_, layer_window(cfg, i),
                                     cfg.logit_softcap)
                for i in range(cfg.num_layers))
+
+
+def _hybrid_groups(cfg: ArchConfig) -> int:
+    """G: the hybrid's groups, each ending in the shared block."""
+    return cfg.num_layers // cfg.hybrid_attn_every
 
 
 def _layer_cache(cfg: ArchConfig, cache: Dict[str, torch.Tensor], i: int):
@@ -158,7 +209,12 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     from the cached tables; positions run below S, or up to ``pos`` in
     decode. With ``train`` and ``cfg.remat`` each block (a [local, global]
     pair under ``local_global``) is recomputed in the backward, its aux
-    values leaving the block beside h."""
+    values leaving the block beside h. The SSM families run
+    :func:`_run_ssm_stack`."""
+    if cfg.family in ("ssm", "hybrid"):
+        h = _run_ssm_stack(cfg, params, h, positions, cache, pos, train)
+        return h, {k: torch.zeros((), device=h.device)
+                   for k in moe_lib.AUX_KEYS}
     length = h.shape[1] if pos is None else pos + 1
     cos, sin = L.rope_at(positions, cfg.head_dim_, cfg.rope_theta, length)
     # one unbind per stacked leaf: its backward is a single stack
@@ -214,6 +270,79 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     return h, total
 
 
+def _store(cache: Dict[str, torch.Tensor], key: str, i: int,
+           state: torch.Tensor) -> None:
+    """Write layer i's new state into ``cache[key]`` in place. A state of
+    a wider dtype than the cache's (f32 activations on a bf16 conv cache:
+    the reference's concatenation promotes the state) first widens the
+    cache entry, once, so that the state is carried as the reference
+    carries it."""
+    dt = torch.promote_types(cache[key].dtype, state.dtype)
+    if cache[key].dtype != dt:
+        cache[key] = cache[key].to(dt)
+    cache[key][i].copy_(state)
+
+
+def _run_ssm_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
+                   h: torch.Tensor, positions: torch.Tensor,
+                   cache: Optional[Dict[str, torch.Tensor]],
+                   pos: Optional[int], train: bool) -> torch.Tensor:
+    """The ``ssm`` stack (one Mamba1 block a layer) or the ``hybrid`` one
+    (G groups of ``hybrid_attn_every`` Mamba2 blocks, each group followed
+    by the shared attention and MLP block, with the group's slot of
+    ``k_attn``/``v_attn``; then the tail of Mamba2 blocks). A block with a
+    cache starts from its layer's states and writes the new ones back in
+    place (prefill: S > 1 from the cache's states; decode: S = 1). With
+    ``train`` and ``cfg.remat`` each mamba block is recomputed in the
+    backward."""
+    apply = ssm_lib.mamba1_apply if cfg.ssm_variant == "mamba1" \
+        else ssm_lib.mamba2_apply
+    prefix = "layers/mamba/"
+    names = sorted(k[len(prefix):] for k in params if k.startswith(prefix))
+    per_layer = {n: params[prefix + n].unbind(0) for n in names}
+
+    def block(h: torch.Tensor, *leaves: torch.Tensor) -> torch.Tensor:
+        return h + apply(dict(zip(names, leaves)), h, cfg)[0]
+
+    def mamba(i: int, h: torch.Tensor) -> torch.Tensor:
+        leaves = [per_layer[n][i] for n in names]
+        if cache is None:
+            if train and cfg.remat:
+                return remat_lib.checkpoint(block, (h, *leaves))
+            return block(h, *leaves)
+        delta, (ssm, conv) = apply(
+            dict(zip(names, leaves)), h, cfg, ssm_state=cache["ssm"][i],
+            conv_state=cache["conv"][i])
+        _store(cache, "ssm", i, ssm)
+        _store(cache, "conv", i, conv)
+        return h + delta
+
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            h = mamba(i, h)
+        return h
+    k, G = cfg.hybrid_attn_every, _hybrid_groups(cfg)
+    length = h.shape[1] if pos is None else pos + 1
+    rope_cs = L.rope_at(positions, cfg.head_dim_, cfg.rope_theta, length)
+
+    def shared(part):
+        return {n[len(part):]: t for n, t in params.items()
+                if n.startswith(part)}
+    attn, mlp = shared("shared_attn/attn/"), shared("shared_attn/mlp/")
+    for g in range(G):
+        for i in range(g * k, (g + 1) * k):
+            h = mamba(i, h)
+        h = h + L.attn_apply(
+            attn, h, rope_cs, eps=cfg.norm_eps, chunk=cfg.attn_chunk,
+            window=cfg.sliding_window, cap=cfg.logit_softcap,
+            cache=None if cache is None else
+            (cache["k_attn"][g], cache["v_attn"][g]), pos=pos)
+        h = h + L.mlp_apply(mlp, h, cfg.norm_eps)
+    for i in range(G * k, cfg.num_layers):
+        h = mamba(i, h)
+    return h
+
+
 def _logits(cfg: ArchConfig, embed: torch.Tensor, h: torch.Tensor
             ) -> torch.Tensor:
     """f32 logits through the tied embedding, already cast to h's dtype,
@@ -262,12 +391,16 @@ def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
 def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device="cpu"
                ) -> Dict[str, torch.Tensor]:
-    """Zero KV cache of the attention families, bfloat16 by default as in the
-    reference: k and v (L, B, S, KV, hd), S = min(max_seq, window) under a
+    """Zero cache, bfloat16 by default as in the reference. The attention
+    families: k and v (L, B, S, KV, hd), S = min(max_seq, window) under a
     sliding window; under ``local_global`` the local layers' ring
     (k_local, v_local: L/2 x min(max_seq, window) slots) and the global
-    layers' full cache (k_global, v_global: L/2 x max_seq). Separate
-    tensors, since the port writes them in place."""
+    layers' full cache (k_global, v_global: L/2 x max_seq). ``ssm``: the
+    f32 scan state (L, B, d_inner, N) and the conv state (L, B, k-1,
+    d_inner); ``hybrid``: the f32 state (L, B, heads, head_dim, N), the
+    conv state (L, B, k-1, d_inner + 2N), and the shared block's k_attn
+    and v_attn (G, B, S, KV, hd), a slot a group. Separate tensors, since
+    the port writes them in place."""
     _check_family(cfg)
     KV, hd = cfg.num_kv_heads, cfg.head_dim_
     ring = min(max_seq, cfg.sliding_window) if cfg.sliding_window \
@@ -276,6 +409,21 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
     def zeros(n, S):
         return torch.zeros((n, batch_size, S, KV, hd), dtype=dtype,
                            device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        n, Di, N = cfg.num_layers, cfg.d_inner, cfg.ssm_state
+        if cfg.family == "ssm":
+            ssm, width = (n, batch_size, Di, N), Di
+        else:
+            P = cfg.ssm_head_dim
+            ssm, width = (n, batch_size, Di // P, P, N), Di + 2 * N
+        cache = {
+            "ssm": torch.zeros(ssm, dtype=torch.float32, device=device),
+            "conv": torch.zeros((n, batch_size, cfg.ssm_conv - 1, width),
+                                dtype=dtype, device=device)}
+        if cfg.family == "hybrid":
+            G = _hybrid_groups(cfg)
+            cache.update(k_attn=zeros(G, ring), v_attn=zeros(G, ring))
+        return cache
     if cfg.local_global:
         n2 = cfg.num_layers // 2
         return {"k_local": zeros(n2, ring), "v_local": zeros(n2, ring),

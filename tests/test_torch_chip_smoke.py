@@ -112,11 +112,14 @@ def test_the_d_phases_launch_their_stated_counts():
     soft cap and hd 32, 64 or 128: every layer of smollm-360m (32),
     granite-34b (1), musicgen-medium (12 of hd 64), olmoe-1b-7b and
     internvl2-76b (1 of hd 128), none of h2o-danube-3-4b (windows, hd 120)
-    or gemma2-9b (windows and caps, hd 256). The serve-only D-internvl2
-    takes no step."""
-    leaves = {"D-musicgen": 12, "D-olmoe": 12}
+    or gemma2-9b (windows and caps, hd 256); once an application of
+    zamba2-1.2b's shared block (2 groups of 6 of its 13 layers), never in
+    the attention-free falcon-mamba-7b (its 11 Mamba1 leaves; zamba2's 23
+    are 12 stacked Mamba2 leaves and the shared block's 9). The
+    serve-only D-internvl2 takes no step."""
+    leaves = {"D-musicgen": 12, "D-olmoe": 12, "D-zamba2": 23}
     flash = {"R": 32, "D-granite": 1, "D-musicgen": 12, "D-olmoe": 1,
-             "D-internvl2": 1}
+             "D-internvl2": 1, "D-zamba2": 2}
     cells = [("R", "smollm-360m", {}, 8)] + [
         (name, arch, cut, clients)
         for name, arch, cut, clients, _ in CS.D_CELLS]
@@ -143,12 +146,15 @@ def test_the_d_phases_launch_their_stated_counts():
 @pytest.mark.parametrize("name,params,cache_bytes,prefill", [
     ("D-musicgen", 458_528_256, 660_602_880, CS.FLASH_MUSICGEN),
     ("D-olmoe", 522_590_208, 69_206_016, CS.FLASH_OLMOE),
-    ("D-internvl2", 1_973_444_608, 42_991_616, CS.FLASH_INTERNVL2)])
+    ("D-internvl2", 1_973_444_608, 42_991_616, CS.FLASH_INTERNVL2),
+    ("D-falcon-mamba", 371_646_464, 4_587_520, None),
+    ("D-zamba2", 465_220_544, 250_099_712, CS.FLASH_ZAMBA2)])
 def test_the_new_d_cells_are_their_stated_sizes(name, params, cache_bytes,
                                                 prefill):
     """The cut configs' parameters (the meta tree, nothing drawn), their
     serve's cache bytes (the prefix at serving's padding, the prompt and
-    the decode budget) and K7's (B, S, H, KV, hd) at their prefill."""
+    the decode budget) and K7's (B, S, H, KV, hd) at their prefill (None:
+    the attention-free falcon-mamba runs no K7)."""
     from repro_torch.data import pipeline as pipe_lib
     row = {r[0]: r for r in CS.D_CELLS}[name]
     _, arch, cut, _, serve = row
@@ -161,6 +167,10 @@ def test_the_new_d_cells_are_their_stated_sizes(name, params, cache_bytes,
         serve["prompt_len"], serve["decode_steps"], n_prefix), device="meta")
     assert sum(t.numel() * t.element_size()
                for t in cache.values()) == cache_bytes
+    if prefill is None:
+        assert pt_model.flash_layers(cfg) == 0
+        assert name not in {n for _, _, n in CS.FLASH_D}
+        return
     assert prefill == (serve["batch"], n_prefix + serve["prompt_len"],
                        cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
     assert (name, prefill) in {(n, s) for _, s, n in CS.FLASH_D}
@@ -256,6 +266,40 @@ def test_the_serve_only_phase_takes_no_training_step(monkeypatch, capsys):
     assert {k: v for k, v in launches.items() if v} == {"flash_attention": 1}
     out = capsys.readouterr().out
     assert "serve only" in out and "cache_bytes" in out
+
+
+@pytest.mark.parametrize("name,want", [("D-falcon-mamba", 0),
+                                       ("D-zamba2", 6)])
+def test_the_ssm_cells_serve_launches_k7_once_a_shared_block(
+        monkeypatch, capsys, name, want):
+    """D-falcon-mamba's and D-zamba2's rows through serve_phase at smoke
+    size on the CPU (the rows' depth cut kept: zamba2's 13 smoke layers
+    are 6 groups of 2 and a tail), each wrapper call counted as a launch
+    on the card: K7 exactly ``model.flash_layers`` times in the prefill,
+    once an application of the shared block and never in falcon-mamba;
+    none in decode; the serve's cache bytes printed."""
+    _no_card(monkeypatch)
+
+    def smoke_session(spec, device):
+        return pt_session.Session(dataclasses.replace(spec, smoke=True),
+                                  device="cpu")
+
+    def counted(*a, _fn=ops.flash_attention, **kw):
+        ops.launches["flash_attention"] += 1     # a launch on the card
+        return _fn(*a, **kw)
+    monkeypatch.setattr(ops, "flash_attention", counted)
+    _, arch, cut, clients, _ = {r[0]: r for r in CS.D_CELLS}[name]
+    assert clients == 8
+    cfg = dataclasses.replace(pt_session.Session(
+        pt_spec.RunSpec(arch=arch, smoke=True), device="cpu").cfg, **cut)
+    assert pt_model.flash_layers(cfg) == want
+    from repro_torch.models import model as model_lib
+    launches = CS.serve_phase(smoke_session, pt_spec, model_lib, ops, name,
+                              arch, cut, dict(batch=2, prompt_len=64,
+                                              decode_steps=3))
+    assert {k: v for k, v in launches.items() if v} == (
+        {"flash_attention": want} if want else {})
+    assert "cache_bytes" in capsys.readouterr().out
 
 
 def test_routed_drops_are_moe_apply_s_dropped_frac():

@@ -115,8 +115,12 @@ def test_dryrun_sparse_pod_is_refused_for_mesh_and_shape_only():
 
 
 def test_archs_not_yet_ported_still_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt_cb.get("falcon-mamba-7b")
+    """Every arch of the reference is ported; an id the registry does not
+    know still raises, naming the archs it has."""
+    with pytest.raises(NotImplementedError, match="unknown arch") as err:
+        pt_cb.get("falcon-mamba-70b")
+    assert "falcon-mamba-7b" in str(err.value)
+    assert sorted(pt_cb.ARCH_ALIASES) == sorted(jax_cb.ARCH_ALIASES)
 
 
 # ---------------------------------------------------------------------------

@@ -92,7 +92,7 @@ def test_spec_reads_the_reference_golden_file():
 
 
 @pytest.mark.parametrize("bad", [
-    {"arch": "falcon-mamba-7b"},
+    {"tp_pad_heads": 2},
     {"mesh": "pod"}, {"optimizer": "lion"}, {"overlap": True},
     {"ef_state_dtype": "float16"},
     {"carrier": "fused", "compressor_kw": {"block": 2048}},
