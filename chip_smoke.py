@@ -195,6 +195,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      in each apply) served over a TailServer on loopback, a tcp:// replica
      and a directory replica equal to the trainer bit for bit; the phase's
      seconds, peak bytes, bootstrap and join seconds.
+  6h. phases MD1 and MD4, the multi-device runtime (one client a rank,
+     core/distributed.py::ef_round_sharded over torch.distributed):
+     MD1, an NCCL world of one in this process: ef_round_sharded called
+     directly on full-width smollm-360m leaves for fused_quant8/
+     fused_quant4, fused_quant4/fused_quant4, quant8/quant4 and quant8
+     with overlap, each bit for bit the single-device round of one client
+     (its initial state too), its launches the derived counts, and a
+     checkpoint's gather_to_first on NCCL; MD4, 4 rank
+     processes (launch/multiproc.py::spawn, gloo, the card shared, the
+     kernels built once here), full-width smollm-360m, 3 steps a run:
+     results/specs/fused_quant8_overlap.json (mesh pod: data 4, model 1),
+     quant8 with the overlap ring and with the blocking gather (the same
+     bits), and mesh multi_pod (pod 2, data 2) with
+     hierarchy_quant4_cross.json's hops; every rank's loss, g_norm and
+     replicated-state digest equal after every step, each run within
+     MD_TOL of the same spec's single-process run on the smoke mesh with
+     4 clients, each rank's launches the derived counts, rank 0's
+     distinct K3-K6 calls (every rank's have its shapes) bit for bit their
+     plain versions; per rank the step ms,
+     the EF round's ms and its collectives' share, the bytes on the wire
+     and staged through the host a step, the peak; which gloo collectives
+     take CUDA tensors, and an all-reduce of the embedding leaf by gloo's
+     CUDA route and by the host staging. Then MD4_FAULTS's planted faults
+     (the round's collectives keeping the local client alone, on the
+     fused and the quant8 wire; parameters put back after every step)
+     must each read above MD_TOL on every rank.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
 shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, each D phase's
@@ -216,7 +242,7 @@ leaf its plans, per pod its cross hop), that losses, parameters and logits
 are finite, and prints its times, peak memory and step breakdown. Then the
 script prints a ``kernels`` JSON line (each kernel's launches on the main
 path and, under ``launches_by_phase``, on phases G, M, S, H, R, the D
-phases, each cell of P and F), the card
+phases, each cell of P, F, MD1 and MD4 (summed over ranks)), the card
 line, and the final ``{"ok": true, ...}`` line. Imports nothing of JAX or
 of src/repro.
 """
@@ -1486,11 +1512,14 @@ def _compressor_launches(comp_lib, comp):
     return {}
 
 
-def expected_launches(efc, tree):
+def expected_launches(efc, tree, gathered=0):
     """The kernel launches of one training step, derived from the EF config:
     per group of the schedule's resolution (or the whole tree without one),
     each leaf's uplink plan, its downlink and, under a non-trivial cross
-    hop, each pod's cross hop. {kernel: launches a step}."""
+    hop, each pod's cross hop. {kernel: launches a step}. ``gathered`` > 0
+    counts one rank of the sharded round instead: its one pod's cross hop,
+    and for the sparse quantized payload one K6 more a leaf for each of the
+    ``gathered`` clients' wires its aggregate decodes."""
     from repro_torch.core import carriers as carrier_lib
     from repro_torch.core import compressors as comp_lib
     from repro_torch.core import hierarchy as hier_lib
@@ -1529,6 +1558,9 @@ def expected_launches(efc, tree):
                       else {})
             up["block_quantize"] = up.get("block_quantize", 0) + 1
             up["block_dequantize"] = up.get("block_dequantize", 0) + 1
+            if gathered and carrier_lib.has_block_wire(method.compressor) \
+                    and not isinstance(car, carrier_lib.FusedQuantCarrier):
+                up["block_dequantize"] += gathered
         elif plan == "dense":
             up = _compressor_launches(comp_lib, method.compressor)
         add(up, len(keys))
@@ -1538,7 +1570,7 @@ def expected_launches(efc, tree):
         if cross is not None and pods:
             add(_codec_down(carrier_lib, comp_lib,
                             carrier_lib.make(cross[0]), cross[1]),
-                len(keys) * pods)
+                len(keys) * (1 if gathered else pods))
     return counts
 
 
@@ -2919,6 +2951,530 @@ def fleet_tcp_smoke(Session, spec_lib, ops, stream_lib, fleet_lib):
         shutil.rmtree(d, ignore_errors=True)
     return total
 
+# ---------------------------------------------------------------------------
+# phases MD1 and MD4: the multi-device runtime (core/distributed.py::
+# ef_round_sharded over torch.distributed, launch/mesh.py, multiproc.py)
+# ---------------------------------------------------------------------------
+
+MD_PATHS = [  # MD1: (label, fused_quickstart.json overrides)
+    ("fused_quant8/fused_quant4", dict(carrier="fused_quant8",
+                                       downlink_carrier="fused_quant4")),
+    ("fused_quant4/fused_quant4", dict(carrier="fused_quant4",
+                                       downlink_carrier="fused_quant4")),
+    ("quant8/quant4", dict(carrier="quant8", downlink_carrier="quant4")),
+    ("quant8/quant4 overlap", dict(carrier="quant8",
+                                   downlink_carrier="quant4", overlap=True)),
+]
+MD_RANKS = 4
+MD_STEPS = 3
+# MD4 against the single-process run, relative, on each step's loss,
+# g_norm and ‖params − initial params‖: each client's gradients come from a pass of its own rows instead
+# of one vmap pass of all four (other bf16 products), and the means sum in
+# the all-reduce's order. The sound runs read at most 1.12e-4 on the H100;
+# the planted faults of MD4_FAULTS must read above the limit.
+MD_TOL = 1e-3
+MD4_RUNS = [  # (label, spec, overrides): one client a rank, full width
+    ("MD4-pod", "fused_quant8_overlap", {}),
+    ("MD4-quant8-ring", "fused_quant8_overlap",
+     dict(carrier="quant8", overlap=True)),
+    ("MD4-quant8-blocking", "fused_quant8_overlap",
+     dict(carrier="quant8", overlap=False)),
+    # the hops of hierarchy_quant4_cross.json on (pod 2, data 2); the
+    # multi_pod geometry's 32 production clients set the batch's multiple
+    ("MD4-multi_pod", "hierarchy_quant4_cross",
+     dict(mesh="multi_pod", smoke=False, global_batch=32)),
+]
+# MD4's planted faults, runs that its check against the single-process run
+# must fail (a reading above MD_TOL on every rank): (label, spec, overrides,
+# fault). "local": the round's collectives keep this rank's client alone
+# (an all-reduce returns n times its operand, a gather n copies of it, a
+# ring hop its own chunk); "frozen": the parameters are put back after
+# every step, as if no round reached them.
+MD4_FAULTS = [
+    ("MD4-fault-local-fused", "fused_quant8_overlap", {}, "local"),
+    ("MD4-fault-local-quant8", "fused_quant8_overlap",
+     dict(carrier="quant8", overlap=False), "local"),
+    ("MD4-fault-frozen", "fused_quant8_overlap",
+     dict(carrier="quant8", overlap=False), "frozen"),
+]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _equal_states(a, b) -> bool:
+    from repro_torch.core.ef import flatten
+    fa, fb = flatten(a), flatten(b)
+    return sorted(fa) == sorted(fb) and all(torch.equal(fa[k], fb[k])
+                                            for k in fa)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def md1_phase(ops, spec_lib, device="cuda", backend="nccl", smoke=False):
+    """An NCCL world of one: ef_round_sharded, called directly on
+    full-width smollm-360m leaves (random gradients and first gradients),
+    must give bit for bit what the single-device round gives one client,
+    on each MD_PATHS path; its collectives are real NCCL calls on the
+    world's one rank. Returns the kernels' launches of the sharded rounds.
+    (``device``/``backend``/``smoke``: the CPU tests' gloo run at smoke
+    size.)"""
+    from repro_torch.core import comm
+    from repro_torch.core import distributed as dist_lib
+    from repro_torch.core import rng as rng_lib
+    from repro_torch.launch import build as build_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import multiproc
+    from repro_torch.models import model as model_lib
+    multiproc.distributed_init(f"localhost:{_free_port()}", 1, 0,
+                               backend=backend)
+    total = {}
+    try:
+        import torch.distributed as tdist
+        mesh = mesh_lib.make_production_mesh()
+        print(f"MD1: backend {tdist.get_backend()} mesh {mesh.shape}",
+              flush=True)
+        from repro_torch.configs import base as cb
+        cfg = (cb.get_smoke if smoke else cb.get)("smollm-360m")
+        shapes = {k: v.shape for k, v in model_lib.init_params(
+            cfg, None, "meta").items()}
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = {k: torch.zeros(s, device=device) for k, s in shapes.items()}
+        for label, overrides in MD_PATHS:
+            spec = load_spec(spec_lib, **overrides)
+            efc = build_lib.ef_config(spec)
+            g0 = {k: torch.randn((1, *s), generator=gen, device=device)
+                  for k, s in shapes.items()}
+            grads = {k: torch.randn((1, *s), generator=gen, device=device)
+                     for k, s in shapes.items()}
+            st_v = dist_lib.init_ef_state(
+                efc, params, 1, init_grads={k: g.clone()
+                                            for k, g in g0.items()})
+            st_s = dist_lib.init_ef_state_sharded(efc, params, mesh,
+                                                  init_grads=g0)
+            if not _equal_states(st_s, st_v):
+                fail(f"MD1 {label}: the sharded initial state is not the "
+                     "single-device one bit for bit")
+            ops.reset_launches()
+            comm.reset_stats()
+            _sync(device)
+            t0 = time.time()
+            est_s, st_s = dist_lib.ef_round_sharded(
+                efc, grads, st_s, mesh, eta=None, step=0,
+                rng=rng_lib.round_generator(0, 0, device),
+                overlap=spec.overlap)
+            _sync(device)
+            ms = (time.time() - t0) * 1e3
+            launches = {k: v for k, v in ops.launches.items() if v}
+            stats = dict(comm.STATS)
+            est_v, st_v = dist_lib.ef_round(
+                efc, grads, st_v, step=0,
+                rng=rng_lib.round_generator(0, 0, device))
+            if not (_equal_states(est_s, est_v)
+                    and _equal_states(st_s, st_v)):
+                fail(f"MD1 {label}: the sharded round is not the "
+                     "single-device round of one client bit for bit")
+            want = expected_launches(efc, params, gathered=1)
+            check_launches(launches, want, 1, f"MD1 {label}")
+            print(f"MD1 {label}: bit for bit the single-device round of "
+                  f"one client; round_ms {ms:.1f} launches {launches} "
+                  f"collectives {stats['collectives']} wire_bytes "
+                  f"{stats['wire_bytes']} staged_bytes "
+                  f"{stats['staged_bytes']}", flush=True)
+            total = _merged(total, launches)
+            del g0, grads, st_v, st_s, est_s, est_v
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        # a checkpoint's gather of the client leaves, on this backend
+        leaf = torch.randn((3, 1000), generator=gen, device=device).to(
+            torch.bfloat16)
+        got = comm.gather_to_first(mesh.axes(mesh.client_axes()), leaf)
+        if not (got.shape == (1, 3, 1000) and got.device.type == "cpu"
+                and torch.equal(got[0], leaf.cpu())):
+            fail(f"MD1: gather_to_first gave {tuple(got.shape)} on "
+                 f"{got.device}, not the leaf on the CPU bit for bit")
+        print(f"MD1: gather_to_first on {tdist.get_backend()} bit for bit",
+              flush=True)
+    finally:
+        multiproc.shutdown()
+    return total
+
+
+MD_ROUTE_WORDS = 47_185_920    # the embedding leaf: the largest all-reduce
+MD_GATHER_BYTES = 18_373_732   # one client's quant8 wire a step (MD1)
+
+
+def gloo_cuda_probe(n: int):
+    """Which gloo collectives take CUDA tensors as they are (core/comm.py's
+    GLOO_CUDA_OPS), and an all-reduce of the embedding leaf's size and an
+    all-gather of a client's quant8 wire both ways, gloo's own CUDA route
+    and staging through pinned host memory (ms, median of 3).
+    send/recv are not called with a CUDA tensor: gloo's send hands the
+    tensor's raw pointer to its transport with no device check."""
+    import torch.distributed as tdist
+    from repro_torch.core import comm
+    x = torch.ones(4, device="cuda")
+    out = {}
+    for name, fn in (
+            ("all_reduce", lambda: tdist.all_reduce(x.clone())),
+            ("broadcast", lambda: tdist.broadcast(x.clone(), 0)),
+            ("all_gather", lambda: tdist.all_gather(
+                [torch.empty_like(x) for _ in range(n)], x))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "takes cuda tensors"
+        except Exception as e:                     # noqa: BLE001 - a probe
+            out[name] = f"refuses them ({type(e).__name__})"
+        tdist.barrier()
+    big = torch.ones(MD_ROUTE_WORDS, device="cuda")
+    wire = torch.ones(MD_GATHER_BYTES, dtype=torch.uint8, device="cuda")
+
+    def reduce_direct():
+        tdist.all_reduce(big)
+
+    def reduce_staged():
+        host = comm._host(big)
+        tdist.all_reduce(host)
+        big.copy_(host)
+
+    def gather_direct():
+        tdist.all_gather([torch.empty_like(wire) for _ in range(n)], wire)
+
+    def gather_staged():
+        host = comm._host(wire)
+        outs = [torch.empty_like(host) for _ in range(n)]
+        tdist.all_gather(outs, host)
+        torch.stack(outs).to("cuda")
+    for name, fn in (("all_reduce_direct_ms", reduce_direct),
+                     ("all_reduce_staged_ms", reduce_staged),
+                     ("all_gather_direct_ms", gather_direct),
+                     ("all_gather_staged_ms", gather_staged)):
+        times = []
+        for _ in range(3):
+            tdist.barrier()
+            torch.cuda.synchronize()
+            t = time.time()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.time() - t) * 1e3)
+        out[name] = sorted(times)[1]
+    del big, wire
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _local_collectives():
+    """MD4's planted fault "local": while it is on, core/comm.py's
+    collectives keep this rank's operand alone (an all-reduce sums n copies
+    of it, a gather stacks n copies, a ring hop hands back its own chunk),
+    as a round that never hears from the other clients."""
+    from repro_torch.core import comm
+    saved = comm.all_reduce_sum, comm.all_gather, comm._ring_step
+    comm.all_reduce_sum = lambda axes, x: x * axes.size
+    comm.all_gather = lambda axes, x: x[None].expand(
+        axes.size, *x.shape).clone()
+    comm._ring_step = lambda axes, x: x.clone()
+    try:
+        yield
+    finally:
+        comm.all_reduce_sum, comm.all_gather, comm._ring_step = saved
+
+
+def md4_run(ops, ref, label, spec_name, overrides, device="cuda",
+            plain=True, fault=None):
+    """One MD4 run on this rank: a Session of one client a rank, MD_STEPS
+    steps; per step the loss, g_norm, the replicated state's digest, the
+    step and EF-round times, the collectives' share and bytes; the
+    launches against ``expected_launches``; then (``plain``) each distinct
+    K3-K6 call of the steps held bit for bit against its plain version.
+    ``fault``: one of MD4_FAULTS's planted faults, on for the whole run."""
+    from repro_torch.core import comm
+    from repro_torch.core import distributed as dist_lib
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import spec as spec_lib
+    from repro_torch.launch.session import Session
+    spec = load_spec(spec_lib, spec_name, **overrides)
+    cuda = device == "cuda"
+    sess = Session(spec, device=device)
+    t0 = time.time()
+    n_params = sum(p.numel() for p in sess.params.values())
+    _sync(device)
+    init_s = time.time() - t0
+    efc = sess._tr["efc"]
+    # the clients whose wires this rank's aggregate gathers: its pod's
+    # under a non-trivial cross hop, else all
+    intra = sess.mesh.client_axes()
+    if efc.effective_hops is not None and not _trivial(efc):
+        intra = tuple(a for a in intra if a != "pod")
+    gathered = sess.mesh.axes(intra).size
+    per_step = expected_launches(efc, sess.params, gathered=gathered)
+    rec = {"mesh": dict(sess.mesh.shape), "n": sess.n_clients,
+           "params": n_params, "init_s": init_s, "steps": []}
+    orig = dist_lib.ef_round_sharded
+    round_ms, round_coll_ms = [], []
+
+    def timed(*a, **kw):
+        _sync(device)
+        t, c = time.time(), comm.STATS["seconds"]
+        if fault == "local":
+            with _local_collectives():
+                out = orig(*a, **kw)
+        else:
+            out = orig(*a, **kw)
+        _sync(device)
+        round_ms.append((time.time() - t) * 1e3)
+        round_coll_ms.append((comm.STATS["seconds"] - c) * 1e3)
+        return out
+    dist_lib.ef_round_sharded = timed
+    comm.TIMED = True
+    p0 = _host_copy(sess.params)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        with recorded_calls(ops, ROW_KERNELS, shapes_only=True) as calls:
+            for _ in range(MD_STEPS):
+                comm.reset_stats()
+                _sync(device)
+                t = time.time()
+                m = sess.step_once()
+                loss, g_norm = float(m["loss"]), float(m["g_norm"])
+                _sync(device)
+                step_ms = (time.time() - t) * 1e3
+                if fault == "frozen":
+                    for k, v in sess.params.items():
+                        v.copy_(p0[k])
+                rec["steps"].append(dict(
+                    loss=loss, g_norm=g_norm,
+                    moved=_distance(sess.params, p0), step_ms=step_ms,
+                    round_ms=round_ms[-1],
+                    collective_ms=round_coll_ms[-1],
+                    step_collective_ms=comm.STATS["seconds"] * 1e3,
+                    collectives=comm.STATS["collectives"],
+                    wire_bytes=comm.STATS["wire_bytes"],
+                    staged_bytes=comm.STATS["staged_bytes"],
+                    digest=sh.replicated_digest(sess.params,
+                                                sess.ef_state)))
+    finally:
+        dist_lib.ef_round_sharded = orig
+        comm.TIMED = False
+    rec["launches"] = {k: v for k, v in ops.launches.items() if v}
+    rec["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    rec["expected"] = {k: v * MD_STEPS for k, v in per_step.items() if v}
+    if cuda:
+        check_launches(rec["launches"], per_step, MD_STEPS, label)
+    del sess, m, p0
+    gc.collect()
+    if _call_counts(calls) != rec["expected"]:
+        fail(f"{label}: recorded calls {_call_counts(calls)}, expected "
+             f"{per_step} a step")
+    if cuda and plain:
+        torch.cuda.empty_cache()
+        rec["plain"] = check_shapes_plain(ops, ref, label, calls)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _trivial(efc) -> bool:
+    from repro_torch.core import hierarchy as hier_lib
+    return hier_lib.cross_is_trivial(efc.effective_hops, efc.schedule)
+
+
+def md4_rank(rank, runs, device="cuda", faults=()):
+    """One of MD4's rank processes (``multiproc.spawn``, gloo, the card
+    shared): the kernels' library from the parent's build (no nvcc here),
+    the gloo probe, then each run, then each planted fault's run. Every
+    rank's calls have the same shapes, so rank 0 holds them against the
+    plain versions."""
+    import torch.distributed as tdist
+    from repro_torch.kernels import build, ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": tdist.get_backend(), "probe": {}, "runs": {},
+           "faults": {}}
+    if device == "cuda":
+        build.build()
+        out["probe"] = gloo_cuda_probe(tdist.get_world_size())
+    for label, spec_name, overrides in runs:
+        out["runs"][label] = md4_run(ops, ref, label, spec_name, overrides,
+                                     device, plain=rank == 0)
+    for label, spec_name, overrides, fault in faults:
+        out["faults"][label] = md4_run(ops, ref, label, spec_name, overrides,
+                                       device, plain=False, fault=fault)
+    return out
+
+
+def _single_key(name, overrides):
+    """The single-process run a run compares against (``overlap`` does
+    not change it)."""
+    return (name, json.dumps({k: v for k, v in overrides.items()
+                              if k != "overlap"}, sort_keys=True))
+
+
+def _relative_diffs(steps, want):
+    """Each step's |a − b| / |b| for the loss, g_norm and the distance the
+    parameters moved, against the single-process run's ``want``."""
+    return [abs(a[i] - b[i]) / abs(b[i]) for a, b in zip(steps, want)
+            for i in (0, 1, 2)]
+
+
+def _host_copy(params):
+    """The parameters on the host (pinned when they are on the card), for
+    :func:`_distance`: no card memory is held for them."""
+    return {k: v.detach().cpu().pin_memory() if v.is_cuda
+            else v.detach().clone() for k, v in params.items()}
+
+
+def _distance(params, p0) -> float:
+    """‖params − p0‖ summed in f64, leaf by leaf (``p0`` from
+    :func:`_host_copy`): how far the steps have moved the parameters."""
+    total = 0.0
+    for k, v in params.items():
+        d = v.detach() - p0[k].to(v.device, non_blocking=True)
+        total += float(torch.linalg.vector_norm(d, dtype=torch.float64)) ** 2
+    return math.sqrt(total)
+
+
+def md4_single(Session, spec_lib, spec_name, overrides, device="cuda"):
+    """The single-process run MD4 compares against: the same spec on the
+    smoke mesh with MD_RANKS emulated clients (the vmap round); a step's
+    (loss, g_norm, ‖params − initial params‖)."""
+    over = {k: v for k, v in overrides.items() if k != "overlap"}
+    spec = load_spec(spec_lib, spec_name,
+                     **dict(over, mesh="smoke", clients=MD_RANKS))
+    sess = Session(spec, device=device)
+    p0 = _host_copy(sess.params)
+    out = []
+    for _ in range(MD_STEPS):
+        m = sess.step_once()
+        out.append((float(m["loss"]), float(m["g_norm"]),
+                    _distance(sess.params, p0)))
+    del sess, m, p0
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
+              faults=MD4_FAULTS):
+    """MD4: MD_RANKS rank processes on the one card (gloo on the card's
+    tensors, the ring's send/recv staged through pinned host memory), each
+    one client, the runs of MD4_RUNS at full width: every rank's loss,
+    g_norm and replicated-state digest equal after every step, the ring's
+    run bit for bit the blocking gather's, each run within MD_TOL of the
+    single-process vmap run; then each of ``faults`` (MD4_FAULTS) must read
+    above MD_TOL on every rank, or the check could not tell it from a sound
+    run. Returns the launches of ``runs`` summed over ranks. (``runs``,
+    ``faults`` and ``device``: the CPU tests' smoke-size run.)"""
+    from repro_torch.launch import multiproc
+    singles = {}
+    for label, name, overrides in list(runs) + [f[:3] for f in faults]:
+        key = _single_key(name, overrides)
+        if key not in singles:
+            t0 = time.time()
+            singles[key] = md4_single(Session, spec_lib, name, overrides,
+                                      device)
+            print(f"{label}: single-process run (smoke mesh, {MD_RANKS} "
+                  f"clients) {singles[key]} in {time.time() - t0:.1f} s",
+                  flush=True)
+    work = tempfile.mkdtemp(prefix="md4_")
+    t0 = time.time()
+    try:
+        ranks = multiproc.spawn(md4_rank, MD_RANKS, work,
+                                args=(runs, device, faults), threads=2,
+                                timeout_s=900)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"MD4: {MD_RANKS} ranks in {time.time() - t0:.1f} s, backend "
+          f"{ranks[0]['backend']}; gloo with CUDA tensors: "
+          f"{ranks[0]['probe']}", flush=True)
+    total = {}
+    worst = {}
+    for label, name, overrides in runs:
+        recs = [r["runs"][label] for r in ranks]
+        traj = [[(s["loss"], s["g_norm"], s["moved"], s["digest"])
+                 for s in rec["steps"]] for rec in recs]
+        if any(t != traj[0] for t in traj[1:]):
+            fail(f"{label}: the ranks disagree on loss, g_norm, the "
+                 f"parameters' distance moved or the replicated state's "
+                 f"digest: {traj}")
+        for step in traj[0]:
+            if not all(math.isfinite(x) for x in step[:3]):
+                fail(f"{label}: non-finite loss, g_norm or distance {step}")
+        worst[label] = max(_relative_diffs(
+            traj[0], singles[_single_key(name, overrides)]))
+        if worst[label] > MD_TOL:
+            fail(f"{label}: loss/g_norm/moved {traj[0]} vs the single-"
+                 f"process run {singles[_single_key(name, overrides)]}: relative "
+                 f"difference {worst[label]:.3e} > {MD_TOL}")
+        for rank, rec in enumerate(recs):
+            st = rec["steps"]
+            print(f"{label} rank {rank}: mesh {rec['mesh']} n {rec['n']} "
+                  f"{rec['params']} parameters, state built in "
+                  f"{rec['init_s']:.1f} s; step_ms "
+                  f"{[round(s['step_ms'], 1) for s in st]} round_ms "
+                  f"{[round(s['round_ms'], 1) for s in st]} collective_ms "
+                  f"{[round(s['collective_ms'], 1) for s in st]} "
+                  f"(the step's, with the loss's all-reduce "
+                  f"{[round(s['step_collective_ms'], 1) for s in st]}; "
+                  f"share of the round "
+                  f"{[round(s['collective_ms'] / s['round_ms'], 3) for s in st]}"
+                  f") collectives a step {st[-1]['collectives']} wire_bytes "
+                  f"a step {st[-1]['wire_bytes']} staged_bytes a step "
+                  f"{st[-1]['staged_bytes']} peak {rec['peak']} launches "
+                  f"{rec['launches']}", flush=True)
+            total = _merged(total, rec["launches"])
+        print(f"{label}: loss/g_norm/params moved "
+              f"{[(a, b, c) for a, b, c, _ in traj[0]]} on "
+              f"every rank, replicated state equal on every rank every "
+              f"step; largest relative difference from the single-process "
+              f"run {worst[label]:.3e} (tolerance {MD_TOL}); every distinct "
+              f"K3-K6 call bit for bit its plain version: "
+              f"{recs[0].get('plain')}", flush=True)
+    ring = [[(s["loss"], s["g_norm"], s["digest"]) for s in r["runs"][
+        "MD4-quant8-ring"]["steps"]] for r in ranks]
+    blocking = [[(s["loss"], s["g_norm"], s["digest"]) for s in r["runs"][
+        "MD4-quant8-blocking"]["steps"]] for r in ranks]
+    if ring != blocking:
+        fail(f"MD4: the ring's run {ring[0]} is not the blocking gather's "
+             f"{blocking[0]} bit for bit")
+    print("MD4: the overlap ring bit for bit the blocking gather (loss, "
+          "g_norm and the replicated state's digest, every step, every "
+          f"rank); worst relative difference a run {worst}", flush=True)
+    caught = {}
+    for label, name, overrides, fault in faults:
+        want = singles[_single_key(name, overrides)]
+        per_rank = [_relative_diffs(
+            [(s["loss"], s["g_norm"], s["moved"])
+             for s in r["faults"][label]["steps"]], want) for r in ranks]
+        caught[label] = min(max(d) for d in per_rank)
+        if caught[label] <= MD_TOL:
+            fail(f"{label}: the planted fault {fault!r} reads "
+                 f"{caught[label]:.3e} against the single-process run, "
+                 f"within MD_TOL {MD_TOL}: MD4's check would pass it")
+        print(f"{label}: planted fault {fault!r}, relative differences "
+              f"(loss, g_norm, params moved a step) rank 0 "
+              f"{[float(f'{x:.3e}') for x in per_rank[0]]}; the least "
+              f"rank's largest {caught[label]:.3e} > MD_TOL {MD_TOL}: "
+              "caught", flush=True)
+    if faults:
+        print(f"MD4: every planted fault caught, readings {caught}; the "
+              f"sound runs' {worst}, limit {MD_TOL}", flush=True)
+    return total
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -3090,6 +3646,20 @@ def main() -> None:
                "requests, a step mid-decode, 2 worker processes with one "
                "killed, tcp:// at smoke size)"):
         by_phase["F"] = fleet_phase(Session, spec_lib, ops, model_lib)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("MD1: an NCCL world of one; ef_round_sharded on full-width "
+               "smollm-360m leaves, bit for bit the single-device round of "
+               "one client"):
+        by_phase["MD1"] = md1_phase(ops, spec_lib)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"MD4: {MD_RANKS} rank processes on the one card (gloo), "
+               f"one client each, full-width smollm-360m, {MD_STEPS} steps "
+               "a run: fused_quant8_overlap.json, quant8 with the ring and "
+               "the blocking gather, multi_pod with hierarchy_quant4_cross"
+               ".json's hops"):
+        by_phase["MD4"] = md4_phase(Session, spec_lib, ops)
 
     csrc = "src/repro_torch/kernels/csrc"
     rows = [

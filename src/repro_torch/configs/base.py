@@ -90,6 +90,24 @@ class ArchConfig:
         return getattr(torch, self.param_dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # 'train' | 'prefill' | 'decode'
+
+
+# the reference's named production shapes (RunSpec.shape names one; its
+# batch must divide by the spec's clients, and the dry run lowers it)
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 # public --arch ids → module names
 ARCH_ALIASES = {"smollm-360m": "smollm_360m",
                 "h2o-danube-3-4b": "h2o_danube3_4b",

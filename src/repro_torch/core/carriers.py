@@ -46,6 +46,16 @@ memory. That state is f32 or bfloat16: the fused kernels read and write it
 in its dtype (K2's c comes back in it too), and the unfused wires encode
 the innovation in f32 and decode to the delta's dtype, as the reference
 casts.
+
+On the sharded runtime (core/distributed.py::ef_round_sharded) a rank holds
+ONE client, its leaves with a leading axis of 1, and every aggregation is an
+explicit collective over ``axes`` (a core/comm.py ``Axes``): the dense wires
+and the dense quantized payload decode locally and all-reduce f32 (mantissas
+under different scales do not add); the sparse and the sparse quantized
+payloads all-gather the wire itself, decode each client's chunk and
+scatter-add them client by client (each rank the same bits; one
+scatter-add of all clients uses atomics on a card). With ``overlap`` the
+gathers run as ``comm.ring_all_gather``, bit for bit the blocking gather.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core import compressors as comp_lib
 from repro_torch.core import rng as rng_lib
 from repro_torch.kernels import ops
@@ -179,16 +190,25 @@ def scatter_blocks(vals: torch.Tensor, idx: torch.Tensor, *, nb: int,
 
 
 def _scatter_mean(vals: torch.Tensor, idx: torch.Tensor, *, nb: int,
-                  block: int, d: int, dtype) -> torch.Tensor:
+                  block: int, d: int, dtype, ordered: bool = False
+                  ) -> torch.Tensor:
     """meanᵢ of the clients' (n, nb, kb) block wires as a flat (d,): one
     scatter-add over all clients, then / n. On the CPU the adds run in index
     order (client 0 first); on a card ``index_add_`` uses atomics, so the
-    f32 sum order of colliding slots varies from run to run."""
+    f32 sum order of colliding slots varies from run to run. ``ordered``
+    adds one client at a time (a client's indices never collide, so each
+    add is exact and the order is client 0 first everywhere): what the
+    sharded round needs, since every rank must get the same bits."""
     n = vals.shape[0]
     base = torch.arange(nb, device=vals.device)[None, :, None] * block
     buf = torch.zeros(nb * block, dtype=dtype, device=vals.device)
-    buf.index_add_(0, (idx.long() + base).reshape(-1),
-                   vals.reshape(-1).to(dtype))
+    flat_idx = (idx.long() + base).reshape(n, -1)
+    flat_vals = vals.reshape(n, -1).to(dtype)
+    if ordered:
+        for i in range(n):
+            buf.index_add_(0, flat_idx[i], flat_vals[i])
+    else:
+        buf.index_add_(0, flat_idx.reshape(-1), flat_vals.reshape(-1))
     return (buf / n)[:d]
 
 
@@ -199,6 +219,26 @@ def _scatter_mean(vals: torch.Tensor, idx: torch.Tensor, *, nb: int,
 @dataclasses.dataclass(frozen=True)
 class Carrier:
     name: str = "abstract"
+    # the sharded runtime's gather-wire aggregates run as the ring
+    # (comm.ring_all_gather) instead of the blocking all-gather: the same bits;
+    # a no-op for all-reduce wires and for the single-device round
+    overlap: bool = False
+
+    def _gather(self, x: Tuple[torch.Tensor, ...], axes: comm.Axes, fn=None
+                ) -> Tuple[torch.Tensor, ...]:
+        """The collective behind every gather-wire aggregate: the blocking
+        all-gather, or the ring under ``overlap``. ``fn`` maps each
+        client's chunk (a tuple), as it arrives on the ring or chunk by
+        chunk after the blocking gather: the same bits either way."""
+        if self.overlap:
+            return comm.ring_all_gather(axes, tuple(x), fn)
+        gathered = tuple(comm.all_gather(axes, t) for t in x)
+        if fn is None:
+            return gathered
+        chunks = [tuple(fn(tuple(g[i] for g in gathered)))
+                  for i in range(axes.size)]
+        return tuple(torch.stack([c[j] for c in chunks])
+                     for j in range(len(chunks[0])))
 
     def plan_with_reason(self, method, eta=None) -> Tuple[str, str]:
         """(plan, reason): plan ∈ 'dense' | 'wire' | 'fused' | 'fused_wire';
@@ -240,11 +280,20 @@ class Carrier:
         h-integration."""
         return base + self.decode(comp, wire, d=d, dtype=dtype)
 
-    def aggregate(self, comp, wire, *, d: int, dtype, dp: int
-                  ) -> torch.Tensor:
-        """meanᵢ(cᵢ), a flat (d,), from the wires of dp clients (leading
-        axis)."""
+    def aggregate(self, comp, wire, *, d: int, dtype, dp: int = None,
+                  axes: comm.Axes = None) -> torch.Tensor:
+        """meanᵢ(cᵢ), a flat (d,): from the wires of ``dp`` clients on a
+        leading axis, or (``axes``) from this rank's one-client wire and a
+        collective over the clients of ``axes``."""
         raise NotImplementedError
+
+    def local_c_and_mean_axes(self, comp, delta: torch.Tensor, wire,
+                              axes: comm.Axes
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(local_c, aggregate over ``axes``) of this rank's (1, d) delta."""
+        return (self.local_c(comp, delta, wire),
+                self.aggregate(comp, wire, d=delta.shape[-1],
+                               dtype=delta.dtype, axes=axes))
 
     def wire_words(self, comp, d: int) -> float:
         """Words one client puts on the wire per message of dimension d."""
@@ -312,10 +361,14 @@ class SparseBlockCarrier(Carrier):
         nb, block, _ = sparse_geom(comp, d)
         return scatter_blocks(vals, idx, nb=nb, block=block, d=d, dtype=dtype)
 
-    def aggregate(self, comp, wire, *, d, dtype, dp):
+    def aggregate(self, comp, wire, *, d, dtype, dp=None, axes=None):
         vals, idx = wire
-        nb, block, _ = sparse_geom(comp, d)
-        return _scatter_mean(vals, idx, nb=nb, block=block, d=d, dtype=dtype)
+        nb, block, kb = sparse_geom(comp, d)
+        if axes is not None:           # the explicit wire: gather, then add
+            vals, idx = self._gather((vals, idx), axes)
+            vals, idx = vals.reshape(-1, nb, kb), idx.reshape(-1, nb, kb)
+        return _scatter_mean(vals, idx, nb=nb, block=block, d=d, dtype=dtype,
+                             ordered=axes is not None)
 
     def wire_words(self, comp, d):
         nb, _, kb = sparse_geom(comp, d)
@@ -478,9 +531,46 @@ class QuantCarrier(Carrier):
                               block=block, bits=self.bits)
         return out.to(dtype)
 
-    def aggregate(self, comp, wire, *, d, dtype, dp):
+    def aggregate(self, comp, wire, *, d, dtype, dp=None, axes=None):
+        if axes is not None:
+            return self._mean_axes(comp, wire, d, axes).to(dtype)
         return self._mean(comp, wire, self._dequantize(comp, wire, d), d,
                           dp).to(dtype)
+
+    def local_c_and_mean_axes(self, comp, delta, wire, axes):
+        """The dense payload's mean all-reduces this rank's decode (one K6
+        launch serves both); the sparse payload gathers the quantized wire
+        and decodes each client's chunk (``_mean_axes``)."""
+        d = delta.shape[-1]
+        vals = self._dequantize(comp, wire, d)
+        c = self._spread(comp, wire, vals, d)
+        if self._payload(comp, d)[0]:
+            mean = self._mean_axes(comp, wire, d, axes)
+        else:
+            mean = comm.all_reduce_sum(axes, c.reshape(d)) / axes.size
+        return c.to(delta.dtype), mean.to(delta.dtype)
+
+    def _mean_axes(self, comp, wire, d: int, axes) -> torch.Tensor:
+        """meanᵢ over the clients of ``axes``, f32 (d,), from this rank's
+        wire: the sparse payload gathers the QUANTIZED wire (the savings
+        live on the links) and dequantizes each client's chunk as it
+        arrives (under ``overlap`` while the next is in flight), then
+        scatter-adds in client order; the dense payload dequantizes, then
+        all-reduces."""
+        sparse, nb, block, cols = self._payload(comp, d)
+        if not sparse:
+            dec = self._spread(comp, wire, self._dequantize(comp, wire, d), d)
+            return comm.all_reduce_sum(axes, dec.reshape(d)) / axes.size
+
+        def decode_chunk(w):
+            q, scales, idx = w
+            return (ops.block_dequantize(q.reshape(-1, q.shape[-1]),
+                                         scales.reshape(-1), self.bits,
+                                         cols), idx)
+        vals, idx = self._gather(tuple(wire), axes, decode_chunk)
+        return _scatter_mean(vals.reshape(-1, nb, cols),
+                             idx.reshape(-1, nb, cols), nb=nb, block=block,
+                             d=d, dtype=torch.float32, ordered=True)
 
     def local_c_and_mean(self, comp, delta, wire, dp):
         """Both from one K6 launch on the wire; the dense payload's mean is
@@ -593,20 +683,27 @@ class FusedQuantCarrier(QuantCarrier):
 
     # -- the one-launch round ------------------------------------------------
     def fused_wire_round(self, method, grads: Tree, state: Dict[str, Tree],
-                         *, eta=None) -> Tuple[Tree, Dict[str, Tree]]:
+                         *, eta=None, axes: comm.Axes = None
+                         ) -> Tuple[Tree, Dict[str, Tree]]:
         """The 'fused_wire' plan on clients folded into rows: one K3 launch
         per leaf produces (v', g', wire) with g' = g + decode(wire), then
-        one K6 launch dequantizes the wire and the clients are meaned.
-        ``state`` is updated in place and returned; returns
-        (msg_mean_tree, state)."""
+        one K6 launch dequantizes the wire and the clients are meaned. With
+        ``axes`` (the sharded runtime) the rows are this rank's one client
+        and the mean is an all-reduce of its decoded wire (the
+        dense-payload rule: dequantize, then sum). ``state`` is updated in
+        place and returned; returns (msg_mean_tree, state)."""
         msg: Tree = {}
         launch = functools.partial(ops.ef21_sgdm_topk_quant, bits=self.bits)
         for key, grad, block, (q, scales) in _fused_leaves(
                 method, grads, state, eta, launch):
             dp, d = grad.shape[0], grad[0].numel()
             vals = ops.block_dequantize(q, scales, self.bits, block)
-            msg[key] = (vals.reshape(dp, -1)[:, :d].sum(0) / dp).reshape(
-                grad.shape[1:]).to(grad.dtype)
+            if axes is None:
+                total, n = vals.reshape(dp, -1)[:, :d].sum(0), dp
+            else:
+                total = comm.all_reduce_sum(axes, vals.reshape(-1)[:d])
+                n = axes.size
+            msg[key] = (total / n).reshape(grad.shape[1:]).to(grad.dtype)
         return msg, state
 
 
@@ -627,6 +724,23 @@ def wire_round_batched(carrier: Carrier, comp, deltas: Tree, dp: int
         flat = leaf.reshape(dp, d)
         wire = carrier.encode(comp, flat)
         c, mean = carrier.local_c_and_mean(comp, flat, wire, dp)
+        c_out[key] = c.reshape(leaf.shape)
+        agg_out[key] = mean.reshape(leaf.shape[1:])
+    return c_out, agg_out
+
+
+def wire_round_local(carrier: Carrier, comp, deltas: Tree,
+                     axes: comm.Axes) -> Tuple[Tree, Tree]:
+    """encode → (local_c, aggregate over ``axes``) per leaf for the ONE
+    client a rank holds (leaves with a leading axis of 1), the aggregation
+    an explicit collective. Returns (c_tree, msg_mean_tree)."""
+    c_out: Tree = {}
+    agg_out: Tree = {}
+    for key in sorted(deltas):
+        leaf = deltas[key]
+        flat = leaf.reshape(1, leaf[0].numel())
+        wire = carrier.encode(comp, flat)
+        c, mean = carrier.local_c_and_mean_axes(comp, flat, wire, axes)
         c_out[key] = c.reshape(leaf.shape)
         agg_out[key] = mean.reshape(leaf.shape[1:])
     return c_out, agg_out

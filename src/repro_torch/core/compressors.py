@@ -32,6 +32,19 @@ def top_order(ab: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(ab, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
+def _uniform(shape, rng: torch.Generator, device, rows=None
+             ) -> torch.Tensor:
+    """U[0, 1) of ``shape`` from ``rng``. ``rows=(n, row)`` with a ``shape``
+    of one row: row ``row`` of an (n, *shape[1:]) draw, the uniforms a
+    batched call for n clients gives that client (the whole draw is taken
+    from the stream, only the row is kept)."""
+    if rows is None:
+        return torch.rand(shape, generator=rng, device=device)
+    n, row = rows
+    return torch.rand((n, *shape[1:]), generator=rng,
+                      device=device)[row:row + 1]
+
+
 @dataclasses.dataclass(frozen=True)
 class Compressor:
     """Base class. Subclasses implement ``__call__``."""
@@ -144,14 +157,16 @@ class RandK(Compressor):
     def needs_rng(self) -> bool:
         return True
 
-    def _draw(self, x: torch.Tensor, rng) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(values, int64 indices), each (n, K), of an (n, d) stack."""
+    def _draw(self, x: torch.Tensor, rng, rows=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(values, int64 indices), each (n, K), of an (n, d) stack
+        (``rows``: see :func:`_uniform`)."""
         if rng is None:
             raise ValueError("RandK draws its coordinates: pass a "
                              "torch.Generator")
         n, d = x.shape
         k = self._k(d)
-        keys = torch.rand((n, d), generator=rng, device=x.device)
+        keys = _uniform((n, d), rng, x.device, rows)
         idx = torch.topk(keys, k, dim=1, sorted=False).indices
         vals = torch.gather(x, 1, idx)
         if self.scaled:
@@ -167,8 +182,8 @@ class RandK(Compressor):
     def __call__(self, x, rng=None):
         return self.batched(x.reshape(1, -1), rng).reshape(x.shape)
 
-    def batched(self, x, rng=None):
-        vals, idx = self._draw(x, rng)
+    def batched(self, x, rng=None, rows=None):
+        vals, idx = self._draw(x, rng, rows)
         return torch.zeros_like(x).scatter_(1, idx, vals)
 
 
@@ -268,7 +283,7 @@ class NaturalCompression(Compressor):
     def needs_rng(self) -> bool:
         return True
 
-    def __call__(self, x, rng=None):
+    def __call__(self, x, rng=None, rows=None):
         if rng is None:
             raise ValueError("NaturalCompression rounds at random: pass a "
                              "torch.Generator")
@@ -278,12 +293,12 @@ class NaturalCompression(Compressor):
         hi = 2.0 * lo
         p_hi = torch.where(lo > 0, (ax - lo) / torch.clamp(hi - lo, min=1e-38),
                            torch.zeros_like(ax))
-        u = torch.rand(x.shape, generator=rng, device=x.device)
+        u = _uniform(x.shape, rng, x.device, rows)
         mag = torch.where(u < p_hi, hi, lo)
         return (torch.sign(x) * mag).to(x.dtype)
 
-    def batched(self, x, rng=None):
-        return self(x, rng)
+    def batched(self, x, rng=None, rows=None):
+        return self(x, rng, rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,6 +362,37 @@ class BlockQuant(Compressor):
                                        self.bits)
         deq = ops.block_dequantize(q, scales, self.bits, self.block)
         return deq.reshape(n, nb * self.block)[:, :d].to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientRow(Compressor):
+    """A randomized compressor as client ``row`` of ``n`` sees it inside a
+    batched draw: the generator yields the whole (n, d) stack's uniforms,
+    as the single-device round's one call for all n clients does, and this
+    client's one row is compressed with its row of them. The sharded
+    runtime wraps a compressor that draws in it, so the client a rank holds
+    compresses with exactly the stream the single-device round gives that
+    client; only the uniforms are drawn n times over, not the compression."""
+
+    base: Compressor = Identity()
+    n: int = 1
+    row: int = 0
+
+    def __call__(self, x, rng=None):
+        return self.batched(x.reshape(1, -1), rng).reshape(x.shape)
+
+    def alpha(self, d: int) -> float:
+        return self.base.alpha(d)
+
+    @property
+    def needs_rng(self) -> bool:
+        return self.base.needs_rng
+
+    def batched(self, x, rng=None):
+        if x.shape[0] != 1:
+            raise ValueError(f"ClientRow compresses one client's row, got "
+                             f"{tuple(x.shape)}")
+        return self.base.batched(x, rng, rows=(self.n, self.row))
 
 
 REGISTRY = {

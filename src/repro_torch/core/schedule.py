@@ -18,7 +18,9 @@ and dense plans replace the state's entries leaf by leaf, so a group runs
 exactly the operations the ungrouped round runs on the same leaves: a
 one-group schedule is bit-identical to the ungrouped round.
 
-``round_local`` (the shard_map layout) waits for the multi-GPU slice. The
+:func:`round_local` is the sharded runtime's engine (the reference's
+shard_map leg): each group's leg on the ONE client a rank holds
+(:func:`local_leg`), one wire and one collective a group. The
 round's ``torch.Generator`` (core/rng.py) reaches every group: one group
 draws from it untouched (bit-identity with the ungrouped round), several
 decorrelate by group index (:func:`_group_rng`). Paired-gradient methods
@@ -33,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import carriers as carrier_lib
+from repro_torch.core import comm
 from repro_torch.core import compressors as comp_lib
 from repro_torch.core import ef as ef_lib
 from repro_torch.core import hierarchy as hier_lib
@@ -301,7 +304,7 @@ def _agg(x: torch.Tensor, pods: int) -> torch.Tensor:
 
 def _leafwise(method, carrier, plan: str, grads,
               clients: Dict[str, Tree], dp: int, eta, mask,
-              pods: int, rng=None) -> Tree:
+              pods: int, rng=None, axes: Optional[comm.Axes] = None) -> Tree:
     """The 'wire' and 'dense' plans one leaf at a time: pre_compress, then
     the carrier's encode → local_c → aggregate ('wire'), then
     post_compress; or the method's whole client-stacked step
@@ -312,7 +315,10 @@ def _leafwise(method, carrier, plan: str, grads,
     replaces the old entry of ``clients`` IN PLACE. Under a cohort ``mask``
     the non-sampled clients' deltas ('wire') or messages ('dense') are
     zeroed before the aggregate and their state is frozen leaf by leaf (the
-    old leaf is alive until its new one is frozen). Returns the aggregated
+    old leaf is alive until its new one is frozen). With ``axes`` the
+    leaves are the one client a rank holds and each aggregate is a
+    collective over ``axes`` (``carriers.wire_round_local``, or the
+    all-reduced mean of the dense plan's message). Returns the aggregated
     message."""
     out: Tree = {}
     for i, key in enumerate(sorted(base_grads(grads, method))):
@@ -322,8 +328,12 @@ def _leafwise(method, carrier, plan: str, grads,
             delta, ctx = method.pre_compress(g_leaf, old, eta=eta)
             if mask is not None:
                 delta = part_lib.apply_mask(mask, delta)
-            c, mean = carrier_lib.wire_round_batched(
-                carrier, method.compressor, delta, dp)
+            if axes is None:
+                c, mean = carrier_lib.wire_round_batched(
+                    carrier, method.compressor, delta, dp)
+            else:
+                c, mean = carrier_lib.wire_round_local(
+                    carrier, method.compressor, delta, axes)
             del delta
             msgs, new = method.post_compress(c, ctx)
         else:
@@ -337,7 +347,8 @@ def _leafwise(method, carrier, plan: str, grads,
         else:
             if mask is not None:
                 msgs = part_lib.apply_mask(mask, msgs)
-            out[key] = _agg(msgs[key], pods)
+            out[key] = _agg(msgs[key], pods) if axes is None \
+                else comm.mean(axes, msgs[key][0])
         if mask is not None:
             new = part_lib.freeze_tree(mask, new, old)
         for name in clients:
@@ -402,6 +413,83 @@ def batched_leg(method, carrier, plan: str, grads,
         return msg_mean, clients
     return _leafwise(method, carrier, plan, grads, clients, dp, eta, mask,
                      pods, rng), clients
+
+
+def client_method(method, n: int, row: int):
+    """The method as client ``row`` of ``n`` runs it on the sharded
+    runtime: a compressor that draws is wrapped in ``ClientRow``, so the
+    client compresses with the stream the single-device round gives it."""
+    if not method.compressor.needs_rng:
+        return method
+    return dataclasses.replace(method, compressor=comp_lib.ClientRow(
+        method.compressor, n, row))
+
+
+def local_leg(method, carrier, plan: str, grads, clients: Dict[str, Tree],
+              axes: comm.Axes, eta=None, mask=None, rng=None
+              ) -> Tuple[Tree, Dict[str, Tree]]:
+    """:func:`batched_leg` for the ONE client a rank holds (leaves with a
+    leading axis of 1), each aggregation an explicit collective over
+    ``axes``: 'fused' all-reduces K2's c, 'fused_wire' K3's decoded wire,
+    'wire' and 'dense' go leaf by leaf (:func:`_leafwise` with ``axes``).
+    ``mask`` is this client's (1,) cohort entry: outside the cohort its
+    contribution is zero and its state stays frozen (a fused plan runs no
+    kernel on it). The plan is chosen by the caller on the unwrapped
+    method; ``method`` here may carry ``client_method``'s wrapper. The
+    client state is updated in place; returns (msg_mean, clients)."""
+    if plan == "fused":
+        if mask is not None and not float(mask[0]):
+            c_tree = {k: torch.zeros(g.shape, dtype=clients["g"][k].dtype,
+                                     device=g.device)
+                      for k, g in grads.items()}
+        else:
+            c_tree, _ = carrier.fused_update(method, grads, clients, eta=eta)
+        return {k: comm.mean(axes, c_tree[k][0]) for k in sorted(c_tree)}, \
+            clients
+    if plan == "fused_wire":
+        if mask is not None:
+            # unreachable behind the spec/build construction errors
+            raise ValueError("sampled participation cannot run the "
+                             "fused_wire plan")
+        msg_mean, _ = carrier.fused_wire_round(method, grads, clients,
+                                               eta=eta, axes=axes)
+        return msg_mean, clients
+    return _leafwise(method, carrier, plan, grads, clients, 1, eta, mask, 1,
+                     rng, axes), clients
+
+
+def round_local(schedule: CompressionSchedule, method, grads,
+                states: Dict[str, Tree], axes: comm.Axes, eta=None,
+                overlap: bool = False, mask=None, rng=None,
+                client: Tuple[int, int] = (1, 0)
+                ) -> Tuple[Tree, Dict[str, Tree]]:
+    """Per-group client legs on the ONE client a rank holds, one wire and
+    one collective over ``axes`` a group (the reference's shard_map leg).
+    ``overlap`` runs each group carrier's gathers as the ring; ``mask`` is
+    this client's (1,) cohort entry (the rescale stays with the caller);
+    ``client`` is (n, this client's index) for a compressor that draws.
+    Returns (msg_mean, states), the states updated as
+    :func:`round_batched` updates them."""
+    msg_mean: Tree = {}
+    n_groups = len(schedule.groups)
+    for gi, (grp, keys) in enumerate(zip(
+            schedule.groups,
+            group_keys(schedule, base_grads(grads, method)))):
+        if not keys:
+            continue
+        m_g = group_method(method, grp)
+        carrier = dataclasses.replace(carrier_lib.make(grp.carrier),
+                                      overlap=overlap)
+        plan = carrier.plan(m_g, eta)
+        sub = _take_state(states, keys)
+        agg_g, new_st = local_leg(client_method(m_g, *client), carrier, plan,
+                                  _take_grads(grads, method, keys), sub,
+                                  axes, eta, mask=mask,
+                                  rng=_group_rng(rng, gi, n_groups))
+        msg_mean.update(agg_g)
+        for name, tree in new_st.items():
+            states[name].update(tree)
+    return _sorted(msg_mean), states
 
 
 def round_batched(schedule: CompressionSchedule, method, grads,

@@ -227,10 +227,11 @@ def _check_group_plans(config, schedule, method, eta) -> None:
                     dreason)
 
 
-def ef_config(spec: RunSpec) -> dist.EFConfig:
+def ef_config(spec: RunSpec, n: Optional[int] = None) -> dist.EFConfig:
     """The EFConfig of a spec, with the reference's authoritative checks:
     the carrier plans (per group under a schedule), then participation and
-    the hop topology against them."""
+    the hop topology against its ``n`` clients (the mesh's on more than
+    one rank; ``spec.clients`` by default)."""
     method = make_method(spec)
     down = make_down_compressor(spec)
     schedule = make_schedule(spec)
@@ -273,7 +274,7 @@ def ef_config(spec: RunSpec) -> dist.EFConfig:
             "inside, leaving no per-client wire to mask — use "
             "carrier='quant8'/'quant4'")
     if hops is not None:
-        hier_lib.check_pods(hops, spec.clients)
+        hier_lib.check_pods(hops, spec.clients if n is None else n)
         if sampling:
             raise ValueError(
                 "sampled participation cannot run under a hierarchical "

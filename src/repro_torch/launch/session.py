@@ -16,6 +16,20 @@ as in the reference. ``save`` writes that state, the step and the spec in
 the reference's npz layout; ``restore_from`` reads a checkpoint of either
 package back (refusing one written by another RunSpec), and ``resume``
 rebuilds a run from the spec its latest checkpoint embeds.
+
+The spec's ``mesh`` names the geometry (launch/mesh.py): ``smoke`` is the
+single-device runtime with ``spec.clients`` emulated clients; ``pod`` and
+``multi_pod`` span the ``torch.distributed`` world (shrunk pod-major to its
+rank count; ``launch/multiproc.py`` joins it), and on more than one rank
+each rank is one client: it draws the global batch and keeps its client's
+rows, the round is ``ef_round_sharded``, the loss is the clients' mean.
+On one rank they run the single-device runtime as ``smoke`` does. A world
+that would give the ``model`` axis more than one rank is refused here, as
+are ``publish_to`` and ``serve`` on more than one rank (both arrive with
+later slices). ``save`` on a sharded run writes one npz from the first
+rank with the clients gathered on a leading axis: the keys, shapes and
+spec hash of the single-device layout; ``restore_from`` gives each rank its
+slice back.
 """
 from __future__ import annotations
 
@@ -28,11 +42,14 @@ import torch
 
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import base as cb
+from repro_torch.core import comm
 from repro_torch.core import distributed as dist
 from repro_torch.core import rng as rng_lib
 from repro_torch.core import schedule as sched_lib
 from repro_torch.data import pipeline as pipe_lib
 from repro_torch.launch import build as build_lib
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import shardings as sh
 from repro_torch.launch.spec import RunSpec
 from repro_torch.models import model as model_lib
 from repro_torch.optim import optimizer as opt_lib
@@ -71,6 +88,33 @@ class Session:
         self._serve_src: Optional[Dict[str, torch.Tensor]] = None
         self._publisher = None             # core/stream.py, see publish_to
         self._bootstrap_every = 0
+        self.mesh = self._make_mesh(spec.mesh)
+        if self.mesh.shape.get("model", 1) > 1:
+            raise ValueError(
+                f"mesh={spec.mesh!r} on this world gives the 'model' axis "
+                f"{self.mesh.shape['model']} ranks ({self.mesh.shape}); the "
+                "'model' axis (param_pspecs, tp_pad_heads) arrives with the "
+                "next slice of the port (ROADMAP Queue 1 item 3)")
+        self.plan = sh.ShardPlan(spec.client_granularity,
+                                 spec.state_sharding, spec.ef_state_dtype)
+
+    @staticmethod
+    def _make_mesh(name: str) -> mesh_lib.Mesh:
+        if name == "smoke":
+            return mesh_lib.make_smoke_mesh()
+        return mesh_lib.make_production_mesh(multi_pod=(name == "multi_pod"))
+
+    @property
+    def sharded(self) -> bool:
+        """True when each rank of the mesh is one client."""
+        return self.mesh.size > 1
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self.sharded:
+            raise ValueError(
+                f"{what} on a session of {self.mesh.size} ranks arrives with "
+                "a later slice of the port (ROADMAP Queue 1 item 3); run it "
+                "on the smoke mesh")
 
     @staticmethod
     def _arch_config(spec: RunSpec) -> cb.ArchConfig:
@@ -83,7 +127,18 @@ class Session:
 
     @property
     def n_clients(self) -> int:
-        return self.spec.clients
+        if not self.sharded:
+            return self.spec.clients
+        return mesh_lib.dp_size(self.mesh)
+
+    def _client_axes(self):
+        """The group of all clients through this rank (its ``index`` is
+        this rank's client, pod-major)."""
+        return self.mesh.axes(self.mesh.client_axes())
+
+    def _pods(self, efc) -> int:
+        hops = efc.effective_hops
+        return hops.pods if hops is not None else 1
 
     def schedule_table(self) -> Optional[str]:
         """The resolved per-group table for this session's arch (leaf and
@@ -112,7 +167,8 @@ class Session:
         if self._tr is not None:
             return self._tr
         spec, cfg, n = self.spec, self.cfg, self.n_clients
-        efc = build_lib.ef_config(spec)
+        sharded = self.sharded
+        efc = build_lib.ef_config(spec, n)
         opt = opt_lib.make(spec.optimizer, lr=spec.lr)
         pipe = self._pipe(spec.seed)
 
@@ -121,17 +177,29 @@ class Session:
 
         if template:
             params = model_lib.init_params(cfg, None, "meta")
-            ef_state = dist.init_ef_state(efc, params, n)
+            ef_state = dist.init_ef_state_sharded(efc, params, self.mesh) \
+                if sharded else dist.init_ef_state(efc, params, n)
         else:
             params = model_lib.init_params(
                 cfg, torch.Generator().manual_seed(spec.seed), self.device)
             # Alg 1 line 2: v⁰ᵢ = g⁰ᵢ = the clients' gradients on batch 0
             b0 = pipe_lib.with_prefix_embeds(cfg, pipe.batch(0, self.device))
-            _, _, g0 = dist.per_client_value_and_grad(loss_fn, params, b0, n)
-            ef_state = dist.init_ef_state(efc, params, n, init_grads=g0)
+            if sharded:
+                # this rank's client: its rows of batch 0, its gradients
+                mine = dist.client_rows(b0, n, self._client_axes().index)
+                _, _, g0 = dist.per_client_value_and_grad(loss_fn, params,
+                                                          mine, 1)
+                ef_state = dist.init_ef_state_sharded(efc, params, self.mesh,
+                                                      init_grads=g0)
+            else:
+                _, _, g0 = dist.per_client_value_and_grad(loss_fn, params,
+                                                          b0, n)
+                ef_state = dist.init_ef_state(efc, params, n, init_grads=g0)
         self._tr = {
             "pipe": pipe, "loss_fn": loss_fn, "efc": efc,
-            "step_fn": dist.make_train_step(loss_fn, efc, opt, n),
+            "step_fn": dist.make_train_step(
+                loss_fn, efc, opt, n, mesh=self.mesh if sharded else None,
+                overlap=spec.overlap),
             "params": params, "opt_state": opt.init(params),
             "ef_state": ef_state,
         }
@@ -241,7 +309,19 @@ class Session:
                 raise ValueError("no ckpt_dir in the spec and no path given")
             path = os.path.join(self.spec.ckpt_dir,
                                 f"step_{self.step:08d}.npz")
-        ckpt_lib.save(path, self._state(), step=self.step, spec=self.spec)
+        state = self._state()
+        if self.sharded:
+            # every rank hands its client's leaves to the first, which
+            # writes the single-device layout; the others wait for the file
+            axes = self._client_axes()
+            ef_full = sh.global_state(state["ef_state"], axes,
+                                      self._pods(self._tr["efc"]))
+            if axes.index == 0:
+                ckpt_lib.save(path, dict(state, ef_state=ef_full),
+                              step=self.step, spec=self.spec)
+            comm.barrier(axes)
+        else:
+            ckpt_lib.save(path, state, step=self.step, spec=self.spec)
         self._last_saved_step = self.step
         return path
 
@@ -271,7 +351,11 @@ class Session:
         created = self._tr is None
         self._ensure_train(template=created)
         try:
-            state, meta = ckpt_lib.restore(path, self._state(), self.device)
+            if self.sharded:
+                state, meta = self._restore_slice(path)
+            else:
+                state, meta = ckpt_lib.restore(path, self._state(),
+                                               self.device)
         except BaseException:
             if created:
                 self._tr = None         # never leave a template behind
@@ -282,6 +366,18 @@ class Session:
         # step, and they supersede an injected serving tree
         self._serve_src = None
         self._params_changed()
+
+    def _restore_slice(self, path: str):
+        """A sharded rank's restore: the checkpoint's single-device layout
+        read on the host, this rank's client (and pod) slice kept, moved to
+        the device."""
+        efc, n = self._tr["efc"], self.n_clients
+        like = dict(self._state(), ef_state=dist.init_ef_state(
+            efc, model_lib.init_params(self.cfg, None, "meta"), n))
+        state, meta = ckpt_lib.restore(path, like, "cpu")
+        state["ef_state"] = sh.local_state(
+            state["ef_state"], self._client_axes().index, self._pods(efc), n)
+        return sh.to_device(state, self.device), meta
 
     # -------------------------------------------------------- wire streaming
     def publish_to(self, stream_dir: str, bootstrap_every: int = 0):
@@ -294,6 +390,7 @@ class Session:
         ``bootstrap_every`` adds one every that many steps, for cheaper
         mid-stream joins and gap resyncs. Returns the WireLog."""
         from repro_torch.core import stream as stream_lib
+        self._refuse_sharded("publish_to")
         tr = self._ensure_train()
         efc = tr["efc"]
         legs = stream_lib.resolve_legs(
@@ -412,6 +509,7 @@ class Session:
         never reaches it. ``decode_hook(i)`` runs before decode step i; if
         it changes the served tree (``set_serve_params``), the remaining
         steps decode with the new tree."""
+        self._refuse_sharded("serve")
         cfg = self.cfg
         if tokens is None:
             tokens = torch.randint(

@@ -12,11 +12,15 @@ grok-1-314b) with either ``moe_impl``, the ten EF methods, the eight compressors
 carriers (``fused`` uplink only), f32 or bfloat16 EF state, SGD and AdamW,
 per-parameter-group schedules (``groups``), the participation modes
 (``async`` names the event-driven simulator, which ``build`` refuses as
-the reference's does) and the two-tier hierarchy (``hops``), with the
-reference's grammars, previews and cross-field refusals. It refuses,
-loudly and at construction, what the port does not run yet: a ``mesh``
-beyond ``smoke`` (and the client granularity and state sharding of one),
-``overlap``, ``shape`` and ``tp_pad_heads``.
+the reference's does), the two-tier hierarchy (``hops``), the meshes
+``smoke``, ``pod`` and ``multi_pod`` with ``overlap``, and a named
+``shape`` (an ``INPUT_SHAPES`` entry, hashed and checked, which training
+ignores as the reference's does), with the reference's grammars, previews
+and cross-field refusals. It refuses, loudly and at construction, what
+the port does not run yet, each naming the slice that brings it:
+client granularity ``pod``, state sharding ``zero`` and ``tp_pad_heads``
+(a world whose mesh has a ``model`` axis above 1 is refused where the
+mesh is built, launch/session.py).
 ``compressor_kw`` and ``method_kw`` must map names to JSON
 scalars; which names the compressor and the method take is checked where
 they are built (launch/build.py).
@@ -78,7 +82,22 @@ SPARSE_WIRE_OK = frozenset({"topk", "block_topk"})
 FUSED_METHODS = frozenset({"ef21_sgdm", "ef21_sgd"})
 FUSED_COMPRESSORS = frozenset({"block_topk"})
 
-_LATER = "arrives with a later slice of the port (ROADMAP Queue 1)"
+MESHES = ("smoke", "pod", "multi_pod")
+# geometry mirror of launch/mesh.py (PROD_DATA/PROD_MODEL/PROD_PODS)
+MESH_GEOM: Dict[str, Dict[str, int]] = {
+    "smoke": {"data": 1, "model": 1},
+    "pod": {"data": 16, "model": 16},
+    "multi_pod": {"pod": 2, "data": 16, "model": 16},
+}
+GRANULARITIES = ("group", "pod")
+STATE_SHARDINGS = ("client", "zero")
+
+# what the port still refuses, and the slice that brings it (ROADMAP
+# Queue 1 item 3's order)
+_MODEL_AXIS = ("arrives with the next slice of the port, the 'model' axis "
+               "(param_pspecs, tp_pad_heads; ROADMAP Queue 1 item 3)")
+_ZERO = ("arrives with the slice after the 'model' axis, ZeRO state "
+         "sharding and pod granularity (ROADMAP Queue 1 item 3)")
 
 
 def pattern_token_errors(pattern: str) -> List[str]:
@@ -445,20 +464,30 @@ class RunSpec:
                 ("carrier", self.carrier, CARRIERS),
                 ("downlink_carrier", self.downlink_carrier, DOWN_CARRIERS),
                 ("optimizer", self.optimizer, OPTIMIZERS),
-                ("mesh", self.mesh, ("smoke",)),
-                ("client_granularity", self.client_granularity, ("group",)),
-                ("state_sharding", self.state_sharding, ("client",)),
-                ("ef_state_dtype", self.ef_state_dtype, EF_STATE_DTYPES),
-                ("shape", self.shape, (None,)),
-                ("tp_pad_heads", self.tp_pad_heads, (0,))]:
+                ("ef_state_dtype", self.ef_state_dtype, EF_STATE_DTYPES)]:
             if val not in allowed:
                 errs.append(f"{field}={val!r} is not ported (have "
-                            f"{sorted(map(repr, allowed))}); it {_LATER}")
+                            f"{sorted(map(repr, allowed))})")
+        if self.mesh not in MESHES:
+            errs.append(f"unknown mesh {self.mesh!r}; have {list(MESHES)}")
+        for field, val, allowed in [
+                ("client_granularity", self.client_granularity,
+                 GRANULARITIES),
+                ("state_sharding", self.state_sharding, STATE_SHARDINGS)]:
+            if val not in allowed:
+                errs.append(f"{field}={val!r} not in {list(allowed)}")
+        if self.shape is not None and self.shape not in cb.INPUT_SHAPES:
+            errs.append(f"unknown shape {self.shape!r}; have "
+                        f"{sorted(cb.INPUT_SHAPES)}")
         if self.moe_impl not in MOE_IMPLS:
             errs.append(f"moe_impl={self.moe_impl!r} not in "
                         f"{list(MOE_IMPLS)}")
-        if self.overlap:
-            errs.append(f"overlap=True {_LATER}")
+        if self.client_granularity == "pod":
+            errs.append(f"client_granularity='pod' {_ZERO}")
+        if self.state_sharding == "zero":
+            errs.append(f"state_sharding='zero' {_ZERO}")
+        if self.tp_pad_heads:
+            errs.append(f"tp_pad_heads={self.tp_pad_heads!r} {_MODEL_AXIS}")
         for kw_name, kw in [("method_kw", self.method_kw),
                             ("compressor_kw", self.compressor_kw)]:
             if not isinstance(kw, dict) or not all(
@@ -479,9 +508,21 @@ class RunSpec:
         errs.extend(self._validate_hops())
         if self.seq_len <= 0 or self.global_batch <= 0 or self.clients < 1:
             errs.append("seq_len, global_batch and clients must be positive")
-        elif self.global_batch % self.clients:
-            errs.append(f"global batch {self.global_batch} not divisible by "
-                        f"the {self.clients} EF clients")
+        elif self.mesh in MESHES \
+                and self.client_granularity in GRANULARITIES:
+            # both batch geometries a spec names: the training batch and,
+            # when set, the named shape's (the reference's check)
+            n = self.n_clients_preview()
+            batches = [self.global_batch]
+            if self.shape in cb.INPUT_SHAPES \
+                    and cb.INPUT_SHAPES[self.shape].kind == "train":
+                batches.append(cb.INPUT_SHAPES[self.shape].global_batch)
+            for batch in batches:
+                if batch % n:
+                    errs.append(
+                        f"global batch {batch} not divisible by the {n} EF "
+                        f"clients of mesh={self.mesh!r} "
+                        f"granularity={self.client_granularity!r}")
         if not 0.0 < self.eta <= 1.0:
             errs.append(f"eta must be in (0, 1], got {self.eta}")
         for field in ("ratio", "downlink_ratio"):
@@ -643,10 +684,23 @@ class RunSpec:
             errs.append(f"hops: cross_ratio must be in (0, 1], got {ratio!r}")
         if pods == 1:
             return errs
-        n = self.n_clients_preview()
+        n = self.n_clients_preview() if self.mesh in MESHES else pods
         if n % pods != 0:
             errs.append(f"hops: pods={pods} must divide the {n} EF clients "
-                        f"of mesh={self.mesh!r}")
+                        f"of mesh={self.mesh!r} "
+                        f"granularity={self.client_granularity!r}")
+        if self.mesh == "pod":
+            errs.append("hops: mesh='pod' has no pod axis — hierarchical "
+                        "aggregation (pods > 1) needs mesh='multi_pod' or "
+                        "the single-device smoke mesh (vmap emulation)")
+        if self.mesh == "multi_pod" \
+                and pods != MESH_GEOM["multi_pod"]["pod"]:
+            errs.append(f"hops: pods={pods} must equal the multi_pod mesh's "
+                        f"pod axis ({MESH_GEOM['multi_pod']['pod']})")
+        if self.client_granularity == "pod":
+            errs.append("hops: client_granularity='pod' makes each pod ONE "
+                        "client — there is no intra-pod hop left to "
+                        "aggregate; use granularity='group'")
         mode = self.participation.get("mode", "full") \
             if isinstance(self.participation, dict) else "full"
         if mode in ("sampled", "async"):
@@ -664,8 +718,19 @@ class RunSpec:
         return errs
 
     def n_clients_preview(self) -> int:
-        """The paper's n: the emulated clients of the one-device mesh."""
-        return self.clients
+        """The paper's n for this spec (the reference's preview): the
+        emulated clients on the one-device smoke mesh, else the production
+        geometry's client count (``MESH_GEOM`` × granularity). A session
+        takes n from the mesh it actually builds."""
+        if self.mesh == "smoke":
+            return self.clients
+        geom = MESH_GEOM[self.mesh]
+        if self.client_granularity == "pod":
+            return geom.get("pod", 1)
+        n = 1
+        for ax in ("pod", "data"):
+            n *= geom.get(ax, 1)
+        return n
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -747,6 +812,7 @@ _FLAGS = [
     ("--method-kw", "method_kw", json.loads),
     ("--compressor-kw", "compressor_kw", json.loads),
     ("--moe-impl", "moe_impl", str),
+    ("--mesh", "mesh", str), ("--overlap", "overlap", bool),
     ("--optimizer", "optimizer", str),
     ("--lr", "lr", float), ("--heterogeneity", "heterogeneity", float),
     ("--seed", "seed", int),

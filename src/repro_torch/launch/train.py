@@ -32,6 +32,13 @@ src/repro/launch/train.py):
       --spec results/specs/fused_quickstart.json --carrier fused_quant8 \
       --downlink-carrier fused_quant4 --steps 3 --publish-stream /path/to/wire
 
+  # one client a process over torch.distributed (mesh pod: data 4, model
+  # 1 on four processes; start all four, process ids 0..3):
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --spec results/specs/fused_quant8_overlap.json --smoke --seq 64 \
+      --device cpu --steps 3 --coordinator localhost:29511 \
+      --num-processes 4 --process-id 0
+
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions on the CPU (use ``--smoke`` there). Prints the reference CLI's
 ``step N loss … g_norm …`` lines.
@@ -93,8 +100,23 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="join a multi-process torch.distributed world at "
+                         "this address (process 0 listens there) before "
+                         "the session is built; needs --num-processes and "
+                         "--process-id (launch/multiproc.py)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
     spec = spec_lib.from_args(args)
+
+    if args.coordinator is not None:
+        if args.num_processes is None or args.process_id is None:
+            ap.error("--coordinator needs --num-processes and --process-id")
+        from repro_torch.launch import multiproc
+        multiproc.distributed_init(
+            args.coordinator, args.num_processes, args.process_id,
+            backend="gloo" if args.device == "cpu" else None)
 
     from repro_torch.launch.session import Session
     if args.resume:
@@ -159,6 +181,8 @@ def main(argv=None) -> None:
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
         with open(args.metrics_out, "w") as f:
             json.dump(sess.history, f, indent=1)
+    if args.coordinator is not None:
+        multiproc.shutdown()
 
 
 if __name__ == "__main__":

@@ -659,3 +659,138 @@ def test_phase_f_launches_its_stated_counts():
         pub, app = CS.stream_launches(pt_build.ef_config(spec), tree)
         assert ({k: v for k, v in pub.items() if v},
                 {k: v for k, v in app.items() if v}) == (want_pub, want_app)
+
+
+# ---------------------------------------------------------------------------
+# phases MD1 and MD4: the multi-device runtime's CPU side
+# ---------------------------------------------------------------------------
+
+def _importable_chip_smoke(monkeypatch):
+    """chip_smoke as an importable module (MD4's rank processes import
+    their function by name)."""
+    import importlib
+    import sys
+    monkeypatch.syspath_prepend(os.path.abspath(ROOT))
+    sys.modules.pop("chip_smoke", None)
+    return importlib.import_module("chip_smoke")
+
+
+def test_phase_md1_on_a_gloo_world_of_one(monkeypatch, capsys):
+    """MD1's comparison at smoke size on the CPU (gloo instead of NCCL):
+    every path bit for bit the single-device round of one client, the
+    launch check passing (a plain run counts none)."""
+    cs = _importable_chip_smoke(monkeypatch)
+    cs.md1_phase(ops, pt_spec, device="cpu", backend="gloo", smoke=True)
+    out = capsys.readouterr().out
+    for label, _ in cs.MD_PATHS:
+        assert f"MD1 {label}: bit for bit" in out
+    assert "MD1: gather_to_first on gloo bit for bit" in out
+    import torch.distributed as dist
+    assert not dist.is_initialized()                  # the world was left
+
+
+def test_phase_md4_spawns_its_ranks_and_compares(monkeypatch, capsys):
+    """MD4 at smoke size on the CPU: 4 spawned gloo ranks, each run's
+    trajectory and digests equal on every rank and within MD_TOL of the
+    single-process run, the ring's run bit for bit the blocking one's,
+    each rank's recorded K3-K6 calls equal to ``expected_launches(...,
+    gathered=)`` (md4_run fails otherwise), and every planted fault read
+    above MD_TOL."""
+    cs = _importable_chip_smoke(monkeypatch)
+    runs = [(label, name, dict(over, smoke=True, seq_len=32))
+            for label, name, over in cs.MD4_RUNS
+            if label != "MD4-multi_pod"]
+    faults = [(label, name, dict(over, smoke=True, seq_len=32), fault)
+              for label, name, over, fault in cs.MD4_FAULTS]
+    cs.md4_phase(pt_session.Session, pt_spec, ops, runs=runs, device="cpu",
+                 faults=faults)
+    out = capsys.readouterr().out
+    assert "MD4: the overlap ring bit for bit the blocking gather" in out
+    assert "MD4: every planted fault caught" in out
+    for label, _, _, _ in faults:
+        assert f"{label}: planted fault" in out
+    for label, _, _ in runs:
+        assert f"{label}: loss/g_norm" in out
+        for rank in range(cs.MD_RANKS):
+            assert f"{label} rank {rank}: mesh {{'data': 4, 'model': 1}}" \
+                in out
+
+
+def _spec(name, overrides):
+    with open(os.path.join(ROOT, "results", "specs", f"{name}.json")) as f:
+        return pt_spec.RunSpec.from_dict(dict(json.load(f), smoke=True,
+                                              seq_len=32, **overrides))
+
+
+def test_sharded_launch_counts_add_the_gathered_decodes():
+    """One rank of the sharded round: the sparse quantized payload decodes
+    each gathered client's wire (one K6 more a leaf a client), the fused
+    and dense payloads launch what the single-device round does, and a
+    cross hop is its one pod's."""
+    spec = _spec("fused_quickstart", {"carrier": "quant8",
+                                      "downlink_carrier": "quant4"})
+    efc = pt_build.ef_config(spec)
+    tree = pt_model.init_params(pt_session.Session(spec, device="cpu").cfg,
+                                None, "meta")
+    flat = CS.expected_launches(efc, tree)
+    sharded = CS.expected_launches(efc, tree, gathered=4)
+    assert sharded["block_dequantize"] == flat["block_dequantize"] \
+        + 4 * len(tree)
+    assert sharded["block_quantize"] == flat["block_quantize"]
+    spec = _spec("fused_quickstart", {"carrier": "fused_quant8",
+                                      "downlink_carrier": "fused_quant4"})
+    efc = pt_build.ef_config(spec)
+    assert CS.expected_launches(efc, tree, gathered=4) == \
+        CS.expected_launches(efc, tree)
+    spec = _spec("hierarchy_quant4_cross", {})
+    efc = pt_build.ef_config(spec)
+    pods = efc.hops.pods
+    flat = CS.expected_launches(efc, tree)
+    sharded = CS.expected_launches(efc, tree, gathered=2)
+    assert flat["block_quantize"] == pods * sharded["block_quantize"]
+
+
+def test_staged_collectives_count_both_copies(monkeypatch, tmp_path):
+    """The host route of core/comm.py (gloo's send/recv with a CUDA
+    operand), forced on a CPU tensor in a gloo world of one for both
+    collectives: the results are the direct route's, and each collective
+    counts its operand's bytes to the host and its result's back."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import multiproc
+    multiproc.distributed_init(f"file://{tmp_path / 'store'}", 1, 0,
+                               backend="gloo")
+    try:
+        axes = mesh_lib.make_production_mesh().axes(("data",))
+        x = torch.arange(10, dtype=torch.float32)
+        direct = (comm.all_reduce_sum(axes, x), comm.all_gather(axes, x))
+        monkeypatch.setattr(comm, "_staged", lambda axes, t, op: True)
+        comm.reset_stats()
+        staged = (comm.all_reduce_sum(axes, x), comm.all_gather(axes, x))
+        for a, b in zip(direct, staged):
+            assert torch.equal(a, b)
+        assert comm.STATS["staged_bytes"] == 2 * 40 + 2 * 40
+        assert comm.STATS["collectives"] == 2
+        assert comm.STATS["wire_bytes"] == 80
+    finally:
+        multiproc.shutdown()
+
+
+def test_replicated_digest_sees_one_bit():
+    import torch
+    from repro_torch.launch import shardings as sh
+    params = {"a": torch.randn(5, 3), "b": torch.randn(7).bfloat16()}
+    ef = {"server": {"a": torch.randn(5, 3)}, "h": {"a": torch.zeros(5, 3)}}
+    d = sh.replicated_digest(params, ef)
+    assert d == sh.replicated_digest({k: v.clone() for k, v in
+                                      params.items()}, ef)
+    flipped = params["b"].clone()
+    flipped.view(torch.int16)[3] ^= 1
+    assert d != sh.replicated_digest(dict(params, b=flipped), ef)
+    moved = ef["h"]["a"].clone()
+    moved[0, 0], moved[1, 0] = 1.0, 0.0
+    other = ef["h"]["a"].clone()
+    other[1, 0] = 1.0
+    assert sh.replicated_digest(params, {**ef, "h": {"a": moved}}) != \
+        sh.replicated_digest(params, {**ef, "h": {"a": other}})

@@ -460,18 +460,27 @@ def test_the_moe_impl_flag_reaches_the_spec():
 
 
 def test_quant4_multipod_zero_is_refused_for_its_mesh_alone():
-    """grok-1-314b is ported: the shipped spec stays refused for its mesh,
-    granularity, state sharding and input shape, not for its arch."""
+    """grok-1-314b, the multi_pod mesh and the input shape are ported: the
+    shipped spec stays refused for its granularity and state sharding
+    (ZeRO), naming their slice, and not for its arch or mesh; with one
+    client a data group, per-client state and a batch of the group
+    geometry's 32 clients it loads with the reference's hash, on multi_pod
+    and on the smoke mesh."""
     d = _shipped("quant4_multipod_zero")
     assert d["arch"] == "grok-1-314b"
     with pytest.raises(ValueError, match="invalid RunSpec") as err:
         pt_spec.RunSpec.from_dict(d)
     msg = str(err.value)
-    assert "mesh='multi_pod'" in msg and "arch=" not in msg
-    ok = dict(d, mesh="smoke", shape=None, client_granularity="group",
-              state_sharding="client")
-    assert pt_spec.RunSpec.from_dict(ok).spec_hash() == \
-        jax_spec.RunSpec.from_dict(ok).spec_hash()
+    assert "client_granularity='pod'" in msg
+    assert "state_sharding='zero'" in msg and "shape=" not in msg
+    assert "ZeRO state sharding and pod granularity" in msg
+    assert "arch=" not in msg and "mesh=" not in msg
+    assert len(msg.splitlines()) == 3                # two reasons
+    group = dict(d, client_granularity="group", state_sharding="client",
+                 global_batch=32)
+    for ok in (group, dict(group, mesh="smoke", shape=None)):
+        assert pt_spec.RunSpec.from_dict(ok).spec_hash() == \
+            jax_spec.RunSpec.from_dict(ok).spec_hash()
 
 
 @pytest.fixture(scope="module")

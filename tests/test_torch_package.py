@@ -93,7 +93,8 @@ def test_spec_reads_the_reference_golden_file():
 
 @pytest.mark.parametrize("bad", [
     {"tp_pad_heads": 2},
-    {"mesh": "pod"}, {"optimizer": "lion"}, {"overlap": True},
+    {"state_sharding": "zero"}, {"optimizer": "lion"},
+    {"client_granularity": "pod"},
     {"ef_state_dtype": "float16"},
     {"carrier": "fused", "compressor_kw": {"block": 2048}},
     {"global_batch": 12},
@@ -101,6 +102,17 @@ def test_spec_reads_the_reference_golden_file():
 def test_spec_rejects_what_this_slice_does_not_run(bad):
     with pytest.raises(ValueError, match="invalid RunSpec"):
         pt_spec.RunSpec(**bad)
+
+
+@pytest.mark.parametrize("fields", [{"mesh": "pod"}, {"overlap": True}])
+def test_spec_takes_what_this_slice_runs(fields):
+    """The pod mesh and overlap were refused until the multi-device slice
+    (they were cases of the refusal test above): the port's spec now takes
+    each as the reference's does, under the same spec_hash."""
+    from repro.launch import spec as jax_spec
+    spec = pt_spec.RunSpec(**fields)
+    assert spec.spec_hash() == jax_spec.RunSpec(**fields).spec_hash()
+    assert pt_spec.RunSpec.from_json(spec.to_json()) == spec
 
 
 @pytest.mark.parametrize("fields", [
