@@ -221,6 +221,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      (the round's collectives keeping the local client alone, on the
      fused and the quant8 wire; parameters put back after every step)
      must each read above MD_TOL on every rank.
+  6i. phase MT, the 'model' axis: 4 rank processes sharing the card over
+     gloo on (data 2, model 2) (the production geometry narrowed in each
+     rank), full-width smollm-360m, 8 rows of 256 a client, f32 EF state,
+     recompute on, fused_quant8/fused_quant4: 3 steps with tp_pad_heads 2
+     (16 heads, 8 a rank) and 2 without (15 heads, attention replicated).
+     At the initial parameters each rank's gradient shards are held, in
+     f32, against the unsharded pass of its rows in the same process
+     (MT_GRAD_TOL), and two planted faults (Megatron's f the identity
+     both ways; a replicated leaf's gradient summed over 'model') must
+     read above it; every round's client state is bit for bit the
+     single-device ef_round over the rank's shard tree; loss and g_norm
+     equal on every rank, the replicated state's digest equal among the
+     ranks of a 'model' coordinate every step; the launches the derived
+     counts; rank 0's distinct K3-K6 calls bit for bit their plain
+     versions; per rank the step ms, the EF round's ms and its
+     collectives' share, the client pass's 'model' collectives and their
+     ms, and the peak beside MD4's; then granite-34b, gemma2-9b and
+     olmoe-1b-7b at smoke size on (data 2, model 2), the card within
+     P_TOL of the CPU over 2 steps.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
 shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, each D phase's
@@ -242,7 +261,7 @@ leaf its plans, per pod its cross hop), that losses, parameters and logits
 are finite, and prints its times, peak memory and step breakdown. Then the
 script prints a ``kernels`` JSON line (each kernel's launches on the main
 path and, under ``launches_by_phase``, on phases G, M, S, H, R, the D
-phases, each cell of P, F, MD1 and MD4 (summed over ranks)), the card
+phases, each cell of P, F, MD1, MD4 and MT (summed over ranks)), the card
 line, and the final ``{"ok": true, ...}`` line. Imports nothing of JAX or
 of src/repro.
 """
@@ -3475,6 +3494,375 @@ def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
     return total
 
 
+# phase MT: the 'model' axis (tensor parallelism over the attention
+# families) on 4 rank processes sharing the card over gloo, the production
+# geometry narrowed to (data 2, model 2) in each rank
+MT_RANKS = 4
+MT_GEOM = {"data": 2, "model": 2}
+MT_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
+               mesh="pod", smoke=False, seq_len=256, global_batch=16,
+               seed=0)           # 8 rows of 256 a client, f32 EF state
+MT_RUNS = [  # (label, tp_pad_heads, steps)
+    ("MT-padded", 2, 3),         # 16 heads, 8 a rank: attention split
+    ("MT-replicated", 0, 2),     # 15 heads: attention replicated whole
+]
+# each rank's gradient shards at the initial parameters against the
+# unsharded pass of the same rows in the same process, both in f32
+# activations: the largest leaf's ||tp - whole|| / ||whole||. Only the
+# order of the sums differs (the split products' partial sums, the
+# vocabulary's log-sum-exp); the planted faults (f the identity both ways;
+# a replicated leaf's gradient summed over 'model') must read above it
+MT_GRAD_TOL = 1e-3
+MT_FAULTS = ("f-identity", "replicated-summed")
+MT_SMOKE_ARCHS = ("granite-34b", "gemma2-9b", "olmoe-1b-7b")
+MT_SMOKE = dict(smoke=True, mesh="pod", seq_len=160, global_batch=4)
+MT_SMOKE_STEPS = 2
+MD4_PEAK = 10.51e9               # MD4's peak a rank, measured on four H100s
+
+
+def _mt_narrow():
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import spec as spec_lib
+    mesh_lib.PROD_DATA = MT_GEOM["data"]
+    spec_lib.MESH_GEOM["pod"] = dict(MT_GEOM)
+
+
+def _rel(got, want) -> float:
+    return float(torch.linalg.vector_norm((got - want).double())
+                 / torch.linalg.vector_norm(want.double()).clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def _mt_fault(fault):
+    """A planted fault of the tensor-parallel pass: "f-identity" makes
+    Megatron's f the identity both ways (the split regions' input
+    gradients never summed)."""
+    from repro_torch.core import comm
+    saved = comm.copy_to
+    if fault == "f-identity":
+        comm.copy_to = lambda axes, x: x
+    try:
+        yield
+    finally:
+        comm.copy_to = saved
+
+
+def mt_grad_check(sess, device, faults=()):
+    """At the Session's initial parameters: this rank's tensor-parallel
+    gradient shards of its client's rows against the unsharded pass of the
+    same rows (the whole tree, drawn from the same seed, in this process),
+    both with f32 activations; the largest leaf's relative difference,
+    then each planted fault's."""
+    from repro_torch.core import comm
+    from repro_torch.core import distributed as dist_lib
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import model as model_lib
+    spec = sess.spec
+    cfg = dataclasses.replace(sess.cfg, dtype="float32")
+    axes = sess._client_axes()
+    rows = dist_lib.client_rows(sess.batch_for(sess.step), axes.size,
+                                axes.index)
+    whole = model_lib.init_params(
+        cfg, torch.Generator().manual_seed(spec.seed), device)
+    _, _, want = dist_lib.client_value_and_grad(
+        lambda p, b: model_lib.train_loss(cfg, p, b), whole, rows)
+    del whole
+    want = {k: sh.shard_leaf(g[0], sess.pspecs[k], sess.model_axes.index,
+                             sess.model_axes.size) for k, g in want.items()}
+    def loss_fn(p, b):
+        return model_lib.train_loss(cfg, p, b, tp=sess.tp)
+
+    def reading(fault=None):
+        with _mt_fault(fault):
+            _, _, got = dist_lib.client_value_and_grad(loss_fn, sess.params,
+                                                       rows)
+        if fault == "replicated-summed":
+            got = {k: comm.all_reduce_sum(sess.model_axes, g)
+                   if "model" not in sess.pspecs[k] else g
+                   for k, g in got.items()}
+        worst = max((_rel(got[k][0], want[k]), k) for k in want)
+        return {"rel": worst[0], "leaf": worst[1]}
+    out = {"sound": reading()}
+    for fault in faults:
+        out[fault] = reading(fault)
+    del want
+    gc.collect()
+    return out
+
+
+def mt_run(ops, ref, label, pad, steps, device="cuda", smoke=False,
+           plain=True, faults=()):
+    """One MT run on this rank: a Session on (data 2, model 2) with
+    ``tp_pad_heads`` ``pad``; the gradient check (with ``faults``), then
+    ``steps`` steps, each round's client state held bit for bit against
+    the single-device ``ef_round`` of this client over its shard tree (its
+    inputs kept in pinned host memory during the round; its launches,
+    time and card bytes taken back out of the counts, the step ms and the
+    peak: a comparison), per step the loss, g_norm, digest, step and round
+    ms and the collectives' seconds;
+    the launches against ``expected_launches``; then (``plain``) each
+    distinct K3-K6 call bit for bit its plain version."""
+    from repro_torch.core import comm
+    from repro_torch.core import distributed as dist_lib
+    from repro_torch.core import ef as ef_lib
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import spec as spec_lib
+    from repro_torch.launch.session import Session
+    over = dict(MT_PATH, tp_pad_heads=pad)
+    if smoke:
+        over.update(smoke=True, seq_len=64, global_batch=4)
+    spec = load_spec(spec_lib, **over)
+    cuda = device == "cuda"
+    sess = Session(spec, device=device)
+    t0 = time.time()
+    n_local = sum(p.numel() for p in sess.params.values())
+    _sync(device)
+    rec = {"mesh": dict(sess.mesh.shape), "coord": sess.mesh.coordinate(),
+           "heads": tuple(sess.params["layers/attn/wq"].shape[-2:-1]),
+           "params_local": n_local, "init_s": time.time() - t0,
+           "steps": [], "client_state_equal": []}
+    t0 = time.time()
+    rec["grads"] = mt_grad_check(sess, device, faults)
+    rec["grad_check_s"] = time.time() - t0
+    efc = sess._tr["efc"]
+    per_step = expected_launches(efc, sess.params,
+                                 gathered=sess._client_axes().size)
+    orig = dist_lib.ef_round_sharded
+    timing, peaks = {}, []
+
+    def to_dev(tree):
+        return {k: v.to(device) for k, v in tree.items()}
+
+    def checked(efc_, grads, ef_state, mesh, **kw):
+        # the round's inputs the check needs, kept in pinned host memory so
+        # that they hold no card memory while the round runs
+        t_c = time.time()
+        clients = {f: _host_copy(t) for f, t in ef_state["clients"].items()}
+        g_host = _host_copy(grads)
+        _sync(device)
+        check_s = time.time() - t_c
+        t, c = time.time(), comm.STATS["seconds"]
+        out = orig(efc_, grads, ef_state, mesh, **kw)
+        _sync(device)
+        timing["round_ms"] = (time.time() - t) * 1e3
+        timing["collective_ms"] = (comm.STATS["seconds"] - c) * 1e3
+        if cuda:
+            peaks.append(torch.cuda.max_memory_allocated())
+        t_c = time.time()
+        saved = dict(ops.launches)
+        before = {p: ef_lib.tree_clone(v) for p, v in out[1].items()
+                  if p != "clients"}
+        before["clients"] = {f: to_dev(t) for f, t in clients.items()}
+        _, single = dist_lib.ef_round(efc_, to_dev(g_host), before,
+                                      eta=kw.get("eta"), step=kw.get("step"),
+                                      rng=kw.get("rng"))
+        rec["client_state_equal"].append(
+            _equal_states(single["clients"], out[1]["clients"]))
+        ops.launches.update(saved)
+        del before, single, clients, g_host
+        _sync(device)
+        if cuda:             # the check's own bytes are not the path's
+            torch.cuda.reset_peak_memory_stats()
+        timing["check_ms"] = (check_s + time.time() - t_c) * 1e3
+        return out
+    dist_lib.ef_round_sharded = checked
+    comm.TIMED = True
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        with recorded_calls(ops, ROW_KERNELS, shapes_only=True) as calls:
+            for _ in range(steps):
+                comm.reset_stats()
+                _sync(device)
+                t = time.time()
+                m = sess.step_once()
+                loss, g_norm = float(m["loss"]), float(m["g_norm"])
+                _sync(device)
+                rec["steps"].append(dict(
+                    loss=loss, g_norm=g_norm,
+                    step_ms=(time.time() - t) * 1e3 - timing["check_ms"],
+                    tp_ms=comm.STATS["tp_seconds"] * 1e3,
+                    tp_collectives=comm.STATS["tp_collectives"],
+                    digest=sh.replicated_digest(sess.params, sess.ef_state),
+                    **timing))
+    finally:
+        dist_lib.ef_round_sharded = orig
+        comm.TIMED = False
+    rec["launches"] = {k: v for k, v in ops.launches.items() if v}
+    rec["peak"] = max(peaks + [torch.cuda.max_memory_allocated()]) \
+        if cuda else 0
+    if cuda:
+        check_launches(rec["launches"], per_step, steps, label)
+    del sess, m
+    gc.collect()
+    if cuda and plain:
+        torch.cuda.empty_cache()
+        rec["plain"] = check_shapes_plain(ops, ref, label, calls)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def mt_smoke(arch):
+    """One attention family at smoke size on (data 2, model 2), on the
+    card and on the CPU in the same gloo world: each step's loss and g_norm
+    (the card run's launches taken back out: a comparison)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import spec as spec_lib
+    from repro_torch.launch.session import Session
+    spec = load_spec(spec_lib, **dict(R_PATH, arch=arch, **MT_SMOKE))
+    out = {}
+    for device in ("cuda", "cpu"):
+        saved = dict(ops.launches)
+        sess = Session(spec, device=device)
+        out[device] = [(float(m["loss"]), float(m["g_norm"])) for m in
+                       (sess.step_once() for _ in range(MT_SMOKE_STEPS))]
+        ops.launches.update(saved)
+        del sess
+        gc.collect()
+    return out
+
+
+def mt_rank(rank, runs, device="cuda", smoke=False,
+            smoke_archs=MT_SMOKE_ARCHS):
+    """One of MT's rank processes (``multiproc.spawn``, gloo, the card
+    shared, the kernels' library from the parent's build): each run of
+    ``runs``, the first with MT_FAULTS's gradient readings, then the smoke
+    archs on card and CPU. Rank 0 holds the distinct K3-K6 calls against
+    the plain versions."""
+    from repro_torch.kernels import build, ops, ref
+    _mt_narrow()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cuda":
+        build.build()
+    out = {"runs": {}, "smoke": {}}
+    for i, (label, pad, steps) in enumerate(runs):
+        out["runs"][label] = mt_run(ops, ref, label, pad, steps, device,
+                                    smoke, plain=rank == 0,
+                                    faults=MT_FAULTS if i == 0 else ())
+    t0 = time.time()
+    for arch in smoke_archs:
+        out["smoke"][arch] = mt_smoke(arch)
+    out["smoke_s"] = time.time() - t0
+    return out
+
+
+def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
+             smoke_archs=MT_SMOKE_ARCHS):
+    """MT: MT_RANKS rank processes on the one card (gloo), the mesh (data
+    2, model 2), full-width smollm-360m (recompute on, f32 EF state, 8 rows
+    of 256 a client), MT_RUNS: the padded run (attention split over the
+    axis) and the unpadded one (attention replicated). Checks: each rank's
+    gradient shards within MT_GRAD_TOL of the unsharded pass and both
+    planted faults above it; every round's client state bit for bit the
+    single-device round over the shard tree; loss and g_norm equal on
+    every rank and the replicated state's digest equal among the ranks of
+    a 'model' coordinate every step; the launches; rank 0's distinct K3-K6
+    calls bit for bit their plain versions; granite, gemma2 and olmoe at
+    smoke size on the card within P_TOL of the CPU. Returns the runs'
+    launches summed over ranks. (``device``/``smoke``: the CPU rehearsal
+    at smoke size.)"""
+    from repro_torch.launch import multiproc
+    work = tempfile.mkdtemp(prefix="mt_")
+    t0 = time.time()
+    try:
+        ranks = multiproc.spawn(mt_rank, MT_RANKS, work,
+                                args=(runs, device, smoke, smoke_archs),
+                                threads=2, timeout_s=900)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"MT: {MT_RANKS} ranks in {time.time() - t0:.1f} s "
+          f"(smoke archs {ranks[0]['smoke_s']:.1f} s of it)", flush=True)
+    total, readings = {}, {}
+    for label, pad, steps in runs:
+        recs = [r["runs"][label] for r in ranks]
+        if any(rec["mesh"] != MT_GEOM for rec in recs):
+            fail(f"{label}: meshes {[rec['mesh'] for rec in recs]}")
+        traj = [[(s["loss"], s["g_norm"]) for s in rec["steps"]]
+                for rec in recs]
+        if any(t != traj[0] for t in traj[1:]):
+            fail(f"{label}: the ranks disagree on loss or g_norm: {traj}")
+        if not all(math.isfinite(x) for st in traj[0] for x in st):
+            fail(f"{label}: non-finite loss or g_norm {traj[0]}")
+        for step in range(steps):
+            for m in range(MT_GEOM["model"]):
+                digests = {rec["steps"][step]["digest"] for rec in recs
+                           if rec["coord"]["model"] == m}
+                if len(digests) != 1:
+                    fail(f"{label} step {step}: the replicated state differs "
+                         f"among the ranks of model coordinate {m}")
+        for rec in recs:
+            if not (len(rec["client_state_equal"]) == steps
+                    and all(rec["client_state_equal"])):
+                fail(f"{label} rank {rec['coord']}: a round's client state "
+                     "is not the single-device round's over the shard tree "
+                     f"bit for bit: {rec['client_state_equal']}")
+            sound = rec["grads"]["sound"]
+            if sound["rel"] > MT_GRAD_TOL:
+                fail(f"{label} rank {rec['coord']}: gradient shards "
+                     f"{sound['rel']:.3e} from the unsharded pass (leaf "
+                     f"{sound['leaf']}) > MT_GRAD_TOL {MT_GRAD_TOL}")
+        readings[label] = max(rec["grads"]["sound"]["rel"] for rec in recs)
+        for fault in [f for f in MT_FAULTS if f in recs[0]["grads"]]:
+            caught = min(rec["grads"][fault]["rel"] for rec in recs)
+            if caught <= MT_GRAD_TOL:
+                fail(f"{label}: the planted fault {fault!r} reads "
+                     f"{caught:.3e}, within MT_GRAD_TOL {MT_GRAD_TOL}: the "
+                     "gradient check would pass it")
+            readings[f"{label}/{fault}"] = caught
+            print(f"{label}: planted fault {fault!r}: the least rank's "
+                  f"reading {caught:.3e} (leaf "
+                  f"{recs[0]['grads'][fault]['leaf']}) > MT_GRAD_TOL "
+                  f"{MT_GRAD_TOL}: caught", flush=True)
+        for rec in recs:
+            st = rec["steps"]
+            print(f"{label} rank {rec['coord']}: heads a rank "
+                  f"{rec['heads']}, {rec['params_local']} parameters held, "
+                  f"gradient shards {rec['grads']['sound']['rel']:.3e} from "
+                  f"the unsharded pass (check {rec['grad_check_s']:.1f} s); "
+                  f"step_ms {[round(s['step_ms'], 1) for s in st]} (the "
+                  f"client-state check's "
+                  f"{[round(s['check_ms'], 1) for s in st]} ms taken out) "
+                  f"round_ms "
+                  f"{[round(s['round_ms'], 1) for s in st]} round "
+                  f"collective_ms {[round(s['collective_ms'], 1) for s in st]}"
+                  f" (share of the round "
+                  f"{[round(s['collective_ms'] / s['round_ms'], 3) for s in st]}"
+                  f") client-pass tp collectives a step "
+                  f"{st[-1]['tp_collectives']} tp_ms "
+                  f"{[round(s['tp_ms'], 1) for s in st]} peak {rec['peak']} "
+                  f"({rec['peak'] / MD4_PEAK:.3f} of MD4's {MD4_PEAK:.4g}) "
+                  f"launches {rec['launches']}", flush=True)
+            total = _merged(total, rec["launches"])
+        print(f"{label}: loss/g_norm {traj[0]} on every rank; replicated "
+              f"state equal per model coordinate every step; client state "
+              f"bit for bit the single-device round every step; every "
+              f"distinct K3-K6 call bit for bit its plain version: "
+              f"{recs[0].get('plain')}", flush=True)
+    worst = {}
+    for arch in smoke_archs:
+        runs_ = ranks[0]["smoke"][arch]
+        if any(r["smoke"][arch] != runs_ for r in ranks[1:]):
+            fail(f"MT {arch}: the ranks disagree at smoke size")
+        d = [abs(a - b) / max(abs(b), 1e-12)
+             for ca, cb in zip(runs_["cuda"], runs_["cpu"])
+             for a, b in zip(ca, cb)]
+        worst[arch] = max(d)
+        if worst[arch] > P_TOL:
+            fail(f"MT {arch} smoke: card {runs_['cuda']} vs CPU "
+                 f"{runs_['cpu']}: {worst[arch]:.3e} > {P_TOL}")
+    if smoke_archs:
+        print(f"MT smoke on (data 2, model 2), card against CPU over "
+              f"{MT_SMOKE_STEPS} steps, largest relative difference "
+              f"{worst} (limit {P_TOL})", flush=True)
+    print(f"MT: gradient readings {readings} (limit {MT_GRAD_TOL})",
+          flush=True)
+    return total
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -3660,6 +4048,15 @@ def main() -> None:
                "the blocking gather, multi_pod with hierarchy_quant4_cross"
                ".json's hops"):
         by_phase["MD4"] = md4_phase(Session, spec_lib, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"MT: {MT_RANKS} rank processes on the one card (gloo), "
+               "mesh (data 2, model 2), full-width smollm-360m "
+               "tensor-parallel: tp_pad_heads 2 (attention split) for 3 "
+               "steps, then 2 steps unpadded (attention replicated), "
+               "fused_quant8/fused_quant4; granite, gemma2, olmoe at smoke "
+               "size, card against CPU"):
+        by_phase["MT"] = mt_phase(ops)
 
     csrc = "src/repro_torch/kernels/csrc"
     rows = [

@@ -1,7 +1,10 @@
 """Weights across from the JAX package as they are in memory: a pytree of
 numpy arrays (``jax.device_get`` of the reference's params) becomes the
 port's flat dict of tensors keyed by ``/``-joined leaf paths, so both
-packages compute from the same numbers. A checkpoint file of either package
+packages compute from the same numbers. A tree padded for the 'model' axis
+(``tp_pad_heads``: the attention leaves at ``cfg.eff_heads``) crosses as
+it is, and a tree of one rank's shards is joined first
+(``launch/shardings.py::unshard_tree``). A checkpoint file of either package
 is read by checkpoint/checkpoint.py (``restore``, ``Session.restore_from``)
 instead. Imports nothing of the JAX package.
 """

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,6 +59,13 @@ class ArchConfig:
     frontend: Optional[str] = None
     frontend_tokens: int = 0                 # vision: patch embeddings prepended
 
+    # head padding for the 'model' axis: when the heads do not divide it,
+    # pad the q heads to a multiple of ``tp_pad_heads`` and MHA-expand kv
+    # (each kv head copied under its query group); padded q heads get zero
+    # wk/wv/wo, so the layer computes exactly the unpadded function, and
+    # attention splits over the axis instead of being replicated. 0 = off.
+    tp_pad_heads: int = 0
+
     # numerics / memory
     dtype: str = "bfloat16"          # activation dtype
     param_dtype: str = "float32"
@@ -71,6 +78,16 @@ class ArchConfig:
         if self.head_dim is not None:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def eff_heads(self) -> Tuple[int, int]:
+        """(H_eff, KV_eff) after the optional head padding (MHA-expand)."""
+        H, KV = self.num_heads, self.num_kv_heads
+        t = self.tp_pad_heads
+        if not t or H == 0 or (H % t == 0 and KV % t == 0):
+            return H, KV
+        Hp = -(-H // t) * t
+        return Hp, Hp
 
     @property
     def d_inner(self) -> int:

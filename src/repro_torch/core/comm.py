@@ -41,7 +41,7 @@ import torch
 # the bytes staged through host memory under gloo, and the seconds inside
 # them (the device synchronized before and after when TIMED is set)
 STATS = {"collectives": 0, "wire_bytes": 0, "staged_bytes": 0,
-         "seconds": 0.0}
+         "seconds": 0.0, "tp_collectives": 0, "tp_seconds": 0.0}
 TIMED = False
 # the collectives gloo runs on CUDA tensors as they are
 GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather"})
@@ -49,7 +49,7 @@ GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather"})
 
 def reset_stats() -> None:
     for k in STATS:
-        STATS[k] = 0.0 if k == "seconds" else 0
+        STATS[k] = 0.0 if k.endswith("seconds") else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,3 +227,102 @@ def gather_to_first(axes: Axes, x: torch.Tensor) -> Optional[torch.Tensor]:
 def barrier(axes: Axes) -> None:
     if axes.group is not None:
         _dist().barrier(group=axes.group)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel pass's collectives over the 'model' axis (Megatron's
+# f and g), differentiable under torch.func.grad/vjp and plain autograd
+# ---------------------------------------------------------------------------
+
+def _model_all_reduce(axes: Axes, x: torch.Tensor, op=None) -> torch.Tensor:
+    """The f32 sum (or ``op``) of ``x`` over ``axes``, cast back to x's
+    dtype: every member gets the same bits. Counted apart from the EF
+    round's collectives (``tp_collectives``, ``tp_seconds``)."""
+    dist = _dist()
+    if TIMED and x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = x.detach().float().clone()
+        kw = {} if op is None else {"op": op}
+        # gloo's CUDA route is known to sum (GLOO_CUDA_OPS); a max stages
+        if _staged(axes, out, "all_reduce" if op is None else "max"):
+            buf = _host(out)
+            dist.all_reduce(buf, group=axes.group, **kw)
+            out = _back(buf, out)
+        else:
+            dist.all_reduce(out, group=axes.group, **kw)
+        out = out.to(x.dtype)
+    if TIMED and x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    STATS["tp_seconds"] += time.perf_counter() - t0
+    STATS["tp_collectives"] += 1
+    return out
+
+
+class _Copy(torch.autograd.Function):
+    """f: the identity forward, the sum over the group backward. Placed
+    where a tensor every member holds whole enters a split region."""
+
+    @staticmethod
+    def forward(x, axes):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axes = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_all_reduce(ctx.axes, g), None
+
+
+class _Reduce(torch.autograd.Function):
+    """g: the sum over the group forward, the identity backward. Placed
+    where a split region's partial sums leave it."""
+
+    @staticmethod
+    def forward(x, axes):
+        return _model_all_reduce(axes, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Max(torch.autograd.Function):
+    """The elementwise max over the group, with no gradient."""
+
+    @staticmethod
+    def forward(x, axes):
+        return _model_all_reduce(axes, x, _dist().ReduceOp.MAX)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+
+def copy_to(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    """Megatron's f over ``axes`` (the identity on a group of one)."""
+    return x if axes.size == 1 else _Copy.apply(x, axes)
+
+
+def reduce_from(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    """Megatron's g over ``axes`` (the identity on a group of one)."""
+    return x if axes.size == 1 else _Reduce.apply(x, axes)
+
+
+def max_from(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over ``axes``, without a gradient (a softmax's
+    shift)."""
+    if axes.size == 1:
+        return x.detach()
+    return _Max.apply(x.detach(), axes)

@@ -25,7 +25,12 @@ global cohort, the sharded pod tier and the downlink, which every rank
 encodes alike from the replicated server state (that encoding IS the
 broadcast). Client i draws exactly the stream the single-device round gives
 client i (``schedule.client_method``), so the two runtimes agree client for
-client; the means differ only by the all-reduce's summation order.
+client; the means differ only by the all-reduce's summation order. On a
+mesh whose 'model' axis exceeds 1 every leaf a rank holds is its block of
+the parameter's split (launch/shardings.py) and the round runs on those
+shards unchanged: the client axes' group through a rank spans the ranks
+of its 'model' coordinate, so a shard's wire meets only that shard's
+wires (the reference's per-shard round under shard_map).
 """
 from __future__ import annotations
 
@@ -106,6 +111,33 @@ def per_client_value_and_grad(loss_fn: Callable, params: Tree,
         in_dims=(None, 0))(params, sub)
     return (losses.mean(), {k: a.mean(0) for k, a in auxs.items()},
             {k: g.contiguous() for k, g in grads.items()})
+
+
+def client_value_and_grad(loss_fn: Callable, params: Tree,
+                          batch: Dict[str, torch.Tensor]
+                          ) -> Tuple[torch.Tensor, Tree, Tree]:
+    """One client's pass without the client vmap: (loss, aux, grads with
+    a leading axis of 1). The tensor-parallel pass runs here, since its
+    collectives (core/comm.py's f and g) have no batching rule."""
+    grads, (loss, aux) = torch.func.grad_and_value(loss_fn, has_aux=True)(
+        params, batch)
+    return loss, aux, {k: g[None].contiguous() for k, g in grads.items()}
+
+
+def tree_norm_sq_sharded(tree: Tree, pspecs, model_axes) -> torch.Tensor:
+    """‖tree‖² of a tree of this rank's 'model' shards: the split leaves'
+    squares summed over the axis, the replicated leaves' counted once.
+    Every rank of the axis gets the same bits."""
+    split = [k for k in sorted(tree) if "model" in pspecs[k]]
+    whole = [k for k in sorted(tree) if "model" not in pspecs[k]]
+    dev = next(iter(tree.values())).device
+    sq = torch.zeros((), dtype=torch.float32, device=dev)
+    for k in split:
+        sq = sq + torch.sum(torch.square(tree[k].float()))
+    sq = comm.all_reduce_sum(model_axes, sq)
+    for k in whole:
+        sq = sq + torch.sum(torch.square(tree[k].float()))
+    return sq
 
 
 def init_ef_state(efc: EFConfig, params: Tree, dp: int,
@@ -416,7 +448,7 @@ def ef_round_sharded(efc: EFConfig, grads, ef_state: Dict, mesh,
 
 def make_train_step(loss_fn: Callable, efc: EFConfig, optimizer, dp: int,
                     eta: Optional[float] = None, mesh=None,
-                    overlap: bool = False):
+                    overlap: bool = False, pspecs=None):
     """Returns train_step(params, opt_state, ef_state, batch, step, rng) →
     (params, opt_state, ef_state, metrics). ``rng`` is the step's
     generator (``rng.round_generator(seed, step)``, or None when no
@@ -426,20 +458,36 @@ def make_train_step(loss_fn: Callable, efc: EFConfig, optimizer, dp: int,
     its gradients are its client's, the round is ``ef_round_sharded`` (its
     gathers the ring under ``overlap``), and the loss is the clients' mean
     (all-reduced); g_norm is that of the replicated estimate, the same on
-    every rank."""
+    every rank.
+
+    On a mesh whose 'model' axis exceeds 1, ``params`` and every state
+    tree hold this rank's shards (``pspecs``, launch/shardings.py),
+    ``loss_fn`` is the tensor-parallel pass (one client, no vmap:
+    :func:`client_value_and_grad`), the round runs on the shards with the
+    client axes at this rank's 'model' coordinate, and g_norm sums the
+    split leaves' squares over 'model' (:func:`tree_norm_sq_sharded`)."""
     from repro_torch.optim.optimizer import apply_updates
     sharded = mesh is not None and mesh.size > 1
     everyone = mesh.axes(mesh.client_axes()) if sharded else None
+    model = mesh.axes(("model",)) if sharded else comm.Axes()
 
     def clients_pass(params, batch):
         if not sharded:
             loss, _, grads = per_client_value_and_grad(loss_fn, params,
                                                        batch, dp)
             return loss, grads
-        loss, _, grads = per_client_value_and_grad(
-            loss_fn, params, client_rows(batch, everyone.size,
-                                         everyone.index), 1)
+        rows = client_rows(batch, everyone.size, everyone.index)
+        if model.size > 1:
+            loss, _, grads = client_value_and_grad(loss_fn, params, rows)
+        else:
+            loss, _, grads = per_client_value_and_grad(loss_fn, params,
+                                                       rows, 1)
         return comm.mean(everyone, loss), grads
+
+    def norm_sq(tree):
+        if model.size > 1:
+            return tree_norm_sq_sharded(tree, pspecs, model)
+        return ef_lib.tree_norm_sq(tree)
 
     def train_step(params, opt_state, ef_state, batch, step, rng=None):
         loss, grads = clients_pass(params, batch)
@@ -453,8 +501,7 @@ def make_train_step(loss_fn: Callable, efc: EFConfig, optimizer, dp: int,
         del grads                      # free the per-client stack early
         updates, opt_state = optimizer.update(g_est, opt_state, params, step)
         params = apply_updates(params, updates)
-        metrics = {"loss": loss,
-                   "g_norm": torch.sqrt(ef_lib.tree_norm_sq(g_est))}
+        metrics = {"loss": loss, "g_norm": torch.sqrt(norm_sq(g_est))}
         return params, opt_state, ef_state, metrics
 
     return train_step

@@ -12,12 +12,16 @@ and every collective is the identity.
 The geometry is the reference's: (data 16, model 16) for a pod and (pod 2,
 data 16, model 16) across two, shrunk pod-major onto fewer ranks by
 :func:`_shrink_shape` (a copy of the reference's rule). On 1–16 ranks a pod
-mesh keeps ``model`` 1, and so does a two-pod mesh on 1–32; the port runs
-those (its ``model`` axis arrives with the next slice).
+mesh keeps ``model`` 1, and so does a two-pod mesh on 1–32; beyond, the
+``model`` axis splits the attention families' parameters
+(``models/model.py::param_pspecs``) and the EF round runs on each rank's
+shards, aggregating over the client axes at this rank's ``model``
+coordinate.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import itertools
+from typing import Any, Dict, Tuple
 
 from repro_torch.core import comm
 
@@ -65,6 +69,7 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(axis_names, shape))
         self.device_mesh = device_mesh
         self.rank = rank
+        self._groups: Dict[Tuple[str, ...], Any] = {}
 
     @property
     def size(self) -> int:
@@ -124,10 +129,37 @@ class Mesh:
                 return dist.group.WORLD
         if len(names) == 1:
             return self.device_mesh.get_group(names[0])
-        raise NotImplementedError(
-            f"a group over axes {names} spanning part of the world needs "
-            "the 'model' axis, which arrives with the next slice of the "
-            "port (ROADMAP Queue 1 item 3)")
+        # several axes spanning part of the world (the client axes beside
+        # 'model'): one group for each coordinate of the other axes, every
+        # rank creating every group in the same order, once a mesh
+        if names not in self._groups:
+            mine = None
+            for members in self._cosets(names):
+                g = dist.new_group(list(members))
+                if self.rank in members:
+                    mine = g
+            self._groups[names] = mine
+        return self._groups[names]
+
+    def _cosets(self, names):
+        """The member ranks of every group over ``names``, each in the
+        order of ``names`` (first most significant), the groups in
+        row-major order of the other axes' coordinates."""
+        others = [a for a in self.axis_names if a not in names]
+        out = []
+        for fixed in itertools.product(*(range(self.shape[a])
+                                         for a in others)):
+            coord = dict(zip(others, fixed))
+            members = []
+            for inner in itertools.product(*(range(self.shape[a])
+                                             for a in names)):
+                coord.update(zip(names, inner))
+                r = 0
+                for a in self.axis_names:
+                    r = r * self.shape[a] + coord[a]
+                members.append(r)
+            out.append(tuple(members))
+        return out
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"

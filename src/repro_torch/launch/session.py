@@ -23,13 +23,17 @@ single-device runtime with ``spec.clients`` emulated clients; ``pod`` and
 rank count; ``launch/multiproc.py`` joins it), and on more than one rank
 each rank is one client: it draws the global batch and keeps its client's
 rows, the round is ``ef_round_sharded``, the loss is the clients' mean.
-On one rank they run the single-device runtime as ``smoke`` does. A world
-that would give the ``model`` axis more than one rank is refused here, as
-are ``publish_to`` and ``serve`` on more than one rank (both arrive with
-later slices). ``save`` on a sharded run writes one npz from the first
-rank with the clients gathered on a leading axis: the keys, shapes and
-spec hash of the single-device layout; ``restore_from`` gives each rank its
-slice back.
+On one rank they run the single-device runtime as ``smoke`` does. Where
+the mesh gives the ``model`` axis more than one rank, each rank holds its
+shards of every tree (``shardings.params_pspecs``, after the spec's
+``tp_pad_heads``), the client pass is tensor-parallel over the axis
+(``model.tp_plan``) and the round compresses the shards; the attention
+families run there, the SSM families are refused. ``publish_to`` and
+``serve`` on more than one rank are refused (both arrive with later
+slices). ``save`` on a sharded run writes one npz from the first rank,
+the shards joined and the clients gathered on a leading axis: the keys,
+shapes and spec hash of the single-device layout; ``restore_from`` gives
+each rank its slice back.
 """
 from __future__ import annotations
 
@@ -89,12 +93,15 @@ class Session:
         self._publisher = None             # core/stream.py, see publish_to
         self._bootstrap_every = 0
         self.mesh = self._make_mesh(spec.mesh)
-        if self.mesh.shape.get("model", 1) > 1:
-            raise ValueError(
-                f"mesh={spec.mesh!r} on this world gives the 'model' axis "
-                f"{self.mesh.shape['model']} ranks ({self.mesh.shape}); the "
-                "'model' axis (param_pspecs, tp_pad_heads) arrives with the "
-                "next slice of the port (ROADMAP Queue 1 item 3)")
+        self.model_axes = self.mesh.axes(("model",))
+        try:
+            self.tp = model_lib.tp_plan(self.cfg, self.model_axes)
+        except NotImplementedError as err:
+            raise ValueError(f"mesh={spec.mesh!r} on this world gives the "
+                             f"'model' axis {self.model_axes.size} ranks "
+                             f"({self.mesh.shape}): {err}") from None
+        self.pspecs = sh.params_pspecs(self.cfg, self.mesh) \
+            if self.tp is not None else None
         self.plan = sh.ShardPlan(spec.client_granularity,
                                  spec.state_sharding, spec.ef_state_dtype)
 
@@ -119,11 +126,20 @@ class Session:
     @staticmethod
     def _arch_config(spec: RunSpec) -> cb.ArchConfig:
         """The spec's arch config (its smoke variant under ``spec.smoke``),
-        with the spec's ``moe_impl``."""
+        with the spec's ``moe_impl`` and ``tp_pad_heads``."""
         cfg = cb.get_smoke(spec.arch) if spec.smoke else cb.get(spec.arch)
         if spec.moe_impl != "dispatch":
             cfg = dataclasses.replace(cfg, moe_impl=spec.moe_impl)
+        if spec.tp_pad_heads:
+            cfg = dataclasses.replace(cfg, tp_pad_heads=spec.tp_pad_heads)
         return cfg
+
+    def _shard(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's 'model' shards of a tree (the tree itself without
+        the axis)."""
+        if self.tp is None:
+            return tree
+        return sh.shard_tree(tree, self.pspecs, self.model_axes)
 
     @property
     def n_clients(self) -> int:
@@ -172,23 +188,29 @@ class Session:
         opt = opt_lib.make(spec.optimizer, lr=spec.lr)
         pipe = self._pipe(spec.seed)
 
+        tp = self.tp
+
         def loss_fn(p, b):
-            return model_lib.train_loss(cfg, p, b)
+            return model_lib.train_loss(cfg, p, b, tp=tp)
 
         if template:
-            params = model_lib.init_params(cfg, None, "meta")
+            params = self._shard(model_lib.init_params(cfg, None, "meta"))
             ef_state = dist.init_ef_state_sharded(efc, params, self.mesh) \
                 if sharded else dist.init_ef_state(efc, params, n)
         else:
-            params = model_lib.init_params(
-                cfg, torch.Generator().manual_seed(spec.seed), self.device)
+            params = self._shard(model_lib.init_params(
+                cfg, torch.Generator().manual_seed(spec.seed), self.device))
             # Alg 1 line 2: v⁰ᵢ = g⁰ᵢ = the clients' gradients on batch 0
             b0 = pipe_lib.with_prefix_embeds(cfg, pipe.batch(0, self.device))
             if sharded:
                 # this rank's client: its rows of batch 0, its gradients
                 mine = dist.client_rows(b0, n, self._client_axes().index)
-                _, _, g0 = dist.per_client_value_and_grad(loss_fn, params,
-                                                          mine, 1)
+                if tp is not None:
+                    _, _, g0 = dist.client_value_and_grad(loss_fn, params,
+                                                          mine)
+                else:
+                    _, _, g0 = dist.per_client_value_and_grad(
+                        loss_fn, params, mine, 1)
                 ef_state = dist.init_ef_state_sharded(efc, params, self.mesh,
                                                       init_grads=g0)
             else:
@@ -199,7 +221,7 @@ class Session:
             "pipe": pipe, "loss_fn": loss_fn, "efc": efc,
             "step_fn": dist.make_train_step(
                 loss_fn, efc, opt, n, mesh=self.mesh if sharded else None,
-                overlap=spec.overlap),
+                overlap=spec.overlap, pspecs=self.pspecs),
             "params": params, "opt_state": opt.init(params),
             "ef_state": ef_state,
         }
@@ -311,15 +333,19 @@ class Session:
                                 f"step_{self.step:08d}.npz")
         state = self._state()
         if self.sharded:
-            # every rank hands its client's leaves to the first, which
+            # the 'model' shards joined on the axis's first rank, then
+            # every such rank hands its client's leaves to the first, which
             # writes the single-device layout; the others wait for the file
-            axes = self._client_axes()
-            ef_full = sh.global_state(state["ef_state"], axes,
-                                      self._pods(self._tr["efc"]))
-            if axes.index == 0:
-                ckpt_lib.save(path, dict(state, ef_state=ef_full),
-                              step=self.step, spec=self.spec)
-            comm.barrier(axes)
+            if self.tp is not None:
+                state = sh.unshard_tree(state, self.pspecs, self.model_axes)
+            if state is not None:
+                axes = self._client_axes()
+                ef_full = sh.global_state(state["ef_state"], axes,
+                                          self._pods(self._tr["efc"]))
+                if axes.index == 0:
+                    ckpt_lib.save(path, dict(state, ef_state=ef_full),
+                                  step=self.step, spec=self.spec)
+            comm.barrier(self.mesh.axes(self.mesh.axis_names))
         else:
             ckpt_lib.save(path, state, step=self.step, spec=self.spec)
         self._last_saved_step = self.step
@@ -369,15 +395,17 @@ class Session:
 
     def _restore_slice(self, path: str):
         """A sharded rank's restore: the checkpoint's single-device layout
-        read on the host, this rank's client (and pod) slice kept, moved to
-        the device."""
+        read on the host, this rank's client (and pod) slice and its
+        'model' shards kept, moved to the device."""
         efc, n = self._tr["efc"], self.n_clients
-        like = dict(self._state(), ef_state=dist.init_ef_state(
-            efc, model_lib.init_params(self.cfg, None, "meta"), n))
+        whole = model_lib.init_params(self.cfg, None, "meta")
+        opt = opt_lib.make(self.spec.optimizer, lr=self.spec.lr)
+        like = {"params": whole, "opt_state": opt.init(whole),
+                "ef_state": dist.init_ef_state(efc, whole, n)}
         state, meta = ckpt_lib.restore(path, like, "cpu")
         state["ef_state"] = sh.local_state(
             state["ef_state"], self._client_axes().index, self._pods(efc), n)
-        return sh.to_device(state, self.device), meta
+        return sh.to_device(self._shard(state), self.device), meta
 
     # -------------------------------------------------------- wire streaming
     def publish_to(self, stream_dir: str, bootstrap_every: int = 0):

@@ -5,18 +5,27 @@ EF state layout knobs (the reference's DESIGN.md §4):
   client_granularity: 'group': one EF client per data-parallel group
                       (n = dp, the paper's setting); 'pod': one client a
                       pod (refused: it arrives with ZeRO, ROADMAP Queue 1)
-  state_sharding:     'client': a client's (vᵢ, gᵢ) live on its own rank
-                      whole (the ``model`` axis is 1 in this slice);
+  state_sharding:     'client': a client's (vᵢ, gᵢ) live on its own
+                      ranks, split over 'model' as the params are;
                       'zero' (refused, with the same slice)
 
 In the port's layout a rank holds its own client's ``clients`` leaves with
 a leading axis of 1, the server estimate, h, the params and the optimizer
-state replicated, and with hops its pod's ``pods`` slot (leading axis 1).
-:func:`local_state` cuts that slice out of the single-device layout (n
-clients, ``pods`` slots on a leading axis) and :func:`global_state` puts
-the slices back together, leaf by leaf, on the first rank: a checkpoint
-of a sharded run has the keys, shapes and spec hash a single-device run
-gives it.
+state replicated over the client axes, and with hops its pod's ``pods``
+slot (leading axis 1). :func:`local_state` cuts that slice out of the
+single-device layout (n clients, ``pods`` slots on a leading axis) and
+:func:`global_state` puts the slices back together, leaf by leaf, on the
+first rank: a checkpoint of a sharded run has the keys, shapes and spec
+hash a single-device run gives it.
+
+Over the 'model' axis every leaf of every tree (params, optimizer state,
+each client's v and g, the server estimate, h, the pods' memories) is
+split as its parameter is (``params_pspecs``, the reference's
+PartitionSpecs as tuples): rank m of the axis holds the m-th contiguous
+block of the split dim, made contiguous (:func:`shard_leaf`), and the
+EF round compresses that shard as a leaf of its own, as the reference's
+shard_map does. :func:`shard_tree` and :func:`unshard_tree` map a state
+tree between the two layouts, a leaf at a time.
 """
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core import comm
+from repro_torch.models import model as model_lib
+from repro_torch.models.model import Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +45,80 @@ class ShardPlan:
     client_granularity: str = "group"       # 'group' | 'pod'
     state_sharding: str = "client"          # 'client' | 'zero'
     ef_state_dtype: Optional[str] = None    # None → param dtype
+
+
+def params_pspecs(cfg, mesh) -> Dict[str, Spec]:
+    """The params' split over the mesh's 'model' axis."""
+    return model_lib.param_pspecs(cfg, tp=mesh.shape.get("model", 1))
+
+
+def split_dim(spec: Spec) -> Optional[int]:
+    """The dim ``spec`` splits over 'model', or None when replicated."""
+    return spec.index("model") if "model" in spec else None
+
+
+def leaf_spec(path: str, x: torch.Tensor, pspecs: Dict[str, Spec]) -> Spec:
+    """The spec of a state leaf at ``path`` (``…/<param name>``): its
+    parameter's, after the leaf's leading axes (a client's or pod's slot);
+    a leaf of no parameter (a step count) is replicated."""
+    for name, spec in pspecs.items():
+        if path == name or path.endswith("/" + name):
+            return (None,) * (x.dim() - len(spec)) + tuple(spec)
+    return (None,) * x.dim()
+
+
+def shard_leaf(x: torch.Tensor, spec: Spec, index: int, size: int
+               ) -> torch.Tensor:
+    """Block ``index`` of ``size`` of x's split dim, as a tensor of its own
+    (contiguous, sharing no storage with x); x itself when replicated."""
+    dim = split_dim(spec)
+    if dim is None or size == 1:
+        return x
+    n = x.shape[dim]
+    if n % size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {size} ranks")
+    b = n // size
+    return x.narrow(dim, index * b, b).clone(
+        memory_format=torch.contiguous_format)
+
+
+def unshard_leaf(parts, spec: Spec) -> torch.Tensor:
+    """The whole leaf from its blocks in rank order."""
+    return torch.cat(list(parts), dim=split_dim(spec))
+
+
+def _map_paths(fn, tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    return fn(prefix, tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def shard_tree(tree: Dict[str, Any], pspecs: Dict[str, Spec],
+               axes: comm.Axes) -> Dict[str, Any]:
+    """This rank's blocks of every leaf of ``tree`` (any nested state
+    tree whose leaf paths end in parameter names) over the 'model' axis
+    ``axes``."""
+    return _map_paths(lambda p, x: shard_leaf(
+        x, leaf_spec(p, x, pspecs), axes.index, axes.size), tree)
+
+
+def unshard_tree(tree: Dict[str, Any], pspecs: Dict[str, Spec],
+                 axes: comm.Axes) -> Optional[Dict[str, Any]]:
+    """The whole leaves of a tree of this rank's blocks, gathered leaf by
+    leaf to the first rank of the 'model' axis ``axes`` on the CPU (None
+    elsewhere); a replicated leaf is the first rank's own."""
+    first = axes.index == 0
+
+    def one(path, x):
+        spec = leaf_spec(path, x, pspecs)
+        if split_dim(spec) is None or axes.size == 1:
+            return x.detach().cpu() if first else None
+        parts = comm.gather_to_first(axes, x)
+        return unshard_leaf(parts.unbind(0), spec) if first else None
+    out = _map_paths(one, tree)
+    return out if first else None
 
 
 def local_state(ef_state: Dict[str, Any], client: int, pods: int,
@@ -78,8 +163,9 @@ def global_state(ef_state: Dict[str, Any], axes: comm.Axes, pods: int
 
 def replicated_digest(params: Dict[str, torch.Tensor],
                       ef_state: Dict[str, Any]) -> str:
-    """A digest of what every rank must hold bit for bit: the params, the
-    server estimate and h. Each leaf's bit patterns are summed on its
+    """A digest of what every rank of one 'model' coordinate must hold bit
+    for bit: the params, the server estimate and h (the ranks of another
+    coordinate hold other shards). Each leaf's bit patterns are summed on its
     device, plain and weighted by position (so a moved or changed bit
     shows), and the sums are hashed."""
     from repro_torch.core.ef import flatten

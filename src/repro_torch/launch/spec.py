@@ -18,9 +18,10 @@ the reference's does), the two-tier hierarchy (``hops``), the meshes
 ignores as the reference's does), with the reference's grammars, previews
 and cross-field refusals. It refuses, loudly and at construction, what
 the port does not run yet, each naming the slice that brings it:
-client granularity ``pod``, state sharding ``zero`` and ``tp_pad_heads``
-(a world whose mesh has a ``model`` axis above 1 is refused where the
-mesh is built, launch/session.py).
+client granularity ``pod`` and state sharding ``zero``. ``tp_pad_heads``
+pads the attention heads for the ``model`` axis, as the reference's does
+(the SSM families are refused on a mesh whose ``model`` axis exceeds 1,
+where the Session builds it).
 ``compressor_kw`` and ``method_kw`` must map names to JSON
 scalars; which names the compressor and the method take is checked where
 they are built (launch/build.py).
@@ -94,10 +95,8 @@ STATE_SHARDINGS = ("client", "zero")
 
 # what the port still refuses, and the slice that brings it (ROADMAP
 # Queue 1 item 3's order)
-_MODEL_AXIS = ("arrives with the next slice of the port, the 'model' axis "
-               "(param_pspecs, tp_pad_heads; ROADMAP Queue 1 item 3)")
-_ZERO = ("arrives with the slice after the 'model' axis, ZeRO state "
-         "sharding and pod granularity (ROADMAP Queue 1 item 3)")
+_ZERO = ("arrives with a later slice of the port, ZeRO state sharding and "
+         "pod granularity (ROADMAP Queue 1 item 3)")
 
 
 def pattern_token_errors(pattern: str) -> List[str]:
@@ -486,8 +485,8 @@ class RunSpec:
             errs.append(f"client_granularity='pod' {_ZERO}")
         if self.state_sharding == "zero":
             errs.append(f"state_sharding='zero' {_ZERO}")
-        if self.tp_pad_heads:
-            errs.append(f"tp_pad_heads={self.tp_pad_heads!r} {_MODEL_AXIS}")
+        if self.tp_pad_heads < 0:
+            errs.append(f"tp_pad_heads must be >= 0, got {self.tp_pad_heads}")
         for kw_name, kw in [("method_kw", self.method_kw),
                             ("compressor_kw", self.compressor_kw)]:
             if not isinstance(kw, dict) or not all(
@@ -812,6 +811,7 @@ _FLAGS = [
     ("--method-kw", "method_kw", json.loads),
     ("--compressor-kw", "compressor_kw", json.loads),
     ("--moe-impl", "moe_impl", str),
+    ("--tp-pad-heads", "tp_pad_heads", int),
     ("--mesh", "mesh", str), ("--overlap", "overlap", bool),
     ("--optimizer", "optimizer", str),
     ("--lr", "lr", float), ("--heterogeneity", "heterogeneity", float),

@@ -39,6 +39,14 @@ src/repro/launch/train.py):
       --device cpu --steps 3 --coordinator localhost:29511 \
       --num-processes 4 --process-id 0
 
+  # the 'model' axis: the pod mesh on 32 processes is (data 16, model 2);
+  # --tp-pad-heads 2 pads smollm's heads to a multiple of 2 so attention
+  # splits over it (the MLP and the vocabulary split as they are):
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh pod --smoke \
+      --seq 64 --global-batch 16 --tp-pad-heads 2 --carrier fused_quant8 \
+      --downlink-carrier fused_quant4 --device cpu --steps 3 \
+      --coordinator localhost:29511 --num-processes 32 --process-id 0
+
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions on the CPU (use ``--smoke`` there). Prints the reference CLI's
 ``step N loss … g_norm …`` lines.
@@ -169,6 +177,16 @@ def main(argv=None) -> None:
     print(f"optimizer={sess.spec.optimizer} "
           f"ef_state_dtype={sess.spec.ef_state_dtype} device={sess.device}",
           flush=True)
+    if sess.tp is not None:
+        tp = sess.tp
+        split = [part for part, on in (
+            ("q heads", tp.heads), ("kv heads", tp.kv), ("d_ff", tp.ff),
+            ("vocabulary", tp.vocab), ("experts", tp.experts),
+            ("experts' d_ff", tp.expert_ff)) if on]
+        print(f"mesh {dict(sess.mesh.shape)} tensor-parallel over 'model': "
+              f"{', '.join(split) or 'nothing'} split "
+              f"(heads {sess.cfg.eff_heads[0]}/{sess.cfg.eff_heads[1]})",
+              flush=True)
     if args.publish_stream:
         sess.publish_to(args.publish_stream,
                         bootstrap_every=args.bootstrap_every)

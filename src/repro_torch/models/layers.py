@@ -21,14 +21,38 @@ as in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import comm
 from repro_torch.kernels import ops
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """Which parts of a block the 'model' axis ``axes`` splits (the
+    reference's ``param_pspecs`` rules, models/model.py ``tp_plan``): the
+    q heads (``wq`` and ``wo``), the kv heads (``wk``, ``wv``), the MLP's
+    ``d_ff``, the vocabulary, the experts or, where they do not divide the
+    axis, the experts' ``d_ff``. Each rank holds the contiguous block of a
+    split dim at its index. Where a tensor every rank holds whole enters a
+    split region, ``comm.copy_to`` (f) sums its gradient over the axis;
+    where partial sums leave one, ``comm.reduce_from`` (g) sums them. An
+    unsplit part runs whole on every rank with no collective, so its
+    gradient is whole everywhere too."""
+
+    axes: comm.Axes
+    heads: bool = False
+    kv: bool = False
+    ff: bool = False
+    vocab: bool = False
+    experts: bool = False
+    expert_ff: bool = False
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -180,7 +204,8 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                rope_cs: Tuple[torch.Tensor, torch.Tensor], *, eps: float,
                chunk: int, window: Optional[int] = None,
                cap: Optional[float] = None, cache: Optional[Cache] = None,
-               pos: Optional[int] = None) -> torch.Tensor:
+               pos: Optional[int] = None,
+               tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Pre-norm attention sub-block; returns the residual delta.
     ``rope_cs``: the cos and sin of x's positions (:func:`rope_at`);
     ``window``: the layer's sliding window; ``cap``: its score soft cap.
@@ -199,12 +224,19 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                                   window) is written, then attention runs
                                   over the cache.
     The cache tensors are written IN PLACE (the reference returns updated
-    copies).
+    copies). Under ``tp`` with the heads split, ``p`` holds this rank's
+    heads: they run between f on the normed input and g on the output
+    projection (Megatron's column- and row-parallel pair).
     """
     h = rms_norm(x, p["norm"], eps)
-    q = torch.einsum("bsd,dnh->bsnh", h, p["wq"].to(h.dtype))
-    k = torch.einsum("bsd,dnh->bsnh", h, p["wk"].to(h.dtype))
-    v = torch.einsum("bsd,dnh->bsnh", h, p["wv"].to(h.dtype))
+    split = tp is not None and tp.heads
+    hs = comm.copy_to(tp.axes, h) if split else h
+    q = torch.einsum("bsd,dnh->bsnh", hs, p["wq"].to(h.dtype))
+    if split and not tp.kv:
+        k, v = _kv_for_local_heads(tp.axes, h, p, q.shape[2])
+    else:
+        k = torch.einsum("bsd,dnh->bsnh", hs, p["wk"].to(h.dtype))
+        v = torch.einsum("bsd,dnh->bsnh", hs, p["wv"].to(h.dtype))
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
     if cache is None:
@@ -233,14 +265,45 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
         cache[1][:, slot] = v[:, 0]
         out = decode_attention(q, cache[0], cache[1], pos, window=window,
                                cap=cap)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(out.dtype))
+    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(out.dtype))
+    return comm.reduce_from(tp.axes, out) if split else out
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float
-              ) -> torch.Tensor:
-    """Pre-norm SwiGLU MLP; returns the residual delta."""
+def _kv_for_local_heads(axes: comm.Axes, h: torch.Tensor,
+                        p: Dict[str, torch.Tensor], h_local: int):
+    """k and v of a layer whose q heads are split and kv heads are not
+    (granite's one kv head, gemma2's 8 on 16 ranks): projected whole, as
+    every rank holds ``wk``/``wv`` whole, then f (the local heads' share of
+    their gradient summed over the axis, so the replicated weights get
+    their whole gradient), then the kv heads this rank's q heads read,
+    grouped as the local heads are."""
+    k = torch.einsum("bsd,dnh->bsnh", h, p["wk"].to(h.dtype))
+    v = torch.einsum("bsd,dnh->bsnh", h, p["wv"].to(h.dtype))
+    k, v = comm.copy_to(axes, k), comm.copy_to(axes, v)
+    KV = k.shape[2]
+    G = h_local * axes.size // KV          # q heads a kv head
+    first = axes.index * h_local // G
+    if h_local % G == 0:
+        n = h_local // G
+    elif G % h_local == 0:
+        n = 1
+    else:
+        raise ValueError(f"{h_local} local q heads do not group over "
+                         f"{KV} kv heads of group {G}")
+    return k[:, :, first:first + n], v[:, :, first:first + n]
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float,
+              tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP; returns the residual delta. Under ``tp`` with
+    ``d_ff`` split, ``w_gate``/``w_up`` are this rank's columns and
+    ``w_down`` its rows, between f and g."""
     h = rms_norm(x, p["norm"], eps)
+    split = tp is not None and tp.ff
+    if split:
+        h = comm.copy_to(tp.axes, h)
     g = torch.einsum("bsd,df->bsf", h, p["w_gate"].to(h.dtype))
     u = torch.einsum("bsd,df->bsf", h, p["w_up"].to(h.dtype))
     out = F.silu(g) * u
-    return torch.einsum("bsf,fd->bsd", out, p["w_down"].to(out.dtype))
+    out = torch.einsum("bsf,fd->bsd", out, p["w_down"].to(out.dtype))
+    return comm.reduce_from(tp.axes, out) if split else out

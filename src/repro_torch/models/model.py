@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import comm
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import remat as remat_lib
@@ -83,12 +84,27 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             return torch.empty(*shape, dtype=dtype, device="meta")
         return (torch.randn(*shape, generator=generator) * std).to(dtype)
 
+    he, kve = cfg.eff_heads
+
     def attn(prefix, *lead):
+        if (he, kve) == (H, KV):
+            return {prefix + "norm": torch.zeros(*lead, d, dtype=dt),
+                    prefix + "wk": normal(*lead, d, KV, hd, std=d ** -0.5),
+                    prefix + "wo": normal(*lead, H, hd, d,
+                                          std=(H * hd) ** -0.5),
+                    prefix + "wq": normal(*lead, d, H, hd, std=d ** -0.5),
+                    prefix + "wv": normal(*lead, d, KV, hd, std=d ** -0.5)}
+        # MHA-expand (the reference's attn_init with h_eff/kv_eff): kv head
+        # j // G copied under q head j < H, the padded heads' wk/wv/wo zero
+        base_k = normal(*lead, d, KV, hd, std=d ** -0.5)
+        wo = normal(*lead, he, hd, d, std=(H * hd) ** -0.5)
+        wq = normal(*lead, d, he, hd, std=d ** -0.5)
+        base_v = normal(*lead, d, KV, hd, std=d ** -0.5)
         return {prefix + "norm": torch.zeros(*lead, d, dtype=dt),
-                prefix + "wk": normal(*lead, d, KV, hd, std=d ** -0.5),
-                prefix + "wo": normal(*lead, H, hd, d, std=(H * hd) ** -0.5),
-                prefix + "wq": normal(*lead, d, H, hd, std=d ** -0.5),
-                prefix + "wv": normal(*lead, d, KV, hd, std=d ** -0.5)}
+                prefix + "wk": expand_kv(cfg, base_k),
+                prefix + "wo": pad_wo(cfg, wo),
+                prefix + "wq": wq,
+                prefix + "wv": expand_kv(cfg, base_v)}
 
     def mlp(prefix, *lead):
         return {prefix + "norm": torch.zeros(*lead, d, dtype=dt),
@@ -124,6 +140,132 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return {k: params[k].to(device) for k in sorted(params)}
 
 
+def _pad_mask(cfg: ArchConfig, device) -> torch.Tensor:
+    return torch.arange(cfg.eff_heads[0], device=device) < cfg.num_heads
+
+
+def expand_kv(cfg: ArchConfig, w: torch.Tensor) -> torch.Tensor:
+    """(..., d, KV, hd) kv weights MHA-expanded to (..., d, H_eff, hd): q
+    head j < H reads kv head j // G (G = H // KV), a padded head zeros."""
+    he = cfg.eff_heads[0]
+    if w.device.type == "meta":
+        return torch.empty(*w.shape[:-2], he, w.shape[-1], dtype=w.dtype,
+                           device="meta")
+    G = cfg.num_heads // cfg.num_kv_heads
+    idx = torch.clamp(torch.arange(he) // G, max=cfg.num_kv_heads - 1)
+    return w[..., idx, :] * _pad_mask(cfg, w.device)[:, None].to(w.dtype)
+
+
+def pad_wo(cfg: ArchConfig, wo: torch.Tensor) -> torch.Tensor:
+    """(..., H_eff, hd, d) output rows of the padded heads zeroed."""
+    if wo.device.type == "meta":
+        return wo
+    return wo * _pad_mask(cfg, wo.device)[:, None, None].to(wo.dtype)
+
+
+Spec = Tuple[Optional[str], ...]
+
+
+def param_pspecs(cfg: ArchConfig, tp: int = 16) -> Dict[str, Spec]:
+    """Each leaf's split over the 'model' axis of ``tp`` ranks, keyed as
+    ``init_params``: a tuple with one entry a dim, ``"model"`` on the split
+    dim and None elsewhere (the reference's PartitionSpecs, Megatron
+    style). q heads, kv heads, d_ff and the vocabulary split where they
+    divide ``tp`` (heads after ``tp_pad_heads``); MoE experts where
+    ``num_experts`` divides it, else their d_ff; the SSM's d_inner and
+    heads. Everything else is replicated."""
+    def div(n):
+        return n % tp == 0
+
+    def ax(ok):
+        return "model" if ok else None
+
+    h_eff, kv_eff = cfg.eff_heads
+
+    def attn(prefix, pre):
+        h_ok, kv_ok = div(h_eff), div(kv_eff)
+        return {prefix + "wq": (*pre, None, ax(h_ok), None),
+                prefix + "wk": (*pre, None, ax(kv_ok), None),
+                prefix + "wv": (*pre, None, ax(kv_ok), None),
+                prefix + "wo": (*pre, ax(h_ok), None, None),
+                prefix + "norm": (*pre, None)}
+
+    def mlp(prefix, pre):
+        f = ax(div(cfg.d_ff))
+        return {prefix + "w_gate": (*pre, None, f),
+                prefix + "w_up": (*pre, None, f),
+                prefix + "w_down": (*pre, f, None),
+                prefix + "norm": (*pre, None)}
+
+    specs: Dict[str, Spec] = {
+        "embed": (ax(div(cfg.vocab_size)), None), "final_norm": (None,)}
+    if cfg.family in ("dense", "audio", "vlm", "moe"):
+        specs.update(attn("layers/attn/", (None,)))
+        if cfg.family == "moe":
+            ep = div(cfg.num_experts)
+            e = ax(ep)
+            f = None if ep else ax(div(cfg.d_ff))
+            specs.update({"layers/moe/router": (None, None, None),
+                          "layers/moe/w_gate": (None, e, None, f),
+                          "layers/moe/w_up": (None, e, None, f),
+                          "layers/moe/w_down": (None, e, f, None),
+                          "layers/moe/norm": (None, None)})
+        else:
+            specs.update(mlp("layers/mlp/", (None,)))
+    elif cfg.family == "ssm":
+        a = ax(div(cfg.d_inner))
+        specs.update({"layers/mamba/" + k: v for k, v in {
+            "in_proj": (None, None, a), "conv_w": (None, None, a),
+            "x_proj": (None, a, None), "dt_proj": (None, None, a),
+            "dt_bias": (None, a), "A_log": (None, a, None), "D": (None, a),
+            "out_proj": (None, a, None), "norm": (None, None)}.items()})
+    elif cfg.family == "hybrid":
+        a = ax(div(cfg.d_inner))
+        h = ax(div(cfg.d_inner // cfg.ssm_head_dim))
+        specs.update({"layers/mamba/" + k: v for k, v in {
+            "in_x": (None, None, a), "in_z": (None, None, a),
+            "in_B": (None, None, None), "in_C": (None, None, None),
+            "in_dt": (None, None, h), "dt_bias": (None, h),
+            "conv_w": (None, None, None), "A_log": (None, h), "D": (None, h),
+            "out_proj": (None, a, None), "norm": (None, None),
+            "out_norm": (None, a)}.items()})
+        specs.update(attn("shared_attn/attn/", ()))
+        specs.update(mlp("shared_attn/mlp/", ()))
+    else:
+        _check_family(cfg)
+    if cfg.frontend is not None:
+        specs["frontend_proj"] = (None, None)
+    return dict(sorted(specs.items()))
+
+
+TP_FAMILIES = ("dense", "audio", "vlm", "moe")
+
+
+def tp_plan(cfg: ArchConfig, axes: comm.Axes
+            ) -> Optional[L.TensorParallel]:
+    """The tensor-parallel pass of ``cfg`` over the 'model' axis ``axes``
+    (None on a group of one: the single-device pass itself), split where
+    ``param_pspecs`` splits the stacked leaves. The SSM families are refused: the
+    reference splits their width-2·d_inner ``in_proj`` contiguously, so one
+    rank holds x and the other z, which needs a design of its own."""
+    if axes.size == 1:
+        return None
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family ({cfg.name}) on a 'model' axis of "
+            f"{axes.size} arrives with the next slice of the port, the "
+            "SSM/hybrid split over 'model' (ROADMAP Queue 1 item 3)")
+    specs = param_pspecs(cfg, axes.size)
+
+    def split(name, dim):
+        return name in specs and specs[name][dim] == "model"
+    return L.TensorParallel(
+        axes, heads=split("layers/attn/wq", 2), kv=split("layers/attn/wk", 2),
+        ff=split("layers/mlp/w_up", 2), vocab=split("embed", 0),
+        experts=split("layers/moe/w_up", 1),
+        expert_ff=split("layers/moe/w_up", 3))
+
+
 def cast_matrices(cfg: ArchConfig, params: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
     """``params`` with every matrix leaf (the embedding, the attention, MLP,
@@ -142,14 +284,34 @@ def cast_matrices(cfg: ArchConfig, params: Dict[str, torch.Tensor]
             for k, t in params.items()}
 
 
+def _vocab_local(tp: L.TensorParallel, ids: torch.Tensor, rows: int):
+    """Token ids as rows of this rank's block of the vocabulary (``rows``
+    a rank, contiguous), 0 where an id lies in another rank's block, and
+    the mask of the ids that lie in this one."""
+    t = ids.long() - tp.axes.index * rows
+    mine = (t >= 0) & (t < rows)
+    return torch.where(mine, t, torch.zeros_like(t)), mine
+
+
 def _embed(cfg: ArchConfig, params: Dict[str, torch.Tensor],
-           tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None
+           tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None,
+           tp: Optional[L.TensorParallel] = None
            ) -> Tuple[torch.Tensor, int]:
     """The tokens' embeddings (gemma's scale on them alone), after the
     prefix projected through ``frontend_proj`` in the activation dtype when
-    ``prefix_embeds`` (B, P, d) is given; and P, the prefix's length."""
+    ``prefix_embeds`` (B, P, d) is given; and P, the prefix's length.
+    Under ``tp`` with the vocabulary split a rank looks its ids up in its
+    rows, zeroes the others, and g sums the ranks' rows: each id's row
+    plus zeros, the single-device lookup bit for bit."""
     adt = cfg.activation_dtype
-    h = F.embedding(tokens.long(), params["embed"]).to(adt)
+    if tp is not None and tp.vocab:
+        rows, mine = _vocab_local(tp, tokens, params["embed"].shape[0])
+        e = F.embedding(rows, params["embed"])
+        e = torch.where(mine[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                        device=e.device))
+        h = comm.reduce_from(tp.axes, e).to(adt)
+    else:
+        h = F.embedding(tokens.long(), params["embed"]).to(adt)
     if cfg.name.startswith("gemma"):
         # sqrt(d_model) rounded to the activation dtype first, as the
         # reference's jnp.asarray(..., adt): 59.75 in bf16 at d 3584
@@ -199,7 +361,8 @@ def _layer_cache(cfg: ArchConfig, cache: Dict[str, torch.Tensor], i: int):
 def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                h: torch.Tensor, positions: torch.Tensor,
                cache: Optional[Dict[str, torch.Tensor]] = None,
-               pos: Optional[int] = None, train: bool = False
+               pos: Optional[int] = None, train: bool = False,
+               tp: Optional[L.TensorParallel] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The layers, one after another, for training (no cache), prefill
     (cache, no ``pos``) and decode (cache and ``pos``); see
@@ -209,8 +372,10 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     from the cached tables; positions run below S, or up to ``pos`` in
     decode. With ``train`` and ``cfg.remat`` each block (a [local, global]
     pair under ``local_global``) is recomputed in the backward, its aux
-    values leaving the block beside h. The SSM families run
-    :func:`_run_ssm_stack`."""
+    values leaving the block beside h; a recomputed block replays its f/g
+    collectives in the backward, every rank in the same order. ``tp``: the
+    tensor-parallel pass over this rank's shards (attention families).
+    The SSM families run :func:`_run_ssm_stack`."""
     if cfg.family in ("ssm", "hybrid"):
         h = _run_ssm_stack(cfg, params, h, positions, cache, pos, train)
         return h, {k: torch.zeros((), device=h.device)
@@ -226,7 +391,7 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
         moe_fn = functools.partial(
             moe_lib.moe_apply_dense if cfg.moe_impl == "dense"
             else moe_lib.moe_apply, k=cfg.num_experts_per_tok,
-            cf=cfg.moe_capacity_factor, eps=cfg.norm_eps)
+            cf=cfg.moe_capacity_factor, eps=cfg.norm_eps, tp=tp)
 
     def sub(p, prefix):
         return {n[len(prefix):]: t for n, t in p.items()
@@ -245,9 +410,9 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                 chunk=cfg.attn_chunk, window=layer_window(cfg, i),
                 cap=cfg.logit_softcap,
                 cache=None if cache is None else _layer_cache(cfg, cache, i),
-                pos=pos)
+                pos=pos, tp=tp)
             if moe_fn is None:
-                h = h + L.mlp_apply(sub(p, "mlp/"), h, cfg.norm_eps)
+                h = h + L.mlp_apply(sub(p, "mlp/"), h, cfg.norm_eps, tp=tp)
             else:
                 delta, a = moe_fn(sub(p, "moe/"), h)
                 h = h + delta
@@ -352,17 +517,22 @@ def _logits(cfg: ArchConfig, embed: torch.Tensor, h: torch.Tensor
 
 
 def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
-               batch: Dict[str, torch.Tensor]
+               batch: Dict[str, torch.Tensor],
+               tp: Optional[L.TensorParallel] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(mean next-token cross-entropy over the token positions, plus the
     MoE aux losses under MoE; the aux values summed over the layers).
-    batch: tokens (B,S), labels (B,S), optional prefix_embeds (B,P,d)."""
+    batch: tokens (B,S), labels (B,S), optional prefix_embeds (B,P,d).
+    ``tp`` (``tp_plan``): the tensor-parallel pass, ``params`` this rank's
+    shards (``param_pspecs``); the loss and aux come out whole on every
+    rank of the 'model' axis."""
     tokens, labels = batch["tokens"], batch["labels"].long()
     B, S = tokens.shape
-    h, n_prefix = _embed(cfg, params, tokens, batch.get("prefix_embeds"))
+    h, n_prefix = _embed(cfg, params, tokens, batch.get("prefix_embeds"),
+                         tp=tp)
     T = h.shape[1]
     positions = torch.arange(T, device=h.device)[None].expand(B, T)
-    h, aux = _run_stack(cfg, params, h, positions, train=True)
+    h, aux = _run_stack(cfg, params, h, positions, train=True, tp=tp)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)[:, n_prefix:]
 
     # chunked cross-entropy: never materialize (B, S, V) in full; under
@@ -372,15 +542,30 @@ def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
         gold = torch.gather(lg, -1, lc[..., None])[..., 0]
         return (torch.logsumexp(lg, dim=-1) - gold).sum()
 
+    # the vocabulary split: this rank's columns of the (soft-capped)
+    # logits; their max, the sum of exponentials and the gold logit
+    # reduced over the axis
+    def ce_split(embed, hc, lc):
+        lg = _logits(cfg, embed, comm.copy_to(tp.axes, hc))
+        m = comm.max_from(tp.axes, lg.max(-1).values)
+        se = comm.reduce_from(tp.axes, torch.exp(lg - m[..., None]).sum(-1))
+        rows, mine = _vocab_local(tp, lc, embed.shape[0])
+        gold = torch.gather(lg, -1, rows[..., None])[..., 0]
+        gold = comm.reduce_from(tp.axes, torch.where(
+            mine, gold, torch.zeros((), dtype=gold.dtype,
+                                    device=gold.device)))
+        return (m + torch.log(se) - gold).sum()
+
+    ce = ce_split if tp is not None and tp.vocab else ce_sum
     embed = params["embed"].to(h.dtype)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for start in range(0, S, CE_CHUNK):
         hc = h[:, start:start + CE_CHUNK]
         lc = labels[:, start:start + CE_CHUNK]
         if cfg.remat:
-            total = total + remat_lib.checkpoint(ce_sum, (embed, hc), (lc,))
+            total = total + remat_lib.checkpoint(ce, (embed, hc), (lc,))
         else:
-            total = total + ce_sum(embed, hc, lc)
+            total = total + ce(embed, hc, lc)
     loss = total / (B * S)
     if cfg.family == "moe":
         loss = loss + LB_COEF * aux["load_balance"] + \

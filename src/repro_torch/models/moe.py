@@ -37,7 +37,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rms_norm
+from repro_torch.core import comm
+from repro_torch.models.layers import TensorParallel, rms_norm
 
 Aux = Dict[str, torch.Tensor]
 AUX_KEYS = ("load_balance", "router_z", "dropped_frac")
@@ -114,13 +115,29 @@ def _route(p: Dict[str, torch.Tensor], x: torch.Tensor, k: int, eps: float):
     return h, top_w, top_e, counts, aux
 
 
+def _split(tp: Optional[TensorParallel]) -> bool:
+    return tp is not None and (tp.experts or tp.expert_ff)
+
+
 def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
-              cf: float, eps: float) -> Tuple[torch.Tensor, Aux]:
+              cf: float, eps: float, tp: Optional[TensorParallel] = None
+              ) -> Tuple[torch.Tensor, Aux]:
     """x (B, S, d) -> (out (B, S, d), aux). Capacity from the N = B·S
-    tokens of this call (one client's under the client vmap)."""
+    tokens of this call (one client's under the client vmap).
+
+    Under ``tp`` the routing, the capacity and the aux values are computed
+    whole on every rank (the router is replicated). With the experts split
+    a rank runs its contiguous block of them on its rows of the dispatch
+    buffer and combines only their outputs (the combine weights through
+    f); with the experts' ``d_ff`` split every rank runs every expert on
+    its columns, and g sums the expert outputs before the combine. g sums
+    the partial combine over the axis in the first case."""
     B, S, d = x.shape
     N, E = B * S, p["router"].shape[-1]
     h, top_w, top_e, counts, aux = _route(p, x, k, eps)
+    split = _split(tp)
+    if split:
+        h = comm.copy_to(tp.axes, h)
 
     C = _capacity(N, E, k, cf)
     flat_e = top_e.reshape(-1)                              # (N·k,)
@@ -139,37 +156,62 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
     xe = torch.zeros((E * C + 1, d), dtype=h.dtype, device=h.device) \
         .index_put((slot,), vals, accumulate=True)[:E * C].reshape(E, C, d)
 
+    ep = split and tp.experts
+    e0, El = 0, E
+    if ep:
+        El = p["w_gate"].shape[0]
+        e0 = tp.axes.index * El
+        xe = xe[e0:e0 + El]
     g = torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(xe.dtype))
     u = torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(xe.dtype))
     y = F.silu(g) * u
     ye = torch.einsum("ecf,efd->ecd", y, p["w_down"].to(y.dtype))
+    if split and not ep:
+        ye = comm.reduce_from(tp.axes, ye)
 
-    gathered = ye.reshape(E * C, d)[sorted_e * C + torch.clamp(pos_in_e,
-                                                               max=C - 1)]
-    gathered = torch.where(keep[:, None], gathered,
+    live = keep
+    if ep:          # the assignments to this rank's experts
+        live = keep & (sorted_e >= e0) & (sorted_e < e0 + El)
+    gathered = ye.reshape(El * C, d)[
+        torch.clamp(sorted_e - e0, 0, El - 1) * C
+        + torch.clamp(pos_in_e, max=C - 1)]
+    gathered = torch.where(live[:, None], gathered,
                            torch.zeros((), dtype=gathered.dtype,
                                        device=gathered.device))
     # back to (N, k) order (order is a permutation: its argsort inverts it)
     unsorted = gathered[torch.argsort(order)]
-    out = (unsorted.reshape(N, k, d) * top_w[..., None].to(gathered.dtype)
+    w = comm.copy_to(tp.axes, top_w) if ep else top_w
+    out = (unsorted.reshape(N, k, d) * w[..., None].to(gathered.dtype)
            ).sum(1)
+    if ep:
+        out = comm.reduce_from(tp.axes, out)
     aux["dropped_frac"] = 1.0 - keep.float().sum() * _inv(N * k, x.device)
     return out.reshape(B, S, d), aux
 
 
 def moe_apply_dense(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
-                    cf: float, eps: float, chunk: int = 2048
+                    cf: float, eps: float, chunk: int = 2048,
+                    tp: Optional[TensorParallel] = None
                     ) -> Tuple[torch.Tensor, Aux]:
     """Every expert on every token, combined by the (N, E) top-k routing
     weights: no dispatch scatter or gather, E/k times the active products.
     Tokens go ``chunk`` at a time, bounding the (E, chunk, ff) live
-    intermediate. ``cf`` is unused (nothing drops); ``dropped_frac`` is 0."""
+    intermediate. ``cf`` is unused (nothing drops); ``dropped_frac`` is 0.
+    Under ``tp`` a rank runs its experts (or its columns of every
+    expert's ``d_ff``) on every token, the tokens and the routing weights
+    through f, and g sums the combined output."""
     B, S, d = x.shape
     N, E = B * S, p["router"].shape[-1]
     h, top_w, top_e, _, aux = _route(p, x, k, eps)
     w_ne = torch.zeros((N, E), dtype=torch.float32, device=x.device) \
         .scatter(1, top_e, top_w)                           # routing weights
     aux["dropped_frac"] = torch.zeros((), device=x.device)
+    split = _split(tp)
+    if split:
+        h, w_ne = comm.copy_to(tp.axes, h), comm.copy_to(tp.axes, w_ne)
+        if tp.experts:
+            El = p["w_gate"].shape[0]
+            w_ne = w_ne[:, tp.axes.index * El:(tp.axes.index + 1) * El]
     outs = []
     for start in range(0, N, min(chunk, N)):
         hc, wc = h[start:start + chunk], w_ne[start:start + chunk]
@@ -178,7 +220,10 @@ def moe_apply_dense(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
         y = F.silu(g) * u
         ye = torch.einsum("enf,efd->end", y, p["w_down"].to(y.dtype))
         outs.append(torch.einsum("end,ne->nd", ye, wc.to(ye.dtype)))
-    return torch.cat(outs).reshape(B, S, d), aux
+    out = torch.cat(outs)
+    if split:
+        out = comm.reduce_from(tp.axes, out)
+    return out.reshape(B, S, d), aux
 
 
 def capacity(cfg, tokens: int) -> int:

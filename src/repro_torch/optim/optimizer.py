@@ -129,10 +129,19 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
-def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
+def clip_by_global_norm(opt: Optimizer, max_norm: float,
+                        norm_sq=None) -> Optimizer:
+    """``opt`` on the gradients scaled to a global norm of at most
+    ``max_norm``. ``norm_sq(grads)`` gives the squared norm of the whole
+    tree; on a 'model' axis, whose ranks hold shards, it is
+    ``distributed.tree_norm_sq_sharded`` over the axis (the local sum by
+    default)."""
     def update(grads, state, params=None, step=0):
-        gn = torch.sqrt(sum(torch.sum(torch.square(grads[k].float()))
-                            for k in sorted(grads)))
+        if norm_sq is not None:
+            gn = torch.sqrt(norm_sq(grads))
+        else:
+            gn = torch.sqrt(sum(torch.sum(torch.square(grads[k].float()))
+                                for k in sorted(grads)))
         scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
         return opt.update({k: g * scale for k, g in grads.items()}, state,
                           params, step)

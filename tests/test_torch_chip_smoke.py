@@ -716,6 +716,26 @@ def test_phase_md4_spawns_its_ranks_and_compares(monkeypatch, capsys):
                 in out
 
 
+def test_phase_mt_spawns_its_ranks_and_checks(monkeypatch, capsys):
+    """MT at smoke size on the CPU: 4 spawned gloo ranks on (data 2, model
+    2), the padded and the unpadded run; each rank's gradient shards within
+    MT_GRAD_TOL of the unsharded pass and both planted faults above it,
+    every round's client state bit for bit the single-device round over
+    the shard tree, loss and g_norm equal on every rank, the digests equal
+    per 'model' coordinate (mt_phase fails otherwise)."""
+    cs = _importable_chip_smoke(monkeypatch)
+    cs.mt_phase(ops, device="cpu", smoke=True, smoke_archs=())
+    out = capsys.readouterr().out
+    for fault in cs.MT_FAULTS:
+        assert f"planted fault {fault!r}" in out
+    for label, pad, _ in cs.MT_RUNS:
+        assert f"{label}: loss/g_norm" in out
+        for d in range(2):
+            for m in range(2):
+                assert f"{label} rank {{'data': {d}, 'model': {m}}}: heads " \
+                    f"a rank ({2 if pad else 3},)" in out
+
+
 def _spec(name, overrides):
     with open(os.path.join(ROOT, "results", "specs", f"{name}.json")) as f:
         return pt_spec.RunSpec.from_dict(dict(json.load(f), smoke=True,

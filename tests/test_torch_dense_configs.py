@@ -103,8 +103,8 @@ def test_dryrun_sparse_pod_is_refused_for_mesh_and_shape_only():
     """gemma2-9b, the pod mesh and the input shape, the two things the
     shipped dry-run spec was refused for, are ported: it loads with the
     reference's hash, as do its smoke-size and smoke-mesh variants. (A
-    world whose pod mesh has a 'model' axis above 1 is refused where the
-    Session builds the mesh.)"""
+    world whose pod mesh has a 'model' axis above 1 splits gemma2 over it:
+    tests/test_torch_tensor_parallel.py.)"""
     d = _shipped("dryrun_sparse_pod")
     assert d["arch"] == "gemma2-9b"
     assert (d["mesh"], d["shape"]) == ("pod", "train_4k")

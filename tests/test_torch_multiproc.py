@@ -140,12 +140,25 @@ def test_spec_refuses_bad_meshes_as_the_reference(fields):
     ({"state_sharding": "zero"}, "ZeRO state sharding and pod granularity"),
     ({"client_granularity": "pod"}, "ZeRO state sharding and pod "
                                     "granularity"),
-    ({"tp_pad_heads": 2}, "the 'model' axis"),
 ])
 def test_what_stays_refused_names_the_slice_that_brings_it(fields, needs):
     with pytest.raises(ValueError, match="invalid RunSpec") as err:
         pt_spec.RunSpec(**fields)
     assert needs in str(err.value)
+
+
+@pytest.mark.parametrize("pad", [2, 16])
+def test_spec_takes_tp_pad_heads_with_the_reference_hash(pad):
+    """tp_pad_heads was refused until the 'model' axis: the spec now takes
+    it (and its --tp-pad-heads flag) under the reference's spec_hash."""
+    from repro.launch import spec as jax_spec
+    spec = pt_spec.RunSpec(tp_pad_heads=pad, mesh="pod")
+    assert spec.spec_hash() == jax_spec.RunSpec(
+        tp_pad_heads=pad, mesh="pod").spec_hash()
+    ap = pt_spec.argparse.ArgumentParser()
+    pt_spec.add_flags(ap)
+    assert pt_spec.from_args(ap.parse_args(
+        ["--tp-pad-heads", str(pad), "--mesh", "pod"])) == spec
 
 
 def test_the_zero_spec_stays_refused_naming_what_it_needs():
@@ -164,14 +177,25 @@ def test_the_zero_spec_stays_refused_naming_what_it_needs():
     assert "ZeRO state sharding and pod granularity" in msg
 
 
-def test_session_refuses_a_model_axis(monkeypatch):
+@pytest.mark.parametrize("arch", ["smollm-360m", "olmoe-1b-7b",
+                                  "falcon-mamba-7b", "zamba2-1.2b"])
+def test_session_refuses_a_model_axis(monkeypatch, arch):
+    """On a mesh whose 'model' axis exceeds 1 the Session builds the
+    attention families' tensor-parallel pass and refuses the SSM families,
+    naming the slice that brings them."""
     from repro_torch.launch import session as pt_session
     monkeypatch.setattr(
         mesh_lib, "make_production_mesh",
         lambda multi_pod=False: mesh_lib.Mesh((2, 2), ("data", "model")))
-    with pytest.raises(ValueError, match="'model' axis"):
-        pt_session.Session(pt_spec.RunSpec(smoke=True, mesh="pod"),
-                           device="cpu")
+    spec = pt_spec.RunSpec(smoke=True, mesh="pod", arch=arch)
+    if arch in ("falcon-mamba-7b", "zamba2-1.2b"):
+        with pytest.raises(ValueError, match="'model' axis") as err:
+            pt_session.Session(spec, device="cpu")
+        assert "SSM/hybrid split over 'model'" in str(err.value)
+        return
+    sess = pt_session.Session(spec, device="cpu")
+    assert sess.tp is not None and sess.tp.axes.size == 2
+    assert sess.pspecs["embed"] == ("model", None)
 
 
 def test_train_cli_needs_all_three_process_flags():

@@ -92,7 +92,7 @@ def test_spec_reads_the_reference_golden_file():
 
 
 @pytest.mark.parametrize("bad", [
-    {"tp_pad_heads": 2},
+    {"tp_pad_heads": -1},
     {"state_sharding": "zero"}, {"optimizer": "lion"},
     {"client_granularity": "pod"},
     {"ef_state_dtype": "float16"},
@@ -104,11 +104,14 @@ def test_spec_rejects_what_this_slice_does_not_run(bad):
         pt_spec.RunSpec(**bad)
 
 
-@pytest.mark.parametrize("fields", [{"mesh": "pod"}, {"overlap": True}])
+@pytest.mark.parametrize("fields", [{"mesh": "pod"}, {"overlap": True},
+                                    {"tp_pad_heads": 2}])
 def test_spec_takes_what_this_slice_runs(fields):
-    """The pod mesh and overlap were refused until the multi-device slice
-    (they were cases of the refusal test above): the port's spec now takes
-    each as the reference's does, under the same spec_hash."""
+    """The pod mesh and overlap were refused until the multi-device slice,
+    and tp_pad_heads until the 'model' axis (they were cases of the refusal
+    test above, which now refuses a negative padding, as the reference
+    does): the port's spec takes each as the reference's does, under the
+    same spec_hash."""
     from repro.launch import spec as jax_spec
     spec = pt_spec.RunSpec(**fields)
     assert spec.spec_hash() == jax_spec.RunSpec(**fields).spec_hash()
