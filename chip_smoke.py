@@ -204,7 +204,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      (its initial state too), its launches the derived counts, and a
      checkpoint's gather_to_first on NCCL; MD4, 4 rank
      processes (launch/multiproc.py::spawn, gloo, the card shared, the
-     kernels built once here), full-width smollm-360m, 3 steps a run:
+     kernels built once here), full-width smollm-360m, 2 steps a run:
      results/specs/fused_quant8_overlap.json (mesh pod: data 4, model 1),
      quant8 with the overlap ring and with the blocking gather (the same
      bits), and mesh multi_pod (pod 2, data 2) with
@@ -225,7 +225,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      gloo on (data 2, model 2) (the production geometry narrowed in each
      rank), full-width smollm-360m, 8 rows of 256 a client, f32 EF state,
      recompute on, fused_quant8/fused_quant4: 3 steps with tp_pad_heads 2
-     (16 heads, 8 a rank) and 2 without (15 heads, attention replicated).
+     (16 heads, 8 a rank) and 1 without (15 heads, attention replicated).
      At the initial parameters each rank's gradient shards are held, in
      f32, against the unsharded pass of its rows in the same process
      (MT_GRAD_TOL), and two planted faults (Megatron's f the identity
@@ -237,9 +237,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      counts; rank 0's distinct K3-K6 calls bit for bit their plain
      versions; per rank the step ms, the EF round's ms and its
      collectives' share, the client pass's 'model' collectives and their
-     ms, and the peak beside MD4's; then granite-34b, gemma2-9b and
-     olmoe-1b-7b at smoke size on (data 2, model 2), the card within
-     P_TOL of the CPU over 2 steps.
+     ms, and the peak beside MD4's. The same for the SSM families at full
+     width cut in depth, 1 step each: MT-falcon-mamba (1 of its 64 Mamba1
+     layers, d_inner split: in_proj's x and z re-split among the ranks)
+     and MT-zamba2 (6 of its 38 Mamba2 layers and the shared block once,
+     d_inner, heads and the shared block split), each with one more
+     planted fault (the f after Mamba1's x_proj sum dropped; the f on
+     Mamba2's split out_norm mean square dropped). Then granite-34b,
+     gemma2-9b, olmoe-1b-7b, falcon-mamba-7b and zamba2-1.2b at smoke size
+     on (data 2, model 2), the card within P_TOL of the CPU over 2 steps;
+     and MT-single: MT-padded's spec on one device with 2 clients (no
+     'model' axis), 3 steps, its losses printed beside MT-padded's.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
 shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, each D phase's
@@ -2985,7 +2993,9 @@ MD_PATHS = [  # MD1: (label, fused_quickstart.json overrides)
                                    downlink_carrier="quant4", overlap=True)),
 ]
 MD_RANKS = 4
-MD_STEPS = 3
+# 2 steps a run (the script's time limit): every planted fault reads
+# above MD_TOL by its second step
+MD_STEPS = 2
 # MD4 against the single-process run, relative, on each step's loss,
 # g_norm and ‖params − initial params‖: each client's gradients come from a pass of its own rows instead
 # of one vmap pass of all four (other bf16 products), and the means sum in
@@ -3502,19 +3512,37 @@ MT_GEOM = {"data": 2, "model": 2}
 MT_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
                mesh="pod", smoke=False, seq_len=256, global_batch=16,
                seed=0)           # 8 rows of 256 a client, f32 EF state
-MT_RUNS = [  # (label, tp_pad_heads, steps)
-    ("MT-padded", 2, 3),         # 16 heads, 8 a rank: attention split
-    ("MT-replicated", 0, 2),     # 15 heads: attention replicated whole
-]
 # each rank's gradient shards at the initial parameters against the
 # unsharded pass of the same rows in the same process, both in f32
 # activations: the largest leaf's ||tp - whole|| / ||whole||. Only the
 # order of the sums differs (the split products' partial sums, the
 # vocabulary's log-sum-exp); the planted faults (f the identity both ways;
-# a replicated leaf's gradient summed over 'model') must read above it
+# a replicated leaf's gradient summed over 'model'; an SSM run's g without
+# its f: Mamba1's x_proj sum, Mamba2's out_norm mean square) must read
+# above it
 MT_GRAD_TOL = 1e-3
 MT_FAULTS = ("f-identity", "replicated-summed")
-MT_SMOKE_ARCHS = ("granite-34b", "gemma2-9b", "olmoe-1b-7b")
+MT_RUNS = [  # (label, arch, tp_pad_heads, depth cut, steps, planted faults)
+    # 16 heads, 8 a rank: attention split
+    ("MT-padded", "smollm-360m", 2, None, 3, MT_FAULTS),
+    # 15 heads: attention replicated whole (1 step: the script's time
+    # limit)
+    ("MT-replicated", "smollm-360m", 0, None, 1, ()),
+    # 1 of 64 Mamba1 layers, as D-falcon-mamba: d_inner 8192, 4096 a rank;
+    # the SSM runs take 1 step (the script's time limit)
+    ("MT-falcon-mamba", "falcon-mamba-7b", 0, {"num_layers": 1}, 1,
+     MT_FAULTS + ("x_proj-f-dropped",)),
+    # one group: 6 Mamba2 blocks (64 heads, 32 a rank), the shared block
+    ("MT-zamba2", "zamba2-1.2b", 0, {"num_layers": 6}, 1,
+     MT_FAULTS + ("out_norm-f-dropped",)),
+]
+# the split dims a rank holds: (name, leaf, dim), where the leaf exists
+MT_SPLIT_LEAVES = (("heads", "layers/attn/wq", -2),
+                   ("heads", "shared_attn/attn/wq", -2),
+                   ("d_inner", "layers/mamba/out_proj", -2),
+                   ("ssm_heads", "layers/mamba/in_dt", -1))
+MT_SMOKE_ARCHS = ("granite-34b", "gemma2-9b", "olmoe-1b-7b",
+                  "falcon-mamba-7b", "zamba2-1.2b")
 MT_SMOKE = dict(smoke=True, mesh="pod", seq_len=160, global_batch=4)
 MT_SMOKE_STEPS = 2
 MD4_PEAK = 10.51e9               # MD4's peak a rank, measured on four H100s
@@ -3536,15 +3564,20 @@ def _rel(got, want) -> float:
 def _mt_fault(fault):
     """A planted fault of the tensor-parallel pass: "f-identity" makes
     Megatron's f the identity both ways (the split regions' input
-    gradients never summed)."""
+    gradients never summed); "x_proj-f-dropped" and "out_norm-f-dropped"
+    leave ``comm.reduce_to_all`` its g alone, which a mamba block calls
+    once (Mamba1's x_proj partial sums, Mamba2's split mean square): the
+    whole sum's gradient stays each rank's share."""
     from repro_torch.core import comm
-    saved = comm.copy_to
+    saved = comm.copy_to, comm.reduce_to_all
     if fault == "f-identity":
         comm.copy_to = lambda axes, x: x
+    elif fault in ("x_proj-f-dropped", "out_norm-f-dropped"):
+        comm.reduce_to_all = comm.reduce_from
     try:
         yield
     finally:
-        comm.copy_to = saved
+        comm.copy_to, comm.reduce_to_all = saved
 
 
 def mt_grad_check(sess, device, faults=()):
@@ -3552,7 +3585,11 @@ def mt_grad_check(sess, device, faults=()):
     gradient shards of its client's rows against the unsharded pass of the
     same rows (the whole tree, drawn from the same seed, in this process),
     both with f32 activations; the largest leaf's relative difference,
-    then each planted fault's."""
+    then each planted fault's. The whole trees are drawn on every rank at
+    once; the unsharded passes run two ranks at a time (the ranks share the
+    card: four full-width f32 passes at once do not fit it at
+    falcon-mamba's d_inner), each rank's cache emptied after its own."""
+    import torch.distributed as tdist
     from repro_torch.core import comm
     from repro_torch.core import distributed as dist_lib
     from repro_torch.launch import shardings as sh
@@ -3564,11 +3601,19 @@ def mt_grad_check(sess, device, faults=()):
                                 axes.index)
     whole = model_lib.init_params(
         cfg, torch.Generator().manual_seed(spec.seed), device)
-    _, _, want = dist_lib.client_value_and_grad(
-        lambda p, b: model_lib.train_loss(cfg, p, b), whole, rows)
-    del whole
-    want = {k: sh.shard_leaf(g[0], sess.pspecs[k], sess.model_axes.index,
-                             sess.model_axes.size) for k, g in want.items()}
+    for turn in range((tdist.get_world_size() + 1) // 2):
+        if turn == tdist.get_rank() // 2:
+            _, _, want = dist_lib.client_value_and_grad(
+                lambda p, b: model_lib.train_loss(cfg, p, b), whole, rows)
+            del whole
+            want = {k: sh.shard_leaf(g[0], sess.pspecs[k],
+                                     sess.model_axes.index,
+                                     sess.model_axes.size)
+                    for k, g in want.items()}
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        tdist.barrier()
     def loss_fn(p, b):
         return model_lib.train_loss(cfg, p, b, tp=sess.tp)
 
@@ -3590,10 +3635,11 @@ def mt_grad_check(sess, device, faults=()):
     return out
 
 
-def mt_run(ops, ref, label, pad, steps, device="cuda", smoke=False,
-           plain=True, faults=()):
-    """One MT run on this rank: a Session on (data 2, model 2) with
-    ``tp_pad_heads`` ``pad``; the gradient check (with ``faults``), then
+def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
+           smoke=False, plain=True, faults=()):
+    """One MT run on this rank: a Session of ``arch`` on (data 2, model 2)
+    with ``tp_pad_heads`` ``pad``, its config cut by ``cut`` before the
+    first step; the gradient check (with ``faults``), then
     ``steps`` steps, each round's client state held bit for bit against
     the single-device ``ef_round`` of this client over its shard tree (its
     inputs kept in pinned host memory during the round; its launches,
@@ -3608,17 +3654,20 @@ def mt_run(ops, ref, label, pad, steps, device="cuda", smoke=False,
     from repro_torch.launch import shardings as sh
     from repro_torch.launch import spec as spec_lib
     from repro_torch.launch.session import Session
-    over = dict(MT_PATH, tp_pad_heads=pad)
+    over = dict(MT_PATH, arch=arch, tp_pad_heads=pad)
     if smoke:
         over.update(smoke=True, seq_len=64, global_batch=4)
     spec = load_spec(spec_lib, **over)
     cuda = device == "cuda"
     sess = Session(spec, device=device)
+    if cut and not smoke:
+        sess.cfg = dataclasses.replace(sess.cfg, **cut)
     t0 = time.time()
     n_local = sum(p.numel() for p in sess.params.values())
     _sync(device)
     rec = {"mesh": dict(sess.mesh.shape), "coord": sess.mesh.coordinate(),
-           "heads": tuple(sess.params["layers/attn/wq"].shape[-2:-1]),
+           "split": {n: sess.params[k].shape[d]
+                     for n, k, d in MT_SPLIT_LEAVES if k in sess.params},
            "params_local": n_local, "init_s": time.time() - t0,
            "steps": [], "client_state_equal": []}
     t0 = time.time()
@@ -3706,13 +3755,17 @@ def mt_run(ops, ref, label, pad, steps, device="cuda", smoke=False,
 
 
 def mt_smoke(arch):
-    """One attention family at smoke size on (data 2, model 2), on the
-    card and on the CPU in the same gloo world: each step's loss and g_norm
-    (the card run's launches taken back out: a comparison)."""
+    """One arch at smoke size on (data 2, model 2), on the card and on the
+    CPU in the same gloo world: each step's loss and g_norm (the card run's
+    launches taken back out: a comparison). The SSM archs run three scan
+    chunks (D_SMOKE_SCAN's sequence)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import spec as spec_lib
     from repro_torch.launch.session import Session
-    spec = load_spec(spec_lib, **dict(R_PATH, arch=arch, **MT_SMOKE))
+    over = dict(MT_SMOKE)
+    if arch in SCAN_ARCHS:
+        over["seq_len"] = D_SMOKE_SCAN["seq_len"]
+    spec = load_spec(spec_lib, **dict(R_PATH, arch=arch, **over))
     out = {}
     for device in ("cuda", "cpu"):
         saved = dict(ops.launches)
@@ -3729,7 +3782,7 @@ def mt_rank(rank, runs, device="cuda", smoke=False,
             smoke_archs=MT_SMOKE_ARCHS):
     """One of MT's rank processes (``multiproc.spawn``, gloo, the card
     shared, the kernels' library from the parent's build): each run of
-    ``runs``, the first with MT_FAULTS's gradient readings, then the smoke
+    ``runs`` with its planted faults' gradient readings, then the smoke
     archs on card and CPU. Rank 0 holds the distinct K3-K6 calls against
     the plain versions."""
     from repro_torch.kernels import build, ops, ref
@@ -3739,10 +3792,10 @@ def mt_rank(rank, runs, device="cuda", smoke=False,
     if device == "cuda":
         build.build()
     out = {"runs": {}, "smoke": {}}
-    for i, (label, pad, steps) in enumerate(runs):
-        out["runs"][label] = mt_run(ops, ref, label, pad, steps, device,
-                                    smoke, plain=rank == 0,
-                                    faults=MT_FAULTS if i == 0 else ())
+    for label, arch, pad, cut, steps, faults in runs:
+        out["runs"][label] = mt_run(ops, ref, label, arch, pad, cut, steps,
+                                    device, smoke, plain=rank == 0,
+                                    faults=faults)
     t0 = time.time()
     for arch in smoke_archs:
         out["smoke"][arch] = mt_smoke(arch)
@@ -3753,17 +3806,18 @@ def mt_rank(rank, runs, device="cuda", smoke=False,
 def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
              smoke_archs=MT_SMOKE_ARCHS):
     """MT: MT_RANKS rank processes on the one card (gloo), the mesh (data
-    2, model 2), full-width smollm-360m (recompute on, f32 EF state, 8 rows
-    of 256 a client), MT_RUNS: the padded run (attention split over the
-    axis) and the unpadded one (attention replicated). Checks: each rank's
-    gradient shards within MT_GRAD_TOL of the unsharded pass and both
-    planted faults above it; every round's client state bit for bit the
+    2, model 2), full width (recompute on, f32 EF state, 8 rows of 256 a
+    client), MT_RUNS: smollm-360m padded (attention split over the axis)
+    and unpadded (attention replicated), falcon-mamba-7b and zamba2-1.2b
+    cut in depth. Checks: each rank's gradient shards within MT_GRAD_TOL
+    of the unsharded pass and each run's planted faults above it; every
+    round's client state bit for bit the
     single-device round over the shard tree; loss and g_norm equal on
     every rank and the replicated state's digest equal among the ranks of
     a 'model' coordinate every step; the launches; rank 0's distinct K3-K6
-    calls bit for bit their plain versions; granite, gemma2 and olmoe at
-    smoke size on the card within P_TOL of the CPU. Returns the runs'
-    launches summed over ranks. (``device``/``smoke``: the CPU rehearsal
+    calls bit for bit their plain versions; the smoke archs on the card
+    within P_TOL of the CPU. Returns the runs' launches summed over ranks
+    and each run's losses. (``device``/``smoke``: the CPU rehearsal
     at smoke size.)"""
     from repro_torch.launch import multiproc
     work = tempfile.mkdtemp(prefix="mt_")
@@ -3776,8 +3830,8 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
         shutil.rmtree(work, ignore_errors=True)
     print(f"MT: {MT_RANKS} ranks in {time.time() - t0:.1f} s "
           f"(smoke archs {ranks[0]['smoke_s']:.1f} s of it)", flush=True)
-    total, readings = {}, {}
-    for label, pad, steps in runs:
+    total, readings, losses = {}, {}, {}
+    for label, _, _, _, steps, faults in runs:
         recs = [r["runs"][label] for r in ranks]
         if any(rec["mesh"] != MT_GEOM for rec in recs):
             fail(f"{label}: meshes {[rec['mesh'] for rec in recs]}")
@@ -3787,6 +3841,7 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
             fail(f"{label}: the ranks disagree on loss or g_norm: {traj}")
         if not all(math.isfinite(x) for st in traj[0] for x in st):
             fail(f"{label}: non-finite loss or g_norm {traj[0]}")
+        losses[label] = [loss for loss, _ in traj[0]]
         for step in range(steps):
             for m in range(MT_GEOM["model"]):
                 digests = {rec["steps"][step]["digest"] for rec in recs
@@ -3806,7 +3861,7 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
                      f"{sound['rel']:.3e} from the unsharded pass (leaf "
                      f"{sound['leaf']}) > MT_GRAD_TOL {MT_GRAD_TOL}")
         readings[label] = max(rec["grads"]["sound"]["rel"] for rec in recs)
-        for fault in [f for f in MT_FAULTS if f in recs[0]["grads"]]:
+        for fault in faults:
             caught = min(rec["grads"][fault]["rel"] for rec in recs)
             if caught <= MT_GRAD_TOL:
                 fail(f"{label}: the planted fault {fault!r} reads "
@@ -3819,8 +3874,8 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
                   f"{MT_GRAD_TOL}: caught", flush=True)
         for rec in recs:
             st = rec["steps"]
-            print(f"{label} rank {rec['coord']}: heads a rank "
-                  f"{rec['heads']}, {rec['params_local']} parameters held, "
+            print(f"{label} rank {rec['coord']}: split a rank "
+                  f"{rec['split']}, {rec['params_local']} parameters held, "
                   f"gradient shards {rec['grads']['sound']['rel']:.3e} from "
                   f"the unsharded pass (check {rec['grad_check_s']:.1f} s); "
                   f"step_ms {[round(s['step_ms'], 1) for s in st]} (the "
@@ -3860,7 +3915,29 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
               f"{worst} (limit {P_TOL})", flush=True)
     print(f"MT: gradient readings {readings} (limit {MT_GRAD_TOL})",
           flush=True)
-    return total
+    return total, losses
+
+
+def mt_single(Session, spec_lib, mt_losses, device="cuda", smoke=False):
+    """MT-single: MT-padded's spec (MT_PATH, tp_pad_heads 2, seed 0, 8 rows
+    of 256 a client, 3 steps) on one device, the smoke mesh with 2
+    clients: no 'model' axis. Prints its losses beside MT-padded's, to
+    tell a rise that the spec gives on one device from one the
+    tensor-parallel pass would add; fails on a non-finite loss."""
+    over = dict(MT_PATH, tp_pad_heads=2, mesh="smoke", clients=2)
+    if smoke:
+        over.update(smoke=True, seq_len=64, global_batch=4)
+    sess = Session(load_spec(spec_lib, **over), device=device)
+    t0 = time.time()
+    losses = [float(sess.step_once()["loss"]) for _ in range(3)]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"MT-single: non-finite loss {losses}")
+    print(f"MT-single (one device, 2 clients, no 'model' axis): losses "
+          f"{losses} in {time.time() - t0:.1f} s; MT-padded's on (data 2, "
+          f"model 2): {mt_losses.get('MT-padded')}", flush=True)
+    del sess
+    gc.collect()
+    return losses
 
 
 
@@ -4051,12 +4128,19 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     with phase(f"MT: {MT_RANKS} rank processes on the one card (gloo), "
-               "mesh (data 2, model 2), full-width smollm-360m "
-               "tensor-parallel: tp_pad_heads 2 (attention split) for 3 "
-               "steps, then 2 steps unpadded (attention replicated), "
-               "fused_quant8/fused_quant4; granite, gemma2, olmoe at smoke "
-               "size, card against CPU"):
-        by_phase["MT"] = mt_phase(ops)
+               "mesh (data 2, model 2), full width tensor-parallel, "
+               "fused_quant8/fused_quant4: smollm-360m with tp_pad_heads 2 "
+               "(attention split) for 3 steps, then 1 step unpadded "
+               "(attention replicated); falcon-mamba-7b (1 layer) and "
+               "zamba2-1.2b (6 layers and the shared block), 1 step each; "
+               "granite, gemma2, olmoe, falcon-mamba, zamba2 at smoke size, "
+               "card against CPU"):
+        by_phase["MT"], mt_losses = mt_phase(ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("MT-single: MT-padded's spec on one device, 2 clients, 3 "
+               "steps"):
+        mt_single(Session, spec_lib, mt_losses)
 
     csrc = "src/repro_torch/kernels/csrc"
     rows = [

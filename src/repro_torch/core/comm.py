@@ -140,9 +140,7 @@ def mean(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     return (all_reduce_sum(axes, x.float()) / axes.size).to(x.dtype)
 
 
-@_timed
-def all_gather(axes: Axes, x: torch.Tensor) -> torch.Tensor:
-    """(size, *x.shape): every member's ``x`` stacked in index order."""
+def _all_gather(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     if axes.group is None:
         return x[None].clone()
     dist = _dist()
@@ -156,6 +154,12 @@ def all_gather(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     if staged:
         out = _back(out, x)
     return _unbytes(out, x.dtype, (axes.size, *x.shape))
+
+
+@_timed
+def all_gather(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    """(size, *x.shape): every member's ``x`` stacked in index order."""
+    return _all_gather(axes, x)
 
 
 @_timed
@@ -234,30 +238,73 @@ def barrier(axes: Axes) -> None:
 # f and g), differentiable under torch.func.grad/vjp and plain autograd
 # ---------------------------------------------------------------------------
 
+def _plain(x: torch.Tensor) -> torch.Tensor:
+    """``x`` out of the ``torch.func.grad``/``vjp`` wrappers it comes in
+    when a backward runs inside those transforms (a recomputed block's)."""
+    from torch._C import _functorch
+    while _functorch.is_gradtrackingtensor(x):
+        x = _functorch.get_unwrapped(x)
+    return x
+
+
+def _tp_timed(fn):
+    """Run one collective of the tensor-parallel pass, counted apart from
+    the EF round's (``tp_collectives``, ``tp_seconds``). It runs on plain
+    tensors with the ``torch.func`` transforms set aside (inside them every
+    operation's result is a wrapper, and gloo's CUDA all-gather reads the
+    storage, which a wrapper has not); its result is a constant to the
+    transforms, as every collective's is: the gradients are the
+    autograd.Functions' own."""
+    def run(axes, x, *a, **kw):
+        if TIMED and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        with torch.no_grad(), torch._C._DisableFuncTorch():
+            out = fn(axes, _plain(x).detach(), *a, **kw)
+        if TIMED and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        STATS["tp_seconds"] += time.perf_counter() - t0
+        STATS["tp_collectives"] += 1
+        return out
+    return run
+
+
+@_tp_timed
 def _model_all_reduce(axes: Axes, x: torch.Tensor, op=None) -> torch.Tensor:
     """The f32 sum (or ``op``) of ``x`` over ``axes``, cast back to x's
-    dtype: every member gets the same bits. Counted apart from the EF
-    round's collectives (``tp_collectives``, ``tp_seconds``)."""
+    dtype: every member gets the same bits."""
     dist = _dist()
-    if TIMED and x.is_cuda:
-        torch.cuda.synchronize(x.device)
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        out = x.detach().float().clone()
-        kw = {} if op is None else {"op": op}
-        # gloo's CUDA route is known to sum (GLOO_CUDA_OPS); a max stages
-        if _staged(axes, out, "all_reduce" if op is None else "max"):
-            buf = _host(out)
-            dist.all_reduce(buf, group=axes.group, **kw)
-            out = _back(buf, out)
-        else:
-            dist.all_reduce(out, group=axes.group, **kw)
-        out = out.to(x.dtype)
-    if TIMED and x.is_cuda:
-        torch.cuda.synchronize(x.device)
-    STATS["tp_seconds"] += time.perf_counter() - t0
-    STATS["tp_collectives"] += 1
-    return out
+    out = x.float().clone()
+    kw = {} if op is None else {"op": op}
+    # gloo's CUDA route is known to sum (GLOO_CUDA_OPS); a max stages
+    if _staged(axes, out, "all_reduce" if op is None else "max"):
+        buf = _host(out)
+        dist.all_reduce(buf, group=axes.group, **kw)
+        out = _back(buf, out)
+    else:
+        dist.all_reduce(out, group=axes.group, **kw)
+    return out.to(x.dtype)
+
+
+@_tp_timed
+def _resplit_blocks(axes: Axes, x: torch.Tensor, groups: int,
+                    to_grouped: bool) -> torch.Tensor:
+    """Move the last dim of ``x`` between two splits over ``axes`` (n
+    members) of a tensor T of ``groups`` equal parts, cut into n·groups
+    blocks: the contiguous split, member r holding blocks [r·groups,
+    (r+1)·groups) (a leaf split on its last dim), and the grouped one,
+    member r holding block r of every part (blocks i·n + r). One gather of
+    every member's blocks (the raw bytes, in x's dtype), then this
+    member's blocks of the other split, in order."""
+    n, r = axes.size, axes.index
+    blocks = _all_gather(axes, x.contiguous()).unflatten(
+        -1, (groups, x.shape[-1] // groups))        # (n, ..., groups, b)
+    if to_grouped:      # block i·n + r sits at member (i·n + r) // groups
+        want = [divmod(i * n + r, groups) for i in range(groups)]
+    else:               # block r·groups + t sits at member (r·groups + t) % n
+        want = [((r * groups + t) % n, (r * groups + t) // n)
+                for t in range(groups)]
+    return torch.cat([blocks[m, ..., s, :] for m, s in want], dim=-1)
 
 
 class _Copy(torch.autograd.Function):
@@ -294,6 +341,24 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _Resplit(torch.autograd.Function):
+    """The contiguous split of a tensor's last dim over the group re-split
+    into its parts' own splits (:func:`resplit`) forward, the inverse
+    backward: a permutation of blocks among the members both ways."""
+
+    @staticmethod
+    def forward(x, axes, groups):
+        return _resplit_blocks(axes, x, groups, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axes, ctx.groups = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _resplit_blocks(ctx.axes, g, ctx.groups, False), None, None
+
+
 class _Max(torch.autograd.Function):
     """The elementwise max over the group, with no gradient."""
 
@@ -318,6 +383,24 @@ def copy_to(axes: Axes, x: torch.Tensor) -> torch.Tensor:
 def reduce_from(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     """Megatron's g over ``axes`` (the identity on a group of one)."""
     return x if axes.size == 1 else _Reduce.apply(x, axes)
+
+
+def reduce_to_all(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    """g then f: a split region's partial sums made whole on every member
+    where the sum feeds split work again, so its gradient (each member's
+    share) is summed over ``axes`` on the way back."""
+    return copy_to(axes, reduce_from(axes, x))
+
+
+def resplit(axes: Axes, x: torch.Tensor, groups: int) -> torch.Tensor:
+    """``x`` (..., W/n): this member's contiguous block of a tensor (...,
+    W) of ``groups`` equal parts, split over ``axes`` as a leaf split on its
+    last dim is (at n = 2 and two parts, member 0 holds the first part and
+    member 1 the second). Returns (..., W/n): block ``index`` of each part,
+    the parts in order, as a split of each part gives them. Its gradient
+    goes back to the contiguous blocks the same way (the identity on a
+    group of one)."""
+    return x if axes.size == 1 else _Resplit.apply(x, axes, groups)
 
 
 def max_from(axes: Axes, x: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,8 @@ On one rank they run the single-device runtime as ``smoke`` does. Where
 the mesh gives the ``model`` axis more than one rank, each rank holds its
 shards of every tree (``shardings.params_pspecs``, after the spec's
 ``tp_pad_heads``), the client pass is tensor-parallel over the axis
-(``model.tp_plan``) and the round compresses the shards; the attention
-families run there, the SSM families are refused. ``publish_to`` and
+(``model.tp_plan``: every family, a Mamba2 whose heads do not split
+refused) and the round compresses the shards. ``publish_to`` and
 ``serve`` on more than one rank are refused (both arrive with later
 slices). ``save`` on a sharded run writes one npz from the first rank,
 the shards joined and the clients gathered on a leading axis: the keys,

@@ -94,9 +94,9 @@ GRANULARITIES = ("group", "pod")
 STATE_SHARDINGS = ("client", "zero")
 
 # what the port still refuses, and the slice that brings it (ROADMAP
-# Queue 1 item 3's order)
+# Queue 1 item 2)
 _ZERO = ("arrives with a later slice of the port, ZeRO state sharding and "
-         "pod granularity (ROADMAP Queue 1 item 3)")
+         "pod granularity (ROADMAP Queue 1 item 2)")
 
 
 def pattern_token_errors(pattern: str) -> List[str]:

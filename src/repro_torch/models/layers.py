@@ -39,7 +39,8 @@ class TensorParallel:
     reference's ``param_pspecs`` rules, models/model.py ``tp_plan``): the
     q heads (``wq`` and ``wo``), the kv heads (``wk``, ``wv``), the MLP's
     ``d_ff``, the vocabulary, the experts or, where they do not divide the
-    axis, the experts' ``d_ff``. Each rank holds the contiguous block of a
+    axis, the experts' ``d_ff``; a mamba block's ``d_inner`` (Mamba2's
+    heads with it, models/ssm.py). Each rank holds the contiguous block of a
     split dim at its index. Where a tensor every rank holds whole enters a
     split region, ``comm.copy_to`` (f) sums its gradient over the axis;
     where partial sums leave one, ``comm.reduce_from`` (g) sums them. An
@@ -53,6 +54,7 @@ class TensorParallel:
     vocab: bool = False
     experts: bool = False
     expert_ff: bool = False
+    d_inner: bool = False
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -61,6 +63,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def split_rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                   axes: comm.Axes, width: int) -> torch.Tensor:
+    """:func:`rms_norm` of a tensor whose last dim (``width`` in all) is
+    split over ``axes``: x and ``scale`` are this rank's columns. The mean
+    square is the local sums of squares summed over the axis (g) and
+    divided by ``width``; every rank's columns are normalised by it, so its
+    gradient, each rank's share, is summed over the axis too (f)."""
+    dt = x.dtype
+    x = x.float()
+    ms = comm.reduce_to_all(axes, torch.sum(x * x, dim=-1, keepdim=True))
+    x = x * torch.rsqrt(ms / width + eps)
     return (x * (1.0 + scale.float())).to(dt)
 
 

@@ -30,7 +30,8 @@ attention and MLP block (``shared_attn/``, unstacked: one set of
 parameters applied G times, so its gradient sums the applications), then
 the tail of the remaining Mamba2 blocks. Recompute takes each mamba block
 on its own, as the reference checkpoints each mamba body; the shared
-block is not recomputed, as in the reference. Their cache holds each
+block is not recomputed, as in the reference. On a 'model' axis every
+family trains over this rank's shards (``tp_plan``). Their cache holds each
 layer's ``ssm`` state (f32) and ``conv`` state, and the hybrid's
 ``k_attn``/``v_attn`` one slot a group. A prefill runs the state over the
 whole padded row: ``prompt_lens`` picks the first token's logits, and a
@@ -238,32 +239,37 @@ def param_pspecs(cfg: ArchConfig, tp: int = 16) -> Dict[str, Spec]:
     return dict(sorted(specs.items()))
 
 
-TP_FAMILIES = ("dense", "audio", "vlm", "moe")
-
-
 def tp_plan(cfg: ArchConfig, axes: comm.Axes
             ) -> Optional[L.TensorParallel]:
     """The tensor-parallel pass of ``cfg`` over the 'model' axis ``axes``
     (None on a group of one: the single-device pass itself), split where
-    ``param_pspecs`` splits the stacked leaves. The SSM families are refused: the
-    reference splits their width-2·d_inner ``in_proj`` contiguously, so one
-    rank holds x and the other z, which needs a design of its own."""
+    ``param_pspecs`` splits the leaves: the stacked attention and MLP, or
+    the hybrid's unstacked shared block (its head dim one earlier), and the
+    mamba blocks' d_inner (Mamba2's heads with it). A Mamba2 whose d_inner
+    splits and whose heads do not (each rank a part of every head's
+    ``head_dim``; no shipped config at 2 or 16 ranks) is refused."""
     if axes.size == 1:
         return None
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) on a 'model' axis of "
-            f"{axes.size} arrives with the next slice of the port, the "
-            "SSM/hybrid split over 'model' (ROADMAP Queue 1 item 3)")
     specs = param_pspecs(cfg, axes.size)
 
     def split(name, dim):
         return name in specs and specs[name][dim] == "model"
-    return L.TensorParallel(
-        axes, heads=split("layers/attn/wq", 2), kv=split("layers/attn/wk", 2),
-        ff=split("layers/mlp/w_up", 2), vocab=split("embed", 0),
+    pre, d = ("shared_attn/", 1) if cfg.family == "hybrid" else ("layers/", 2)
+    tp = L.TensorParallel(
+        axes, heads=split(pre + "attn/wq", d), kv=split(pre + "attn/wk", d),
+        ff=split(pre + "mlp/w_up", d), vocab=split("embed", 0),
         experts=split("layers/moe/w_up", 1),
-        expert_ff=split("layers/moe/w_up", 3))
+        expert_ff=split("layers/moe/w_up", 3),
+        d_inner=split("layers/mamba/in_proj", 2)
+        or split("layers/mamba/in_x", 2))
+    if tp.d_inner and "layers/mamba/in_dt" in specs \
+            and not split("layers/mamba/in_dt", 2):
+        raise NotImplementedError(
+            f"{cfg.name} on a 'model' axis of {axes.size}: d_inner "
+            f"{cfg.d_inner} splits and its {cfg.d_inner // cfg.ssm_head_dim}"
+            " Mamba2 heads do not (each rank would hold a part of every "
+            "head's head_dim); the port splits Mamba2 by whole heads")
+    return tp
 
 
 def cast_matrices(cfg: ArchConfig, params: Dict[str, torch.Tensor]
@@ -374,10 +380,10 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     pair under ``local_global``) is recomputed in the backward, its aux
     values leaving the block beside h; a recomputed block replays its f/g
     collectives in the backward, every rank in the same order. ``tp``: the
-    tensor-parallel pass over this rank's shards (attention families).
-    The SSM families run :func:`_run_ssm_stack`."""
+    tensor-parallel pass over this rank's shards. The SSM families run
+    :func:`_run_ssm_stack`."""
     if cfg.family in ("ssm", "hybrid"):
-        h = _run_ssm_stack(cfg, params, h, positions, cache, pos, train)
+        h = _run_ssm_stack(cfg, params, h, positions, cache, pos, train, tp)
         return h, {k: torch.zeros((), device=h.device)
                    for k in moe_lib.AUX_KEYS}
     length = h.shape[1] if pos is None else pos + 1
@@ -451,7 +457,8 @@ def _store(cache: Dict[str, torch.Tensor], key: str, i: int,
 def _run_ssm_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                    h: torch.Tensor, positions: torch.Tensor,
                    cache: Optional[Dict[str, torch.Tensor]],
-                   pos: Optional[int], train: bool) -> torch.Tensor:
+                   pos: Optional[int], train: bool,
+                   tp: Optional[L.TensorParallel] = None) -> torch.Tensor:
     """The ``ssm`` stack (one Mamba1 block a layer) or the ``hybrid`` one
     (G groups of ``hybrid_attn_every`` Mamba2 blocks, each group followed
     by the shared attention and MLP block, with the group's slot of
@@ -459,9 +466,11 @@ def _run_ssm_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     cache starts from its layer's states and writes the new ones back in
     place (prefill: S > 1 from the cache's states; decode: S = 1). With
     ``train`` and ``cfg.remat`` each mamba block is recomputed in the
-    backward."""
-    apply = ssm_lib.mamba1_apply if cfg.ssm_variant == "mamba1" \
-        else ssm_lib.mamba2_apply
+    backward, replaying its collectives there. ``tp``: every block, the
+    shared one too, runs over this rank's shards."""
+    apply = functools.partial(
+        ssm_lib.mamba1_apply if cfg.ssm_variant == "mamba1"
+        else ssm_lib.mamba2_apply, tp=tp)
     prefix = "layers/mamba/"
     names = sorted(k[len(prefix):] for k in params if k.startswith(prefix))
     per_layer = {n: params[prefix + n].unbind(0) for n in names}
@@ -501,8 +510,8 @@ def _run_ssm_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
             attn, h, rope_cs, eps=cfg.norm_eps, chunk=cfg.attn_chunk,
             window=cfg.sliding_window, cap=cfg.logit_softcap,
             cache=None if cache is None else
-            (cache["k_attn"][g], cache["v_attn"][g]), pos=pos)
-        h = h + L.mlp_apply(mlp, h, cfg.norm_eps)
+            (cache["k_attn"][g], cache["v_attn"][g]), pos=pos, tp=tp)
+        h = h + L.mlp_apply(mlp, h, cfg.norm_eps, tp=tp)
     for i in range(G * k, cfg.num_layers):
         h = mamba(i, h)
     return h

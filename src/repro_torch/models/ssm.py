@@ -16,6 +16,13 @@ runs under the clients' ``torch.func.vmap`` and ``grad``: strided slices,
 Softplus is ``logaddexp(x, 0)``, the reference's ``jax.nn.softplus``
 (``F.softplus`` switches to x above its threshold). ``A_log`` and ``D``
 are f32 whatever the parameter dtype is, as in the reference.
+
+Training on a 'model' axis (``tp``, models/model.py ``tp_plan``) runs
+each block over this rank's shards of the reference's layout
+(``param_pspecs``): d_inner and Mamba2's heads split, with f, g and
+``comm.resplit`` where a whole tensor enters split work or partial sums
+leave it; those collectives run outside the clients' vmap
+(core/distributed.py ``client_value_and_grad``).
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rms_norm
+from repro_torch.core import comm
+from repro_torch.models.layers import TensorParallel, rms_norm, \
+    split_rms_norm
 
 States = Tuple[torch.Tensor, torch.Tensor]
 
@@ -143,15 +152,28 @@ def _dt(p, dt_in: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                     .float() + p["dt_bias"].float())
 
 
-def _mamba1_core(p, xc: torch.Tensor, dt_rank: int, N: int,
-                 h0: torch.Tensor, chunk: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xc: (B, S, Di) after the conv and silu; h0: (B, Di, N). The chunked
-    selective scan: (y in xc's dtype, the final state)."""
-    S = xc.shape[1]
+def _x_proj(p, xc: torch.Tensor, dt_rank: int, N: int,
+            tp: Optional[TensorParallel] = None):
+    """(dt (B, S, Di) f32, B, C (B, S, N)) from xc: x_proj's product, split
+    into dt's input, B and C, dt through ``dt_proj``. Under ``tp`` xc and
+    x_proj's rows are this rank's d_inner, so the product is a partial sum:
+    g sums it, and f follows, since the whole (dt_in, B, C) feeds this
+    rank's ``dt_proj`` columns and scan (each rank's share of its gradient
+    summed over the axis)."""
     proj = torch.einsum("bsd,de->bse", xc, p["x_proj"].to(xc.dtype))
+    if tp is not None:
+        proj = comm.reduce_to_all(tp.axes, proj)
     dt_in, Bm, Cm = torch.split(proj, [dt_rank, N, N], dim=-1)
-    dt = _dt(p, dt_in, p["dt_proj"])                        # (B, S, Di)
+    return _dt(p, dt_in, p["dt_proj"]), Bm, Cm
+
+
+def _mamba1_core(p, xc: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, h0: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xc: (B, S, Di) after the conv and silu; dt, Bm, Cm from
+    :func:`_x_proj`; h0: (B, Di, N). The chunked selective scan: (y in xc's
+    dtype, the final state)."""
+    S = xc.shape[1]
     A = -torch.exp(p["A_log"])                              # (Di, N)
     chunk = _chunk(S, chunk)
     xf, Bf, Cf = xc.float(), Bm.float(), Cm.float()
@@ -170,22 +192,36 @@ def _mamba1_core(p, xc: torch.Tensor, dt_rank: int, N: int,
 
 def mamba1_apply(p: dict, x: torch.Tensor, cfg, *,
                  ssm_state: Optional[torch.Tensor] = None,
-                 conv_state: Optional[torch.Tensor] = None
+                 conv_state: Optional[torch.Tensor] = None,
+                 tp: Optional[TensorParallel] = None
                  ) -> Tuple[torch.Tensor, States]:
     """Pre-norm Mamba1 block; returns (the residual delta, (ssm_state,
     conv_state) after x). x: (B, S, d); with states and S = 1, the
-    one-token decode recurrence."""
+    one-token decode recurrence.
+
+    Under ``tp`` with ``d_inner`` split, ``p`` holds this rank's shards:
+    ``in_proj`` (d, 2·Di) split contiguously on its last dim (at 2 ranks
+    rank 0 holds x's columns and rank 1 z's), the rest on d_inner. The
+    normed input enters through f; :func:`comm.resplit` moves the
+    in_proj product's blocks so that each rank holds the x and z columns
+    of its d_inner block, which its conv, ``dt_proj``, scan and
+    ``out_proj`` rows read; x_proj's partial (dt_in, B, C) is made whole
+    (:func:`_x_proj`), and g sums ``out_proj``'s partial products."""
     B, S, _ = x.shape
-    Di, N = cfg.d_inner, cfg.ssm_state
+    N = cfg.ssm_state
+    split = tp is not None and tp.d_inner
     h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if split:
+        h = comm.copy_to(tp.axes, h)
     xz = torch.einsum("bsd,de->bse", h, p["in_proj"].to(h.dtype))
+    if split:
+        xz = comm.resplit(tp.axes, xz, 2)
     xin, z = xz.chunk(2, dim=-1)
     xc, conv_new = causal_conv(xin, p["conv_w"].to(xin.dtype), conv_state)
     xc = F.silu(xc)
+    dt, Bm, Cm = _x_proj(p, xc, cfg.dt_rank, N, tp if split else None)
     if ssm_state is not None and S == 1:
-        proj = torch.einsum("bsd,de->bse", xc, p["x_proj"].to(xc.dtype))
-        dt_in, Bm, Cm = torch.split(proj, [cfg.dt_rank, N, N], dim=-1)
-        dt = _dt(p, dt_in, p["dt_proj"])[:, 0]              # (B, Di)
+        dt = dt[:, 0]                                       # (B, Di)
         A = -torch.exp(p["A_log"])
         x0 = xc.float()[:, 0]
         a = torch.exp(dt[..., None] * A)                    # (B, Di, N)
@@ -195,11 +231,12 @@ def mamba1_apply(p: dict, x: torch.Tensor, cfg, *,
             p["D"] * x0
         y = y[:, None].to(xc.dtype)
     else:
-        h0 = ssm_state if ssm_state is not None else \
-            torch.zeros(B, Di, N, dtype=torch.float32, device=x.device)
-        y, h_new = _mamba1_core(p, xc, cfg.dt_rank, N, h0, cfg.attn_chunk)
+        h0 = ssm_state if ssm_state is not None else torch.zeros(
+            B, xc.shape[-1], N, dtype=torch.float32, device=x.device)
+        y, h_new = _mamba1_core(p, xc, dt, Bm, Cm, h0, cfg.attn_chunk)
     y = y * F.silu(z)
-    return (torch.einsum("bsd,de->bse", y, p["out_proj"].to(y.dtype)),
+    out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(y.dtype))
+    return (comm.reduce_from(tp.axes, out) if split else out,
             (h_new, conv_new))
 
 
@@ -259,26 +296,63 @@ def _ssd_chunk_scan(x, dt, Bm, Cm, A, D, h0, chunk):
     return torch.cat(ys, dim=1), h
 
 
+def _conv_w_local(tp: TensorParallel, w: torch.Tensor, Di: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's conv weights (k, Di + 2N), which every rank holds whole, as
+    this rank's depthwise conv reads them under ``tp``: (the x columns of
+    its d_inner block, the B and C columns). The x part passes f before
+    the slice, so its gradient (each rank's own columns) is summed over
+    the axis and comes out whole on every rank; the B and C columns take
+    none, as B and C run whole on every rank before their f (a sum there
+    would count their gradient once a rank)."""
+    n = Di // tp.axes.size
+    wx = comm.copy_to(tp.axes, w[:, :Di])
+    return wx[:, tp.axes.index * n:(tp.axes.index + 1) * n], w[:, Di:]
+
+
 def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
                  ssm_state: Optional[torch.Tensor] = None,
-                 conv_state: Optional[torch.Tensor] = None
+                 conv_state: Optional[torch.Tensor] = None,
+                 tp: Optional[TensorParallel] = None
                  ) -> Tuple[torch.Tensor, States]:
     """Pre-norm Mamba2 (SSD) block; returns (the residual delta,
-    (ssm_state, conv_state) after x), as :func:`mamba1_apply`."""
+    (ssm_state, conv_state) after x), as :func:`mamba1_apply`. The
+    depthwise conv runs x's columns and B/C's apart (the same sums, column
+    by column).
+
+    Under ``tp`` with d_inner and the heads split, ``in_x``, ``in_z``,
+    ``out_norm`` and ``out_proj``'s rows are this rank's d_inner block,
+    ``in_dt``, ``dt_bias``, ``A_log`` and ``D`` its heads; ``in_B``,
+    ``in_C`` and ``conv_w`` are whole. The split projections read the
+    normed input through f; B and C are computed whole and pass f after
+    their conv, since they feed the split scan; ``conv_w`` as
+    :func:`_conv_w_local`; the gated norm takes its mean square over the
+    whole d_inner (``layers.split_rms_norm``); g sums ``out_proj``'s
+    partial products."""
     B, S, _ = x.shape
     Di, N, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
-    H = Di // Pd
+    split = tp is not None and tp.d_inner
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    xin = torch.einsum("bsd,de->bse", h, p["in_x"].to(h.dtype))
-    z = torch.einsum("bsd,de->bse", h, p["in_z"].to(h.dtype))
+    hs = comm.copy_to(tp.axes, h) if split else h
+    xin = torch.einsum("bsd,de->bse", hs, p["in_x"].to(h.dtype))
+    z = torch.einsum("bsd,de->bse", hs, p["in_z"].to(h.dtype))
     Bm = torch.einsum("bsd,dn->bsn", h, p["in_B"].to(h.dtype))
     Cm = torch.einsum("bsd,dn->bsn", h, p["in_C"].to(h.dtype))
-    dt = softplus(torch.einsum("bsd,dh->bsh", h, p["in_dt"].to(h.dtype))
+    dt = softplus(torch.einsum("bsd,dh->bsh", hs, p["in_dt"].to(h.dtype))
                   .float() + p["dt_bias"].float())
-    xbc = torch.cat([xin, Bm, Cm], dim=-1)
-    xbc, conv_new = causal_conv(xbc, p["conv_w"].to(xbc.dtype), conv_state)
-    xbc = F.silu(xbc)
-    xin, Bm, Cm = torch.split(xbc, [Di, N, N], dim=-1)
+    Dl = xin.shape[-1]                       # this rank's d_inner
+    H = Dl // Pd
+    w = p["conv_w"].to(xin.dtype)
+    wx, wbc = _conv_w_local(tp, w, Di) if split else (w[:, :Di], w[:, Di:])
+    sx, sbc = (None, None) if conv_state is None else \
+        torch.split(conv_state, [Dl, 2 * N], dim=-1)
+    xin, sx = causal_conv(xin, wx, sx)
+    bc, sbc = causal_conv(torch.cat([Bm, Cm], dim=-1), wbc, sbc)
+    conv_new = torch.cat([sx, sbc], dim=-1)
+    xin, bc = F.silu(xin), F.silu(bc)
+    if split:
+        bc = comm.copy_to(tp.axes, bc)
+    Bm, Cm = torch.split(bc, [N, N], dim=-1)
     A = -torch.exp(p["A_log"])                              # (H,)
     xh = xin.float().reshape(B, S, H, Pd)
     if ssm_state is not None and S == 1:
@@ -293,8 +367,12 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
             B, H, Pd, N, dtype=torch.float32, device=x.device)
         y, h_new = _ssd_chunk_scan(xh, dt, Bm.float(), Cm.float(), A,
                                    p["D"], h0, cfg.attn_chunk)
-    y = y.reshape(B, S, Di).to(x.dtype)
+    y = y.reshape(B, S, Dl).to(x.dtype)
     y = y * F.silu(z)
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
-    return (torch.einsum("bsd,de->bse", y, p["out_proj"].to(y.dtype)),
+    if split:
+        y = split_rms_norm(y, p["out_norm"], cfg.norm_eps, tp.axes, Di)
+    else:
+        y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(y.dtype))
+    return (comm.reduce_from(tp.axes, out) if split else out,
             (h_new, conv_new))

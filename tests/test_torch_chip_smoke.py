@@ -716,24 +716,38 @@ def test_phase_md4_spawns_its_ranks_and_compares(monkeypatch, capsys):
                 in out
 
 
+# what a rank of each MT run holds of the split dims at smoke size
+MT_SMOKE_SPLIT = {
+    "MT-padded": {"heads": 2}, "MT-replicated": {"heads": 3},
+    "MT-falcon-mamba": {"d_inner": 128},
+    "MT-zamba2": {"heads": 2, "d_inner": 128, "ssm_heads": 4}}
+
+
 def test_phase_mt_spawns_its_ranks_and_checks(monkeypatch, capsys):
     """MT at smoke size on the CPU: 4 spawned gloo ranks on (data 2, model
-    2), the padded and the unpadded run; each rank's gradient shards within
-    MT_GRAD_TOL of the unsharded pass and both planted faults above it,
-    every round's client state bit for bit the single-device round over
-    the shard tree, loss and g_norm equal on every rank, the digests equal
-    per 'model' coordinate (mt_phase fails otherwise)."""
+    2), the padded and the unpadded smollm runs and the SSM runs; each
+    rank's gradient shards within MT_GRAD_TOL of the unsharded pass and
+    every planted fault of its run above it, every round's client state
+    bit for bit the single-device round over the shard tree, loss and
+    g_norm equal on every rank, the digests equal per 'model' coordinate
+    (mt_phase fails otherwise); then MT-single on one device."""
     cs = _importable_chip_smoke(monkeypatch)
-    cs.mt_phase(ops, device="cpu", smoke=True, smoke_archs=())
+    _, losses = cs.mt_phase(ops, device="cpu", smoke=True, smoke_archs=())
+    cs.mt_single(pt_session.Session, pt_spec, losses, device="cpu",
+                 smoke=True)
     out = capsys.readouterr().out
-    for fault in cs.MT_FAULTS:
-        assert f"planted fault {fault!r}" in out
-    for label, pad, _ in cs.MT_RUNS:
+    assert sorted(MT_SMOKE_SPLIT) == sorted(r[0] for r in cs.MT_RUNS)
+    for label, _, _, _, steps, faults in cs.MT_RUNS:
         assert f"{label}: loss/g_norm" in out
+        assert len(losses[label]) == steps
+        for fault in faults:
+            assert f"{label}: planted fault {fault!r}" in out
         for d in range(2):
             for m in range(2):
-                assert f"{label} rank {{'data': {d}, 'model': {m}}}: heads " \
-                    f"a rank ({2 if pad else 3},)" in out
+                assert f"{label} rank {{'data': {d}, 'model': {m}}}: split " \
+                    f"a rank {MT_SMOKE_SPLIT[label]}" in out
+    assert "MT-single (one device, 2 clients, no 'model' axis): losses" \
+        in out
 
 
 def _spec(name, overrides):

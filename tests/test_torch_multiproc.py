@@ -181,21 +181,26 @@ def test_the_zero_spec_stays_refused_naming_what_it_needs():
                                   "falcon-mamba-7b", "zamba2-1.2b"])
 def test_session_refuses_a_model_axis(monkeypatch, arch):
     """On a mesh whose 'model' axis exceeds 1 the Session builds the
-    attention families' tensor-parallel pass and refuses the SSM families,
-    naming the slice that brings them."""
+    tensor-parallel pass of every family (the SSM families' d_inner split
+    among them) and refuses what it cannot split: a Mamba2 whose d_inner
+    splits and whose heads do not, by name."""
     from repro_torch.launch import session as pt_session
     monkeypatch.setattr(
         mesh_lib, "make_production_mesh",
         lambda multi_pod=False: mesh_lib.Mesh((2, 2), ("data", "model")))
     spec = pt_spec.RunSpec(smoke=True, mesh="pod", arch=arch)
-    if arch in ("falcon-mamba-7b", "zamba2-1.2b"):
-        with pytest.raises(ValueError, match="'model' axis") as err:
-            pt_session.Session(spec, device="cpu")
-        assert "SSM/hybrid split over 'model'" in str(err.value)
-        return
     sess = pt_session.Session(spec, device="cpu")
     assert sess.tp is not None and sess.tp.axes.size == 2
     assert sess.pspecs["embed"] == ("model", None)
+    assert sess.tp.d_inner == (arch in ("falcon-mamba-7b", "zamba2-1.2b"))
+    if arch == "zamba2-1.2b":
+        monkeypatch.setattr(
+            mesh_lib, "make_production_mesh",
+            lambda multi_pod=False: mesh_lib.Mesh((1, 16),
+                                                  ("data", "model")))
+        with pytest.raises(ValueError, match="'model' axis") as err:
+            pt_session.Session(spec, device="cpu")
+        assert "by whole heads" in str(err.value)
 
 
 def test_train_cli_needs_all_three_process_flags():

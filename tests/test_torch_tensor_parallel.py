@@ -1,6 +1,6 @@
-"""The 'model' axis of the port (tensor parallelism over the attention
-families) on the CPU: ``models/model.py::param_pspecs`` and ``tp_plan``,
-``tp_pad_heads``, the tensor-parallel client pass (core/comm.py's f and g),
+"""The 'model' axis of the port (tensor parallelism) on the CPU:
+``models/model.py::param_pspecs`` and ``tp_plan``, ``tp_pad_heads``, the
+tensor-parallel client pass (core/comm.py's f, g and resplit),
 the EF round on each rank's shards, and the Session on a (data 2, model 2)
 mesh, against the reference.
 
@@ -30,7 +30,12 @@ and read the same numpy inputs, written by the test process. Bars:
   within rtol 1e-4 of the reference's Session on the same mesh, the padded
   heads' slices unmoved, the replicated parts bit for bit among the ranks
   of a 'model' coordinate, kill-and-resume bit for bit, and the npz with
-  the reference's keys, shapes and spec_hash.
+  the reference's keys, shapes and spec_hash; the same of zamba2 smoke.
+
+The SSM families ride the same world: falcon-mamba's Mamba1 and zamba2's
+Mamba2 with its shared block in the client pass (with and without
+recompute), and one Mamba2 block on each 'model' pair with its split
+``out_norm`` and ``conv_w`` gradient, sound and with planted faults.
 """
 import dataclasses
 import os
@@ -72,6 +77,12 @@ GRAD_CASES = {
     "olmoe-dense": ("olmoe-1b-7b", 0, False, 32, {"moe_impl": "dense"}),
     # 3 experts do not divide the axis: their d_ff splits instead
     "olmoe-3-experts": ("olmoe-1b-7b", 0, False, 32, {"num_experts": 3}),
+    # Mamba1 on d_inner (in_proj's x and z re-split), Mamba2 on d_inner
+    # and heads with the shared block split as the attention families'
+    "falcon-mamba": ("falcon-mamba-7b", 0, False, 32, {}),
+    "falcon-mamba-remat": ("falcon-mamba-7b", 0, True, 32, {}),
+    "zamba2": ("zamba2-1.2b", 0, False, 32, {}),
+    "zamba2-remat": ("zamba2-1.2b", 0, True, 32, {}),
 }
 
 # the per-shard round: every leaf but the norm splits over 'model', and
@@ -113,10 +124,14 @@ ROUND_CASES = {
 }
 WIRES = ("sparse", "quant8", "quant4")
 
-# the Session: smollm smoke padded, one client a (data) rank
+# the Sessions, one client a (data) rank: smollm smoke padded, and
+# zamba2 smoke (Mamba2 and the shared block split over 'model')
 SESSION = {"version": 5, "smoke": True, "seq_len": 32, "global_batch": 4,
            "mesh": "pod", "tp_pad_heads": 2, "carrier": "fused_quant8",
            "downlink_carrier": "fused_quant4", "arch": "smollm-360m"}
+SESSIONS = {"session": SESSION,
+            "session_zamba2": dict(SESSION, arch="zamba2-1.2b",
+                                   tp_pad_heads=0)}
 
 
 def _narrow_port():
@@ -272,9 +287,9 @@ def _rank_norms(mesh):
             {k: v.numpy().copy() for k, v in upd.items()})
 
 
-def _rank_session(workdir, ckpt0):
+def _rank_session(workdir, ckpt0, spec_dict):
     from repro_torch.launch.session import Session
-    spec = pt_spec.RunSpec.from_dict(SESSION)
+    spec = pt_spec.RunSpec.from_dict(spec_dict)
     sess = Session(spec, device="cpu", dtype="float32")
     sess.restore_from(ckpt0, allow_spec_mismatch=True)
     start = {k: v.clone() for k, v in sess.params.items()}
@@ -309,6 +324,93 @@ def _rank_session(workdir, ckpt0):
     return out
 
 
+def _mamba2_block(cfg, p, x, tp=None):
+    from repro_torch.models import ssm as ssm_lib
+    return ssm_lib.mamba2_apply(p, x, cfg, tp=tp)[0]
+
+
+def _planted(fault):
+    """The Mamba2 split with one of its collectives planted wrong: the f
+    on out_norm's mean square dropped, or that mean square's gradient
+    summed twice; the f on conv_w's x columns dropped, or conv_w's B and C
+    columns summed over the axis with them."""
+    import contextlib
+    from repro_torch.models import ssm as ssm_lib
+
+    def conv_no_f(tp, w, Di):
+        n = Di // tp.axes.size
+        return w[:, tp.axes.index * n:(tp.axes.index + 1) * n], w[:, Di:]
+
+    def conv_all_summed(tp, w, Di):
+        n = Di // tp.axes.size
+        w = comm.copy_to(tp.axes, w)
+        return w[:, tp.axes.index * n:(tp.axes.index + 1) * n], w[:, Di:]
+    patch = {
+        "out_norm-no-f": (comm, "reduce_to_all", comm.reduce_from),
+        "out_norm-summed-twice": (comm, "reduce_to_all", lambda a, x: (
+            comm.copy_to(a, comm.copy_to(a, comm.reduce_from(a, x))))),
+        "conv_w-no-f": (ssm_lib, "_conv_w_local", conv_no_f),
+        "conv_w-bc-summed": (ssm_lib, "_conv_w_local", conv_all_summed),
+    }.get(fault)
+
+    @contextlib.contextmanager
+    def ctx():
+        if patch is None:
+            yield
+            return
+        mod, name, fn = patch
+        saved = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, saved)
+    return ctx()
+
+
+MAMBA2_FAULTS = ("out_norm-no-f", "out_norm-summed-twice", "conv_w-no-f",
+                 "conv_w-bc-summed")
+
+
+def _rank_mamba2_unit(mesh):
+    """One zamba2 smoke Mamba2 block on the 2 ranks of this rank's 'model'
+    axis, sound and with each planted fault: the gradient shards of a
+    fixed cotangent's product, and of the input, against the whole
+    block's on this process."""
+    model = mesh.axes(("model",))
+    cfg = _cfg("zamba2-1.2b")
+    gen = torch.Generator().manual_seed(7)
+    whole = {k[len("layers/mamba/"):]: v[0] for k, v in pt_model.init_params(
+        cfg, gen).items() if k.startswith("layers/mamba/")}
+    # scales and biases off their constant init, so every term shows
+    for k in ("out_norm", "norm", "dt_bias", "A_log", "D"):
+        whole[k] = whole[k] + 0.3 * torch.randn(whole[k].shape, generator=gen)
+    x = torch.randn(2, 32, cfg.d_model, generator=gen)
+    # a cotangent that keeps the gradients of order 1, as the loss's are
+    cot = 0.1 * torch.randn(2, 32, cfg.d_model, generator=gen)
+    specs = {k[len("layers/mamba/"):]: v[1:] for k, v in
+             pt_model.param_pspecs(cfg, TP).items()
+             if k.startswith("layers/mamba/")}
+    tp = pt_model.tp_plan(cfg, model)
+
+    def grads(p, tp_):
+        return torch.func.grad(lambda p_, x_: (
+            _mamba2_block(cfg, p_, x_, tp_) * cot).sum(), argnums=(0, 1))(
+                p, x)
+    gw, gx = grads(whole, None)
+    want = {k: sh.shard_leaf(v, specs[k], model.index, TP)
+            for k, v in gw.items()}
+    local = sh.shard_tree(whole, specs, model)
+    out = {}
+    for fault in ("sound",) + MAMBA2_FAULTS:
+        with _planted(fault):
+            g, x_g = grads(local, tp)
+        out[fault] = ({k: (v.numpy().copy(), want[k].numpy().copy())
+                       for k, v in g.items()},
+                      (x_g.numpy().copy(), gx.numpy().copy()))
+    return out
+
+
 def _rank_work(rank, inp_path, workdir, ckpt0):
     _narrow_port()
     with open(inp_path, "rb") as f:
@@ -318,10 +420,13 @@ def _rank_work(rank, inp_path, workdir, ckpt0):
     out = {"coord": (mesh.axes(("data",)).index,
                      mesh.coordinate()["model"])}
     out["grads"] = _rank_grads(inp, mesh)
+    out["mamba2"] = _rank_mamba2_unit(mesh)
     out["rounds"] = _rank_rounds(meshes)
     out["wires"] = _rank_wires(mesh)
     out["norms"] = _rank_norms(mesh)
-    out["session"] = _rank_session(workdir, ckpt0)
+    for name, spec in SESSIONS.items():
+        out[name] = _rank_session(os.path.join(workdir, name), ckpt0[name],
+                                  spec)
     return out
 
 
@@ -417,18 +522,19 @@ def _reference_main(inp_path, ckpt0, out_path, workdir):
                 enc = jax.jit(lambda v, w=w: jax_car.make(w).encode(comp, v))
                 out["wires"][(c, m, w)] = [np.asarray(t) for t in enc(x)]
 
-    # the Session on the narrowed pod mesh
-    jsess = jax_session.Session(jax_spec.RunSpec.from_dict(SESSION))
-    jsess.cfg = dataclasses.replace(jsess.cfg, dtype="float32")
-    jsess.restore_from(ckpt0, allow_spec_mismatch=True)
-    history = jsess.train(1, log_every=1)
-    params_1 = {k: np.asarray(v)
-                for k, v in pt_ef.flatten(jax.device_get(jsess.params)).items()}
-    history += jsess.train(STEPS, log_every=1)
-    out["session"] = {"history": history, "params_1": params_1,
-                      "npz": jsess.save(os.path.join(workdir,
-                                                     "ref_step_3.npz")),
-                      "mesh": dict(jsess.mesh.shape)}
+    # the Sessions on the narrowed pod mesh
+    for name, spec in SESSIONS.items():
+        jsess = jax_session.Session(jax_spec.RunSpec.from_dict(spec))
+        jsess.cfg = dataclasses.replace(jsess.cfg, dtype="float32")
+        jsess.restore_from(ckpt0[name], allow_spec_mismatch=True)
+        history = jsess.train(1, log_every=1)
+        params_1 = {k: np.asarray(v) for k, v in
+                    pt_ef.flatten(jax.device_get(jsess.params)).items()}
+        history += jsess.train(STEPS, log_every=1)
+        out[name] = {"history": history, "params_1": params_1,
+                     "npz": jsess.save(os.path.join(
+                         workdir, f"ref_{name}_step_3.npz")),
+                     "mesh": dict(jsess.mesh.shape)}
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
@@ -444,11 +550,13 @@ def world(tmp_path_factory):
     with open(inp_path, "wb") as f:
         pickle.dump(inp, f)
     from repro_torch.launch.session import Session
-    init = Session(pt_spec.RunSpec.from_dict(
-        dict(SESSION, mesh="smoke", clients=DP)), device="cpu",
-        dtype="float32")
-    ckpt0 = init.save(str(tmp / "step_0.npz"))
-    del init
+    ckpt0 = {}
+    for name, spec in SESSIONS.items():
+        init = Session(pt_spec.RunSpec.from_dict(
+            dict(spec, mesh="smoke", clients=DP)), device="cpu",
+            dtype="float32")
+        ckpt0[name] = init.save(str(tmp / f"{name}_step_0.npz"))
+        del init
     ref_out = str(tmp / "reference.pkl")
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count"
                f"={N}", JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2",
@@ -507,12 +615,66 @@ def test_param_pspecs_equal_the_reference(arch, tp, pad):
         assert d is None or shapes[k].shape[d] % tp == 0, k
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
-def test_tp_plan_refuses_the_ssm_families_naming_the_next_slice(arch):
-    axes = comm.Axes(("model",), None, 2, 0, (0, 1))
-    with pytest.raises(NotImplementedError, match="SSM/hybrid split"):
-        pt_model.tp_plan(cb.get_smoke(arch), axes)
+# the SSM families' plans at tp 2 and 16: (d_inner, heads, ff)
+SSM_PLANS = {"falcon-mamba-7b": (True, False, False),
+             "zamba2-1.2b": (True, True, True)}
+
+
+@pytest.mark.parametrize("tp", [2, 16])
+@pytest.mark.parametrize("arch", sorted(SSM_PLANS))
+def test_tp_plan_splits_the_ssm_families_where_the_specs_split(arch, tp):
+    """Mamba1's d_inner, Mamba2's d_inner (its heads with it), and the
+    hybrid's shared block (unstacked: its head dim at index 1), read from
+    ``param_pspecs``; a group of one runs the single-device pass."""
+    axes = comm.Axes(("model",), None, tp, 0, tuple(range(tp)))
+    plan = pt_model.tp_plan(cb.get(arch), axes)
+    assert (plan.d_inner, plan.heads, plan.ff) == SSM_PLANS[arch]
+    assert plan.vocab and not plan.experts
     assert pt_model.tp_plan(cb.get_smoke(arch), comm.Axes()) is None
+
+
+def test_collectives_run_on_plain_tensors_under_torch_func():
+    """A recomputed block's backward runs inside torch.func.grad/vjp, where
+    tensors are wrappers and every operation's result is one; gloo's CUDA
+    all-gather reads the storage, which a wrapper has not. The pass's
+    collectives (``comm._tp_timed``) take the tensor under the wrappers and
+    run with the transforms set aside: same values, plain tensors."""
+    from torch._C import _functorch
+    seen = []
+
+    @comm._tp_timed
+    def collective(axes, x):
+        b = x.contiguous().reshape(-1).view(torch.uint8)
+        out = torch.empty_like(b)
+        out.copy_(b)
+        seen.append([_functorch.is_gradtrackingtensor(t) for t in (x, out)])
+        return out.view(x.dtype).reshape(x.shape) + 1.0
+
+    def f(x):
+        y = torch.func.vjp(lambda t: t * 3.0, x * 2.0)[0]
+        got = collective(comm.Axes(), y)
+        seen.append(_functorch.is_gradtrackingtensor(y))
+        seen.append(got)
+        return (y * got).sum()
+    g = torch.func.grad(f)(torch.arange(4.0))
+    assert seen[0] == [False, False] and seen[1]
+    assert not _functorch.is_gradtrackingtensor(seen[2])
+    assert torch.equal(seen[2], torch.arange(4.0) * 6.0 + 1.0)
+    # the collective's result is a constant to the transform
+    assert torch.equal(g, 6.0 * (torch.arange(4.0) * 6.0 + 1.0))
+
+
+def test_tp_plan_refuses_mamba2_heads_that_do_not_split():
+    """zamba2 smoke at 16 ranks: d_inner 256 splits, its 8 heads do not;
+    the reference's specs would give each rank a part of every head's
+    head_dim, which the port refuses by name."""
+    cfg = cb.get_smoke("zamba2-1.2b")
+    specs = pt_model.param_pspecs(cfg, 16)
+    assert specs["layers/mamba/in_x"][2] == "model"
+    assert specs["layers/mamba/in_dt"][2] is None
+    axes = comm.Axes(("model",), None, 16, 0, tuple(range(16)))
+    with pytest.raises(NotImplementedError, match="by whole heads"):
+        pt_model.tp_plan(cfg, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -662,6 +824,57 @@ def test_the_pass_splits_where_the_specs_split(world):
     assert g["olmoe-3-experts"][2]["layers/moe/w_up"].shape[1:] == (
         3, 128, 32)
     assert g["gemma2-remat"][2]["embed"].shape[0] == 256
+    # Mamba1: in_proj (L, d, 2·Di) halves, the rest on Di 256 -> 128
+    for name in ("falcon-mamba", "falcon-mamba-remat"):
+        fm = g[name][2]
+        assert fm["layers/mamba/in_proj"].shape == (2, 128, 256)
+        assert fm["layers/mamba/conv_w"].shape[-1] == 128
+        assert fm["layers/mamba/x_proj"].shape[1] == 128
+        assert fm["layers/mamba/A_log"].shape == (2, 128, 8)
+        assert fm["layers/mamba/norm"].shape == (2, 128)
+    # Mamba2: d_inner 256 -> 128, 8 heads -> 4, B, C and conv_w whole; the
+    # shared block's 4 heads -> 2 and d_ff 256 -> 128
+    for name in ("zamba2", "zamba2-remat"):
+        z = g[name][2]
+        assert z["layers/mamba/in_x"].shape == (4, 128, 128)
+        assert z["layers/mamba/out_norm"].shape == (4, 128)
+        assert z["layers/mamba/in_dt"].shape == (4, 128, 4)
+        assert z["layers/mamba/A_log"].shape == (4, 4)
+        assert z["layers/mamba/in_B"].shape == (4, 128, 16)
+        assert z["layers/mamba/conv_w"].shape == (4, 4, 256 + 32)
+        assert z["shared_attn/attn/wq"].shape == (128, 2, 32)
+        assert z["shared_attn/attn/wk"].shape == (128, 2, 32)
+        assert z["shared_attn/mlp/w_up"].shape == (128, 128)
+
+
+def _rel_max(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def test_mamba2_split_norm_and_conv_gradient_catch_planted_faults(world):
+    """One Mamba2 block on each 'model' pair of ranks: the split
+    ``out_norm`` (mean square over the whole d_inner) and ``conv_w``'s
+    gradient (whole and equal on both ranks) match the whole block's
+    gradients at the test's bars; with each planted fault (an f dropped, a
+    sum taken twice) the same comparison fails, by far."""
+    _, ranks, _ = world
+    for r in ranks:
+        grads, (gx, want_x) = r["mamba2"]["sound"]
+        for k, (g, w) in grads.items():
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{r['coord']} {k}")
+        np.testing.assert_allclose(gx, want_x, rtol=RTOL, atol=ATOL)
+        for fault in MAMBA2_FAULTS:
+            grads, (gx, want_x) = r["mamba2"][fault]
+            worst = max([_rel_max(g, w) for g, w in grads.values()]
+                        + [_rel_max(gx, want_x)])
+            assert worst > 1e-2, (fault, r["coord"], worst)
+            if fault.startswith("conv_w"):
+                assert _rel_max(*grads["conv_w"]) > 1e-2, fault
+            else:            # the mean square's gradient reaches the input
+                assert _rel_max(gx, want_x) > 1e-2, fault
+    conv = [r["mamba2"]["sound"][0]["conv_w"][0] for r in ranks]
+    assert all(np.array_equal(c, conv[0]) for c in conv[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -867,17 +1080,75 @@ def test_session_kill_and_resume_is_bit_for_bit(world):
         assert r["session"]["resume_equal"]
 
 
-def test_session_npz_has_the_reference_keys_shapes_and_hash(world):
-    _, ranks, want = world
+def _npz_matches(ranks, want, name):
     from repro_torch.checkpoint import checkpoint as ckpt_lib
-    got_path = ranks[0]["session"]["npz"]
-    assert all(r["session"]["npz"] == got_path for r in ranks)
-    with np.load(got_path) as g, np.load(want["session"]["npz"]) as w:
+    got_path = ranks[0][name]["npz"]
+    assert all(r[name]["npz"] == got_path for r in ranks)
+    with np.load(got_path) as g, np.load(want[name]["npz"]) as w:
         assert sorted(g.files) == sorted(w.files)
         for k in w.files:
             if k != ckpt_lib.META:
                 assert g[k].shape == w[k].shape, k
     got_meta = ckpt_lib.read_meta(got_path)
     assert got_meta["spec_hash"] == ckpt_lib.read_meta(
-        want["session"]["npz"])["spec_hash"]
+        want[name]["npz"])["spec_hash"]
     assert got_meta["step"] == STEPS
+
+
+def test_session_npz_has_the_reference_keys_shapes_and_hash(world):
+    _, ranks, want = world
+    _npz_matches(ranks, want, "session")
+
+
+# ---------------------------------------------------------------------------
+# 6. the hybrid's Session at model 2 (zamba2 smoke)
+# ---------------------------------------------------------------------------
+
+def test_zamba2_session_at_model_2_tracks_the_reference_session(world):
+    """3 steps of zamba2 smoke from one initial checkpoint: loss and g_norm
+    within rtol 1e-4 of the reference's Session on the same mesh, equal on
+    every rank; the parameters after step 1 within rtol 1e-4, and after
+    step 3 within the bar of the smollm Session above."""
+    _, ranks, want = world
+    ref = want["session_zamba2"]
+    assert ref["mesh"] == {"data": DP, "model": TP}
+    pspecs = pt_model.param_pspecs(_cfg("zamba2-1.2b"), TP)
+    with np.load(ref["npz"]) as z:
+        ref3 = {k[len("params/"):]: z[k] for k in z.files
+                if k.startswith("params/")}
+    for r in ranks:
+        s, m = r["session_zamba2"], r["coord"][1]
+        assert s["mesh"] == {"data": DP, "model": TP}
+        got = np.array(s["trajectory"])
+        for i, key in enumerate(("loss", "g_norm")):
+            np.testing.assert_allclose(got[:, i],
+                                       [h[key] for h in ref["history"]],
+                                       rtol=1e-4, err_msg=key)
+        assert s["trajectory"] == ranks[0]["session_zamba2"]["trajectory"]
+        for k, v in s["params_1"].items():
+            np.testing.assert_allclose(
+                v, _shard_np(ref["params_1"][k], pspecs[k], m), rtol=1e-4,
+                atol=1e-6, err_msg=k)
+        off = total = 0
+        for k, v in s["params"].items():
+            w = _shard_np(ref3[k], pspecs[k], m)
+            off += int((np.abs(v - w) > 1e-6 + 1e-4 * np.abs(w)).sum())
+            total += v.size
+            assert np.abs(v - w).max() <= 0.02, k
+        assert off <= 0.01 * total, (off, total)
+    for step in range(STEPS):
+        for m in range(TP):
+            assert len({r["session_zamba2"]["digests"][step] for r in ranks
+                        if r["coord"][1] == m}) == 1, (step, m)
+
+
+def test_zamba2_session_kill_and_resume_is_bit_for_bit(world):
+    _, ranks, _ = world
+    for r in ranks:
+        assert r["session_zamba2"]["resumed_step"] == 2
+        assert r["session_zamba2"]["resume_equal"]
+
+
+def test_zamba2_session_npz_has_the_reference_keys_shapes_and_hash(world):
+    _, ranks, want = world
+    _npz_matches(ranks, want, "session_zamba2")
