@@ -224,7 +224,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
   6i. phase MT, the 'model' axis: 4 rank processes sharing the card over
      gloo on (data 2, model 2) (the production geometry narrowed in each
      rank), full-width smollm-360m, 8 rows of 256 a client, f32 EF state,
-     recompute on, fused_quant8/fused_quant4: 3 steps with tp_pad_heads 2
+     recompute on, fused_quant8/fused_quant4: 2 steps with tp_pad_heads 2
      (16 heads, 8 a rank) and 1 without (15 heads, attention replicated).
      At the initial parameters each rank's gradient shards are held, in
      f32, against the unsharded pass of its rows in the same process
@@ -247,7 +247,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      gemma2-9b, olmoe-1b-7b, falcon-mamba-7b and zamba2-1.2b at smoke size
      on (data 2, model 2), the card within P_TOL of the CPU over 2 steps;
      and MT-single: MT-padded's spec on one device with 2 clients (no
-     'model' axis), 3 steps, its losses printed beside MT-padded's.
+     'model' axis), as many steps, its losses printed beside MT-padded's.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
 shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, each D phase's
@@ -3012,20 +3012,36 @@ MD4_RUNS = [  # (label, spec, overrides): one client a rank, full width
     # multi_pod geometry's 32 production clients set the batch's multiple
     ("MD4-multi_pod", "hierarchy_quant4_cross",
      dict(mesh="multi_pod", smoke=False, global_batch=32)),
+    # one client a pod on (pod 2, data 2): each pod's 8 rows split over its
+    # 2 data ranks, the shares' gradients all-reduced over the pair, the
+    # round over 'pod'; held against the single-process run of MD_PODS
+    # clients
+    ("MD4-pod-clients", "fused_quant8_overlap",
+     dict(mesh="multi_pod", client_granularity="pod")),
 ]
+MD_PODS = 2
 # MD4's planted faults, runs that its check against the single-process run
 # must fail (a reading above MD_TOL on every rank): (label, spec, overrides,
 # fault). "local": the round's collectives keep this rank's client alone
 # (an all-reduce returns n times its operand, a gather n copies of it, a
 # ring hop its own chunk); "frozen": the parameters are put back after
-# every step, as if no round reached them.
+# every step, as if no round reached them; "pod-unreduced": a pod client's
+# gradient is each data rank's own share (the data group's sum skipped).
 MD4_FAULTS = [
     ("MD4-fault-local-fused", "fused_quant8_overlap", {}, "local"),
     ("MD4-fault-local-quant8", "fused_quant8_overlap",
      dict(carrier="quant8", overlap=False), "local"),
     ("MD4-fault-frozen", "fused_quant8_overlap",
      dict(carrier="quant8", overlap=False), "frozen"),
+    ("MD4-fault-pod-unreduced", "fused_quant8_overlap",
+     dict(mesh="multi_pod", client_granularity="pod"), "pod-unreduced"),
 ]
+# the faults that read above MD_TOL from their first step run 1 step (the
+# script's time limit; "local" reads 1.1e-4 at its first step): "frozen"
+# (the parameters moved 0, a reading of 1.0 on an H100) and
+# "pod-unreduced" (the first estimate from each rank's share, about half
+# its pod's gradient: 0.282)
+MD4_FAULT_STEPS = {"frozen": 1, "pod-unreduced": 1}
 
 
 def _free_port() -> int:
@@ -3078,7 +3094,7 @@ def md1_phase(ops, spec_lib, device="cuda", backend="nccl", smoke=False):
         params = {k: torch.zeros(s, device=device) for k, s in shapes.items()}
         for label, overrides in MD_PATHS:
             spec = load_spec(spec_lib, **overrides)
-            efc = build_lib.ef_config(spec)
+            efc = build_lib.ef_config(spec, client_axes=mesh.client_axes())
             g0 = {k: torch.randn((1, *s), generator=gen, device=device)
                   for k, s in shapes.items()}
             grads = {k: torch.randn((1, *s), generator=gen, device=device)
@@ -3202,6 +3218,20 @@ def gloo_cuda_probe(n: int):
 
 
 @contextlib.contextmanager
+def _unreduced_shares():
+    """MD4's planted fault "pod-unreduced": while it is on, a pod client's
+    gradient is this data rank's own share (core/distributed.py's
+    ``sum_shares`` the identity), as if the data group never summed."""
+    from repro_torch.core import distributed as dist_lib
+    saved = dist_lib.sum_shares
+    dist_lib.sum_shares = lambda axes, grads: grads
+    try:
+        yield
+    finally:
+        dist_lib.sum_shares = saved
+
+
+@contextlib.contextmanager
 def _local_collectives():
     """MD4's planted fault "local": while it is on, core/comm.py's
     collectives keep this rank's operand alone (an all-reduce sums n copies
@@ -3220,13 +3250,17 @@ def _local_collectives():
 
 
 def md4_run(ops, ref, label, spec_name, overrides, device="cuda",
-            plain=True, fault=None):
-    """One MD4 run on this rank: a Session of one client a rank, MD_STEPS
-    steps; per step the loss, g_norm, the replicated state's digest, the
-    step and EF-round times, the collectives' share and bytes; the
-    launches against ``expected_launches``; then (``plain``) each distinct
-    K3-K6 call of the steps held bit for bit against its plain version.
-    ``fault``: one of MD4_FAULTS's planted faults, on for the whole run."""
+            plain=True, fault=None, steps=MD_STEPS):
+    """One MD4 run on this rank: a Session of one client a rank (or, under
+    client granularity 'pod', a pod's client split over its data ranks),
+    ``steps`` steps; per step the loss, g_norm, the replicated state's and
+    the client state's digests, the step and EF-round times, the
+    collectives' share and bytes, the data group's all-reduce of the
+    gradient shares (ms, bytes); the launches against
+    ``expected_launches``; then (``plain``) each distinct K3-K6 call of
+    the steps held bit for bit against its plain version. ``fault``: one
+    of MD4_FAULTS's planted faults, on for the whole run ("pod-unreduced"
+    put on by md4_rank around it)."""
     from repro_torch.core import comm
     from repro_torch.core import distributed as dist_lib
     from repro_torch.launch import shardings as sh
@@ -3242,13 +3276,14 @@ def md4_run(ops, ref, label, spec_name, overrides, device="cuda",
     efc = sess._tr["efc"]
     # the clients whose wires this rank's aggregate gathers: its pod's
     # under a non-trivial cross hop, else all
-    intra = sess.mesh.client_axes()
+    intra = sess.client_group.names
     if efc.effective_hops is not None and not _trivial(efc):
         intra = tuple(a for a in intra if a != "pod")
     gathered = sess.mesh.axes(intra).size
     per_step = expected_launches(efc, sess.params, gathered=gathered)
     rec = {"mesh": dict(sess.mesh.shape), "n": sess.n_clients,
-           "params": n_params, "init_s": init_s, "steps": []}
+           "coord": sess.mesh.coordinate(), "params": n_params,
+           "init_s": init_s, "steps": []}
     orig = dist_lib.ef_round_sharded
     round_ms, round_coll_ms = [], []
 
@@ -3272,7 +3307,7 @@ def md4_run(ops, ref, label, spec_name, overrides, device="cuda",
     ops.reset_launches()
     try:
         with recorded_calls(ops, ROW_KERNELS, shapes_only=True) as calls:
-            for _ in range(MD_STEPS):
+            for _ in range(steps):
                 comm.reset_stats()
                 _sync(device)
                 t = time.time()
@@ -3292,16 +3327,21 @@ def md4_run(ops, ref, label, spec_name, overrides, device="cuda",
                     collectives=comm.STATS["collectives"],
                     wire_bytes=comm.STATS["wire_bytes"],
                     staged_bytes=comm.STATS["staged_bytes"],
+                    data_ms=comm.STATS["data_seconds"] * 1e3,
+                    data_collectives=comm.STATS["data_collectives"],
+                    data_bytes=comm.STATS["data_wire_bytes"],
                     digest=sh.replicated_digest(sess.params,
-                                                sess.ef_state)))
+                                                sess.ef_state),
+                    client_digest=sh.tree_digest(
+                        sess.ef_state["clients"])))
     finally:
         dist_lib.ef_round_sharded = orig
         comm.TIMED = False
     rec["launches"] = {k: v for k, v in ops.launches.items() if v}
     rec["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
-    rec["expected"] = {k: v * MD_STEPS for k, v in per_step.items() if v}
+    rec["expected"] = {k: v * steps for k, v in per_step.items() if v}
     if cuda:
-        check_launches(rec["launches"], per_step, MD_STEPS, label)
+        check_launches(rec["launches"], per_step, steps, label)
     del sess, m, p0
     gc.collect()
     if _call_counts(calls) != rec["expected"]:
@@ -3339,8 +3379,11 @@ def md4_rank(rank, runs, device="cuda", faults=()):
         out["runs"][label] = md4_run(ops, ref, label, spec_name, overrides,
                                      device, plain=rank == 0)
     for label, spec_name, overrides, fault in faults:
-        out["faults"][label] = md4_run(ops, ref, label, spec_name, overrides,
-                                       device, plain=False, fault=fault)
+        with _unreduced_shares() if fault == "pod-unreduced" \
+                else contextlib.nullcontext():
+            out["faults"][label] = md4_run(
+                ops, ref, label, spec_name, overrides, device, plain=False,
+                fault=fault, steps=MD4_FAULT_STEPS.get(fault, MD_STEPS))
     return out
 
 
@@ -3349,6 +3392,10 @@ def _single_key(name, overrides):
     not change it)."""
     return (name, json.dumps({k: v for k, v in overrides.items()
                               if k != "overlap"}, sort_keys=True))
+
+
+def _pod_clients(overrides) -> bool:
+    return overrides.get("client_granularity") == "pod"
 
 
 def _relative_diffs(steps, want):
@@ -3377,11 +3424,14 @@ def _distance(params, p0) -> float:
 
 def md4_single(Session, spec_lib, spec_name, overrides, device="cuda"):
     """The single-process run MD4 compares against: the same spec on the
-    smoke mesh with MD_RANKS emulated clients (the vmap round); a step's
-    (loss, g_norm, ‖params − initial params‖)."""
-    over = {k: v for k, v in overrides.items() if k != "overlap"}
+    smoke mesh with MD_RANKS emulated clients (MD_PODS under client
+    granularity 'pod': one a pod) (the vmap round); a step's (loss,
+    g_norm, ‖params − initial params‖)."""
+    over = {k: v for k, v in overrides.items()
+            if k not in ("overlap", "client_granularity")}
+    clients = MD_PODS if _pod_clients(overrides) else MD_RANKS
     spec = load_spec(spec_lib, spec_name,
-                     **dict(over, mesh="smoke", clients=MD_RANKS))
+                     **dict(over, mesh="smoke", clients=clients))
     sess = Session(spec, device=device)
     p0 = _host_copy(sess.params)
     out = []
@@ -3415,7 +3465,8 @@ def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
             t0 = time.time()
             singles[key] = md4_single(Session, spec_lib, name, overrides,
                                       device)
-            print(f"{label}: single-process run (smoke mesh, {MD_RANKS} "
+            clients = MD_PODS if _pod_clients(overrides) else MD_RANKS
+            print(f"{label}: single-process run (smoke mesh, {clients} "
                   f"clients) {singles[key]} in {time.time() - t0:.1f} s",
                   flush=True)
     work = tempfile.mkdtemp(prefix="md4_")
@@ -3442,6 +3493,20 @@ def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
         for step in traj[0]:
             if not all(math.isfinite(x) for x in step[:3]):
                 fail(f"{label}: non-finite loss, g_norm or distance {step}")
+        if _pod_clients(overrides):
+            # a pod's client is one state on each of its data ranks, and
+            # the two pods hold two clients
+            by_pod = {}
+            for rec in recs:
+                by_pod.setdefault(rec["coord"]["pod"], set()).add(
+                    tuple(s["client_digest"] for s in rec["steps"]))
+            if any(len(d) != 1 for d in by_pod.values()) \
+                    or len(set.union(*by_pod.values())) != len(by_pod):
+                fail(f"{label}: the client state differs among a pod's "
+                     f"data ranks, or is one across pods: {by_pod}")
+            print(f"{label}: client state equal on each pod's "
+                  f"{MD_RANKS // MD_PODS} data ranks every step, one "
+                  f"client a pod ({len(by_pod)} pods)", flush=True)
         worst[label] = max(_relative_diffs(
             traj[0], singles[_single_key(name, overrides)]))
         if worst[label] > MD_TOL:
@@ -3464,6 +3529,14 @@ def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
                   f"a step {st[-1]['wire_bytes']} staged_bytes a step "
                   f"{st[-1]['staged_bytes']} peak {rec['peak']} launches "
                   f"{rec['launches']}", flush=True)
+            if st[-1]["data_collectives"]:
+                print(f"{label} rank {rank}: the data group's all-reduce "
+                      f"of the gradient shares: "
+                      f"{st[-1]['data_collectives']} collectives a step, "
+                      f"{st[-1]['data_bytes']} bytes a step, data_ms "
+                      f"{[round(s['data_ms'], 1) for s in st]} beside "
+                      f"round_ms {[round(s['round_ms'], 1) for s in st]}",
+                      flush=True)
             total = _merged(total, rec["launches"])
         print(f"{label}: loss/g_norm/params moved "
               f"{[(a, b, c) for a, b, c, _ in traj[0]]} on "
@@ -3472,16 +3545,18 @@ def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
               f"run {worst[label]:.3e} (tolerance {MD_TOL}); every distinct "
               f"K3-K6 call bit for bit its plain version: "
               f"{recs[0].get('plain')}", flush=True)
-    ring = [[(s["loss"], s["g_norm"], s["digest"]) for s in r["runs"][
-        "MD4-quant8-ring"]["steps"]] for r in ranks]
-    blocking = [[(s["loss"], s["g_norm"], s["digest"]) for s in r["runs"][
-        "MD4-quant8-blocking"]["steps"]] for r in ranks]
-    if ring != blocking:
-        fail(f"MD4: the ring's run {ring[0]} is not the blocking gather's "
-             f"{blocking[0]} bit for bit")
-    print("MD4: the overlap ring bit for bit the blocking gather (loss, "
-          "g_norm and the replicated state's digest, every step, every "
-          f"rank); worst relative difference a run {worst}", flush=True)
+    pair = ("MD4-quant8-ring", "MD4-quant8-blocking")
+    if all(label in worst for label in pair):
+        ring, blocking = ([[(s["loss"], s["g_norm"], s["digest"])
+                            for s in r["runs"][label]["steps"]]
+                           for r in ranks] for label in pair)
+        if ring != blocking:
+            fail(f"MD4: the ring's run {ring[0]} is not the blocking "
+                 f"gather's {blocking[0]} bit for bit")
+        print("MD4: the overlap ring bit for bit the blocking gather (loss, "
+              "g_norm and the replicated state's digest, every step, every "
+              "rank)", flush=True)
+    print(f"MD4: worst relative difference a run {worst}", flush=True)
     caught = {}
     for label, name, overrides, fault in faults:
         want = singles[_single_key(name, overrides)]
@@ -3523,8 +3598,9 @@ MT_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
 MT_GRAD_TOL = 1e-3
 MT_FAULTS = ("f-identity", "replicated-summed")
 MT_RUNS = [  # (label, arch, tp_pad_heads, depth cut, steps, planted faults)
-    # 16 heads, 8 a rank: attention split
-    ("MT-padded", "smollm-360m", 2, None, 3, MT_FAULTS),
+    # 16 heads, 8 a rank: attention split (2 steps: the script's time
+    # limit)
+    ("MT-padded", "smollm-360m", 2, None, 2, MT_FAULTS),
     # 15 heads: attention replicated whole (1 step: the script's time
     # limit)
     ("MT-replicated", "smollm-360m", 0, None, 1, ()),
@@ -3545,14 +3621,45 @@ MT_SMOKE_ARCHS = ("granite-34b", "gemma2-9b", "olmoe-1b-7b",
                   "falcon-mamba-7b", "zamba2-1.2b")
 MT_SMOKE = dict(smoke=True, mesh="pod", seq_len=160, global_batch=4)
 MT_SMOKE_STEPS = 2
+# client granularity 'pod' on the multi_pod mesh narrowed to (pod 2, data
+# 1, model 2), one client a pod: MT-padded's spec with state sharding
+# 'zero', which adds no split with one data rank a pod (the reference's
+# run of this pair is bit for bit its 'client' run), 1 step held bit for
+# bit to MT-padded's first (the same ranks form each client's group)
+MT_POD_ZERO = dict(mesh="multi_pod", client_granularity="pod",
+                   state_sharding="zero")
+MT_POD_ZERO_GEOM = {"pod": 2, "data": 1, "model": 2}
+# the smoke check's runs on (pod 2, data 2, model 1), card against CPU:
+# (label, arch, client granularity, activation dtype (None: the spec's,
+# bf16), tolerance or None). A pod's rows split over its data ranks in f32
+# within MT_POD_TOL, and in bf16; the bf16 'group' run on the same mesh,
+# one client a rank on the same rows a rank, is the bf16 run's control,
+# measured, not held: its gap is bf16's rounding without the split (1.5e-3
+# on an H100, above P_TOL, a drop count flipping on a rank). The bf16 pod
+# run is held within the larger of P_TOL and its control's gap
+# (MT_POD_CONTROL). Each step's drop count a client, card and CPU, is
+# printed beside.
+MT_SMOKE_POD_GEOM = {"pod": 2, "data": 2, "model": 1}
+MT_POD_TOL = 1e-4
+MT_SMOKE_POD = (
+    ("olmoe-1b-7b pod f32", "olmoe-1b-7b", "pod", "float32", MT_POD_TOL),
+    ("olmoe-1b-7b pod bf16", "olmoe-1b-7b", "pod", None, None),
+    ("olmoe-1b-7b group bf16", "olmoe-1b-7b", "group", None, None),
+)
+MT_POD_CONTROL = ("olmoe-1b-7b pod bf16", "olmoe-1b-7b group bf16")
 MD4_PEAK = 10.51e9               # MD4's peak a rank, measured on four H100s
 
 
-def _mt_narrow():
+def _mt_narrow(multi_pod=None):
+    """The production geometry narrowed in this rank: the pod mesh to
+    MT_GEOM, and with ``multi_pod`` (a geometry) the two-pod mesh."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import spec as spec_lib
     mesh_lib.PROD_DATA = MT_GEOM["data"]
     spec_lib.MESH_GEOM["pod"] = dict(MT_GEOM)
+    if multi_pod is not None:
+        mesh_lib.PROD_DATA = multi_pod["data"]
+        spec_lib.MESH_GEOM["multi_pod"] = dict(multi_pod)
 
 
 def _rel(got, want) -> float:
@@ -3596,7 +3703,7 @@ def mt_grad_check(sess, device, faults=()):
     from repro_torch.models import model as model_lib
     spec = sess.spec
     cfg = dataclasses.replace(sess.cfg, dtype="float32")
-    axes = sess._client_axes()
+    axes = sess.client_group
     rows = dist_lib.client_rows(sess.batch_for(sess.step), axes.size,
                                 axes.index)
     whole = model_lib.init_params(
@@ -3636,7 +3743,8 @@ def mt_grad_check(sess, device, faults=()):
 
 
 def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
-           smoke=False, plain=True, faults=()):
+           smoke=False, plain=True, faults=(), spec_over=None,
+           grad_check=True):
     """One MT run on this rank: a Session of ``arch`` on (data 2, model 2)
     with ``tp_pad_heads`` ``pad``, its config cut by ``cut`` before the
     first step; the gradient check (with ``faults``), then
@@ -3647,14 +3755,16 @@ def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
     peak: a comparison), per step the loss, g_norm, digest, step and round
     ms and the collectives' seconds;
     the launches against ``expected_launches``; then (``plain``) each
-    distinct K3-K6 call bit for bit its plain version."""
+    distinct K3-K6 call bit for bit its plain version. ``spec_over``:
+    fields over MT_PATH's (MT-pod-zero's); ``grad_check`` off skips the
+    gradient check (a run whose pass is another run's)."""
     from repro_torch.core import comm
     from repro_torch.core import distributed as dist_lib
     from repro_torch.core import ef as ef_lib
     from repro_torch.launch import shardings as sh
     from repro_torch.launch import spec as spec_lib
     from repro_torch.launch.session import Session
-    over = dict(MT_PATH, arch=arch, tp_pad_heads=pad)
+    over = dict(MT_PATH, arch=arch, tp_pad_heads=pad, **(spec_over or {}))
     if smoke:
         over.update(smoke=True, seq_len=64, global_batch=4)
     spec = load_spec(spec_lib, **over)
@@ -3671,11 +3781,12 @@ def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
            "params_local": n_local, "init_s": time.time() - t0,
            "steps": [], "client_state_equal": []}
     t0 = time.time()
-    rec["grads"] = mt_grad_check(sess, device, faults)
+    if grad_check:
+        rec["grads"] = mt_grad_check(sess, device, faults)
     rec["grad_check_s"] = time.time() - t0
     efc = sess._tr["efc"]
     per_step = expected_launches(efc, sess.params,
-                                 gathered=sess._client_axes().size)
+                                 gathered=sess.client_group.size)
     orig = dist_lib.ef_round_sharded
     timing, peaks = {}, []
 
@@ -3735,6 +3846,7 @@ def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
                     tp_ms=comm.STATS["tp_seconds"] * 1e3,
                     tp_collectives=comm.STATS["tp_collectives"],
                     digest=sh.replicated_digest(sess.params, sess.ef_state),
+                    client_digest=sh.tree_digest(sess.ef_state["clients"]),
                     **timing))
     finally:
         dist_lib.ef_round_sharded = orig
@@ -3754,24 +3866,56 @@ def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
     return rec
 
 
-def mt_smoke(arch):
-    """One arch at smoke size on (data 2, model 2), on the card and on the
-    CPU in the same gloo world: each step's loss and g_norm (the card run's
-    launches taken back out: a comparison). The SSM archs run three scan
-    chunks (D_SMOKE_SCAN's sequence)."""
+def _client_drops(sess):
+    """The assignments this rank's client drops at the step about to run,
+    summed over the layers: the forward at the step's params on the
+    client's rows (under pod clients this rank's block, the shares summed
+    over its data group)."""
+    from repro_torch.core import comm
+    from repro_torch.core import distributed as dist_lib
+    from repro_torch.models import model as model_lib
+    group, split = sess.client_group, sess.data_axes
+    rows = dist_lib.client_rows(sess.batch_for(sess.step), group.size,
+                                group.index)
+    rows = dist_lib.client_rows(rows, split.size, split.index)
+    with torch.no_grad():
+        _, aux = model_lib.train_loss(sess.cfg, sess.params, rows,
+                                      split=split if split.size > 1
+                                      else None)
+    frac = comm.share_sum(split, aux["dropped_frac"]) if split.size > 1 \
+        else aux["dropped_frac"]
+    return round(float(frac) * rows["tokens"].numel() * split.size
+                 * sess.cfg.num_experts_per_tok)
+
+
+def mt_smoke(arch, granularity=None, dtype=None):
+    """One arch at smoke size on (data 2, model 2), or with a client
+    ``granularity`` on (pod 2, data 2, model 1) (MT_SMOKE_POD_GEOM) with
+    the activation ``dtype`` (None: the spec's), on the card and on the
+    CPU in the same gloo world: each step's loss and g_norm (the card
+    run's launches taken back out: a comparison), and under a granularity
+    each step's drop count of this rank's client (:func:`_client_drops`).
+    The SSM archs run three scan chunks (D_SMOKE_SCAN's sequence)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import spec as spec_lib
     from repro_torch.launch.session import Session
     over = dict(MT_SMOKE)
+    if granularity:
+        over.update(mesh="multi_pod", client_granularity=granularity)
     if arch in SCAN_ARCHS:
         over["seq_len"] = D_SMOKE_SCAN["seq_len"]
     spec = load_spec(spec_lib, **dict(R_PATH, arch=arch, **over))
-    out = {}
+    out = {"drops": {}}
     for device in ("cuda", "cpu"):
         saved = dict(ops.launches)
-        sess = Session(spec, device=device)
-        out[device] = [(float(m["loss"]), float(m["g_norm"])) for m in
-                       (sess.step_once() for _ in range(MT_SMOKE_STEPS))]
+        sess = Session(spec, device=device, dtype=dtype)
+        steps, drops = [], []
+        for _ in range(MT_SMOKE_STEPS):
+            if granularity:
+                drops.append(_client_drops(sess))
+            m = sess.step_once()
+            steps.append((float(m["loss"]), float(m["g_norm"])))
+        out[device], out["drops"][device] = steps, drops
         ops.launches.update(saved)
         del sess
         gc.collect()
@@ -3779,32 +3923,50 @@ def mt_smoke(arch):
 
 
 def mt_rank(rank, runs, device="cuda", smoke=False,
-            smoke_archs=MT_SMOKE_ARCHS):
+            smoke_archs=MT_SMOKE_ARCHS, smoke_pod=MT_SMOKE_POD):
     """One of MT's rank processes (``multiproc.spawn``, gloo, the card
     shared, the kernels' library from the parent's build): each run of
-    ``runs`` with its planted faults' gradient readings, then the smoke
-    archs on card and CPU. Rank 0 holds the distinct K3-K6 calls against
-    the plain versions."""
+    ``runs`` with its planted faults' gradient readings, MT-pod-zero on
+    (pod 2, data 1, model 2) where ``runs`` holds MT-padded (its
+    reference), then the smoke archs on card and CPU, and ``smoke_pod``'s
+    runs on (pod 2, data 2, model 1). Rank 0 holds the distinct K3-K6
+    calls against the plain versions."""
     from repro_torch.kernels import build, ops, ref
     _mt_narrow()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if device == "cuda":
         build.build()
-    out = {"runs": {}, "smoke": {}}
+    out = {"runs": {}, "smoke": {}, "smoke_pod": {}}
     for label, arch, pad, cut, steps, faults in runs:
         out["runs"][label] = mt_run(ops, ref, label, arch, pad, cut, steps,
                                     device, smoke, plain=rank == 0,
                                     faults=faults)
+    if _has_padded(runs):
+        _mt_narrow(MT_POD_ZERO_GEOM)
+        out["pod_zero"] = mt_run(ops, ref, "MT-pod-zero", "smollm-360m", 2,
+                                 None, 1, device, smoke, plain=rank == 0,
+                                 spec_over=MT_POD_ZERO, grad_check=False)
+        _mt_narrow()
     t0 = time.time()
     for arch in smoke_archs:
         out["smoke"][arch] = mt_smoke(arch)
+    if smoke_pod:
+        _mt_narrow(MT_SMOKE_POD_GEOM)
+        for label, arch, granularity, dtype, _ in smoke_pod:
+            out["smoke_pod"][label] = mt_smoke(arch, granularity, dtype)
+        _mt_narrow()
     out["smoke_s"] = time.time() - t0
     return out
 
 
+def _has_padded(runs) -> bool:
+    """MT-pod-zero runs only beside MT-padded, the run it must equal."""
+    return any(run[0] == "MT-padded" for run in runs)
+
+
 def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
-             smoke_archs=MT_SMOKE_ARCHS):
+             smoke_archs=MT_SMOKE_ARCHS, smoke_pod=MT_SMOKE_POD):
     """MT: MT_RANKS rank processes on the one card (gloo), the mesh (data
     2, model 2), full width (recompute on, f32 EF state, 8 rows of 256 a
     client), MT_RUNS: smollm-360m padded (attention split over the axis)
@@ -3815,16 +3977,20 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
     single-device round over the shard tree; loss and g_norm equal on
     every rank and the replicated state's digest equal among the ranks of
     a 'model' coordinate every step; the launches; rank 0's distinct K3-K6
-    calls bit for bit their plain versions; the smoke archs on the card
-    within P_TOL of the CPU. Returns the runs' launches summed over ranks
-    and each run's losses. (``device``/``smoke``: the CPU rehearsal
-    at smoke size.)"""
+    calls bit for bit their plain versions; MT-pod-zero, where ``runs``
+    holds MT-padded, bit for bit MT-padded's first step (loss, g_norm,
+    each rank's client state); the smoke archs on the card within P_TOL
+    of the CPU and each of ``smoke_pod`` within its own tolerance, its
+    drop counts printed. Returns the runs' launches summed over ranks and
+    each run's losses. (``device``/``smoke``: the CPU rehearsal at smoke
+    size.)"""
     from repro_torch.launch import multiproc
     work = tempfile.mkdtemp(prefix="mt_")
     t0 = time.time()
     try:
         ranks = multiproc.spawn(mt_rank, MT_RANKS, work,
-                                args=(runs, device, smoke, smoke_archs),
+                                args=(runs, device, smoke, smoke_archs,
+                                      smoke_pod),
                                 threads=2, timeout_s=900)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3897,6 +4063,46 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
               f"bit for bit the single-device round every step; every "
               f"distinct K3-K6 call bit for bit its plain version: "
               f"{recs[0].get('plain')}", flush=True)
+    if _has_padded(runs):
+        total = _merged(total, _mt_pod_zero(ranks, losses))
+    else:
+        print("MT-pod-zero: not run (its reference MT-padded is not among "
+              "the runs)", flush=True)
+    gaps = {}
+    for label, _, _, _, tol in smoke_pod:
+        runs_ = [r["smoke_pod"][label] for r in ranks]
+        if any((r["cuda"], r["cpu"]) != (runs_[0]["cuda"], runs_[0]["cpu"])
+               for r in runs_[1:]):
+            fail(f"MT {label}: the ranks disagree on loss or g_norm")
+        if not all(math.isfinite(x) for dev in ("cuda", "cpu")
+                   for st in runs_[0][dev] for x in st):
+            fail(f"MT smoke {label}: non-finite loss or g_norm {runs_[0]}")
+        diffs = [max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(ca, cb))
+                 for ca, cb in zip(runs_[0]["cuda"], runs_[0]["cpu"])]
+        gaps[label] = max(diffs)
+        drops = {dev: [r["drops"][dev] for r in runs_]
+                 for dev in ("cuda", "cpu")}
+        print(f"MT smoke {label} on {MT_SMOKE_POD_GEOM}, card against CPU: "
+              f"loss/g_norm card {runs_[0]['cuda']} CPU {runs_[0]['cpu']}, "
+              f"largest relative difference a step "
+              f"{[float(f'{d:.4g}') for d in diffs]} (limit "
+              f"{'its control' if tol is None else tol}); drop "
+              f"counts a rank's client a step, card {drops['cuda']} CPU "
+              f"{drops['cpu']}", flush=True)
+        if tol is not None and gaps[label] > tol:
+            fail(f"MT smoke {label} on {MT_SMOKE_POD_GEOM}: card against "
+                 f"CPU {gaps[label]:.3e} > {tol}")
+    run, control = MT_POD_CONTROL
+    if run in gaps and control in gaps:
+        bar = max(P_TOL, gaps[control])
+        if gaps[run] > bar:
+            fail(f"MT smoke {run}: card against CPU {gaps[run]:.3e} above "
+                 f"the larger of P_TOL {P_TOL} and its control {control}'s "
+                 f"{gaps[control]:.3e}: the split adds to bf16's rounding")
+        print(f"MT smoke {run}: card against CPU {gaps[run]:.3e}, within "
+              f"the larger of P_TOL {P_TOL} and the gap of its control "
+              f"{control} without the split, {gaps[control]:.3e}",
+              flush=True)
     worst = {}
     for arch in smoke_archs:
         runs_ = ranks[0]["smoke"][arch]
@@ -3918,9 +4124,53 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
     return total, losses
 
 
+def _mt_pod_zero(ranks, losses):
+    """MT-pod-zero's checks: the mesh, the ranks' agreement, every round's
+    client state bit for bit the single-device round over the shard tree,
+    and its one step bit for bit MT-padded's first (loss, g_norm and each
+    rank's client state: rank r is client r // 2's shard r % 2 on both
+    meshes); where they differ, the failure names what. Returns its
+    launches summed over ranks."""
+    recs = [r["pod_zero"] for r in ranks]
+    pads = [r["runs"]["MT-padded"] for r in ranks]
+    if any(rec["mesh"] != MT_POD_ZERO_GEOM for rec in recs):
+        fail(f"MT-pod-zero: meshes {[rec['mesh'] for rec in recs]}")
+    if any(not all(rec["client_state_equal"]) for rec in recs):
+        fail("MT-pod-zero: a round's client state is not the single-device "
+             "round's over the shard tree bit for bit")
+    got = [(s["loss"], s["g_norm"]) for s in recs[0]["steps"]]
+    if any([(s["loss"], s["g_norm"]) for s in rec["steps"]] != got
+           for rec in recs):
+        fail("MT-pod-zero: the ranks disagree on loss or g_norm")
+    want = (pads[0]["steps"][0]["loss"], pads[0]["steps"][0]["g_norm"])
+    differ = [f"loss/g_norm {got[0]} vs {want}"] if got[0] != want else []
+    differ += [f"rank {i} client state" for i, (a, b) in
+               enumerate(zip(recs, pads)) if a["steps"][0]["client_digest"]
+               != b["steps"][0]["client_digest"]]
+    if differ:
+        fail(f"MT-pod-zero (pod + zero on {MT_POD_ZERO_GEOM}) is not "
+             f"MT-padded's first step bit for bit: {differ}")
+    losses["MT-pod-zero"] = [g[0] for g in got]
+    total = {}
+    for rec in recs:
+        st = rec["steps"]
+        print(f"MT-pod-zero rank {rec['coord']}: {rec['params_local']} "
+              f"parameters held; step_ms "
+              f"{[round(s['step_ms'], 1) for s in st]} round_ms "
+              f"{[round(s['round_ms'], 1) for s in st]} peak {rec['peak']} "
+              f"launches {rec['launches']}", flush=True)
+        total = _merged(total, rec["launches"])
+    print(f"MT-pod-zero: pod clients with state sharding 'zero' on "
+          f"{MT_POD_ZERO_GEOM}: loss/g_norm {got[0]}, each rank's client "
+          f"state, bit for bit MT-padded's first step; client state bit for "
+          f"bit the single-device round; every distinct K3-K6 call bit for "
+          f"bit its plain version: {recs[0].get('plain')}", flush=True)
+    return total
+
+
 def mt_single(Session, spec_lib, mt_losses, device="cuda", smoke=False):
     """MT-single: MT-padded's spec (MT_PATH, tp_pad_heads 2, seed 0, 8 rows
-    of 256 a client, 3 steps) on one device, the smoke mesh with 2
+    of 256 a client, as many steps) on one device, the smoke mesh with 2
     clients: no 'model' axis. Prints its losses beside MT-padded's, to
     tell a rise that the spec gives on one device from one the
     tensor-parallel pass would add; fails on a non-finite loss."""
@@ -3929,7 +4179,8 @@ def mt_single(Session, spec_lib, mt_losses, device="cuda", smoke=False):
         over.update(smoke=True, seq_len=64, global_batch=4)
     sess = Session(load_spec(spec_lib, **over), device=device)
     t0 = time.time()
-    losses = [float(sess.step_once()["loss"]) for _ in range(3)]
+    steps = next(run[4] for run in MT_RUNS if run[0] == "MT-padded")
+    losses = [float(sess.step_once()["loss"]) for _ in range(steps)]
     if not all(math.isfinite(x) for x in losses):
         fail(f"MT-single: non-finite loss {losses}")
     print(f"MT-single (one device, 2 clients, no 'model' axis): losses "
@@ -4130,7 +4381,7 @@ def main() -> None:
     with phase(f"MT: {MT_RANKS} rank processes on the one card (gloo), "
                "mesh (data 2, model 2), full width tensor-parallel, "
                "fused_quant8/fused_quant4: smollm-360m with tp_pad_heads 2 "
-               "(attention split) for 3 steps, then 1 step unpadded "
+               "(attention split) for 2 steps, then 1 step unpadded "
                "(attention replicated); falcon-mamba-7b (1 layer) and "
                "zamba2-1.2b (6 layers and the shared block), 1 step each; "
                "granite, gemma2, olmoe, falcon-mamba, zamba2 at smoke size, "
@@ -4138,7 +4389,7 @@ def main() -> None:
         by_phase["MT"], mt_losses = mt_phase(ops)
     gc.collect()
     torch.cuda.empty_cache()
-    with phase("MT-single: MT-padded's spec on one device, 2 clients, 3 "
+    with phase("MT-single: MT-padded's spec on one device, 2 clients, 2 "
                "steps"):
         mt_single(Session, spec_lib, mt_losses)
 

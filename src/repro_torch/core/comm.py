@@ -39,9 +39,13 @@ import torch
 # per-process counters the multi-rank phases read: collective calls (a ring
 # hop is one), the bytes this rank hands to them (its operand of each call),
 # the bytes staged through host memory under gloo, and the seconds inside
-# them (the device synchronized before and after when TIMED is set)
+# them (the device synchronized before and after when TIMED is set); the
+# tensor-parallel pass's (tp_*) and a pod client's data group's (data_*:
+# the sums of its shares, its MoE routing counts) apart
 STATS = {"collectives": 0, "wire_bytes": 0, "staged_bytes": 0,
-         "seconds": 0.0, "tp_collectives": 0, "tp_seconds": 0.0}
+         "seconds": 0.0, "tp_collectives": 0, "tp_wire_bytes": 0,
+         "tp_seconds": 0.0, "data_collectives": 0, "data_wire_bytes": 0,
+         "data_seconds": 0.0}
 TIMED = False
 # the collectives gloo runs on CUDA tensors as they are
 GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather"})
@@ -91,20 +95,26 @@ def _back(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return host.to(like.device)
 
 
-def _timed(fn):
-    """Run one collective, counting it and its wall time."""
-    def run(axes, x, *a, **kw):
-        if TIMED and x.is_cuda:
-            torch.cuda.synchronize(x.device)
-        t0 = time.perf_counter()
-        out = fn(axes, x, *a, **kw)
-        if TIMED and x.is_cuda:
-            torch.cuda.synchronize(x.device)
-        STATS["seconds"] += time.perf_counter() - t0
-        STATS["collectives"] += 1
-        STATS["wire_bytes"] += x.numel() * x.element_size()
-        return out
-    return run
+def _counted(prefix: str):
+    """Run one collective, counting it, its operand's bytes and its wall
+    time under the ``prefix`` keys of STATS."""
+    def wrap(fn):
+        def run(axes, x, *a, **kw):
+            if TIMED and x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            t0 = time.perf_counter()
+            out = fn(axes, x, *a, **kw)
+            if TIMED and x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            STATS[prefix + "seconds"] += time.perf_counter() - t0
+            STATS[prefix + "collectives"] += 1
+            STATS[prefix + "wire_bytes"] += x.numel() * x.element_size()
+            return out
+        return run
+    return wrap
+
+
+_timed = _counted("")
 
 
 def _bytes(x: torch.Tensor) -> torch.Tensor:
@@ -116,10 +126,7 @@ def _unbytes(b: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
     return b.view(dtype).reshape(shape)
 
 
-@_timed
-def all_reduce_sum(axes: Axes, x: torch.Tensor) -> torch.Tensor:
-    """Σ over the group of an f32 tensor, as a new tensor (every rank gets
-    the same bits)."""
+def _sum(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise ValueError(f"all_reduce_sum sums f32, got {x.dtype}")
     if axes.group is None:
@@ -132,6 +139,21 @@ def all_reduce_sum(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, group=axes.group)
     return out
+
+
+@_timed
+def all_reduce_sum(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    """Σ over the group of an f32 tensor, as a new tensor (every rank gets
+    the same bits)."""
+    return _sum(axes, x)
+
+
+@_counted("data_")
+def share_sum(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    """Σ over a pod client's data group of each member's additive share
+    (its loss share, a gradient leaf): summed in f32, cast back to x's
+    dtype, every member getting the same bits; a new tensor."""
+    return _sum(axes, x.float()).to(x.dtype)
 
 
 def mean(axes: Axes, x: torch.Tensor) -> torch.Tensor:
@@ -247,26 +269,33 @@ def _plain(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _tp_timed(fn):
-    """Run one collective of the tensor-parallel pass, counted apart from
-    the EF round's (``tp_collectives``, ``tp_seconds``). It runs on plain
-    tensors with the ``torch.func`` transforms set aside (inside them every
-    operation's result is a wrapper, and gloo's CUDA all-gather reads the
-    storage, which a wrapper has not); its result is a constant to the
-    transforms, as every collective's is: the gradients are the
-    autograd.Functions' own."""
-    def run(axes, x, *a, **kw):
-        if TIMED and x.is_cuda:
-            torch.cuda.synchronize(x.device)
-        t0 = time.perf_counter()
-        with torch.no_grad(), torch._C._DisableFuncTorch():
-            out = fn(axes, _plain(x).detach(), *a, **kw)
-        if TIMED and x.is_cuda:
-            torch.cuda.synchronize(x.device)
-        STATS["tp_seconds"] += time.perf_counter() - t0
-        STATS["tp_collectives"] += 1
-        return out
-    return run
+def _plain_counted(prefix: str):
+    """Run one collective inside the client pass, counted under the
+    ``prefix`` keys of STATS (``tp_``: the tensor-parallel pass's; ``data_``:
+    a pod client's data group's). It runs on plain tensors with the
+    ``torch.func`` transforms set aside (inside them every operation's
+    result is a wrapper, and gloo's CUDA all-gather reads the storage,
+    which a wrapper has not); its result is a constant to the transforms,
+    as every collective's is: the gradients are the autograd.Functions'
+    own."""
+    def wrap(fn):
+        def run(axes, x, *a, **kw):
+            if TIMED and x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            t0 = time.perf_counter()
+            with torch.no_grad(), torch._C._DisableFuncTorch():
+                out = fn(axes, _plain(x).detach(), *a, **kw)
+            if TIMED and x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            STATS[prefix + "seconds"] += time.perf_counter() - t0
+            STATS[prefix + "collectives"] += 1
+            STATS[prefix + "wire_bytes"] += x.numel() * x.element_size()
+            return out
+        return run
+    return wrap
+
+
+_tp_timed = _plain_counted("tp_")
 
 
 @_tp_timed
@@ -305,6 +334,19 @@ def _resplit_blocks(axes: Axes, x: torch.Tensor, groups: int,
         want = [((r * groups + t) % n, (r * groups + t) // n)
                 for t in range(groups)]
     return torch.cat([blocks[m, ..., s, :] for m, s in want], dim=-1)
+
+
+@_plain_counted("data_")
+def _gather_plain(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    return _all_gather(axes, x.contiguous())
+
+
+def gather_plain(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    """(size, *x.shape): every member's ``x`` stacked in index order, a
+    constant to the ``torch.func`` transforms (a pod client's MoE routing
+    counts over its data group, models/moe.py); counted with the data
+    group's collectives."""
+    return x.detach()[None] if axes.size == 1 else _gather_plain(axes, x)
 
 
 class _Copy(torch.autograd.Function):

@@ -18,8 +18,12 @@ the clients' and groups' streams come off it, the downlink's off
 
 ``ef_round_sharded`` runs the same round with the ONE client a rank holds
 (its leaves with a leading axis of 1, on a ``launch/mesh.py`` Mesh whose
-client axes are ``mesh.client_axes()``, pod-major) and every aggregation an
-explicit collective issued by the carrier (core/comm.py): the same plans,
+client axes are ``EFConfig.client_axes``, pod-major: ('pod', 'data') under
+client granularity 'group', ('pod',) or () under 'pod', where every data
+rank of a pod holds the pod's client and runs its leg alike on the
+gradient its data group summed, :func:`sharded_value_and_grad`) and every
+aggregation an explicit collective issued by the carrier (core/comm.py):
+the same plans,
 the grouped engine (``schedule.round_local``), the cohort mask of the
 global cohort, the sharded pod tier and the downlink, which every rank
 encodes alike from the replicated server state (that encoding IS the
@@ -72,6 +76,11 @@ class EFConfig:
     # pods' EF memory in ef_state['pods'] = {t, b}; None or pods 1 runs no
     # hierarchical machinery
     hops: Optional[hier_lib.Hops] = None
+    # the mesh axes the sharded round aggregates over (the reference's
+    # ``data_axes``: ``Mesh.client_axes`` of the client granularity,
+    # ('pod', 'data') under 'group', ('pod',) or () under 'pod'); the
+    # sharded round needs them, the single-device round never reads them
+    client_axes: Optional[Tuple[str, ...]] = None
 
     @property
     def effective_hops(self) -> Optional[hier_lib.Hops]:
@@ -122,6 +131,56 @@ def client_value_and_grad(loss_fn: Callable, params: Tree,
     grads, (loss, aux) = torch.func.grad_and_value(loss_fn, has_aux=True)(
         params, batch)
     return loss, aux, {k: g[None].contiguous() for k, g in grads.items()}
+
+
+def round_axes(efc: EFConfig) -> Tuple[str, ...]:
+    """``efc.client_axes``; a readable error where a sharded round is given
+    a config that names none."""
+    if efc.client_axes is None:
+        raise ValueError("a sharded round aggregates over EFConfig."
+                         "client_axes, which is None: pass build.ef_config "
+                         "the mesh's client_axes(granularity)")
+    return tuple(efc.client_axes)
+
+
+def sum_shares(axes, grads: Tree) -> Tree:
+    """A client's gradient from its data group's shares: each leaf summed
+    over ``axes`` in f32 and cast back (one all-reduce a leaf; every member
+    gets the same bits). Takes the leaves out of ``grads`` one at a time,
+    so a share is freed as its sum arrives."""
+    return {k: comm.share_sum(axes, grads.pop(k)) for k in list(grads)}
+
+
+def sharded_value_and_grad(loss_fn: Callable, params: Tree,
+                           batch: Dict[str, torch.Tensor], mesh,
+                           c_axes: Tuple[str, ...]
+                           ) -> Tuple[torch.Tensor, Tree, Tree]:
+    """This rank's client's (loss, aux, grads with a leading axis of 1) on
+    a mesh of many ranks. The client is this rank's index on ``c_axes``
+    and takes its block of the global batch (:func:`client_rows`). Where
+    its data group (``mesh.split_axes``) holds more than one rank, each
+    rank takes its contiguous sub-block of those rows and ``loss_fn``
+    returns an additive share of the client's loss (``train_loss``'s
+    ``split``); the loss and the gradients are then summed over the group
+    (:func:`sum_shares`), and the aux values stay this rank's shares (no
+    step reads them: a caller that wants the client's sums them over
+    ``split``). A data group or a 'model' axis
+    above one rank runs without the vmap (:func:`client_value_and_grad`:
+    their collectives have no batching rule)."""
+    everyone = mesh.axes(c_axes)
+    split = mesh.axes(mesh.split_axes(c_axes))
+    rows = client_rows(batch, everyone.size, everyone.index)
+    if split.size > 1:
+        rows = client_rows(rows, split.size, split.index)
+    if split.size > 1 or mesh.shape.get("model", 1) > 1:
+        loss, aux, grads = client_value_and_grad(loss_fn, params, rows)
+    else:
+        loss, aux, grads = per_client_value_and_grad(loss_fn, params, rows,
+                                                     1)
+    if split.size > 1:
+        loss = comm.share_sum(split, loss)
+        grads = sum_shares(split, grads)
+    return loss, aux, grads
 
 
 def tree_norm_sq_sharded(tree: Tree, pspecs, model_axes) -> torch.Tensor:
@@ -296,10 +355,10 @@ def init_ef_state_sharded(efc: EFConfig, params: Tree, mesh,
     """``init_ef_state`` in the sharded layout: this rank's client state
     (leading axis 1), from its own first gradients ``init_grads`` (1, ...)
     when given; the server estimate from their mean over all clients (an
-    all-reduce: every rank gets the same bits); h and, with hops, this
-    pod's memory slot (leading axis 1)."""
+    all-reduce over the client axes: every rank gets the same bits); h
+    and, with hops, this pod's memory slot (leading axis 1)."""
     method = efc.method
-    axes = mesh.axes(mesh.client_axes())
+    axes = mesh.axes(round_axes(efc))
     if efc.schedule is not None:
         def init_one(like, g=None):
             return sched_lib.init_state_grouped(efc.schedule, method, like, g)
@@ -351,7 +410,7 @@ def ef_round_sharded(efc: EFConfig, grads, ef_state: Dict, mesh,
     state. Returns (gᵗ⁺¹ estimate, new state), replicated parts equal bit
     for bit on every rank."""
     method = efc.method
-    c_axes = mesh.client_axes()
+    c_axes = round_axes(efc)
     sched = efc.schedule
     carrier = dataclasses.replace(carrier_lib.make(efc.carrier),
                                   overlap=overlap)
@@ -455,8 +514,10 @@ def make_train_step(loss_fn: Callable, efc: EFConfig, optimizer, dp: int,
     compressor draws); the round draws from ``fold_in(rng, 1)``, as the
     reference's ``r_comp``. With a ``mesh`` of more than one rank the step
     runs sharded: this rank keeps its client's rows of the global batch,
-    its gradients are its client's, the round is ``ef_round_sharded`` (its
-    gathers the ring under ``overlap``), and the loss is the clients' mean
+    its gradients are its client's (:func:`sharded_value_and_grad`: under
+    client granularity 'pod' the sum of its data group's shares), the
+    round is ``ef_round_sharded`` over ``efc``'s client axes (its gathers
+    the ring under ``overlap``), and the loss is the clients' mean
     (all-reduced); g_norm is that of the replicated estimate, the same on
     every rank.
 
@@ -468,7 +529,8 @@ def make_train_step(loss_fn: Callable, efc: EFConfig, optimizer, dp: int,
     split leaves' squares over 'model' (:func:`tree_norm_sq_sharded`)."""
     from repro_torch.optim.optimizer import apply_updates
     sharded = mesh is not None and mesh.size > 1
-    everyone = mesh.axes(mesh.client_axes()) if sharded else None
+    c_axes = round_axes(efc) if sharded else ()
+    everyone = mesh.axes(c_axes) if sharded else None
     model = mesh.axes(("model",)) if sharded else comm.Axes()
 
     def clients_pass(params, batch):
@@ -476,12 +538,8 @@ def make_train_step(loss_fn: Callable, efc: EFConfig, optimizer, dp: int,
             loss, _, grads = per_client_value_and_grad(loss_fn, params,
                                                        batch, dp)
             return loss, grads
-        rows = client_rows(batch, everyone.size, everyone.index)
-        if model.size > 1:
-            loss, _, grads = client_value_and_grad(loss_fn, params, rows)
-        else:
-            loss, _, grads = per_client_value_and_grad(loss_fn, params,
-                                                       rows, 1)
+        loss, _, grads = sharded_value_and_grad(loss_fn, params, batch,
+                                                mesh, c_axes)
         return comm.mean(everyone, loss), grads
 
     def norm_sq(tree):

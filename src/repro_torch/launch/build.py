@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -227,11 +227,16 @@ def _check_group_plans(config, schedule, method, eta) -> None:
                     dreason)
 
 
-def ef_config(spec: RunSpec, n: Optional[int] = None) -> dist.EFConfig:
+def ef_config(spec: RunSpec, n: Optional[int] = None,
+              client_axes: Optional[Tuple[str, ...]] = None
+              ) -> dist.EFConfig:
     """The EFConfig of a spec, with the reference's authoritative checks:
     the carrier plans (per group under a schedule), then participation and
     the hop topology against its ``n`` clients (the mesh's on more than
-    one rank; ``spec.clients`` by default)."""
+    one rank; ``spec.clients`` by default). ``client_axes``: the mesh axes
+    the sharded round aggregates over (``Mesh.client_axes`` of the spec's
+    client granularity, the reference's ``default_ef_config`` data axes),
+    None on one rank."""
     method = make_method(spec)
     down = make_down_compressor(spec)
     schedule = make_schedule(spec)
@@ -274,6 +279,11 @@ def ef_config(spec: RunSpec, n: Optional[int] = None) -> dist.EFConfig:
             "inside, leaving no per-client wire to mask — use "
             "carrier='quant8'/'quant4'")
     if hops is not None:
+        if spec.client_granularity == "pod":
+            raise ValueError(
+                "hops with client_granularity='pod' stacks two pod "
+                "hierarchies: pod-granularity clients ARE one EF client per "
+                "pod already — pick one level")
         hier_lib.check_pods(hops, spec.clients if n is None else n)
         if sampling:
             raise ValueError(
@@ -289,7 +299,8 @@ def ef_config(spec: RunSpec, n: Optional[int] = None) -> dist.EFConfig:
     return dist.EFConfig(method=method, carrier=spec.carrier,
                          down_carrier=spec.downlink_carrier,
                          down_compressor=down, schedule=schedule,
-                         participation=participation, hops=hops)
+                         participation=participation, hops=hops,
+                         client_axes=client_axes)
 
 
 def cache_len(prompt_len: int, decode_budget: int, n_prefix: int = 0) -> int:

@@ -16,7 +16,10 @@ mesh keeps ``model`` 1, and so does a two-pod mesh on 1–32; beyond, the
 ``model`` axis splits the attention families' parameters
 (``models/model.py::param_pspecs``) and the EF round runs on each rank's
 shards, aggregating over the client axes at this rank's ``model``
-coordinate.
+coordinate. The client axes follow the client granularity
+(:meth:`Mesh.client_axes`): ('pod', 'data') under ``group``, ('pod',) (or
+none on the pod mesh) under ``pod``, where a client's rows are split over
+the remaining data axes (:meth:`Mesh.split_axes`).
 """
 from __future__ import annotations
 
@@ -78,11 +81,23 @@ class Mesh:
             n *= s
         return n
 
-    def client_axes(self) -> Tuple[str, ...]:
-        """The client axes in POD-MAJOR order: ('pod', 'data') whenever the
-        pod axis exists. Client i belongs to pod i // (n/pods), as the vmap
-        round's pod-major client blocks."""
+    def client_axes(self, granularity: str = "group") -> Tuple[str, ...]:
+        """The client axes in POD-MAJOR order. ``group``: ('pod', 'data')
+        whenever the pod axis exists (client i belongs to pod i // (n/pods),
+        as the vmap round's pod-major client blocks). ``pod``: ('pod',) on a
+        mesh with a pod axis, else () (one client spanning every rank), as
+        the reference's ``shardings.client_axis``."""
+        if granularity == "pod":
+            return ("pod",) if "pod" in self.axis_names else ()
         return tuple(a for a in ("pod", "data") if a in self.axis_names)
+
+    def split_axes(self, client_axes: Tuple[str, ...]) -> Tuple[str, ...]:
+        """The data axes that are not ``client_axes``: a client's rows are
+        split over them (its "data group": the ranks that share this rank's
+        client and 'model' coordinate). () under ``group``; ('data',)
+        under ``pod``."""
+        return tuple(a for a in ("pod", "data")
+                     if a in self.axis_names and a not in client_axes)
 
     def coordinate(self) -> Dict[str, int]:
         """This rank's index on each axis."""
@@ -99,6 +114,8 @@ class Mesh:
         order of ``names`` (the first name most significant, as the
         reference composes a client index)."""
         names = tuple(names)
+        if not names:               # a group of this rank alone
+            return comm.Axes((), None, 1, 0, (self.rank,))
         size = 1
         for a in names:
             size *= self.shape[a]

@@ -20,9 +20,18 @@ rebuilds a run from the spec its latest checkpoint embeds.
 The spec's ``mesh`` names the geometry (launch/mesh.py): ``smoke`` is the
 single-device runtime with ``spec.clients`` emulated clients; ``pod`` and
 ``multi_pod`` span the ``torch.distributed`` world (shrunk pod-major to its
-rank count; ``launch/multiproc.py`` joins it), and on more than one rank
-each rank is one client: it draws the global batch and keeps its client's
-rows, the round is ``ef_round_sharded``, the loss is the clients' mean.
+rank count; ``launch/multiproc.py`` joins it). On more than one rank the
+spec's ``client_granularity`` sets the clients (launch/shardings.py):
+under ``group`` each rank is one client; under ``pod`` each pod is one (n
+= the pods, one client on the pod mesh) and its rows are split over the
+pod's data ranks, each rank's pass returning an additive share of the
+client's loss and the shares' gradients summed over that data group. A
+rank draws the global batch and keeps its rows, the round is
+``ef_round_sharded`` over the client axes, the loss is the clients' mean.
+``state_sharding='zero'`` runs as the reference's does: where it adds no
+split (every ``group`` run, a ``pod`` run with one data rank a pod) it is
+the ``client`` run, and where the reference's round fails the training
+state is refused (``shardings.zero_refusal``); serving such a spec is not.
 On one rank they run the single-device runtime as ``smoke`` does. Where
 the mesh gives the ``model`` axis more than one rank, each rank holds its
 shards of every tree (``shardings.params_pspecs``, after the spec's
@@ -31,9 +40,10 @@ shards of every tree (``shardings.params_pspecs``, after the spec's
 refused) and the round compresses the shards. ``publish_to`` and
 ``serve`` on more than one rank are refused (both arrive with later
 slices). ``save`` on a sharded run writes one npz from the first rank,
-the shards joined and the clients gathered on a leading axis: the keys,
-shapes and spec hash of the single-device layout; ``restore_from`` gives
-each rank its slice back.
+the shards joined and the clients gathered on a leading axis (under
+``pod`` from each pod's first data rank): the keys, shapes and spec hash
+of the single-device layout; ``restore_from`` gives each rank its slice
+back (every data rank of a pod its pod's).
 """
 from __future__ import annotations
 
@@ -104,6 +114,12 @@ class Session:
             if self.tp is not None else None
         self.plan = sh.ShardPlan(spec.client_granularity,
                                  spec.state_sharding, spec.ef_state_dtype)
+        # the group of all clients through this rank (its ``index`` is this
+        # rank's client, pod-major), and a pod client's data group: the
+        # ranks its rows are split over
+        c_axes = self.mesh.client_axes(spec.client_granularity)
+        self.client_group = self.mesh.axes(c_axes)
+        self.data_axes = self.mesh.axes(self.mesh.split_axes(c_axes))
 
     @staticmethod
     def _make_mesh(name: str) -> mesh_lib.Mesh:
@@ -113,7 +129,7 @@ class Session:
 
     @property
     def sharded(self) -> bool:
-        """True when each rank of the mesh is one client."""
+        """True on a mesh of more than one rank (the sharded runtime)."""
         return self.mesh.size > 1
 
     def _refuse_sharded(self, what: str) -> None:
@@ -145,12 +161,7 @@ class Session:
     def n_clients(self) -> int:
         if not self.sharded:
             return self.spec.clients
-        return mesh_lib.dp_size(self.mesh)
-
-    def _client_axes(self):
-        """The group of all clients through this rank (its ``index`` is
-        this rank's client, pod-major)."""
-        return self.mesh.axes(self.mesh.client_axes())
+        return self.client_group.size
 
     def _pods(self, efc) -> int:
         hops = efc.effective_hops
@@ -184,14 +195,24 @@ class Session:
             return self._tr
         spec, cfg, n = self.spec, self.cfg, self.n_clients
         sharded = self.sharded
-        efc = build_lib.ef_config(spec, n)
+        if sharded:
+            refusal = sh.zero_refusal(cfg, self.mesh, self.plan)
+            if refusal is not None:
+                raise ValueError(refusal)
+        c_axes = self.client_group.names if sharded else None
+        efc = build_lib.ef_config(spec, n, client_axes=c_axes)
         opt = opt_lib.make(spec.optimizer, lr=spec.lr)
         pipe = self._pipe(spec.seed)
 
         tp = self.tp
+        split = self.data_axes if self.data_axes.size > 1 else None
 
         def loss_fn(p, b):
             return model_lib.train_loss(cfg, p, b, tp=tp)
+
+        # the client pass's: under 'pod' this rank's share of its client's
+        def step_loss_fn(p, b):
+            return model_lib.train_loss(cfg, p, b, tp=tp, split=split)
 
         if template:
             params = self._shard(model_lib.init_params(cfg, None, "meta"))
@@ -204,13 +225,8 @@ class Session:
             b0 = pipe_lib.with_prefix_embeds(cfg, pipe.batch(0, self.device))
             if sharded:
                 # this rank's client: its rows of batch 0, its gradients
-                mine = dist.client_rows(b0, n, self._client_axes().index)
-                if tp is not None:
-                    _, _, g0 = dist.client_value_and_grad(loss_fn, params,
-                                                          mine)
-                else:
-                    _, _, g0 = dist.per_client_value_and_grad(
-                        loss_fn, params, mine, 1)
+                _, _, g0 = dist.sharded_value_and_grad(
+                    step_loss_fn, params, b0, self.mesh, c_axes)
                 ef_state = dist.init_ef_state_sharded(efc, params, self.mesh,
                                                       init_grads=g0)
             else:
@@ -220,7 +236,8 @@ class Session:
         self._tr = {
             "pipe": pipe, "loss_fn": loss_fn, "efc": efc,
             "step_fn": dist.make_train_step(
-                loss_fn, efc, opt, n, mesh=self.mesh if sharded else None,
+                step_loss_fn, efc, opt, n,
+                mesh=self.mesh if sharded else None,
                 overlap=spec.overlap, pspecs=self.pspecs),
             "params": params, "opt_state": opt.init(params),
             "ef_state": ef_state,
@@ -338,8 +355,10 @@ class Session:
             # writes the single-device layout; the others wait for the file
             if self.tp is not None:
                 state = sh.unshard_tree(state, self.pspecs, self.model_axes)
-            if state is not None:
-                axes = self._client_axes()
+            # under 'pod' every data rank of a pod holds its client's
+            # state: the pod's first data rank hands it on
+            if state is not None and self.data_axes.index == 0:
+                axes = self.client_group
                 ef_full = sh.global_state(state["ef_state"], axes,
                                           self._pods(self._tr["efc"]))
                 if axes.index == 0:
@@ -404,7 +423,7 @@ class Session:
                 "ef_state": dist.init_ef_state(efc, whole, n)}
         state, meta = ckpt_lib.restore(path, like, "cpu")
         state["ef_state"] = sh.local_state(
-            state["ef_state"], self._client_axes().index, self._pods(efc), n)
+            state["ef_state"], self.client_group.index, self._pods(efc), n)
         return sh.to_device(self._shard(state), self.device), meta
 
     # -------------------------------------------------------- wire streaming

@@ -4,10 +4,21 @@ src/repro/launch/shardings.py, without PartitionSpecs).
 EF state layout knobs (the reference's DESIGN.md §4):
   client_granularity: 'group': one EF client per data-parallel group
                       (n = dp, the paper's setting); 'pod': one client a
-                      pod (refused: it arrives with ZeRO, ROADMAP Queue 1)
+                      pod (n = #pods, one client on a mesh without a pod
+                      axis), its rows split over the pod's data ranks
+                      (``Mesh.split_axes``), each rank holding the client's
+                      whole state (replicated over 'data', as the
+                      reference's shard_map holds it)
   state_sharding:     'client': a client's (vᵢ, gᵢ) live on its own
                       ranks, split over 'model' as the params are;
-                      'zero' (refused, with the same slice)
+                      'zero': the reference's rule (:func:`zero_upgrade`)
+                      also splits a leaf over the data axes that are not
+                      client axes. Where that adds no split (every 'group'
+                      run, a 'pod' run with one data rank a pod) the run is
+                      the 'client' run; where it would, the reference's
+                      round fails (its state leaves are 1/data of their
+                      gradients), and the port refuses the training state
+                      (:func:`zero_refusal`)
 
 In the port's layout a rank holds its own client's ``clients`` leaves with
 a leading axis of 1, the server estimate, h, the params and the optimizer
@@ -31,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -45,6 +56,70 @@ class ShardPlan:
     client_granularity: str = "group"       # 'group' | 'pod'
     state_sharding: str = "client"          # 'client' | 'zero'
     ef_state_dtype: Optional[str] = None    # None → param dtype
+
+
+def zero_upgrade(spec: Spec, free: Tuple[str, ...], shape, mesh) -> Spec:
+    """The reference's ``_zero_upgrade``: the first 'model'-split dim whose
+    size the product of 'model' and the ``free`` data axes divides also
+    splits over those axes (an entry ``(*free, 'model')``); the spec as it
+    is when none does."""
+    total = mesh.shape.get("model", 1)
+    for a in free:
+        total *= mesh.shape[a]
+    parts = list(spec)
+    for i, s in enumerate(parts):
+        if s == "model":
+            if i >= len(shape) or shape[i] % total:
+                continue
+            parts[i] = (*free, "model")
+            return tuple(parts)
+    return tuple(spec)
+
+
+def zero_splits(cfg, mesh, plan: ShardPlan) -> Dict[str, Spec]:
+    """The parameters whose client state ``state_sharding='zero'`` splits
+    over data ranks beyond their gradients' split (the reference's
+    ``ef_state_pspecs`` leaf rule against its gradient specs), with the
+    upgraded spec: empty unless the plan is 'zero' and the free data axes
+    (``Mesh.split_axes``) hold more than one rank."""
+    free = mesh.split_axes(mesh.client_axes(plan.client_granularity))
+    size = 1
+    for a in free:
+        size *= mesh.shape[a]
+    if plan.state_sharding != "zero" or size == 1:
+        return {}
+    shapes = model_lib.init_params(cfg, None, "meta")
+    out = {}
+    for name, spec in params_pspecs(cfg, mesh).items():
+        up = zero_upgrade(spec, free, tuple(shapes[name].shape), mesh)
+        if up != tuple(spec):
+            out[name] = up
+    return out
+
+
+def zero_refusal(cfg, mesh, plan: ShardPlan) -> Optional[str]:
+    """Why this run's ZeRO training state cannot be built, or None. The
+    reference splits these leaves' client state over the free data axes
+    while their gradients stay whole over them, and its shard_map round
+    then adds a leaf to a gradient of another shape (``TypeError: add got
+    incompatible shapes for broadcasting``): the port mirrors that by
+    refusing (ROADMAP Queue 3, standing facts: the reference's pod + zero
+    fault)."""
+    splits = zero_splits(cfg, mesh, plan)
+    if not splits:
+        return None
+    name, spec = next(iter(splits.items()))
+    free = mesh.split_axes(mesh.client_axes(plan.client_granularity))
+    return (f"state_sharding='zero' with client_granularity="
+            f"{plan.client_granularity!r} on mesh {dict(mesh.shape)} would "
+            f"split {len(splits)} client-state leaves over the data axes "
+            f"{free} beyond their gradients (e.g. {name}: {spec}); the "
+            "reference's round fails "
+            "there with 'TypeError: add got incompatible shapes for "
+            "broadcasting', and the port refuses it (ROADMAP Queue 3, "
+            "standing facts: the reference's pod + zero fault). It runs "
+            "where a pod has one data rank, or with "
+            "state_sharding='client'")
 
 
 def params_pspecs(cfg, mesh) -> Dict[str, Spec]:
@@ -168,10 +243,16 @@ def replicated_digest(params: Dict[str, torch.Tensor],
     coordinate hold other shards). Each leaf's bit patterns are summed on its
     device, plain and weighted by position (so a moved or changed bit
     shows), and the sums are hashed."""
-    from repro_torch.core.ef import flatten
     tree = {"params": params, "server": ef_state["server"]}
     if "h" in ef_state:
         tree["h"] = ef_state["h"]
+    return tree_digest(tree)
+
+
+def tree_digest(tree: Dict[str, Any]) -> str:
+    """:func:`replicated_digest`'s hash of any nested tree of tensors (a
+    pod client's state, equal on the pod's data ranks)."""
+    from repro_torch.core.ef import flatten
     h = hashlib.sha256()
     for key, t in flatten(tree).items():
         bits = t.detach().reshape(-1).view(

@@ -16,12 +16,11 @@ the reference's does), the two-tier hierarchy (``hops``), the meshes
 ``smoke``, ``pod`` and ``multi_pod`` with ``overlap``, and a named
 ``shape`` (an ``INPUT_SHAPES`` entry, hashed and checked, which training
 ignores as the reference's does), with the reference's grammars, previews
-and cross-field refusals. It refuses, loudly and at construction, what
-the port does not run yet, each naming the slice that brings it:
-client granularity ``pod`` and state sharding ``zero``. ``tp_pad_heads``
-pads the attention heads for the ``model`` axis, as the reference's does
-(the SSM families are refused on a mesh whose ``model`` axis exceeds 1,
-where the Session builds it).
+and cross-field refusals. Client granularity ``group`` or ``pod`` and
+state sharding ``client`` or ``zero`` are taken as the reference takes
+them (a ``zero`` training state the reference cannot build is refused
+where the Session builds it, launch/shardings.py). ``tp_pad_heads``
+pads the attention heads for the ``model`` axis, as the reference's does.
 ``compressor_kw`` and ``method_kw`` must map names to JSON
 scalars; which names the compressor and the method take is checked where
 they are built (launch/build.py).
@@ -92,11 +91,6 @@ MESH_GEOM: Dict[str, Dict[str, int]] = {
 }
 GRANULARITIES = ("group", "pod")
 STATE_SHARDINGS = ("client", "zero")
-
-# what the port still refuses, and the slice that brings it (ROADMAP
-# Queue 1 item 2)
-_ZERO = ("arrives with a later slice of the port, ZeRO state sharding and "
-         "pod granularity (ROADMAP Queue 1 item 2)")
 
 
 def pattern_token_errors(pattern: str) -> List[str]:
@@ -481,10 +475,6 @@ class RunSpec:
         if self.moe_impl not in MOE_IMPLS:
             errs.append(f"moe_impl={self.moe_impl!r} not in "
                         f"{list(MOE_IMPLS)}")
-        if self.client_granularity == "pod":
-            errs.append(f"client_granularity='pod' {_ZERO}")
-        if self.state_sharding == "zero":
-            errs.append(f"state_sharding='zero' {_ZERO}")
         if self.tp_pad_heads < 0:
             errs.append(f"tp_pad_heads must be >= 0, got {self.tp_pad_heads}")
         for kw_name, kw in [("method_kw", self.method_kw),
@@ -813,6 +803,8 @@ _FLAGS = [
     ("--moe-impl", "moe_impl", str),
     ("--tp-pad-heads", "tp_pad_heads", int),
     ("--mesh", "mesh", str), ("--overlap", "overlap", bool),
+    ("--granularity", "client_granularity", str),
+    ("--state-sharding", "state_sharding", str),
     ("--optimizer", "optimizer", str),
     ("--lr", "lr", float), ("--heterogeneity", "heterogeneity", float),
     ("--seed", "seed", int),

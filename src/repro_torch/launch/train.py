@@ -47,6 +47,17 @@ src/repro/launch/train.py):
       --downlink-carrier fused_quant4 --device cpu --steps 3 \
       --coordinator localhost:29511 --num-processes 32 --process-id 0
 
+  # one EF client a pod (--granularity pod): on 4 processes the multi_pod
+  # mesh is (pod 2, data 2, model 1); each pod's rows are split over its 2
+  # data ranks, their gradient shares summed, the round over 'pod'
+  # (--state-sharding zero is refused there, as the reference's round
+  # fails; it runs where a pod has one data rank):
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh multi_pod \
+      --granularity pod --smoke --seq 64 --global-batch 8 \
+      --carrier fused_quant8 --downlink-carrier fused_quant4 --device cpu \
+      --steps 3 --coordinator localhost:29511 --num-processes 4 \
+      --process-id 0
+
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
 versions on the CPU (use ``--smoke`` there). Prints the reference CLI's
 ``step N loss … g_norm …`` lines.
@@ -177,6 +188,13 @@ def main(argv=None) -> None:
     print(f"optimizer={sess.spec.optimizer} "
           f"ef_state_dtype={sess.spec.ef_state_dtype} device={sess.device}",
           flush=True)
+    if sess.sharded:
+        split = sess.data_axes.size
+        print(f"mesh {dict(sess.mesh.shape)}: {sess.n_clients} clients "
+              f"(granularity {sess.spec.client_granularity}"
+              + (f", a client's rows split over {split} data ranks"
+                 if split > 1 else "")
+              + f"), state_sharding={sess.spec.state_sharding}", flush=True)
     if sess.tp is not None:
         tp = sess.tp
         split = [part for part, on in (

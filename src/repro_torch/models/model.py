@@ -368,7 +368,8 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                h: torch.Tensor, positions: torch.Tensor,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                pos: Optional[int] = None, train: bool = False,
-               tp: Optional[L.TensorParallel] = None
+               tp: Optional[L.TensorParallel] = None,
+               split: Optional[comm.Axes] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The layers, one after another, for training (no cache), prefill
     (cache, no ``pos``) and decode (cache and ``pos``); see
@@ -380,8 +381,9 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     pair under ``local_global``) is recomputed in the backward, its aux
     values leaving the block beside h; a recomputed block replays its f/g
     collectives in the backward, every rank in the same order. ``tp``: the
-    tensor-parallel pass over this rank's shards. The SSM families run
-    :func:`_run_ssm_stack`."""
+    tensor-parallel pass over this rank's shards; ``split``: a pod
+    client's data group, which MoE routes over (models/moe.py). The SSM
+    families run :func:`_run_ssm_stack`."""
     if cfg.family in ("ssm", "hybrid"):
         h = _run_ssm_stack(cfg, params, h, positions, cache, pos, train, tp)
         return h, {k: torch.zeros((), device=h.device)
@@ -397,7 +399,8 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
         moe_fn = functools.partial(
             moe_lib.moe_apply_dense if cfg.moe_impl == "dense"
             else moe_lib.moe_apply, k=cfg.num_experts_per_tok,
-            cf=cfg.moe_capacity_factor, eps=cfg.norm_eps, tp=tp)
+            cf=cfg.moe_capacity_factor, eps=cfg.norm_eps, tp=tp,
+            split=split)
 
     def sub(p, prefix):
         return {n[len(prefix):]: t for n, t in p.items()
@@ -527,21 +530,28 @@ def _logits(cfg: ArchConfig, embed: torch.Tensor, h: torch.Tensor
 
 def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                batch: Dict[str, torch.Tensor],
-               tp: Optional[L.TensorParallel] = None
+               tp: Optional[L.TensorParallel] = None,
+               split: Optional[comm.Axes] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(mean next-token cross-entropy over the token positions, plus the
     MoE aux losses under MoE; the aux values summed over the layers).
     batch: tokens (B,S), labels (B,S), optional prefix_embeds (B,P,d).
     ``tp`` (``tp_plan``): the tensor-parallel pass, ``params`` this rank's
     shards (``param_pspecs``); the loss and aux come out whole on every
-    rank of the 'model' axis."""
+    rank of the 'model' axis. ``split``: a pod client's data group
+    (``comm.Axes``), the batch this rank's contiguous block of the
+    client's rows; the loss and the aux values come out as this rank's
+    additive shares of the client's (the cross-entropy summed over its
+    rows and divided by the client's token count; MoE routed over the
+    client's tokens, models/moe.py), which the group sums."""
     tokens, labels = batch["tokens"], batch["labels"].long()
     B, S = tokens.shape
     h, n_prefix = _embed(cfg, params, tokens, batch.get("prefix_embeds"),
                          tp=tp)
     T = h.shape[1]
     positions = torch.arange(T, device=h.device)[None].expand(B, T)
-    h, aux = _run_stack(cfg, params, h, positions, train=True, tp=tp)
+    h, aux = _run_stack(cfg, params, h, positions, train=True, tp=tp,
+                        split=split)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)[:, n_prefix:]
 
     # chunked cross-entropy: never materialize (B, S, V) in full; under
@@ -575,7 +585,7 @@ def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
             total = total + remat_lib.checkpoint(ce, (embed, hc), (lc,))
         else:
             total = total + ce(embed, hc, lc)
-    loss = total / (B * S)
+    loss = total / (B * S * (1 if split is None else split.size))
     if cfg.family == "moe":
         loss = loss + LB_COEF * aux["load_balance"] + \
             Z_COEF * aux["router_z"]

@@ -29,6 +29,16 @@ Aux values, as the reference's: the Switch-style ``load_balance`` (E ·
 ``moe_apply_dense`` runs every expert on every token and combines them by
 the (N, E) routing weights, in token chunks of 2048, with no dispatch at
 all (the reference's option for high-activation MoEs).
+
+``split`` (a pod client's data group, ``comm.Axes``): the call holds this
+rank's contiguous block of the client's tokens, and the routing stays the
+reference's function of the client's whole token set. C comes from the
+client's N (the group's size times this call's); an assignment's place in
+its expert's queue is offset by the assignments the lower ranks of the
+group gave that expert (one all-gather of the E counts, no gradient); ce
+comes from the group's counts; ``me``, ``router_z`` and ``dropped_frac``
+are this rank's additive shares (its tokens' sums over the client's N),
+so the group's sum of the aux values and of the loss is the reference's.
 """
 from __future__ import annotations
 
@@ -91,12 +101,16 @@ def _inv(n: int, device) -> torch.Tensor:
     return torch.full((), 1.0 / n, dtype=torch.float32, device=device)
 
 
-def _route(p: Dict[str, torch.Tensor], x: torch.Tensor, k: int, eps: float):
+def _route(p: Dict[str, torch.Tensor], x: torch.Tensor, k: int, eps: float,
+           split: Optional[comm.Axes] = None):
     """The normed tokens h (N, d), the renormalised top-k weights and
-    expert ids (N, k), the per-expert assignment counts (E,) and the
-    load-balance and z aux values."""
+    expert ids (N, k), the per-expert assignment counts (E,), the
+    assignments the lower ranks of ``split`` gave each expert (E,) (zeros
+    without it) and the load-balance and z aux values (``split``: this
+    rank's shares of the client's)."""
     B, S, d = x.shape
     N, E = B * S, p["router"].shape[-1]
+    n_all = N if split is None else N * split.size
     h = rms_norm(x, p["norm"], eps).reshape(N, d)
     logits = h.float() @ p["router"].float()                # (N, E) f32
     probs = torch.softmax(logits, dim=-1)
@@ -107,12 +121,16 @@ def _route(p: Dict[str, torch.Tensor], x: torch.Tensor, k: int, eps: float):
     # assignments an expert, exact integers (a histogram free of scatters)
     counts = (top_e.reshape(-1, 1) ==
               torch.arange(E, device=x.device)).sum(0)
-    ce = counts.float() * _inv(N * k, x.device)
-    me = probs.sum(0) * _inv(N, x.device)
+    below, total = torch.zeros_like(counts), counts
+    if split is not None:
+        every = comm.gather_plain(split, counts)          # (ranks, E)
+        below, total = every[:split.index].sum(0), every.sum(0)
+    ce = total.float() * _inv(n_all * k, x.device)
+    me = probs.sum(0) * _inv(n_all, x.device)
     lse = torch.logsumexp(logits, dim=-1)
     aux = {"load_balance": E * torch.sum(me * ce),
-           "router_z": torch.sum(lse ** 2) * _inv(N, x.device)}
-    return h, top_w, top_e, counts, aux
+           "router_z": torch.sum(lse ** 2) * _inv(n_all, x.device)}
+    return h, top_w, top_e, counts, below, aux
 
 
 def _split(tp: Optional[TensorParallel]) -> bool:
@@ -120,10 +138,12 @@ def _split(tp: Optional[TensorParallel]) -> bool:
 
 
 def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
-              cf: float, eps: float, tp: Optional[TensorParallel] = None
+              cf: float, eps: float, tp: Optional[TensorParallel] = None,
+              split: Optional[comm.Axes] = None
               ) -> Tuple[torch.Tensor, Aux]:
     """x (B, S, d) -> (out (B, S, d), aux). Capacity from the N = B·S
-    tokens of this call (one client's under the client vmap).
+    tokens of this call (one client's under the client vmap), or from the
+    client's under ``split`` (module docstring).
 
     Under ``tp`` the routing, the capacity and the aux values are computed
     whole on every rank (the router is replicated). With the experts split
@@ -134,16 +154,17 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
     the partial combine over the axis in the first case."""
     B, S, d = x.shape
     N, E = B * S, p["router"].shape[-1]
-    h, top_w, top_e, counts, aux = _route(p, x, k, eps)
-    split = _split(tp)
-    if split:
+    h, top_w, top_e, counts, below, aux = _route(p, x, k, eps, split)
+    tp_split = _split(tp)
+    if tp_split:
         h = comm.copy_to(tp.axes, h)
 
-    C = _capacity(N, E, k, cf)
+    C = _capacity(N if split is None else N * split.size, E, k, cf)
     flat_e = top_e.reshape(-1)                              # (N·k,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    first = torch.cumsum(counts, 0) - counts                # expert's 1st slot
+    # an expert's first sorted slot, less the lower ranks' assignments
+    first = torch.cumsum(counts, 0) - counts - below
     pos_in_e = torch.arange(N * k, device=x.device) - first[sorted_e]
     keep = pos_in_e < C
     tok = order // k                                        # source token
@@ -156,7 +177,7 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
     xe = torch.zeros((E * C + 1, d), dtype=h.dtype, device=h.device) \
         .index_put((slot,), vals, accumulate=True)[:E * C].reshape(E, C, d)
 
-    ep = split and tp.experts
+    ep = tp_split and tp.experts
     e0, El = 0, E
     if ep:
         El = p["w_gate"].shape[0]
@@ -166,7 +187,7 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
     u = torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(xe.dtype))
     y = F.silu(g) * u
     ye = torch.einsum("ecf,efd->ecd", y, p["w_down"].to(y.dtype))
-    if split and not ep:
+    if tp_split and not ep:
         ye = comm.reduce_from(tp.axes, ye)
 
     live = keep
@@ -185,13 +206,19 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
            ).sum(1)
     if ep:
         out = comm.reduce_from(tp.axes, out)
-    aux["dropped_frac"] = 1.0 - keep.float().sum() * _inv(N * k, x.device)
+    if split is None:
+        aux["dropped_frac"] = 1.0 - keep.float().sum() * _inv(N * k,
+                                                               x.device)
+    else:
+        aux["dropped_frac"] = (N * k - keep.float().sum()) * _inv(
+            N * k * split.size, x.device)
     return out.reshape(B, S, d), aux
 
 
 def moe_apply_dense(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
                     cf: float, eps: float, chunk: int = 2048,
-                    tp: Optional[TensorParallel] = None
+                    tp: Optional[TensorParallel] = None,
+                    split: Optional[comm.Axes] = None
                     ) -> Tuple[torch.Tensor, Aux]:
     """Every expert on every token, combined by the (N, E) top-k routing
     weights: no dispatch scatter or gather, E/k times the active products.
@@ -199,15 +226,16 @@ def moe_apply_dense(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
     intermediate. ``cf`` is unused (nothing drops); ``dropped_frac`` is 0.
     Under ``tp`` a rank runs its experts (or its columns of every
     expert's ``d_ff``) on every token, the tokens and the routing weights
-    through f, and g sums the combined output."""
+    through f, and g sums the combined output. ``split``: the aux values
+    are this rank's shares of the client's (module docstring)."""
     B, S, d = x.shape
     N, E = B * S, p["router"].shape[-1]
-    h, top_w, top_e, _, aux = _route(p, x, k, eps)
+    h, top_w, top_e, _, _, aux = _route(p, x, k, eps, split)
     w_ne = torch.zeros((N, E), dtype=torch.float32, device=x.device) \
         .scatter(1, top_e, top_w)                           # routing weights
     aux["dropped_frac"] = torch.zeros((), device=x.device)
-    split = _split(tp)
-    if split:
+    tp_split = _split(tp)
+    if tp_split:
         h, w_ne = comm.copy_to(tp.axes, h), comm.copy_to(tp.axes, w_ne)
         if tp.experts:
             El = p["w_gate"].shape[0]
@@ -221,7 +249,7 @@ def moe_apply_dense(p: Dict[str, torch.Tensor], x: torch.Tensor, *, k: int,
         ye = torch.einsum("enf,efd->end", y, p["w_down"].to(y.dtype))
         outs.append(torch.einsum("end,ne->nd", ye, wc.to(ye.dtype)))
     out = torch.cat(outs)
-    if split:
+    if tp_split:
         out = comm.reduce_from(tp.axes, out)
     return out.reshape(B, S, d), aux
 

@@ -695,7 +695,10 @@ def test_phase_md4_spawns_its_ranks_and_compares(monkeypatch, capsys):
     single-process run, the ring's run bit for bit the blocking one's,
     each rank's recorded K3-K6 calls equal to ``expected_launches(...,
     gathered=)`` (md4_run fails otherwise), and every planted fault read
-    above MD_TOL."""
+    above MD_TOL. MD4-pod-clients runs one client a pod on (pod 2, data
+    2), its client state equal on each pod's data ranks, with the data
+    group's all-reduce reported; its fault, the shares unreduced, is
+    caught."""
     cs = _importable_chip_smoke(monkeypatch)
     runs = [(label, name, dict(over, smoke=True, seq_len=32))
             for label, name, over in cs.MD4_RUNS
@@ -709,11 +712,18 @@ def test_phase_md4_spawns_its_ranks_and_compares(monkeypatch, capsys):
     assert "MD4: every planted fault caught" in out
     for label, _, _, _ in faults:
         assert f"{label}: planted fault" in out
-    for label, _, _ in runs:
+    assert "MD4-fault-pod-unreduced: planted fault 'pod-unreduced'" in out
+    assert "MD4-pod-clients: client state equal on each pod's 2 data " \
+        "ranks every step, one client a pod (2 pods)" in out
+    for label, _, over in runs:
         assert f"{label}: loss/g_norm" in out
+        pod = over.get("client_granularity") == "pod"
+        mesh = "{'pod': 2, 'data': 2, 'model': 1} n 2" if pod \
+            else "{'data': 4, 'model': 1} n 4"
         for rank in range(cs.MD_RANKS):
-            assert f"{label} rank {rank}: mesh {{'data': 4, 'model': 1}}" \
-                in out
+            assert f"{label} rank {rank}: mesh {mesh}" in out
+            assert (f"{label} rank {rank}: the data group's all-reduce "
+                    "of the gradient shares: ") in out or not pod
 
 
 # what a rank of each MT run holds of the split dims at smoke size
@@ -730,9 +740,12 @@ def test_phase_mt_spawns_its_ranks_and_checks(monkeypatch, capsys):
     every planted fault of its run above it, every round's client state
     bit for bit the single-device round over the shard tree, loss and
     g_norm equal on every rank, the digests equal per 'model' coordinate
-    (mt_phase fails otherwise); then MT-single on one device."""
+    (mt_phase fails otherwise); MT-pod-zero (pod clients and ZeRO on
+    (pod 2, data 1, model 2)) bit for bit MT-padded's first step; then
+    MT-single on one device."""
     cs = _importable_chip_smoke(monkeypatch)
-    _, losses = cs.mt_phase(ops, device="cpu", smoke=True, smoke_archs=())
+    _, losses = cs.mt_phase(ops, device="cpu", smoke=True, smoke_archs=(),
+                            smoke_pod=())
     cs.mt_single(pt_session.Session, pt_spec, losses, device="cpu",
                  smoke=True)
     out = capsys.readouterr().out
@@ -748,6 +761,13 @@ def test_phase_mt_spawns_its_ranks_and_checks(monkeypatch, capsys):
                     f"a rank {MT_SMOKE_SPLIT[label]}" in out
     assert "MT-single (one device, 2 clients, no 'model' axis): losses" \
         in out
+    assert losses["MT-pod-zero"] == losses["MT-padded"][:1]
+    assert "MT-pod-zero: pod clients with state sharding 'zero' on " \
+        "{'pod': 2, 'data': 1, 'model': 2}" in out
+    for p in range(2):
+        for m in range(2):
+            assert f"MT-pod-zero rank {{'pod': {p}, 'data': 0, 'model': " \
+                f"{m}}}: " in out
 
 
 def _spec(name, overrides):

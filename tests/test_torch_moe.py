@@ -152,7 +152,7 @@ def test_kept_mask_and_load_histogram_are_the_reference_s(cf):
     kept = _kept(got, K)
     n_dropped = kept.shape[0] * K - kept.sum()
     assert round(float(aux["dropped_frac"]) * kept.shape[0] * K) == n_dropped
-    _, _, top_e, counts, _ = moe._route(pp, tx, K, 1e-6)
+    _, _, top_e, counts, _, _ = moe._route(pp, tx, K, 1e-6)
     chosen = np.zeros_like(kept)
     np.put_along_axis(chosen, top_e.numpy(), True, axis=1)
     assert (kept <= chosen).all()
@@ -460,27 +460,37 @@ def test_the_moe_impl_flag_reaches_the_spec():
 
 
 def test_quant4_multipod_zero_is_refused_for_its_mesh_alone():
-    """grok-1-314b, the multi_pod mesh and the input shape are ported: the
-    shipped spec stays refused for its granularity and state sharding
-    (ZeRO), naming their slice, and not for its arch or mesh; with one
-    client a data group, per-client state and a batch of the group
-    geometry's 32 clients it loads with the reference's hash, on multi_pod
-    and on the smoke mesh."""
+    """grok-1-314b, the multi_pod mesh, the input shape, pod granularity
+    and ZeRO are ported: the shipped spec loads with the reference's hash,
+    and so do its group variant (a batch of the group geometry's 32
+    clients) on multi_pod and on the smoke mesh. Its ZeRO training state
+    is refused for its mesh alone: the production geometry (pod 2, data
+    16, model 16) puts 16 data ranks in a pod, where the reference's round
+    fails; with one data rank a pod it runs. Serving it on one rank is not
+    refused (grok smoke, a prompt of 8 and 2 decode steps)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.session import Session
     d = _shipped("quant4_multipod_zero")
     assert d["arch"] == "grok-1-314b"
-    with pytest.raises(ValueError, match="invalid RunSpec") as err:
-        pt_spec.RunSpec.from_dict(d)
-    msg = str(err.value)
-    assert "client_granularity='pod'" in msg
-    assert "state_sharding='zero'" in msg and "shape=" not in msg
-    assert "ZeRO state sharding and pod granularity" in msg
-    assert "arch=" not in msg and "mesh=" not in msg
-    assert len(msg.splitlines()) == 3                # two reasons
     group = dict(d, client_granularity="group", state_sharding="client",
                  global_batch=32)
-    for ok in (group, dict(group, mesh="smoke", shape=None)):
+    for ok in (d, group, dict(group, mesh="smoke", shape=None)):
         assert pt_spec.RunSpec.from_dict(ok).spec_hash() == \
             jax_spec.RunSpec.from_dict(ok).spec_hash()
+    spec = pt_spec.RunSpec.from_dict(d)
+    cfg = Session._arch_config(spec)
+    plan = sh.ShardPlan(spec.client_granularity, spec.state_sharding)
+    prod = mesh_lib.Mesh((2, 16, 16), ("pod", "data", "model"))
+    msg = sh.zero_refusal(cfg, prod, plan)
+    assert msg is not None and "TypeError" in msg
+    assert "arch" not in msg and "shape=" not in msg
+    one = mesh_lib.Mesh((2, 1, 16), ("pod", "data", "model"))
+    assert sh.zero_refusal(cfg, one, plan) is None
+    served = Session(pt_spec.RunSpec.from_dict(dict(d, smoke=True)),
+                     device="cpu").serve(batch=1, prompt_len=8,
+                                         decode_steps=2)
+    assert served["tokens"].shape == (1, 3)
 
 
 @pytest.fixture(scope="module")

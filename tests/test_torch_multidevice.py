@@ -143,7 +143,7 @@ def _run_sharded(rank, name, overlap):
     case = CASES[name]
     spec = pt_spec.RunSpec.from_dict(dict(case["spec"], overlap=overlap))
     mesh = _mesh(spec.mesh)
-    efc = pt_build.ef_config(spec, N)
+    efc = pt_build.ef_config(spec, N, client_axes=mesh.client_axes())
     client = mesh.axes(mesh.client_axes()).index
     params, g0, grads = numpy_inputs(_seed(name))
     state = pt_dist.init_ef_state_sharded(

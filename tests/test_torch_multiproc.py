@@ -136,15 +136,38 @@ def test_spec_refuses_bad_meshes_as_the_reference(fields):
         jax_spec.RunSpec(**fields)
 
 
+def _on_four_ranks(monkeypatch, geometry):
+    """Sessions built on a 4-rank mesh object of ``geometry`` (axes named
+    pod-major) without a process group: enough for every refusal that
+    comes before a collective."""
+    names = ("pod", "data", "model")[-len(geometry):]
+    monkeypatch.setattr(mesh_lib, "make_production_mesh",
+                        lambda multi_pod=False: mesh_lib.Mesh(geometry,
+                                                              names))
+
+
 @pytest.mark.parametrize("fields,needs", [
-    ({"state_sharding": "zero"}, "ZeRO state sharding and pod granularity"),
-    ({"client_granularity": "pod"}, "ZeRO state sharding and pod "
-                                    "granularity"),
+    ({"state_sharding": "zero"}, "serve"),
+    ({"client_granularity": "pod"}, "publish_to"),
 ])
-def test_what_stays_refused_names_the_slice_that_brings_it(fields, needs):
-    with pytest.raises(ValueError, match="invalid RunSpec") as err:
-        pt_spec.RunSpec(**fields)
-    assert needs in str(err.value)
+def test_what_stays_refused_names_the_slice_that_brings_it(
+        monkeypatch, tmp_path, fields, needs):
+    """Client granularity 'pod' and state sharding 'zero' were refused at
+    construction until their slice; the spec now takes them, and what
+    stays refused on more than one rank, ``serve`` and ``publish_to``,
+    names the slice that brings it (ROADMAP Queue 1 item 3)."""
+    from repro_torch.launch.session import Session
+    spec = pt_spec.RunSpec(**dict(fields, mesh="multi_pod", smoke=True,
+                                  global_batch=32, seq_len=32))
+    _on_four_ranks(monkeypatch, (2, 2, 1))
+    sess = Session(spec, device="cpu")
+    assert sess.sharded and sess.n_clients == \
+        (2 if spec.client_granularity == "pod" else 4)
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
+        if needs == "serve":
+            sess.serve(batch=2, prompt_len=8, decode_steps=1)
+        else:
+            sess.publish_to(str(tmp_path / "wire"))
 
 
 @pytest.mark.parametrize("pad", [2, 16])
@@ -161,20 +184,31 @@ def test_spec_takes_tp_pad_heads_with_the_reference_hash(pad):
         ["--tp-pad-heads", str(pad), "--mesh", "pod"])) == spec
 
 
-def test_the_zero_spec_stays_refused_naming_what_it_needs():
-    """quant4_multipod_zero.json stays refused for pod granularity and
-    ZeRO, naming their slice; dryrun_sparse_pod.json asks for nothing this
-    slice refuses, and loads with the reference's hash."""
+def test_the_zero_spec_stays_refused_naming_what_it_needs(monkeypatch):
+    """quant4_multipod_zero.json and dryrun_sparse_pod.json load with the
+    reference's hash. The zero spec's training state stays refused where
+    the reference's round fails, a pod of more than one data rank (its
+    production geometry, here (pod 2, data 2, model 1) on 4 ranks), naming
+    the reference's TypeError and the standing fact; the Session itself
+    builds."""
     from repro.launch import spec as jax_spec
-    d = shipped("dryrun_sparse_pod")
-    assert pt_spec.RunSpec.from_dict(d).spec_hash() == \
-        jax_spec.RunSpec.from_dict(d).spec_hash()
+    from repro_torch.launch.session import Session
+    for name in ("dryrun_sparse_pod", "quant4_multipod_zero"):
+        d = shipped(name)
+        assert pt_spec.RunSpec.from_dict(d).spec_hash() == \
+            jax_spec.RunSpec.from_dict(d).spec_hash()
+    spec = pt_spec.RunSpec.from_dict(dict(
+        shipped("quant4_multipod_zero"), smoke=True, seq_len=32,
+        global_batch=8))
+    _on_four_ranks(monkeypatch, (2, 2, 1))
+    sess = Session(spec, device="cpu")
     with pytest.raises(ValueError) as err:
-        pt_spec.RunSpec.from_dict(shipped("quant4_multipod_zero"))
+        sess.step_once()
     msg = str(err.value)
     assert "state_sharding='zero'" in msg
     assert "client_granularity='pod'" in msg
-    assert "ZeRO state sharding and pod granularity" in msg
+    assert "TypeError: add got incompatible shapes" in msg
+    assert "ROADMAP Queue 3" in msg and sess._tr is None
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "olmoe-1b-7b",

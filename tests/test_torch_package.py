@@ -93,8 +93,8 @@ def test_spec_reads_the_reference_golden_file():
 
 @pytest.mark.parametrize("bad", [
     {"tp_pad_heads": -1},
-    {"state_sharding": "zero"}, {"optimizer": "lion"},
-    {"client_granularity": "pod"},
+    {"state_sharding": "zeros"}, {"optimizer": "lion"},
+    {"client_granularity": "rack"},
     {"ef_state_dtype": "float16"},
     {"carrier": "fused", "compressor_kw": {"block": 2048}},
     {"global_batch": 12},
@@ -104,14 +104,18 @@ def test_spec_rejects_what_this_slice_does_not_run(bad):
         pt_spec.RunSpec(**bad)
 
 
-@pytest.mark.parametrize("fields", [{"mesh": "pod"}, {"overlap": True},
-                                    {"tp_pad_heads": 2}])
+@pytest.mark.parametrize("fields", [
+    {"mesh": "pod"}, {"overlap": True}, {"tp_pad_heads": 2},
+    {"client_granularity": "pod"}, {"state_sharding": "zero"},
+    {"mesh": "multi_pod", "client_granularity": "pod",
+     "state_sharding": "zero"}])
 def test_spec_takes_what_this_slice_runs(fields):
     """The pod mesh and overlap were refused until the multi-device slice,
-    and tp_pad_heads until the 'model' axis (they were cases of the refusal
-    test above, which now refuses a negative padding, as the reference
-    does): the port's spec takes each as the reference's does, under the
-    same spec_hash."""
+    tp_pad_heads until the 'model' axis, and client granularity 'pod' and
+    state sharding 'zero' until the pod-client slice (they were cases of
+    the refusal test above, which now refuses unknown values and a
+    negative padding, as the reference does): the port's spec takes each
+    as the reference's does, under the same spec_hash."""
     from repro.launch import spec as jax_spec
     spec = pt_spec.RunSpec(**fields)
     assert spec.spec_hash() == jax_spec.RunSpec(**fields).spec_hash()

@@ -300,6 +300,9 @@ def test_async_and_sampled_hops_are_refused_as_the_reference():
 
 
 def test_ef_config_carries_every_axis():
+    """Every field of the round's EFConfig comes from the SimConfig, but
+    the sharded round's mesh axes (``client_axes``), which the simulator's
+    single-device round never reads: it stays None."""
     sched = pt_sched.CompressionSchedule.uniform(pt_comp.TopK(k=2), "sparse")
     cfg = pt_sim.SimConfig(carrier="quant4", down_carrier="quant8",
                            down_compressor=pt_comp.TopK(k=3), schedule=sched,
@@ -310,4 +313,5 @@ def test_ef_config_carries_every_axis():
     assert efc == pt_dist.EFConfig(
         method=m, **{f.name: getattr(cfg, f.name)
                      for f in dataclasses.fields(pt_dist.EFConfig)
-                     if f.name != "method"})
+                     if f.name not in ("method", "client_axes")})
+    assert efc.client_axes is None

@@ -232,7 +232,7 @@ def _rank_rounds(meshes):
     for name, case in ROUND_CASES.items():
         mesh = meshes["hops" if "hops" in name else "pod"]
         spec = pt_spec.RunSpec.from_dict(case["spec"])
-        efc = pt_build.ef_config(spec)
+        efc = pt_build.ef_config(spec, client_axes=mesh.client_axes())
         c_axes = mesh.axes(mesh.client_axes())
         c, m = c_axes.index, mesh.coordinate()["model"]
         params, g0, grads = _round_inputs(_seed(name))
