@@ -62,10 +62,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      carrier fused, 2 steps, after which the live training tree
      serves one small batch (batch 2, prompt 256, 8 decode steps) whose
      first token must be the argmax of a prefill with the trained params;
-  6b. the resumable path: full-width smollm-360m, 8 clients, bf16 EF state,
-     AdamW at lr 1e-3, fused_quant8 up and fused_quant4 down; 2 steps, a
-     save (about 30 GB on disk, in a temporary directory that is deleted at
-     the end), per-leaf checksums of params, opt_state and ef_state, step
+  6b. the resumable path: full-width smollm-360m cut to 16 of its 32
+     layers (RESUME_CUT: the script's time limit), 8 clients,
+     bf16 EF state, AdamW at lr 1e-3, fused_quant8 up and fused_quant4
+     down; 2 steps, a save (about 17 GB on disk, in a temporary directory
+     that is deleted at the end), per-leaf checksums of params, opt_state and ef_state, step
      3; then a new Session from Session.resume, whose checksums must equal
      the saved ones exactly and whose step 3 must match within rtol 1e-3;
      prints step ms, peak bytes, the EF state's bytes (exactly half of
@@ -204,7 +205,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      (its initial state too), its launches the derived counts, and a
      checkpoint's gather_to_first on NCCL; MD4, 4 rank
      processes (launch/multiproc.py::spawn, gloo, the card shared, the
-     kernels built once here), full-width smollm-360m, 2 steps a run:
+     kernels built once here), full-width smollm-360m cut to 16 of its 32
+     layers (MD_CUT: the script's time limit), 2 steps a run:
      results/specs/fused_quant8_overlap.json (mesh pod: data 4, model 1),
      quant8 with the overlap ring and with the blocking gather (the same
      bits), and mesh multi_pod (pod 2, data 2) with
@@ -220,10 +222,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      CUDA route and by the host staging. Then MD4_FAULTS's planted faults
      (the round's collectives keeping the local client alone, on the
      fused and the quant8 wire; parameters put back after every step)
-     must each read above MD_TOL on every rank.
+     must each read above MD_TOL on every rank. MD4-publish:
+     fused_quant8 up and fused_quant4 down on (data 4, model 1), full
+     width cut to 8 of 32 layers, rank 0 publishing a bootstrap and one
+     step's record (its re-encode's and verify's K5 and K4 calls among
+     rank 0's, held to their plain versions); a single-device replica
+     (launch/fleet.py) joins from the stream in this process, applies the
+     record (each K4 call held to its plain version) and must hold the
+     trainer's params bit for bit; the bootstrap s, publish ms, the
+     record's bytes, the join and apply s.
   6i. phase MT, the 'model' axis: 4 rank processes sharing the card over
      gloo on (data 2, model 2) (the production geometry narrowed in each
-     rank), full-width smollm-360m, 8 rows of 256 a client, f32 EF state,
+     rank), full-width smollm-360m cut to 16 of its 32 layers
+     (MT_SMOLLM_CUT: the script's time limit), 8 rows of 256 a client, f32
+     EF state,
      recompute on, fused_quant8/fused_quant4: 2 steps with tp_pad_heads 2
      (16 heads, 8 a rank) and 1 without (15 heads, attention replicated).
      At the initial parameters each rank's gradient shards are held, in
@@ -243,18 +255,35 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      and MT-zamba2 (6 of its 38 Mamba2 layers and the shared block once,
      d_inner, heads and the shared block split), each with one more
      planted fault (the f after Mamba1's x_proj sum dropped; the f on
-     Mamba2's split out_norm mean square dropped). Then granite-34b,
+     Mamba2's split out_norm mean square dropped). MT-serve: after
+     its step MT-replicated's 4 ranks serve its trained params, batch 8 of
+     1024 prompt tokens and 32 decode steps (4 rows a data rank, K7 on
+     every rank's (4, 1024, 15, 5, 64) once a layer, 16 a prefill), and
+     so do
+     MT-falcon-mamba and MT-zamba2 (8 decode steps; K7 once on the shared
+     block's (4, 1024, 16, 16, 64)): tokens equal on every rank; against
+     rank 0's single-device serve of the same params (gathered over
+     'model') and prompts the prefill logits within SERVE_BF16_TOL of each
+     row's largest and every first token equal, the decode tokens that
+     agree counted; the prefill's and a decode step's 'model'
+     collectives, the times, the global and per-rank cache bytes and the
+     peak. Then granite-34b,
      gemma2-9b, olmoe-1b-7b, falcon-mamba-7b and zamba2-1.2b at smoke size
-     on (data 2, model 2), the card within P_TOL of the CPU over 2 steps;
-     and MT-single: MT-padded's spec on one device with 2 clients (no
-     'model' axis), as many steps, its losses printed beside MT-padded's.
+     on (data 2, model 2), the card within P_TOL of the CPU over 2 steps,
+     and each serving a fresh f32 tree of its seed (4 rows, 4 decode
+     steps), card against CPU: greedy tokens and every MoE call's drop
+     count equal, prefill logits within P_SERVE_TOL; and MT-single:
+     MT-padded's spec on one device with 2 clients (no 'model' axis), as
+     many steps, its losses printed beside MT-padded's.
 Phase 2 also holds K7 flash_attention against its plain version within
 2e-5 (f32) and 2e-2 (bf16) at the smoke shape, the full-width prefill's
 shape (B 8, S 1024, H 15, KV 5, hd 64) in bf16 and f32, each D phase's
 prefill in bf16 (granite-34b's B 8, S 1024, H 48, KV 1, hd 128;
 musicgen-medium's 8, 1088, 24, 24, 64; olmoe-1b-7b's 8, 1024, 16, 16,
 128; internvl2-76b's 8, 1280, 64, 8, 128; zamba2-1.2b's shared block's 8,
-1024, 32, 32, 64), a ragged S of 1000, hd 128
+1024, 32, 32, 64), MT-serve's prefills on a rank (FLASH_MT: smollm's 4,
+1024, 15, 5, 64 and zamba2's shared block's 4, 1024, 16, 16, 64), a
+ragged S of 1000, hd 128
 and hd 32; the bf16 (tensor-core) route also within a stated
 elementwise bound of the plain version that rounds P as it does
 (round_p=True); and times both routes at the full-width shape, and the
@@ -320,10 +349,21 @@ FLASH_D = [("flash_attention/granite", FLASH_GRANITE, "D-granite"),
            ("flash_attention/olmoe", FLASH_OLMOE, "D-olmoe"),
            ("flash_attention/internvl2", FLASH_INTERNVL2, "D-internvl2"),
            ("flash_attention/zamba2", FLASH_ZAMBA2, "D-zamba2")]
+# K7 at MT-serve's prefills on (data 2, model 2), bf16: 4 rows a data
+# rank; smollm's 15 heads whole on every rank (they do not split over 2),
+# zamba2's shared block on its 16 of 32 heads: (results key, shape, run)
+FLASH_MT = [("flash_attention/mt_smollm", (4, 1024, 15, 5, 64),
+             "MT-replicated"),
+            ("flash_attention/mt_zamba2", (4, 1024, 16, 16, 64),
+             "MT-zamba2")]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the resumable path: bf16 EF state and AdamW on the fused quantized wire
 RESUME_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
                    ef_state_dtype="bfloat16", optimizer="adamw", lr=1e-3)
+# its depth cut, full width (the script's time limit; the
+# save and the restore of 32 layers took 40 and 54 s): 16 of smollm's 32
+# layers, the leaves and the kernels' launches unchanged
+RESUME_CUT = {"num_layers": 16}
 # phases R and D: the fused quantized wire, fused_quant8 up and
 # fused_quant4 down, on fused_quickstart.json
 R_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4")
@@ -824,7 +864,8 @@ def flash_checks(ops, ref, results):
     for shape, dtype in ((smoke, torch.float32), (smoke, torch.bfloat16),
                          (FLASH_FULL, torch.bfloat16),
                          (FLASH_FULL, torch.float32),
-                         *((shape, torch.bfloat16) for _, shape, _ in FLASH_D),
+                         *((shape, torch.bfloat16)
+                           for _, shape, _ in FLASH_D + FLASH_MT),
                          ((8, 1000, 15, 5, 64), torch.bfloat16),
                          ((2, 512, 8, 2, 128), torch.bfloat16),
                          ((2, 512, 8, 2, 128), torch.float32),
@@ -851,7 +892,8 @@ def flash_checks(ops, ref, results):
                      f"worst err/bound {ratio:.4f}")
             del want_r
         print(f"flash_attention {shape} {dtype}: {line}", flush=True)
-        if shape == FLASH_FULL or shape in [f for _, f, _ in FLASH_D]:
+        if shape == FLASH_FULL or shape in [f for _, f, _ in
+                                            FLASH_D + FLASH_MT]:
             err[shape, dtype] = e
         del q, k, v, got, want
 
@@ -860,7 +902,7 @@ def flash_checks(ops, ref, results):
             (FLASH_FULL, torch.bfloat16, BF16_TC_OPS_S, "flash_attention"),
             (FLASH_FULL, torch.float32, F32_OPS_S, "flash_attention/f32"),
             *((shape, torch.bfloat16, BF16_TC_OPS_S, key)
-              for key, shape, _ in FLASH_D)):
+              for key, shape, _ in FLASH_D + FLASH_MT)):
         B, S, H, KV, hd = shape
         n_ops = 4 * B * H * hd * S * (S + 1) / 2              # causal
         q, k, v = inputs(B, S, H, KV, hd, dtype)
@@ -1955,7 +1997,8 @@ def resume_path(Session, spec_lib, ops):
              f"{CKPT_FREE_BYTES:.0f}")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)
     try:
-        return _resume_path(Session, spec_lib, ops, ckpt_dir)
+        with arch_cut(RESUME_CUT):
+            return _resume_path(Session, spec_lib, ops, ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -1963,7 +2006,8 @@ def resume_path(Session, spec_lib, ops):
 def _resume_path(Session, spec_lib, ops, ckpt_dir):
     from repro_torch.launch import build as build_lib
     spec = load_spec(spec_lib, ckpt_dir=ckpt_dir, **RESUME_PATH)
-    label = "resumable bf16/adamw fused_quant8/fused_quant4"
+    label = (f"resumable bf16/adamw fused_quant8/fused_quant4 "
+             f"({RESUME_CUT['num_layers']} layers)")
     sess = Session(spec, device="cuda")
     per_step = expected_launches(build_lib.ef_config(spec), sess.params)
     clients = [t for tree in sess.ef_state["clients"].values()
@@ -2666,16 +2710,16 @@ def _equal_trees(a, b) -> bool:
     return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
 
 
-def _timed(obj, name, sink):
-    """Wrap ``obj.name`` to append its ms (ending in a synchronize) to
-    ``sink``."""
+def _timed(obj, name, sink, device="cuda"):
+    """Wrap ``obj.name`` to append its ms (from and to a synchronize of
+    ``device``) to ``sink``."""
     real = getattr(obj, name)
 
     def timed(*a, **kw):
-        torch.cuda.synchronize()
+        _sync(device)
         t0 = time.time()
         out = real(*a, **kw)
-        torch.cuda.synchronize()
+        _sync(device)
         sink.append((time.time() - t0) * 1e3)
         return out
     setattr(obj, name, timed)
@@ -2993,6 +3037,9 @@ MD_PATHS = [  # MD1: (label, fused_quickstart.json overrides)
                                    downlink_carrier="quant4", overlap=True)),
 ]
 MD_RANKS = 4
+# MD4's runs, planted faults and their single-process runs: full width, 16
+# of smollm's 32 layers (the script's time limit)
+MD_CUT = {"num_layers": 16}
 # 2 steps a run (the script's time limit): every planted fault reads
 # above MD_TOL by its second step
 MD_STEPS = 2
@@ -3042,6 +3089,15 @@ MD4_FAULTS = [
 # "pod-unreduced" (the first estimate from each rank's share, about half
 # its pod's gradient: 0.282)
 MD4_FAULT_STEPS = {"frozen": 1, "pod-unreduced": 1}
+# MD4-publish: (label, spec, overrides, steps, depth cut): the pod run on
+# fused_quant8 up and fused_quant4 down, publishing from its first rank
+# (the bootstrap, then each step's record); a single-device replica
+# (launch/fleet.py) joins from the stream after the ranks end, applies the
+# record and must hold the trainer's params bit for bit. Full width, cut
+# to 8 of smollm's 32 layers (the bootstrap of 4 clients' f32 state: about
+# 5.6 GB instead of 16; the script's time limit)
+MD4_PUBLISH = ("MD4-publish", "fused_quant8_overlap",
+               dict(downlink_carrier="fused_quant4"), 1, {"num_layers": 8})
 
 
 def _free_port() -> int:
@@ -3249,8 +3305,24 @@ def _local_collectives():
         comm.all_reduce_sum, comm.all_gather, comm._ring_step = saved
 
 
+@contextlib.contextmanager
+def arch_cut(cut):
+    """Within: every Session's config cut by ``cut`` (fields of its arch
+    config) from its construction, so that a replica built from a stream's
+    spec runs the trainer's cut too."""
+    from repro_torch.launch import session as session_lib
+    saved = session_lib.Session.__dict__["_arch_config"]
+    if cut:
+        session_lib.Session._arch_config = staticmethod(
+            lambda spec: dataclasses.replace(saved.__func__(spec), **cut))
+    try:
+        yield
+    finally:
+        session_lib.Session._arch_config = saved
+
+
 def md4_run(ops, ref, label, spec_name, overrides, device="cuda",
-            plain=True, fault=None, steps=MD_STEPS):
+            plain=True, fault=None, steps=MD_STEPS, publish=None):
     """One MD4 run on this rank: a Session of one client a rank (or, under
     client granularity 'pod', a pod's client split over its data ranks),
     ``steps`` steps; per step the loss, g_norm, the replicated state's and
@@ -3260,7 +3332,11 @@ def md4_run(ops, ref, label, spec_name, overrides, device="cuda",
     ``expected_launches``; then (``plain``) each distinct K3-K6 call of
     the steps held bit for bit against its plain version. ``fault``: one
     of MD4_FAULTS's planted faults, on for the whole run ("pod-unreduced"
-    put on by md4_rank around it)."""
+    put on by md4_rank around it). ``publish``: a stream directory the
+    Session publishes to (MD4-publish): the bootstrap's seconds, each
+    publish's ms (every rank's part: the first rank writes), the records'
+    bytes; the first rank's launches add the publish's (its re-encode and
+    verify) and it leaves its params in ``trainer.pt`` beside the stream."""
     from repro_torch.core import comm
     from repro_torch.core import distributed as dist_lib
     from repro_torch.launch import shardings as sh
@@ -3284,6 +3360,15 @@ def md4_run(ops, ref, label, spec_name, overrides, device="cuda",
     rec = {"mesh": dict(sess.mesh.shape), "n": sess.n_clients,
            "coord": sess.mesh.coordinate(), "params": n_params,
            "init_s": init_s, "steps": []}
+    publish_ms = []
+    if publish is not None:
+        t0 = time.time()
+        sess.publish_to(publish)
+        rec["bootstrap_s"] = time.time() - t0
+        _timed(sess, "_publish", publish_ms, device)
+        if sess.mesh.rank == 0:
+            pub, _ = stream_launches(efc, sess.params)
+            per_step = _merged(per_step, pub)
     orig = dist_lib.ef_round_sharded
     round_ms, round_coll_ms = [], []
 
@@ -3342,6 +3427,15 @@ def md4_run(ops, ref, label, spec_name, overrides, device="cuda",
     rec["expected"] = {k: v * steps for k, v in per_step.items() if v}
     if cuda:
         check_launches(rec["launches"], per_step, steps, label)
+    if publish is not None:
+        rec["publish_ms"] = publish_ms
+        if sess.mesh.rank == 0:
+            recs = os.path.join(publish, "records")
+            rec["record_bytes"] = sum(
+                os.path.getsize(os.path.join(recs, f))
+                for f in os.listdir(recs))
+            torch.save({k: v.detach().cpu() for k, v in sess.params.items()},
+                       os.path.join(os.path.dirname(publish), "trainer.pt"))
     del sess, m, p0
     gc.collect()
     if _call_counts(calls) != rec["expected"]:
@@ -3360,12 +3454,19 @@ def _trivial(efc) -> bool:
     return hier_lib.cross_is_trivial(efc.effective_hops, efc.schedule)
 
 
-def md4_rank(rank, runs, device="cuda", faults=()):
+def md4_rank(rank, runs, device="cuda", faults=(), publish=None,
+             stream=None, cut=None):
     """One of MD4's rank processes (``multiproc.spawn``, gloo, the card
     shared): the kernels' library from the parent's build (no nvcc here),
-    the gloo probe, then each run, then each planted fault's run. Every
-    rank's calls have the same shapes, so rank 0 holds them against the
-    plain versions."""
+    the gloo probe, then each run, MD4-publish (``publish``, into
+    ``stream``), then each planted fault's run, every Session's config
+    cut by ``cut``. Every rank's calls have the same shapes, so rank 0
+    holds them against the plain versions."""
+    with arch_cut(cut):
+        return _md4_rank(rank, runs, device, faults, publish, stream)
+
+
+def _md4_rank(rank, runs, device, faults, publish, stream):
     import torch.distributed as tdist
     from repro_torch.kernels import build, ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3378,6 +3479,12 @@ def md4_rank(rank, runs, device="cuda", faults=()):
     for label, spec_name, overrides in runs:
         out["runs"][label] = md4_run(ops, ref, label, spec_name, overrides,
                                      device, plain=rank == 0)
+    if publish is not None:
+        label, spec_name, overrides, steps, cut = publish
+        with arch_cut(cut):
+            out["publish"] = md4_run(ops, ref, label, spec_name, overrides,
+                                     device, plain=rank == 0, steps=steps,
+                                     publish=stream)
     for label, spec_name, overrides, fault in faults:
         with _unreduced_shares() if fault == "pod-unreduced" \
                 else contextlib.nullcontext():
@@ -3447,7 +3554,7 @@ def md4_single(Session, spec_lib, spec_name, overrides, device="cuda"):
 
 
 def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
-              faults=MD4_FAULTS):
+              faults=MD4_FAULTS, publish=MD4_PUBLISH, cut=MD_CUT):
     """MD4: MD_RANKS rank processes on the one card (gloo on the card's
     tensors, the ring's send/recv staged through pinned host memory), each
     one client, the runs of MD4_RUNS at full width: every rank's loss,
@@ -3455,26 +3562,37 @@ def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
     run bit for bit the blocking gather's, each run within MD_TOL of the
     single-process vmap run; then each of ``faults`` (MD4_FAULTS) must read
     above MD_TOL on every rank, or the check could not tell it from a sound
-    run. Returns the launches of ``runs`` summed over ranks. (``runs``,
-    ``faults`` and ``device``: the CPU tests' smoke-size run.)"""
+    run. MD4-publish (``publish``) publishes from its first rank, and a
+    single-device replica joins from the stream here and must hold the
+    trainer's params bit for bit after applying its records (each K4 call
+    of the apply held to its plain version on the card). Returns the
+    launches of ``runs`` and ``publish`` summed over ranks. Every run's
+    config, the single-process ones too, is cut by ``cut``. (``runs``,
+    ``faults``, ``publish``, ``device`` and ``cut``: the CPU tests'
+    smoke-size run.)"""
     from repro_torch.launch import multiproc
     singles = {}
     for label, name, overrides in list(runs) + [f[:3] for f in faults]:
         key = _single_key(name, overrides)
         if key not in singles:
             t0 = time.time()
-            singles[key] = md4_single(Session, spec_lib, name, overrides,
-                                      device)
+            with arch_cut(cut):
+                singles[key] = md4_single(Session, spec_lib, name,
+                                          overrides, device)
             clients = MD_PODS if _pod_clients(overrides) else MD_RANKS
             print(f"{label}: single-process run (smoke mesh, {clients} "
                   f"clients) {singles[key]} in {time.time() - t0:.1f} s",
                   flush=True)
     work = tempfile.mkdtemp(prefix="md4_")
+    stream = os.path.join(work, "wire")
     t0 = time.time()
     try:
         ranks = multiproc.spawn(md4_rank, MD_RANKS, work,
-                                args=(runs, device, faults), threads=2,
-                                timeout_s=900)
+                                args=(runs, device, faults, publish, stream,
+                                      cut),
+                                threads=2, timeout_s=900)
+        if publish is not None:
+            replica = md4_replica(ops, publish, stream, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"MD4: {MD_RANKS} ranks in {time.time() - t0:.1f} s, backend "
@@ -3557,6 +3675,8 @@ def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
               "g_norm and the replicated state's digest, every step, every "
               "rank)", flush=True)
     print(f"MD4: worst relative difference a run {worst}", flush=True)
+    if publish is not None:
+        total = _merged(total, md4_publish_checks(ranks, publish, replica))
     caught = {}
     for label, name, overrides, fault in faults:
         want = singles[_single_key(name, overrides)]
@@ -3579,6 +3699,75 @@ def md4_phase(Session, spec_lib, ops, runs=MD4_RUNS, device="cuda",
     return total
 
 
+def md4_replica(ops, publish, stream, device):
+    """MD4-publish's replica: one device, joined from the 4-rank stream's
+    bootstrap (the join's seconds), the records applied (on the card each
+    apply's K4 calls recorded and held to the plain version), its params
+    against the trainer's (``trainer.pt``, rank 0's) bit for bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch import fleet as fleet_lib
+    label, _, _, steps, cut = publish
+    with arch_cut(cut):
+        t0 = time.time()
+        rep = fleet_lib.ServeReplica(stream, device=device)
+        _sync(device)
+        join_s = time.time() - t0
+        t0 = time.time()
+        if device == "cuda":
+            plain = [apply_call_check(ops, ref, rep, label)
+                     for _ in range(steps)]
+        else:
+            plain = rep.sync()
+        _sync(device)
+        apply_s = time.time() - t0
+    trainer = torch.load(os.path.join(os.path.dirname(stream),
+                                      "trainer.pt"))
+    equal = _equal_trees({k: v.cpu() for k, v in rep.params.items()},
+                         trainer)
+    out = dict(join_s=join_s, apply_s=apply_s, step=rep.step, equal=equal,
+               plain=plain, params=sum(v.numel() for v in trainer.values()))
+    del rep, trainer
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def md4_publish_checks(ranks, publish, replica):
+    """MD4-publish's checks and lines: the ranks' loss, g_norm and digest
+    equal every step; the replica at the last step and bit for bit the
+    trainer's params. Returns its launches summed over the ranks."""
+    label, _, _, steps, cut = publish
+    recs = [r["publish"] for r in ranks]
+    traj = [[(s["loss"], s["g_norm"], s["digest"]) for s in rec["steps"]]
+            for rec in recs]
+    if any(t != traj[0] for t in traj[1:]):
+        fail(f"{label}: the ranks disagree on loss, g_norm or digest")
+    if replica["step"] != steps or not replica["equal"]:
+        fail(f"{label}: the replica joined from the 4-rank stream is at "
+             f"step {replica['step']} (want {steps}); params bit for bit "
+             f"the trainer's: {replica['equal']}")
+    total = {}
+    for rank, rec in enumerate(recs):
+        st = rec["steps"]
+        print(f"{label} rank {rank}: mesh {rec['mesh']} {rec['params']} "
+              f"parameters (cut {cut}); bootstrap "
+              f"{rec['bootstrap_s']:.2f} s; step_ms "
+              f"{[round(s['step_ms'], 1) for s in st]}, of it publish_ms "
+              f"{[round(t, 1) for t in rec['publish_ms']]}; launches "
+              f"{rec['launches']}", flush=True)
+        total = _merged(total, rec["launches"])
+    print(f"{label}: {steps} published step(s), record bytes "
+          f"{recs[0]['record_bytes']} ({replica['params']} parameters: a "
+          f"dense f32 push {4 * replica['params']}); a single-device "
+          f"replica joined in {replica['join_s']:.2f} s, applied in "
+          f"{replica['apply_s']:.2f} s, params bit for bit the trainer's; "
+          f"rank 0's K3-K6 calls (the publish's among them) bit for bit "
+          f"their plain versions: {recs[0].get('plain')}; the apply's: "
+          f"{replica['plain']}", flush=True)
+    return total
+
+
 # phase MT: the 'model' axis (tensor parallelism over the attention
 # families) on 4 rank processes sharing the card over gloo, the production
 # geometry narrowed to (data 2, model 2) in each rank
@@ -3597,13 +3786,16 @@ MT_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
 # above it
 MT_GRAD_TOL = 1e-3
 MT_FAULTS = ("f-identity", "replicated-summed")
+# smollm's runs: full width, 16 of its 32 layers (the script's time
+# limit); MT-pod-zero and MT-single take MT-padded's
+MT_SMOLLM_CUT = {"num_layers": 16}
 MT_RUNS = [  # (label, arch, tp_pad_heads, depth cut, steps, planted faults)
     # 16 heads, 8 a rank: attention split (2 steps: the script's time
     # limit)
-    ("MT-padded", "smollm-360m", 2, None, 2, MT_FAULTS),
+    ("MT-padded", "smollm-360m", 2, MT_SMOLLM_CUT, 2, MT_FAULTS),
     # 15 heads: attention replicated whole (1 step: the script's time
     # limit)
-    ("MT-replicated", "smollm-360m", 0, None, 1, ()),
+    ("MT-replicated", "smollm-360m", 0, MT_SMOLLM_CUT, 1, ()),
     # 1 of 64 Mamba1 layers, as D-falcon-mamba: d_inner 8192, 4096 a rank;
     # the SSM runs take 1 step (the script's time limit)
     ("MT-falcon-mamba", "falcon-mamba-7b", 0, {"num_layers": 1}, 1,
@@ -3648,6 +3840,26 @@ MT_SMOKE_POD = (
 )
 MT_POD_CONTROL = ("olmoe-1b-7b pod bf16", "olmoe-1b-7b group bf16")
 MD4_PEAK = 10.51e9               # MD4's peak a rank, measured on four H100s
+# MT-serve: after its steps each of these runs serves on its 4 ranks, (B,
+# prompt, decode steps); B 8 splits over the 2 data ranks (4 rows a rank)
+# and the prompts come from one seed. The SSM runs decode 8 steps (the
+# script's time limit); the CPU rehearsal serves MT_SERVE_SMOKE
+MT_SERVE = {"MT-replicated": (8, 1024, 32), "MT-falcon-mamba": (8, 1024, 8),
+            "MT-zamba2": (8, 1024, 8)}
+MT_SERVE_SMOKE = (4, 64, 4)
+# the served prefill logits against the single-device serve of the same
+# params and prompts on the card, bf16: each row within this share of its
+# largest magnitude (the first tokens that agree counted: in bf16 a row's
+# top two logits can lie within it, and the argmax of a near-tie flips).
+# Every row's first token is held equal on an f32 prefill of the same
+# params and prompts on both sides, its logits within P_SERVE_TOL
+SERVE_BF16_TOL = 2e-2
+# the smoke check's serve, card against CPU, f32 from the fresh weights of
+# the spec's seed: 4 rows, the smoke sequence, 4 decode steps; greedy
+# tokens and MoE drop counts equal, the prefill logits within P_SERVE_TOL
+# of each row's largest magnitude
+MT_SMOKE_SERVE = (4, 4)
+P_SERVE_TOL = 1e-4
 
 
 def _mt_narrow(multi_pod=None):
@@ -3744,7 +3956,7 @@ def mt_grad_check(sess, device, faults=()):
 
 def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
            smoke=False, plain=True, faults=(), spec_over=None,
-           grad_check=True):
+           grad_check=True, serve=None):
     """One MT run on this rank: a Session of ``arch`` on (data 2, model 2)
     with ``tp_pad_heads`` ``pad``, its config cut by ``cut`` before the
     first step; the gradient check (with ``faults``), then
@@ -3757,7 +3969,8 @@ def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
     the launches against ``expected_launches``; then (``plain``) each
     distinct K3-K6 call bit for bit its plain version. ``spec_over``:
     fields over MT_PATH's (MT-pod-zero's); ``grad_check`` off skips the
-    gradient check (a run whose pass is another run's)."""
+    gradient check (a run whose pass is another run's); ``serve`` (B,
+    prompt, decode steps): MT-serve after the steps (:func:`mt_serve`)."""
     from repro_torch.core import comm
     from repro_torch.core import distributed as dist_lib
     from repro_torch.core import ef as ef_lib
@@ -3856,6 +4069,8 @@ def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
         if cuda else 0
     if cuda:
         check_launches(rec["launches"], per_step, steps, label)
+    if serve is not None:
+        rec["serve"] = mt_serve(sess, ops, label, serve, device)
     del sess, m
     gc.collect()
     if cuda and plain:
@@ -3888,6 +4103,216 @@ def _client_drops(sess):
                  * sess.cfg.num_experts_per_tok)
 
 
+@contextlib.contextmanager
+def serve_record(drops=None):
+    """Within: the first serving logits of each serve (the prefill's last
+    position, f32 on the host) are appended to the list it yields; with
+    ``drops`` (a list), each MoE call's dropped assignments among this
+    rank's tokens (under a row split ``dropped_frac`` is this rank's share
+    of the call's)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+    seen, orig, orig_moe = [], model_lib._serve_logits, moe_lib.moe_apply
+
+    def logits(*a, **kw):
+        lg = orig(*a, **kw)
+        seen.append(lg[:, -1].float().cpu())
+        return lg
+
+    def moe(p, x, **kw):
+        out, aux = orig_moe(p, x, **kw)
+        split = kw.get("split")
+        n = x.shape[0] * x.shape[1] * kw["k"] * (split.size if split else 1)
+        drops.append(round(float(aux["dropped_frac"]) * n))
+        return out, aux
+    model_lib._serve_logits = logits
+    if drops is not None:
+        moe_lib.moe_apply = moe
+    try:
+        yield seen
+    finally:
+        model_lib._serve_logits, moe_lib.moe_apply = orig, orig_moe
+
+
+def _row_rel(got, want) -> float:
+    """The largest |got − want| of a row over the row's largest |want|."""
+    return float(((got - want).abs().amax(-1)
+                  / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def mt_serve(sess, ops, label, shape, device="cuda"):
+    """MT-serve on this rank: the Session's trained params served on the 4
+    ranks ((data 2, model 2): each data rank its rows, on its shards and
+    cache slice, the tokens gathered), the prompts from one seed; the
+    launches (K7 ``model.flash_layers`` times, in the prefill only), the
+    'model' collectives of the prefill and of one decode step, the times,
+    the global and the rank's cache bytes and the peak. Then the first rank
+    of each data coordinate gathers the params over 'model' and rank 0
+    serves them on one device (the smoke mesh) on the same prompts: the
+    prefill logits' largest row-relative gap, the first tokens, and how
+    many decode tokens agree."""
+    from repro_torch.core import comm
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.session import Session
+    from repro_torch.models import model as model_lib
+    B, S, steps = shape
+    cuda = device == "cuda"
+    tokens = torch.randint(0, sess.cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    marks = []
+
+    def hook(i):
+        if i < 2:
+            _sync(device)
+            marks.append(dict(comm.STATS))
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    comm.reset_stats()
+    ops.reset_launches()
+    with serve_record() as seen:
+        out = sess.serve(tokens=tokens, decode_steps=steps, decode_hook=hook)
+    rec = {k: out[k] for k in ("prefill_s", "decode_s", "prefill_tok_s",
+                               "decode_tok_s", "cache_bytes",
+                               "local_cache_bytes")}
+    rec.update(
+        tokens=out["tokens"], cuda=cuda,
+        peak=torch.cuda.max_memory_allocated() if cuda else 0,
+        launches={k: v for k, v in ops.launches.items() if v},
+        flash_layers=model_lib.flash_layers(sess.cfg),
+        tp_prefill=marks[0]["tp_collectives"],
+        tp_prefill_ms=marks[0]["tp_seconds"] * 1e3,
+        tp_decode=marks[1]["tp_collectives"] - marks[0]["tp_collectives"],
+        tp_decode_ms=(marks[1]["tp_seconds"] - marks[0]["tp_seconds"]) * 1e3)
+    rows = sh.serve_rows(sess.mesh, B)
+    logits = sh.gather_rows(rows, seen[0].to(device)).cpu()
+    saved = dict(ops.launches)
+    cfg32 = dataclasses.replace(sess.cfg, dtype="float32")
+    logits32 = sh.gather_rows(rows, prefill_f32_logits(
+        model_lib, cfg32, sess.params, sh.local_rows(tokens, rows), device,
+        sess.tp, rows)).cpu()
+    if sess.mesh.coordinate()["data"] == 0:
+        whole = sh.unshard_tree(sess.params, sess.pspecs, sess.model_axes)
+        if sess.mesh.rank == 0:
+            one = Session(dataclasses.replace(sess.spec, mesh="smoke",
+                                              clients=2), device=device)
+            one.cfg = sess.cfg
+            one.set_serve_params(whole)
+            with serve_record() as seen1:
+                want = one.serve(tokens=tokens, decode_steps=steps)
+            del one
+            want32 = prefill_f32_logits(
+                model_lib, cfg32, {k: v.to(device) for k, v in whole.items()},
+                tokens, device).cpu()
+            del whole
+            first = out["tokens"][:, 0] == want["tokens"][:, 0]
+            top = seen1[0].topk(2, dim=-1).values
+            rec["single"] = dict(
+                rel=_row_rel(logits, seen1[0]),
+                first_equal=int(first.sum()),
+                # a differing row's top-two gap in the single-device
+                # logits, over the row's largest magnitude
+                first_gaps=[float((top[i, 0] - top[i, 1])
+                                  / seen1[0][i].abs().max())
+                            for i in np.flatnonzero(~first)],
+                rel32=_row_rel(logits32, want32),
+                first32_equal=bool((logits32.argmax(-1)
+                                    == want32.argmax(-1)).all()),
+                decode_equal=int((out["tokens"][:, 1:]
+                                  == want["tokens"][:, 1:]).sum()),
+                decode_total=int(out["tokens"][:, 1:].size),
+                prefill_ms=want["prefill_s"] * 1e3,
+                decode_ms=want["decode_s"] * 1e3)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    ops.launches.update(saved)
+    return rec
+
+
+def prefill_f32_logits(model_lib, cfg32, params, tokens, device, tp=None,
+                       rows=None):
+    """The last position's logits of an f32 prefill of ``tokens`` (this
+    rank's rows) on ``params`` (this rank's shards under ``tp``, cast to
+    f32 as the f32 serve casts them), from a zero cache."""
+    cache = model_lib.init_cache(cfg32, tokens.shape[0], tokens.shape[1],
+                                 device=device, tp=tp)
+    params = model_lib.cast_matrices(cfg32, params)
+    lg, _ = model_lib.prefill(cfg32, params, {"tokens": tokens.to(device)},
+                              cache, tp=tp, split=rows)
+    return lg[:, -1].float()
+
+
+def mt_serve_checks(ranks, label, shape):
+    """MT-serve's checks and lines: the tokens equal on every rank and of
+    the requested shape; each rank's launches K7 ``flash_layers`` times
+    and nothing else (on the card; the CPU runs the plain version,
+    uncounted); rank 0's comparison with the single-device serve: bf16
+    prefill logits within SERVE_BF16_TOL (the first tokens that agree
+    counted, each differing row's top-two gap printed), and an f32
+    prefill of the same params within P_SERVE_TOL, every first token
+    equal. Returns the launches summed over the ranks."""
+    recs = [r["runs"][label]["serve"] for r in ranks]
+    B, S, steps = shape
+    if any(not np.array_equal(rec["tokens"], recs[0]["tokens"])
+           for rec in recs) or recs[0]["tokens"].shape != (B, steps + 1):
+        fail(f"{label} serve: the ranks' tokens differ or are not "
+             f"({B}, {steps + 1})")
+    total = {}
+    for rank, rec in enumerate(recs):
+        want = {"flash_attention": rec["flash_layers"]} \
+            if rec["flash_layers"] and rec["cuda"] else {}
+        if rec["launches"] != want:
+            fail(f"{label} serve rank {rank}: launches {rec['launches']}, "
+                 f"expected {want} (K7 once a layer it runs in, in the "
+                 "prefill)")
+        total = _merged(total, rec["launches"])
+        print(f"{label} serve rank {rank}: B {B} × {S}, {steps} decode "
+              f"steps: prefill {rec['prefill_s'] * 1e3:.1f} ms "
+              f"({rec['prefill_tok_s']:.1f} tok/s), decode "
+              f"{rec['decode_s'] * 1e3:.1f} ms ({rec['decode_tok_s']:.1f} "
+              f"tok/s); 'model' collectives a prefill {rec['tp_prefill']} "
+              f"({rec['tp_prefill_ms']:.1f} ms), a decode step "
+              f"{rec['tp_decode']} ({rec['tp_decode_ms']:.1f} ms); "
+              f"cache_bytes {rec['cache_bytes']} (this rank's "
+              f"{rec['local_cache_bytes']}); peak {rec['peak']}; launches "
+              f"{rec['launches']}", flush=True)
+    one = recs[0]["single"]
+    if one["rel"] > SERVE_BF16_TOL or one["rel32"] > P_SERVE_TOL \
+            or not one["first32_equal"]:
+        fail(f"{label} serve: against the single-device serve of the same "
+             f"params and prompts, bf16 prefill logits {one['rel']:.3e} of "
+             f"a row's largest (limit {SERVE_BF16_TOL}); f32 prefill logits "
+             f"{one['rel32']:.3e} (limit {P_SERVE_TOL}), every first token "
+             f"equal: {one['first32_equal']}")
+    print(f"{label} serve: tokens equal on every rank; against one device "
+          f"(prefill {one['prefill_ms']:.1f} ms, decode "
+          f"{one['decode_ms']:.1f} ms): bf16 prefill logits within "
+          f"{one['rel']:.3e} of each row's largest (limit "
+          f"{SERVE_BF16_TOL}), {one['first_equal']} of {B} first tokens "
+          f"equal (the others' top-two gaps {one['first_gaps']} of the "
+          f"row's largest), {one['decode_equal']} of {one['decode_total']} "
+          f"decode tokens equal; f32 prefill logits within "
+          f"{one['rel32']:.3e} (limit {P_SERVE_TOL}), every first token "
+          "equal", flush=True)
+    return total
+
+
+def mt_smoke_serve(Session, spec, device):
+    """The smoke check's serve on this rank: a fresh f32 Session of the
+    spec (the seed's weights) serves MT_SMOKE_SERVE's rows of the smoke
+    sequence: the tokens, the prefill logits of this rank's rows and each
+    MoE call's drop count."""
+    B, steps = MT_SMOKE_SERVE
+    sess = Session(spec, device=device, dtype="float32")
+    tokens = torch.randint(0, sess.cfg.vocab_size, (B, spec.seq_len),
+                           generator=torch.Generator().manual_seed(2))
+    drops = []
+    with serve_record(drops) as seen:
+        out = sess.serve(tokens=tokens, decode_steps=steps)
+    return {"tokens": out["tokens"], "logits": seen[0], "drops": drops}
+
+
 def mt_smoke(arch, granularity=None, dtype=None):
     """One arch at smoke size on (data 2, model 2), or with a client
     ``granularity`` on (pod 2, data 2, model 1) (MT_SMOKE_POD_GEOM) with
@@ -3905,7 +4330,7 @@ def mt_smoke(arch, granularity=None, dtype=None):
     if arch in SCAN_ARCHS:
         over["seq_len"] = D_SMOKE_SCAN["seq_len"]
     spec = load_spec(spec_lib, **dict(R_PATH, arch=arch, **over))
-    out = {"drops": {}}
+    out = {"drops": {}, "serve": {}}
     for device in ("cuda", "cpu"):
         saved = dict(ops.launches)
         sess = Session(spec, device=device, dtype=dtype)
@@ -3916,8 +4341,10 @@ def mt_smoke(arch, granularity=None, dtype=None):
             m = sess.step_once()
             steps.append((float(m["loss"]), float(m["g_norm"])))
         out[device], out["drops"][device] = steps, drops
-        ops.launches.update(saved)
         del sess
+        if not granularity:
+            out["serve"][device] = mt_smoke_serve(Session, spec, device)
+        ops.launches.update(saved)
         gc.collect()
     return out
 
@@ -3939,13 +4366,17 @@ def mt_rank(rank, runs, device="cuda", smoke=False,
         build.build()
     out = {"runs": {}, "smoke": {}, "smoke_pod": {}}
     for label, arch, pad, cut, steps, faults in runs:
+        serve = MT_SERVE.get(label)
+        if serve is not None and smoke:
+            serve = MT_SERVE_SMOKE
         out["runs"][label] = mt_run(ops, ref, label, arch, pad, cut, steps,
                                     device, smoke, plain=rank == 0,
-                                    faults=faults)
+                                    faults=faults, serve=serve)
     if _has_padded(runs):
         _mt_narrow(MT_POD_ZERO_GEOM)
         out["pod_zero"] = mt_run(ops, ref, "MT-pod-zero", "smollm-360m", 2,
-                                 None, 1, device, smoke, plain=rank == 0,
+                                 MT_SMOLLM_CUT, 1, device, smoke,
+                                 plain=rank == 0,
                                  spec_over=MT_POD_ZERO, grad_check=False)
         _mt_narrow()
     t0 = time.time()
@@ -3982,8 +4413,8 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
     each rank's client state); the smoke archs on the card within P_TOL
     of the CPU and each of ``smoke_pod`` within its own tolerance, its
     drop counts printed. Returns the runs' launches summed over ranks and
-    each run's losses. (``device``/``smoke``: the CPU rehearsal at smoke
-    size.)"""
+    each run's losses and MT-serve's launches by run. (``device``/
+    ``smoke``: the CPU rehearsal at smoke size.)"""
     from repro_torch.launch import multiproc
     work = tempfile.mkdtemp(prefix="mt_")
     t0 = time.time()
@@ -3996,7 +4427,7 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
         shutil.rmtree(work, ignore_errors=True)
     print(f"MT: {MT_RANKS} ranks in {time.time() - t0:.1f} s "
           f"(smoke archs {ranks[0]['smoke_s']:.1f} s of it)", flush=True)
-    total, readings, losses = {}, {}, {}
+    total, readings, losses, serve_launches = {}, {}, {}, {}
     for label, _, _, _, steps, faults in runs:
         recs = [r["runs"][label] for r in ranks]
         if any(rec["mesh"] != MT_GEOM for rec in recs):
@@ -4063,6 +4494,10 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
               f"bit for bit the single-device round every step; every "
               f"distinct K3-K6 call bit for bit its plain version: "
               f"{recs[0].get('plain')}", flush=True)
+        if "serve" in recs[0]:
+            shape = MT_SERVE_SMOKE if smoke else MT_SERVE[label]
+            serve_launches[label] = mt_serve_checks(ranks, label, shape)
+            total = _merged(total, serve_launches[label])
     if _has_padded(runs):
         total = _merged(total, _mt_pod_zero(ranks, losses))
     else:
@@ -4103,10 +4538,11 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
               f"the larger of P_TOL {P_TOL} and the gap of its control "
               f"{control} without the split, {gaps[control]:.3e}",
               flush=True)
-    worst = {}
+    worst, served = {}, {}
     for arch in smoke_archs:
         runs_ = ranks[0]["smoke"][arch]
-        if any(r["smoke"][arch] != runs_ for r in ranks[1:]):
+        if any((r["smoke"][arch]["cuda"], r["smoke"][arch]["cpu"])
+               != (runs_["cuda"], runs_["cpu"]) for r in ranks[1:]):
             fail(f"MT {arch}: the ranks disagree at smoke size")
         d = [abs(a - b) / max(abs(b), 1e-12)
              for ca, cb in zip(runs_["cuda"], runs_["cpu"])
@@ -4115,13 +4551,48 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
         if worst[arch] > P_TOL:
             fail(f"MT {arch} smoke: card {runs_['cuda']} vs CPU "
                  f"{runs_['cpu']}: {worst[arch]:.3e} > {P_TOL}")
+        served[arch] = mt_smoke_serve_check(ranks, arch)
     if smoke_archs:
         print(f"MT smoke on (data 2, model 2), card against CPU over "
               f"{MT_SMOKE_STEPS} steps, largest relative difference "
-              f"{worst} (limit {P_TOL})", flush=True)
+              f"{worst} (limit {P_TOL}); the serve's prefill logits "
+              f"{served} of a row's largest (limit {P_SERVE_TOL}), greedy "
+              "tokens and drop counts equal", flush=True)
     print(f"MT: gradient readings {readings} (limit {MT_GRAD_TOL})",
           flush=True)
-    return total, losses
+    return total, losses, serve_launches
+
+
+def mt_smoke_serve_check(ranks, arch):
+    """The smoke check's serve of ``arch``, card against CPU on every
+    rank: the tokens equal (and equal among the ranks), the drop counts
+    of every MoE call equal, the prefill logits of the rank's rows within
+    P_SERVE_TOL. Returns the largest logits gap."""
+    gap = 0.0
+    for rank, r in enumerate(ranks):
+        card, cpu = (r["smoke"][arch]["serve"][d] for d in ("cuda", "cpu"))
+        if not np.array_equal(card["tokens"], cpu["tokens"]) or \
+                not np.array_equal(card["tokens"],
+                                   ranks[0]["smoke"][arch]["serve"]["cpu"]
+                                   ["tokens"]):
+            fail(f"MT {arch} smoke serve rank {rank}: greedy tokens differ, "
+                 f"card {card['tokens'].tolist()} CPU "
+                 f"{cpu['tokens'].tolist()}")
+        if card["drops"] != cpu["drops"]:
+            fail(f"MT {arch} smoke serve rank {rank}: drop counts card "
+                 f"{card['drops']} CPU {cpu['drops']}")
+        gap = max(gap, _row_rel(card["logits"], cpu["logits"]))
+    drops = [r["smoke"][arch]["serve"]["cuda"]["drops"] for r in ranks]
+    if any(drops):
+        # ranks 0 and 2 are the data ranks of 'model' coordinate 0
+        print(f"MT {arch} smoke serve: each MoE call's drop count (the "
+              f"prefill's, then each decode step's, a layer each), the two "
+              f"data ranks' summed {[a + b for a, b in zip(*drops[::2])]}, "
+              "equal on card and CPU", flush=True)
+    if gap > P_SERVE_TOL:
+        fail(f"MT {arch} smoke serve: prefill logits card against CPU "
+             f"{gap:.3e} of a row's largest > {P_SERVE_TOL}")
+    return float(f"{gap:.4g}")
 
 
 def _mt_pod_zero(ranks, losses):
@@ -4170,7 +4641,7 @@ def _mt_pod_zero(ranks, losses):
 
 def mt_single(Session, spec_lib, mt_losses, device="cuda", smoke=False):
     """MT-single: MT-padded's spec (MT_PATH, tp_pad_heads 2, seed 0, 8 rows
-    of 256 a client, as many steps) on one device, the smoke mesh with 2
+    of 256 a client, its depth cut, as many steps) on one device, the smoke mesh with 2
     clients: no 'model' axis. Prints its losses beside MT-padded's, to
     tell a rise that the spec gives on one device from one the
     tensor-parallel pass would add; fails on a non-finite loss."""
@@ -4178,6 +4649,8 @@ def mt_single(Session, spec_lib, mt_losses, device="cuda", smoke=False):
     if smoke:
         over.update(smoke=True, seq_len=64, global_batch=4)
     sess = Session(load_spec(spec_lib, **over), device=device)
+    if not smoke:
+        sess.cfg = dataclasses.replace(sess.cfg, **MT_SMOLLM_CUT)
     t0 = time.time()
     steps = next(run[4] for run in MT_RUNS if run[0] == "MT-padded")
     losses = [float(sess.step_once()["loss"]) for _ in range(steps)]
@@ -4371,22 +4844,26 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     with phase(f"MD4: {MD_RANKS} rank processes on the one card (gloo), "
-               f"one client each, full-width smollm-360m, {MD_STEPS} steps "
+               f"one client each, full-width smollm-360m cut to {MD_CUT}, "
+               f"{MD_STEPS} steps "
                "a run: fused_quant8_overlap.json, quant8 with the ring and "
                "the blocking gather, multi_pod with hierarchy_quant4_cross"
-               ".json's hops"):
+               ".json's hops; MD4-publish (8 layers) and a single-device "
+               "replica joined from its stream"):
         by_phase["MD4"] = md4_phase(Session, spec_lib, ops)
     gc.collect()
     torch.cuda.empty_cache()
     with phase(f"MT: {MT_RANKS} rank processes on the one card (gloo), "
                "mesh (data 2, model 2), full width tensor-parallel, "
-               "fused_quant8/fused_quant4: smollm-360m with tp_pad_heads 2 "
-               "(attention split) for 2 steps, then 1 step unpadded "
+               "fused_quant8/fused_quant4: smollm-360m (16 layers) with "
+               "tp_pad_heads 2 (attention split) for 2 steps, then 1 step "
+               "unpadded "
                "(attention replicated); falcon-mamba-7b (1 layer) and "
                "zamba2-1.2b (6 layers and the shared block), 1 step each; "
-               "granite, gemma2, olmoe, falcon-mamba, zamba2 at smoke size, "
-               "card against CPU"):
-        by_phase["MT"], mt_losses = mt_phase(ops)
+               "MT-serve after the unpadded and SSM runs; granite, gemma2, "
+               "olmoe, falcon-mamba, zamba2 at smoke size, card against CPU, "
+               "training and serving"):
+        by_phase["MT"], mt_losses, mt_served = mt_phase(ops)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("MT-single: MT-padded's spec on one device, 2 clients, 2 "
@@ -4486,6 +4963,12 @@ def main() -> None:
     for key, shape, name in FLASH_D:
         kernels[6][key.split("/")[1] + "_prefill"] = dict(
             shape=list(shape), launches=by_phase[name]["flash_attention"],
+            **{k: results[key][k] for k in keys})
+    # MT-serve's prefills on (data 2, model 2), summed over the 4 ranks
+    for key, shape, name in FLASH_MT:
+        kernels[6][key.split("/")[1] + "_prefill"] = dict(
+            shape=list(shape),
+            launches=mt_served[name].get("flash_attention", 0),
             **{k: results[key][k] for k in keys})
     kernels[6]["f32_route"]["resources"] = {
         n: r for n, r in redesigned.items()

@@ -255,6 +255,17 @@ def barrier(axes: Axes) -> None:
         _dist().barrier(group=axes.group)
 
 
+def broadcast_object(axes: Axes, obj: Any) -> Any:
+    """The group's first member's ``obj`` (any picklable value) on every
+    member: a decision one rank makes for all (whether a bootstrap exists,
+    a publish's outcome, serving's wall clock)."""
+    if axes.group is None or axes.size == 1:
+        return obj
+    box = [obj if axes.index == 0 else None]
+    _dist().broadcast_object_list(box, src=axes.ranks[0], group=axes.group)
+    return box[0]
+
+
 # ---------------------------------------------------------------------------
 # the tensor-parallel pass's collectives over the 'model' axis (Megatron's
 # f and g), differentiable under torch.func.grad/vjp and plain autograd
@@ -339,6 +350,22 @@ def _resplit_blocks(axes: Axes, x: torch.Tensor, groups: int,
 @_plain_counted("data_")
 def _gather_plain(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     return _all_gather(axes, x.contiguous())
+
+
+@_tp_timed
+def _gather_model(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    return _all_gather(axes, x.contiguous())
+
+
+def gather_last(axes: Axes, x: torch.Tensor) -> torch.Tensor:
+    """The members' blocks of x's last dim joined in index order, on every
+    member, without a gradient: serving's logits over a vocabulary split
+    on the 'model' axis (counted with the tensor-parallel pass's
+    collectives)."""
+    if axes.size == 1:
+        return x
+    parts = _gather_model(axes, x)                  # (size, ..., w)
+    return torch.movedim(parts, 0, -2).reshape(*x.shape[:-1], -1)
 
 
 def gather_plain(axes: Axes, x: torch.Tensor) -> torch.Tensor:

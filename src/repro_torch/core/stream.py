@@ -22,7 +22,10 @@ subscribe too:
     broadcast with the operations the step ran (``ef.downlink_sync``:
     δ = server − h, ``downlink_encode``, ``downlink_apply``) from the
     step's own stream, and REFUSES to append a record whose wires do not
-    reproduce the trainer's post-step h bit for bit.
+    reproduce the trainer's post-step h bit for bit. A trainer of several
+    ranks runs it on its first rank, on the trees gathered into the
+    single-device layout, and every rank raises its refusal
+    (launch/session.py ``Session._publish``).
   * ``Subscriber`` — the replica-side state machine: holds (params,
     opt_state, h, step) and advances them record by record through the
     train step's tail (``carriers.downlink_apply``, then the optimizer),

@@ -1,8 +1,11 @@
 """RunSpec → EFConfig assembly with the authoritative carrier checks
 (counterpart of the factories in src/repro/launch/session.py and of
 src/repro/launch/build.py::default_ef_config), and the serving closures
-``build_prefill``/``build_decode`` (one device, no mesh: what the
-reference's placement specs do is the caller's ``.to(device)``).
+``build_prefill``/``build_decode`` (on one device what the reference's
+placement specs do is the caller's ``.to(device)``; on several ranks they
+take the Session's tensor-parallel plan and the data group its rows are
+split over, and the caller places each rank's rows, shards and cache
+slice: launch/shardings.py ``serve_rows``).
 
 A fused carrier whose (method, compressor) would silently run a degraded
 plan is a hard error here, exactly as in the reference, for the spec's
@@ -309,15 +312,20 @@ def cache_len(prompt_len: int, decode_budget: int, n_prefix: int = 0) -> int:
     return n_prefix + prompt_len + decode_budget
 
 
-def build_prefill(cfg):
-    """fn(params, batch, cache) -> (last-token logits, cache)."""
+def build_prefill(cfg, tp=None, split=None):
+    """fn(params, batch, cache) -> (last-token logits, cache). ``tp``: the
+    Session's tensor-parallel plan (``model.tp_plan``); ``split``: the data
+    group the rows are split over (None: this rank serves every row)."""
     def fn(params, batch, cache):
-        return model_lib.prefill(cfg, params, batch, cache)
+        return model_lib.prefill(cfg, params, batch, cache, tp=tp,
+                                 split=split)
     return fn
 
 
-def build_decode(cfg):
-    """fn(params, cache, tokens, pos) -> (logits, cache)."""
+def build_decode(cfg, tp=None, split=None):
+    """fn(params, cache, tokens, pos) -> (logits, cache); ``tp`` and
+    ``split`` as in :func:`build_prefill`."""
     def fn(params, cache, tokens, pos):
-        return model_lib.decode_step(cfg, params, cache, tokens, pos)
+        return model_lib.decode_step(cfg, params, cache, tokens, pos, tp=tp,
+                                     split=split)
     return fn

@@ -24,7 +24,11 @@ runs each replica as its own worker process
 (``repro_torch.launch.replica_worker``) with continuous sync during decode.
 
 Everything runs on the CUDA card; ``--device cpu`` runs the kernels' plain
-PyTorch versions on the CPU (use ``--smoke`` there in static mode).
+PyTorch versions on the CPU (use ``--smoke`` there in static mode). This
+command serves in one process, as the reference's does; serving on
+several ranks is ``Session.serve`` on a world that
+``launch/multiproc.py`` joined (each rank its rows, shards and cache
+slice).
 """
 from __future__ import annotations
 

@@ -37,13 +37,16 @@ the mesh gives the ``model`` axis more than one rank, each rank holds its
 shards of every tree (``shardings.params_pspecs``, after the spec's
 ``tp_pad_heads``), the client pass is tensor-parallel over the axis
 (``model.tp_plan``: every family, a Mamba2 whose heads do not split
-refused) and the round compresses the shards. ``publish_to`` and
-``serve`` on more than one rank are refused (both arrive with later
-slices). ``save`` on a sharded run writes one npz from the first rank,
-the shards joined and the clients gathered on a leading axis (under
-``pod`` from each pod's first data rank): the keys, shapes and spec hash
-of the single-device layout; ``restore_from`` gives each rank its slice
-back (every data rank of a pod its pod's).
+refused) and the round compresses the shards. ``save`` on a sharded run
+writes one npz from the first rank, the shards joined and the clients
+gathered on a leading axis (under ``pod`` from each pod's first data
+rank): the keys, shapes and spec hash of the single-device layout;
+``restore_from`` gives each rank its slice back (every data rank of a pod
+its pod's). ``serve`` on several ranks runs each rank's rows on its
+shards and cache slice and gathers the tokens; ``publish_to`` publishes
+from the first rank, the server estimate and h gathered over 'model'
+into the single-device layout, and a verify that fails there fails on
+every rank, as the reference's fails where its round compressed shards.
 """
 from __future__ import annotations
 
@@ -132,12 +135,17 @@ class Session:
         """True on a mesh of more than one rank (the sharded runtime)."""
         return self.mesh.size > 1
 
-    def _refuse_sharded(self, what: str) -> None:
-        if self.sharded:
-            raise ValueError(
-                f"{what} on a session of {self.mesh.size} ranks arrives with "
-                "a later slice of the port (ROADMAP Queue 1 item 3); run it "
-                "on the smoke mesh")
+    @property
+    def world(self) -> comm.Axes:
+        """The group of every rank of the mesh."""
+        return self.mesh.axes(self.mesh.axis_names)
+
+    def _first_model_group(self) -> bool:
+        """Whether this rank shares the first rank's coordinate on every
+        axis but 'model': the ranks whose shards make the first rank's
+        whole tree."""
+        return all(i == 0 for a, i in self.mesh.coordinate().items()
+                   if a != "model")
 
     @staticmethod
     def _arch_config(spec: RunSpec) -> cb.ArchConfig:
@@ -278,14 +286,45 @@ class Session:
         self.step += 1
         self._params_changed()
         if self._publisher is not None:
-            # this round's downlink wire, verified bit for bit against the
-            # step's own h before anything reaches the log
-            self._publisher.publish(self.step, tr["ef_state"]["server"],
-                                    h_prev, tr["ef_state"].get("h"))
+            self._publish(h_prev)
             if self._bootstrap_every \
                     and self.step % self._bootstrap_every == 0:
                 self._write_bootstrap(self._publisher.log)
         return m
+
+    def _publish(self, h_prev) -> None:
+        """This round's downlink wire, verified bit for bit against the
+        step's own h before anything reaches the log. On several ranks the
+        first rank publishes: the server estimate and h before and after
+        the step, gathered over 'model' into the single-device layout
+        (the ranks of the first 'model' group take part), re-encoded and
+        verified as on one device; its outcome is broadcast, so a failed
+        verify raises the same error on every rank at the same step."""
+        ef = self._tr["ef_state"]
+        trees = {"server": ef["server"], "h_prev": h_prev,
+                 "h_new": ef.get("h")}
+        if not self.sharded:
+            self._publisher.publish(self.step, *trees.values())
+            return
+        from repro_torch.core import stream as stream_lib
+        failure = None
+        if self._first_model_group():
+            if self.tp is not None:
+                trees = sh.unshard_tree(trees, self.pspecs, self.model_axes)
+            if self.mesh.rank == 0:
+                trees = sh.to_device(trees, self.device)
+                try:
+                    self._publisher.publish(self.step, *trees.values())
+                except Exception as err:      # every rank raises it below
+                    failure = (type(err).__name__, str(err))
+            del trees
+        failure = comm.broadcast_object(self.world, failure)
+        if failure is not None:
+            kind, msg = failure
+            cls = getattr(stream_lib, kind, None)
+            if not (isinstance(cls, type) and issubclass(cls, Exception)):
+                cls, msg = RuntimeError, f"{kind}: {msg}"
+            raise cls(msg)
 
     def train(self, steps: int, log_every: int = 10, verbose: bool = False
               ) -> List[Dict[str, float]]:
@@ -348,6 +387,14 @@ class Session:
                 raise ValueError("no ckpt_dir in the spec and no path given")
             path = os.path.join(self.spec.ckpt_dir,
                                 f"step_{self.step:08d}.npz")
+        self._write_state(path)
+        self._last_saved_step = self.step
+        return path
+
+    def _write_state(self, path: str) -> None:
+        """Write the training state to ``path`` in the single-device
+        layout; on several ranks every rank takes part and the first
+        writes."""
         state = self._state()
         if self.sharded:
             # the 'model' shards joined on the axis's first rank, then
@@ -364,11 +411,9 @@ class Session:
                 if axes.index == 0:
                     ckpt_lib.save(path, dict(state, ef_state=ef_full),
                                   step=self.step, spec=self.spec)
-            comm.barrier(self.mesh.axes(self.mesh.axis_names))
+            comm.barrier(self.world)
         else:
             ckpt_lib.save(path, state, step=self.step, spec=self.spec)
-        self._last_saved_step = self.step
-        return path
 
     def restore_from(self, path: str, allow_spec_mismatch: bool = False
                      ) -> None:
@@ -435,17 +480,25 @@ class Session:
         log has no record at or past the current step, so a replica can
         join from the stream directory alone (checkpoint + replay);
         ``bootstrap_every`` adds one every that many steps, for cheaper
-        mid-stream joins and gap resyncs. Returns the WireLog."""
+        mid-stream joins and gap resyncs. Returns the WireLog.
+
+        On several ranks every rank calls it (and steps) alike: the first
+        rank writes the records and bootstraps, in the single-device layout
+        a replica of one device joins (``save``'s sharded path), and
+        decides for all whether a bootstrap is due."""
         from repro_torch.core import stream as stream_lib
-        self._refuse_sharded("publish_to")
         tr = self._ensure_train()
         efc = tr["efc"]
+        whole = tr["params"] if self.tp is None else \
+            model_lib.init_params(self.cfg, None, "meta")
         legs = stream_lib.resolve_legs(
-            tr["params"], schedule=efc.schedule,
+            whole, schedule=efc.schedule,
             down_carrier=efc.down_carrier,
             down_compressor=efc.down_compressor)
         log = stream_lib.WireLog(stream_dir)
-        last = log.last_step()
+        last = log.last_step() if self.mesh.rank == 0 else None
+        if self.sharded:
+            last = comm.broadcast_object(self.world, last)
         if last is None or last < self.step:
             # nothing in the log reaches this trainer's state by replay:
             # anchor the stream here so subscribers have a join point
@@ -465,9 +518,11 @@ class Session:
         — what replicas join from and resync to (the spec embedded, as in a
         ckpt_dir checkpoint)."""
         path = log.bootstrap_path(self.step)
-        if not os.path.exists(path):
-            ckpt_lib.save(path, self._state(), step=self.step,
-                          spec=self.spec)
+        exists = os.path.exists(path)
+        if self.sharded:
+            exists = comm.broadcast_object(self.world, exists)
+        if not exists:
+            self._write_state(path)
         return path
 
     @classmethod
@@ -504,18 +559,23 @@ class Session:
     def serve_source(self) -> Dict[str, torch.Tensor]:
         """THE parameter tree serve() uses, in priority order: the injected
         serving tree (``set_serve_params``), else the live training tree,
-        else a fresh init from ``spec.seed``."""
+        else a fresh init from ``spec.seed``. On a 'model' axis: this
+        rank's shards of it (the fresh init drawn whole and sharded as the
+        training state is)."""
         if self._serve_src is not None:
             return self._serve_src
         if self._tr is not None:
             return self._tr["params"]
-        return model_lib.init_params(
-            self.cfg, torch.Generator().manual_seed(self.spec.seed),
-            self.device)
+        gen = torch.Generator().manual_seed(self.spec.seed)
+        if self.tp is None:
+            return model_lib.init_params(self.cfg, gen, self.device)
+        return self._shard(model_lib.init_params(self.cfg, gen, "cpu"))
 
     def set_serve_params(self, params: Dict[str, torch.Tensor]) -> None:
-        """Inject the tree serve() must use from now on."""
-        self._serve_src = params
+        """Inject the tree serve() must use from now on: a whole tree (the
+        single-device layout); on a 'model' axis this rank keeps its
+        shards of it."""
+        self._serve_src = self._shard(params)
         self._params_changed()
 
     def _params_changed(self) -> None:
@@ -555,29 +615,47 @@ class Session:
         row's first token from its last real position, so right padding
         never reaches it. ``decode_hook(i)`` runs before decode step i; if
         it changes the served tree (``set_serve_params``), the remaining
-        steps decode with the new tree."""
-        self._refuse_sharded("serve")
+        steps decode with the new tree.
+
+        On several ranks every rank calls it with the same arguments, and
+        each serves its part, as the reference's Session on its mesh: its
+        block of the rows over the data axes where B divides them (else
+        every row, ``shardings.serve_rows``), on its shards of the params
+        and its slice of the cache (``model.init_cache`` under the
+        Session's ``tp``: its kv heads, d_inner or SSM heads). The
+        generated tokens are gathered over the data axes, so every rank
+        returns the (B, decode_steps+1) array; the times are the first
+        rank's wall clock over the global B; ``cache_bytes`` is the global
+        cache's and ``local_cache_bytes`` this rank's slice's.
+
+        A config whose head padding expands the kv heads is refused
+        (``shardings.serve_refusal``)."""
         cfg = self.cfg
+        refusal = sh.serve_refusal(cfg)
+        if refusal is not None:
+            raise ValueError(refusal)
         if tokens is None:
             tokens = torch.randint(
                 0, cfg.vocab_size, (batch, prompt_len),
                 generator=torch.Generator().manual_seed(self.spec.seed))
-        tokens = torch.as_tensor(tokens, device=self.device)
+        tokens = torch.as_tensor(tokens)
         B, S = tokens.shape
+        rows = sh.serve_rows(self.mesh, B) if self.sharded else None
+        tokens = sh.local_rows(tokens, rows).to(self.device)
         # the production padding of the frontend prefix, as the reference
         pad = pipe_lib.PREFIX_PAD_SPEC
         n_prefix = pipe_lib.prefix_token_count(cfg, pad_to=pad)
-        prefill = build_lib.build_prefill(cfg)
-        decode = build_lib.build_decode(cfg)
+        prefill = build_lib.build_prefill(cfg, self.tp, rows)
+        decode = build_lib.build_decode(cfg, self.tp, rows)
         params = self.serving_params()
         batch_in = pipe_lib.with_prefix_embeds(cfg, {"tokens": tokens},
                                                pad_to=pad)
         if prompt_lens is not None:
-            batch_in["prompt_lens"] = torch.as_tensor(prompt_lens,
-                                                      device=self.device)
-        cache = model_lib.init_cache(
-            cfg, B, build_lib.cache_len(S, decode_steps, n_prefix),
-            device=self.device)
+            batch_in["prompt_lens"] = sh.local_rows(
+                torch.as_tensor(prompt_lens), rows).to(self.device)
+        slots = build_lib.cache_len(S, decode_steps, n_prefix)
+        cache = model_lib.init_cache(cfg, tokens.shape[0], slots,
+                                     device=self.device, tp=self.tp)
 
         self._sync()
         t0 = time.time()
@@ -598,13 +676,22 @@ class Session:
         self._sync()
         t_decode = time.time() - t0
 
+        out = sh.gather_rows(rows, torch.cat(out_tokens, dim=1)
+                             .to(torch.int32))
+        if self.sharded:
+            t_prefill, t_decode = comm.broadcast_object(
+                self.world, (t_prefill, t_decode))
+        # the global cache's bytes: its shapes at the global B, whole over
+        # 'model', in the dtypes this run's cache ended in
+        whole = model_lib.init_cache(cfg, B, slots, device="meta")
         return {
-            "tokens": torch.cat(out_tokens, dim=1).to(torch.int32).cpu()
-            .numpy(),
+            "tokens": out.cpu().numpy(),
             "prefill_s": t_prefill, "decode_s": t_decode,
             "prefill_tok_s": B * S / max(t_prefill, 1e-9),
             "decode_tok_s": decode_steps * B / max(t_decode, 1e-9),
-            "cache_bytes": sum(t.numel() * t.element_size()
-                               for t in cache.values()),
+            "cache_bytes": sum(t.numel() * cache[k].element_size()
+                               for k, t in whole.items()),
+            "local_cache_bytes": sum(t.numel() * t.element_size()
+                                     for t in cache.values()),
         }
 

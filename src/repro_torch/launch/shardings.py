@@ -37,6 +37,12 @@ block of the split dim, made contiguous (:func:`shard_leaf`), and the
 EF round compresses that shard as a leaf of its own, as the reference's
 shard_map does. :func:`shard_tree` and :func:`unshard_tree` map a state
 tree between the two layouts, a leaf at a time.
+
+Serving (the reference's ``batch_pspecs`` and ``cache_pspecs``): the
+prompt rows split over the data axes where B divides them
+(:func:`serve_rows`, :func:`local_rows`, :func:`gather_rows`), each
+rank's cache its rows and its slice of the 'model' axis
+(:func:`cache_pspecs`); :func:`serve_refusal` names what serving refuses.
 """
 from __future__ import annotations
 
@@ -120,6 +126,80 @@ def zero_refusal(cfg, mesh, plan: ShardPlan) -> Optional[str]:
             "standing facts: the reference's pod + zero fault). It runs "
             "where a pod has one data rank, or with "
             "state_sharding='client'")
+
+
+def serve_refusal(cfg) -> Optional[str]:
+    """Why ``Session.serve`` refuses this config, or None. Head padding
+    that MHA-expands the kv heads (``cfg.eff_heads``) is a training layout:
+    the reference's ``init_cache`` keeps ``num_kv_heads`` while its padded
+    pass writes the expanded heads, and its serve fails on every mesh. The
+    port refuses it by name, on one rank and on many (ROADMAP Queue 3,
+    standing facts); padding that expands nothing serves as the unpadded
+    config does."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if cfg.eff_heads == (H, KV):
+        return None
+    he, kve = cfg.eff_heads
+    return (f"serving {cfg.name} with tp_pad_heads={cfg.tp_pad_heads} is "
+            f"refused: the padding expands its {H} q / {KV} kv heads to "
+            f"{he} / {kve}, and the reference's serve fails there with "
+            "'TypeError: dynamic_update_slice update shape ... for operand "
+            "shape ...' (its init_cache keeps num_kv_heads while the padded "
+            "pass writes the expanded heads; ROADMAP Queue 3, standing "
+            "facts). Serve the spec with tp_pad_heads=0")
+
+
+def serve_rows(mesh, global_batch: int) -> Optional[comm.Axes]:
+    """Where serving's prompt rows go (the reference's ``batch_pspecs``):
+    over the mesh's data axes ('pod' and 'data', whatever the client
+    granularity) when ``global_batch`` divides their size, rank ``index``
+    of the group serving the contiguous block ``index`` of the rows. None
+    when it does not (every data rank serves every row, as the
+    reference's ``b_ax = None``) or the group is this rank alone."""
+    axes = mesh.axes(mesh.client_axes("group"))
+    if axes.size == 1 or global_batch % axes.size:
+        return None
+    return axes
+
+
+def local_rows(x: torch.Tensor, rows: Optional[comm.Axes]) -> torch.Tensor:
+    """This rank's block of x's leading (row) dim under ``serve_rows``."""
+    if rows is None:
+        return x
+    n = x.shape[0] // rows.size
+    return x[rows.index * n:(rows.index + 1) * n]
+
+
+def gather_rows(rows: Optional[comm.Axes], x: torch.Tensor) -> torch.Tensor:
+    """The global rows, every rank's block in rank order, on every rank."""
+    if rows is None:
+        return x
+    return comm.all_gather(rows, x.contiguous()).flatten(0, 1)
+
+
+def cache_pspecs(cfg, tp, rows: Optional[comm.Axes]) -> Dict[str, Spec]:
+    """Each cache leaf's split in the port's layout (``model.init_cache``
+    under ``tp``), as the reference's ``cache_pspecs``: 'data' on the batch
+    dim where ``serve_rows`` splits it, 'model' on the kv heads where the
+    pass splits them, on an SSM state's d_inner or heads, and on a hybrid
+    conv state (this rank's d_inner columns, then B and C's 2N whole). The
+    reference splits a cache's sequence over 'model' (or every axis)
+    where the kv heads (or the rows) do not split; the port keeps the
+    slots whole there (ROADMAP Queue 1): a memory layout, the same
+    result."""
+    b = "data" if rows is not None else None
+    kv = "model" if tp is not None and tp.kv else None
+    di = "model" if tp is not None and tp.d_inner else None
+    attn = (None, b, None, kv, None)
+    if cfg.family == "ssm":
+        return {"ssm": (None, b, di, None), "conv": (None, b, None, di)}
+    if cfg.family == "hybrid":
+        return {"ssm": (None, b, di, None, None), "conv": (None, b, None, di),
+                "k_attn": attn, "v_attn": attn}
+    if cfg.local_global:
+        return {k: attn for k in ("k_local", "v_local", "k_global",
+                                  "v_global")}
+    return {"k": attn, "v": attn}
 
 
 def params_pspecs(cfg, mesh) -> Dict[str, Spec]:

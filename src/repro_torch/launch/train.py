@@ -47,6 +47,14 @@ src/repro/launch/train.py):
       --downlink-carrier fused_quant4 --device cpu --steps 3 \
       --coordinator localhost:29511 --num-processes 32 --process-id 0
 
+  # the same world publishing for a serving fleet: process 0 writes the
+  # records and a bootstrap every 2 steps (all four take the flags):
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --spec results/specs/fused_quant8_overlap.json --smoke --seq 64 \
+      --downlink-carrier fused_quant4 --device cpu --steps 3 \
+      --publish-stream /path/to/wire --bootstrap-every 2 \
+      --coordinator localhost:29511 --num-processes 4 --process-id 0
+
   # one EF client a pod (--granularity pod): on 4 processes the multi_pod
   # mesh is (pod 2, data 2, model 1); each pod's rows are split over its 2
   # data ranks, their gradient shares summed, the round over 'pod'
@@ -73,7 +81,9 @@ experiment).
 
 ``--publish-stream DIR`` appends each step's downlink wire records to a
 wire stream (core/stream.py) with a bootstrap checkpoint to join from, and
-one more every ``--bootstrap-every`` steps; ``--metrics-out FILE`` writes
+one more every ``--bootstrap-every`` steps (with ``--coordinator`` every
+process passes both flags and the first writes, the trees in the
+single-device layout a replica of one device joins); ``--metrics-out FILE`` writes
 the logged steps' loss and g_norm as JSON.
 """
 from __future__ import annotations

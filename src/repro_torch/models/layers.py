@@ -242,29 +242,34 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     The cache tensors are written IN PLACE (the reference returns updated
     copies). Under ``tp`` with the heads split, ``p`` holds this rank's
     heads: they run between f on the normed input and g on the output
-    projection (Megatron's column- and row-parallel pair).
+    projection (Megatron's column- and row-parallel pair). A cache holds
+    this rank's kv heads where ``tp.kv`` splits them, else every kv head:
+    then all of them are written and the local q heads read theirs.
     """
     h = rms_norm(x, p["norm"], eps)
     split = tp is not None and tp.heads
     hs = comm.copy_to(tp.axes, h) if split else h
     q = torch.einsum("bsd,dnh->bsnh", hs, p["wq"].to(h.dtype))
+    sel = slice(None)
     if split and not tp.kv:
-        k, v = _kv_for_local_heads(tp.axes, h, p, q.shape[2])
+        k, v, sel = _kv_for_local_heads(tp.axes, h, p, q.shape[2])
     else:
         k = torch.einsum("bsd,dnh->bsnh", hs, p["wk"].to(h.dtype))
         v = torch.einsum("bsd,dnh->bsnh", hs, p["wv"].to(h.dtype))
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
+    kl, vl = k[:, :, sel], v[:, :, sel]        # the kv heads q reads
     if cache is None:
-        out = chunked_attention(q, k, v, chunk=chunk, window=window, cap=cap)
+        out = chunked_attention(q, kl, vl, chunk=chunk, window=window,
+                                cap=cap)
     elif pos is None:
         # K7 has no window, no soft cap and only some head dims; the other
         # layers prefill as the reference prefills every layer
         if prefill_runs_flash(q.shape[-1], window, cap):
-            out = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=True)
+            out = ops.flash_attention(q.contiguous(), kl.contiguous(),
+                                      vl.contiguous(), causal=True)
         else:
-            out = chunked_attention(q, k, v, chunk=chunk, window=window,
+            out = chunked_attention(q, kl, vl, chunk=chunk, window=window,
                                     cap=cap)
         S, slots = k.shape[1], cache[0].shape[1]
         if window is not None and S > slots:
@@ -279,8 +284,8 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
         slot = pos if window is None else pos % cache[0].shape[1]
         cache[0][:, slot] = k[:, 0]
         cache[1][:, slot] = v[:, 0]
-        out = decode_attention(q, cache[0], cache[1], pos, window=window,
-                               cap=cap)
+        out = decode_attention(q, cache[0][:, :, sel], cache[1][:, :, sel],
+                               pos, window=window, cap=cap)
     out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(out.dtype))
     return comm.reduce_from(tp.axes, out) if split else out
 
@@ -291,8 +296,8 @@ def _kv_for_local_heads(axes: comm.Axes, h: torch.Tensor,
     (granite's one kv head, gemma2's 8 on 16 ranks): projected whole, as
     every rank holds ``wk``/``wv`` whole, then f (the local heads' share of
     their gradient summed over the axis, so the replicated weights get
-    their whole gradient), then the kv heads this rank's q heads read,
-    grouped as the local heads are."""
+    their whole gradient); and the slice of the kv heads this rank's q
+    heads read, grouped as the local heads are."""
     k = torch.einsum("bsd,dnh->bsnh", h, p["wk"].to(h.dtype))
     v = torch.einsum("bsd,dnh->bsnh", h, p["wv"].to(h.dtype))
     k, v = comm.copy_to(axes, k), comm.copy_to(axes, v)
@@ -306,7 +311,7 @@ def _kv_for_local_heads(axes: comm.Axes, h: torch.Tensor,
     else:
         raise ValueError(f"{h_local} local q heads do not group over "
                          f"{KV} kv heads of group {G}")
-    return k[:, :, first:first + n], v[:, :, first:first + n]
+    return k, v, slice(first, first + n)
 
 
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float,

@@ -37,6 +37,13 @@ layer's ``ssm`` state (f32) and ``conv`` state, and the hybrid's
 whole padded row: ``prompt_lens`` picks the first token's logits, and a
 right-padded row's states go on to include its padding, as the
 reference's do.
+
+Serving on a 'model' axis (``prefill``/``decode_step`` under ``tp``) runs
+the same pass over this rank's shards and cache slice (``init_cache``):
+its kv heads where they split, else all of them with the local q heads
+reading theirs; its d_inner and SSM heads. Under a split vocabulary the
+logits' columns are gathered over the axis. ``split``: the data group the
+serving rows are split over, which MoE routes over.
 """
 from __future__ import annotations
 
@@ -528,6 +535,18 @@ def _logits(cfg: ArchConfig, embed: torch.Tensor, h: torch.Tensor
     return L.softcap(lg, cfg.final_softcap)
 
 
+def _serve_logits(cfg: ArchConfig, embed: torch.Tensor, h: torch.Tensor,
+                  tp: Optional[L.TensorParallel] = None) -> torch.Tensor:
+    """Serving's f32 logits (:func:`_logits`); under ``tp`` with the
+    vocabulary split each rank's columns are gathered over the axis in
+    vocabulary order, so every rank holds the whole row and its argmax is
+    the single-device one, the earliest index winning a tie."""
+    lg = _logits(cfg, embed, h)
+    if tp is not None and tp.vocab:
+        lg = comm.gather_last(tp.axes, lg)
+    return lg
+
+
 def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                batch: Dict[str, torch.Tensor],
                tp: Optional[L.TensorParallel] = None,
@@ -593,7 +612,8 @@ def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
-               dtype: torch.dtype = torch.bfloat16, device="cpu"
+               dtype: torch.dtype = torch.bfloat16, device="cpu",
+               tp: Optional[L.TensorParallel] = None
                ) -> Dict[str, torch.Tensor]:
     """Zero cache, bfloat16 by default as in the reference. The attention
     families: k and v (L, B, S, KV, hd), S = min(max_seq, window) under a
@@ -604,9 +624,22 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
     d_inner); ``hybrid``: the f32 state (L, B, heads, head_dim, N), the
     conv state (L, B, k-1, d_inner + 2N), and the shared block's k_attn
     and v_attn (G, B, S, KV, hd), a slot a group. Separate tensors, since
-    the port writes them in place."""
+    the port writes them in place.
+
+    Under ``tp`` (``tp_plan``) the cache is this rank's slice of the
+    'model' axis, as the tensor-parallel pass reads it: KV its kv heads
+    where ``tp.kv`` splits them (else every kv head), d_inner and the
+    Mamba2 heads its block where ``tp.d_inner`` splits them; a hybrid
+    conv state holds this rank's d_inner columns, then the 2N columns of
+    B and C whole (the order ``ssm.mamba2_apply`` splits it in).
+    ``batch_size`` is the rows this rank serves (launch/shardings.py
+    ``serve_rows``)."""
     _check_family(cfg)
+    n_tp = 1 if tp is None else tp.axes.size
     KV, hd = cfg.num_kv_heads, cfg.head_dim_
+    if tp is not None and tp.kv:
+        KV //= n_tp
+    di_split = n_tp if tp is not None and tp.d_inner else 1
     ring = min(max_seq, cfg.sliding_window) if cfg.sliding_window \
         else max_seq
 
@@ -614,7 +647,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
         return torch.zeros((n, batch_size, S, KV, hd), dtype=dtype,
                            device=device)
     if cfg.family in ("ssm", "hybrid"):
-        n, Di, N = cfg.num_layers, cfg.d_inner, cfg.ssm_state
+        n, Di, N = cfg.num_layers, cfg.d_inner // di_split, cfg.ssm_state
         if cfg.family == "ssm":
             ssm, width = (n, batch_size, Di, N), Di
         else:
@@ -639,7 +672,9 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params: Dict[str, torch.Tensor],
-            batch: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor],
+            tp: Optional[L.TensorParallel] = None,
+            split: Optional[comm.Axes] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the whole prompt; returns (last-token logits (B,1,V) f32,
     the cache with slots [0, S) filled, or a ring with the last positions
@@ -650,12 +685,19 @@ def prefill(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     (optional, (B,) true lengths) takes each row's logits at its last REAL
     token, ``P + len - 1``, instead of the rightmost column: right padding
     (id 0, a legal token) never reaches the first generated token, since
-    causal attention keeps that position blind to the padding after it."""
+    causal attention keeps that position blind to the padding after it.
+
+    ``tp``: the tensor-parallel pass over this rank's shards and cache
+    slice (:func:`init_cache`); the logits come out whole on every rank.
+    ``split``: the data group the batch's rows are split over, the batch
+    this rank's contiguous block of them; MoE routes over the whole
+    call's tokens (models/moe.py)."""
     h, n_prefix = _embed(cfg, params, batch["tokens"],
-                         batch.get("prefix_embeds"))
+                         batch.get("prefix_embeds"), tp=tp)
     B, T = h.shape[:2]
     positions = torch.arange(T, device=h.device)[None].expand(B, T)
-    h, _ = _run_stack(cfg, params, h, positions, cache=cache)
+    h, _ = _run_stack(cfg, params, h, positions, cache=cache, tp=tp,
+                      split=split)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     lens = batch.get("prompt_lens")
     if lens is None:
@@ -663,23 +705,30 @@ def prefill(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     else:
         idx = n_prefix + lens.to(device=h.device, dtype=torch.long) - 1
         h_last = h[torch.arange(B, device=h.device), idx][:, None]
-    return _logits(cfg, params["embed"].to(h.dtype), h_last), cache
+    return _serve_logits(cfg, params["embed"].to(h.dtype), h_last,
+                         tp), cache
 
 
 def _decode_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
-                  h: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor]
-                  ) -> torch.Tensor:
+                  h: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor],
+                  tp: Optional[L.TensorParallel] = None,
+                  split: Optional[comm.Axes] = None) -> torch.Tensor:
     positions = torch.full((h.shape[0], 1), pos, device=h.device)
-    return _run_stack(cfg, params, h, positions, cache=cache, pos=pos)[0]
+    return _run_stack(cfg, params, h, positions, cache=cache, pos=pos,
+                      tp=tp, split=split)[0]
 
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                 cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                pos: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                pos: int, tp: Optional[L.TensorParallel] = None,
+                split: Optional[comm.Axes] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. tokens: (B,1); pos: the tokens' absolute position.
-    Returns (logits (B,1,V) f32, the cache with slot ``pos`` written)."""
-    h, _ = _embed(cfg, params, tokens)
-    h = _decode_stack(cfg, params, h, pos, cache)
+    Returns (logits (B,1,V) f32, the cache with slot ``pos`` written).
+    ``tp`` and ``split`` as in :func:`prefill` (MoE's capacity from the
+    step's B tokens over the data group)."""
+    h, _ = _embed(cfg, params, tokens, tp=tp)
+    h = _decode_stack(cfg, params, h, pos, cache, tp, split)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params["embed"].to(h.dtype), h), cache
+    return _serve_logits(cfg, params["embed"].to(h.dtype), h, tp), cache

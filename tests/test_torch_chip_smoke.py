@@ -698,16 +698,25 @@ def test_phase_md4_spawns_its_ranks_and_compares(monkeypatch, capsys):
     above MD_TOL. MD4-pod-clients runs one client a pod on (pod 2, data
     2), its client state equal on each pod's data ranks, with the data
     group's all-reduce reported; its fault, the shares unreduced, is
-    caught."""
+    caught. MD4-publish publishes from the first rank (fused_quant4 down)
+    and a single-device replica joined from the stream holds the
+    trainer's params bit for bit (md4_phase fails otherwise)."""
     cs = _importable_chip_smoke(monkeypatch)
     runs = [(label, name, dict(over, smoke=True, seq_len=32))
             for label, name, over in cs.MD4_RUNS
             if label != "MD4-multi_pod"]
     faults = [(label, name, dict(over, smoke=True, seq_len=32), fault)
               for label, name, over, fault in cs.MD4_FAULTS]
+    label, name, over, steps, _ = cs.MD4_PUBLISH
+    publish = (label, name, dict(over, smoke=True, seq_len=32), steps, None)
     cs.md4_phase(pt_session.Session, pt_spec, ops, runs=runs, device="cpu",
-                 faults=faults)
+                 faults=faults, publish=publish, cut=None)
     out = capsys.readouterr().out
+    # MD4-publish: its replica joined from the 4-rank stream, bit for bit
+    assert f"{label}: {steps} published step(s), record bytes " in out
+    assert "params bit for bit the trainer's" in out
+    for rank in range(cs.MD_RANKS):
+        assert f"{label} rank {rank}: mesh {{'data': 4, 'model': 1}}" in out
     assert "MD4: the overlap ring bit for bit the blocking gather" in out
     assert "MD4: every planted fault caught" in out
     for label, _, _, _ in faults:
@@ -742,10 +751,12 @@ def test_phase_mt_spawns_its_ranks_and_checks(monkeypatch, capsys):
     g_norm equal on every rank, the digests equal per 'model' coordinate
     (mt_phase fails otherwise); MT-pod-zero (pod clients and ZeRO on
     (pod 2, data 1, model 2)) bit for bit MT-padded's first step; then
-    MT-single on one device."""
+    MT-single on one device. MT-serve: the unpadded smollm and the SSM
+    runs serve on their 4 ranks after their step, against the
+    single-device serve of the same params."""
     cs = _importable_chip_smoke(monkeypatch)
-    _, losses = cs.mt_phase(ops, device="cpu", smoke=True, smoke_archs=(),
-                            smoke_pod=())
+    _, losses, served = cs.mt_phase(ops, device="cpu", smoke=True,
+                                    smoke_archs=(), smoke_pod=())
     cs.mt_single(pt_session.Session, pt_spec, losses, device="cpu",
                  smoke=True)
     out = capsys.readouterr().out
@@ -761,6 +772,17 @@ def test_phase_mt_spawns_its_ranks_and_checks(monkeypatch, capsys):
                     f"a rank {MT_SMOKE_SPLIT[label]}" in out
     assert "MT-single (one device, 2 clients, no 'model' axis): losses" \
         in out
+    # MT-serve: each serving run's tokens equal on every rank and its
+    # prefill against one device within the bound (mt_serve_checks fails
+    # otherwise)
+    B, S, steps = cs.MT_SERVE_SMOKE
+    for label in cs.MT_SERVE:
+        assert f"{label} serve: tokens equal on every rank; against one " \
+            "device" in out
+        for rank in range(4):
+            assert f"{label} serve rank {rank}: B {B} × {S}, {steps} " \
+                "decode steps" in out
+    assert sorted(served) == sorted(cs.MT_SERVE)      # none on the CPU
     assert losses["MT-pod-zero"] == losses["MT-padded"][:1]
     assert "MT-pod-zero: pod clients with state sharding 'zero' on " \
         "{'pod': 2, 'data': 1, 'model': 2}" in out

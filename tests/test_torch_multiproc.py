@@ -13,7 +13,14 @@ timeout of its own):
   bit for bit the uninterrupted run (tests/test_overlap.py:118), its
   checkpoint written once, with the keys, shapes and spec_hash of the
   single-device layout;
-- ``serve`` and ``publish_to`` refused on more than one rank.
+- ``serve`` on the 4 ranks (B dividing the data ranks, B not dividing
+  them, ``prompt_lens``) equal to the port's single-device serve of the
+  same params, with planted faults (the rows not split, the rows gathered
+  out of order) caught; a spec whose head padding expands the kv heads
+  refused by name, on one rank and on four;
+- ``publish_to`` with a fused_quant4 downlink: a single-device replica
+  joined from the 4-rank stream is bit for bit on the trainer's params;
+  the training CLI with ``--coordinator`` and ``--publish-stream``.
 """
 import dataclasses
 import json
@@ -49,6 +56,29 @@ SESSION = shipped("fused_quant8_overlap", smoke=True, seq_len=32)
 RESUME = dict(pt_spec.RunSpec(smoke=True, seq_len=32, mesh="pod",
                               clients=N, carrier="quant8",
                               overlap=True).to_dict())
+# serving on the 4 ranks: (B, prompt_lens), prompts of SERVE_S, SERVE_STEPS
+# decode steps; B 8 gives each rank 2 rows, B 3 leaves every rank all rows
+SERVE_CASES = {"dividing": (8, None), "non-dividing": (3, None),
+               "prompt_lens": (4, [5, 16, 9, 12])}
+SERVE_S, SERVE_STEPS = 16, 3
+# planted faults of the row split: each rank serves all rows into a cache
+# of its block's size; the gathered rows put in reverse rank order
+SERVE_FAULTS = ("rows-unsplit", "rows-reordered")
+# publishing on the 4 ranks: fused_quant4 down, 2 steps
+PUBLISH = dict(SESSION, downlink_carrier="fused_quant4")
+PUBLISH_STEPS = 2
+# the training CLI on the 4 ranks, publishing with a bootstrap every step
+CLI_STEPS = 2
+
+
+def serve_prompts(cfg_vocab, B):
+    """The prompts of a serving case (the same in every process)."""
+    return np.random.RandomState(B).randint(0, cfg_vocab, (B, SERVE_S))
+
+
+def _padded(**fields):
+    return pt_spec.RunSpec(**dict(dict(smoke=True, seq_len=32,
+                                       tp_pad_heads=2), **fields))
 
 
 # ---------------------------------------------------------------------------
@@ -152,22 +182,51 @@ def _on_four_ranks(monkeypatch, geometry):
 ])
 def test_what_stays_refused_names_the_slice_that_brings_it(
         monkeypatch, tmp_path, fields, needs):
-    """Client granularity 'pod' and state sharding 'zero' were refused at
-    construction until their slice; the spec now takes them, and what
-    stays refused on more than one rank, ``serve`` and ``publish_to``,
-    names the slice that brings it (ROADMAP Queue 1 item 3)."""
+    """``serve`` and ``publish_to`` on more than one rank arrived with
+    their slice (ROADMAP Queue 1 item 3): no rank refuses them as later
+    work. What stays refused is serving a config whose head padding
+    expands its kv heads, as the reference's serve fails there: named
+    (the reference's TypeError, the standing fact), on a 4-rank mesh of
+    either granularity, before any cache or training state is built; a
+    publishing Session's serve too."""
     from repro_torch.launch.session import Session
-    spec = pt_spec.RunSpec(**dict(fields, mesh="multi_pod", smoke=True,
-                                  global_batch=32, seq_len=32))
+    spec = _padded(**dict(fields, mesh="multi_pod", global_batch=32))
     _on_four_ranks(monkeypatch, (2, 2, 1))
     sess = Session(spec, device="cpu")
     assert sess.sharded and sess.n_clients == \
         (2 if spec.client_granularity == "pod" else 4)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
-        if needs == "serve":
-            sess.serve(batch=2, prompt_len=8, decode_steps=1)
-        else:
-            sess.publish_to(str(tmp_path / "wire"))
+    if needs == "publish_to":
+        sess._publisher = object()       # as publish_to leaves it
+    with pytest.raises(ValueError) as err:
+        sess.serve(batch=2, prompt_len=8, decode_steps=1)
+    msg = str(err.value)
+    assert "tp_pad_heads=2" in msg and "TypeError: dynamic_update_slice" \
+        in msg and "ROADMAP Queue 3" in msg
+    assert "later slice" not in msg and sess._tr is None
+    assert not hasattr(Session, "_refuse_sharded")
+
+
+def test_serve_refuses_expanded_padding_on_one_rank_as_the_reference():
+    """On one rank too: the reference's own serve of the padded smoke
+    config fails with its TypeError, and the port's refuses it by name;
+    padding that expands nothing (2 on granite's 4 q heads and 1 kv head
+    expands them, 1 on smollm's expands nothing) serves as the unpadded
+    config does."""
+    from repro.launch import session as jax_session
+    from repro.launch import spec as jax_spec
+    from repro_torch.launch.session import Session
+    with pytest.raises(TypeError, match="dynamic_update_slice"):
+        jax_session.Session(jax_spec.RunSpec(
+            smoke=True, seq_len=32, tp_pad_heads=2)).serve(
+                batch=2, prompt_len=8, decode_steps=1)
+    sess = Session(_padded(), device="cpu")
+    with pytest.raises(ValueError, match="TypeError: dynamic_update_slice"):
+        sess.serve(batch=2, prompt_len=8, decode_steps=1)
+    one = Session(_padded(tp_pad_heads=1), device="cpu", dtype="float32")
+    plain = Session(_padded(tp_pad_heads=0), device="cpu", dtype="float32")
+    np.testing.assert_array_equal(
+        one.serve(batch=2, prompt_len=8, decode_steps=2)["tokens"],
+        plain.serve(batch=2, prompt_len=8, decode_steps=2)["tokens"])
 
 
 @pytest.mark.parametrize("pad", [2, 16])
@@ -301,15 +360,17 @@ def _rank_sessions(rank, ref_ckpt, workdir):
         out["trajectory"].append((float(m["loss"]), float(m["g_norm"])))
         out["digests"].append(sh.replicated_digest(sess.params,
                                                    sess.ef_state))
-    for what, fn in (("serve", lambda: sess.serve(batch=1, prompt_len=4,
-                                                  decode_steps=1)),
-                     ("publish_to", lambda: sess.publish_to(
-                         os.path.join(workdir, "wire")))):
-        try:
-            fn()
-            out[what] = None
-        except ValueError as e:
-            out[what] = str(e)
+    out["serve_params"] = {k: v.numpy().copy()
+                           for k, v in sess.params.items()}
+    out["serve"] = _rank_serve(sess)
+    padded = Session(pt_spec.RunSpec.from_dict(dict(SESSION, tp_pad_heads=2)),
+                     device="cpu")
+    try:
+        padded.serve(batch=4, prompt_len=8, decode_steps=1)
+        out["padded"] = None
+    except ValueError as e:
+        out["padded"] = str(e)
+    out["publish"] = _rank_publish(workdir)
 
     spec = pt_spec.RunSpec.from_dict(RESUME)
     unint = Session(spec, device="cpu")
@@ -328,7 +389,56 @@ def _rank_sessions(rank, ref_ckpt, workdir):
     out["resume_equal"] = sorted(a) == sorted(b) and all(
         torch.equal(a[k], b[k]) for k in a)
     out["resume_loss"] = [r["loss"] for r in unint.history]
+    # last: the CLI leaves the world when it ends
+    from repro_torch.launch import train
+    train.main(["--spec", os.path.join(SPECS, "fused_quant8_overlap.json"),
+                "--smoke", "--seq", "32", "--device", "cpu", "--steps",
+                str(CLI_STEPS), "--log-every", "1", "--downlink-carrier",
+                "fused_quant4", "--publish-stream",
+                os.path.join(workdir, "cli_wire"), "--bootstrap-every", "1",
+                "--coordinator", key[0], "--num-processes", str(N),
+                "--process-id", str(rank)])
     return out
+
+
+def _rank_serve(sess):
+    """Each serving case on the 4 ranks, then each planted fault on the
+    dividing case: the tokens, or what the fault raised."""
+    from repro_torch.launch import session as pt_session
+    out = {}
+    vocab = sess.cfg.vocab_size
+    for name, (B, lens) in SERVE_CASES.items():
+        r = sess.serve(tokens=torch.tensor(serve_prompts(vocab, B)),
+                       prompt_lens=lens, decode_steps=SERVE_STEPS)
+        out[name] = {k: r[k] for k in ("tokens", "cache_bytes",
+                                       "local_cache_bytes")}
+    saved = pt_session.sh.local_rows, pt_session.sh.gather_rows
+    faults = {"rows-unsplit": (lambda x, rows: x, saved[1]),
+              "rows-reordered": (saved[0], lambda rows, x: saved[1](
+                  rows, x).flip(0) if rows is not None else x)}
+    B, _ = SERVE_CASES["dividing"]
+    for name in SERVE_FAULTS:
+        pt_session.sh.local_rows, pt_session.sh.gather_rows = faults[name]
+        try:
+            out[name] = sess.serve(
+                tokens=torch.tensor(serve_prompts(vocab, B)),
+                decode_steps=SERVE_STEPS)["tokens"]
+        except Exception as e:
+            out[name] = f"{type(e).__name__}: {e}"
+        finally:
+            pt_session.sh.local_rows, pt_session.sh.gather_rows = saved
+    return out
+
+
+def _rank_publish(workdir):
+    """PUBLISH on the 4 ranks: publish_to, PUBLISH_STEPS steps; the params
+    after them."""
+    from repro_torch.launch.session import Session
+    sess = Session(pt_spec.RunSpec.from_dict(PUBLISH), device="cpu")
+    sess.publish_to(os.path.join(workdir, "wire"))
+    for _ in range(PUBLISH_STEPS):
+        sess.step_once()
+    return {k: v.numpy().copy() for k, v in sess.params.items()}
 
 
 @pytest.fixture(scope="module")
@@ -344,7 +454,7 @@ def sessions(tmp_path_factory):
     ckpt = jsess.save(str(tmp / "step_0.npz"))
     want = jsess.train(STEPS, log_every=1)
     ranks = multiproc.spawn(_rank_sessions, N, str(tmp / "mp"),
-                            args=(ckpt, str(tmp)), timeout_s=240)
+                            args=(ckpt, str(tmp)), timeout_s=360)
     return want, ranks, tmp
 
 
@@ -377,10 +487,100 @@ def test_replicated_state_is_bit_identical_on_every_rank_every_step(
 
 
 def test_serving_and_publishing_are_refused_on_several_ranks(sessions):
+    """Neither is refused on 4 ranks any more: every rank served every
+    case and published; what every rank refuses is the padded config's
+    serve, by name (the reference's serve fails there on (data 4, model
+    1) too)."""
     _, ranks, _ = sessions
     for r in ranks:
-        for what in ("serve", "publish_to"):
-            assert r[what] is not None and "later slice" in r[what]
+        assert sorted(r["serve"]) == sorted([*SERVE_CASES, *SERVE_FAULTS])
+        assert r["publish"]
+        assert "TypeError: dynamic_update_slice" in r["padded"]
+        assert "later slice" not in r["padded"]
+
+
+def _single_serve(params, B, lens):
+    from repro_torch.launch.session import Session
+    one = Session(pt_spec.RunSpec.from_dict(dict(SESSION, mesh="smoke",
+                                                 clients=N)), device="cpu",
+                  dtype="float32")
+    one.set_serve_params({k: torch.tensor(v) for k, v in params.items()})
+    return one.serve(tokens=torch.tensor(serve_prompts(one.cfg.vocab_size,
+                                                       B)),
+                     prompt_lens=lens, decode_steps=SERVE_STEPS)
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_four_rank_serve_equals_the_single_device_serve(sessions, case):
+    """The trained 4-rank Session serves (data 4, model 1): B 8 gives each
+    rank its 2 rows (their cache 2 rows), B 3 every rank all rows, and
+    ``prompt_lens`` travel with each rank's rows. Every rank returns the
+    port's single-device serve of the same params and prompts, token for
+    token, and its global cache_bytes."""
+    _, ranks, _ = sessions
+    B, lens = SERVE_CASES[case]
+    want = _single_serve(ranks[0]["serve_params"], B, lens)
+    for r in ranks:
+        got = r["serve"][case]
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        assert got["cache_bytes"] == want["cache_bytes"]
+        split = B % N == 0
+        assert got["local_cache_bytes"] * (N if split else 1) == \
+            want["cache_bytes"]
+
+
+@pytest.mark.parametrize("fault", SERVE_FAULTS)
+def test_four_rank_serve_planted_faults_are_caught(sessions, fault):
+    """Planted: every rank serving all rows into a cache of its block's
+    size fails, and rows gathered out of rank order differ from the
+    single-device serve, so the test above catches each."""
+    _, ranks, _ = sessions
+    B, _ = SERVE_CASES["dividing"]
+    want = _single_serve(ranks[0]["serve_params"], B, None)["tokens"]
+    for r in ranks:
+        got = r["serve"][fault]
+        assert isinstance(got, str) or not np.array_equal(got, want), fault
+
+
+def test_four_rank_stream_joins_a_single_device_replica_bit_for_bit(
+        sessions):
+    """fused_quant8 up and fused_quant4 down on the 4 ranks, published:
+    the first rank wrote the step-0 bootstrap in the single-device layout
+    and one record a step; a replica of one device (launch/fleet.py)
+    joins from the stream and, synced, holds the trainer's params bit for
+    bit."""
+    from repro_torch.launch import fleet
+    _, ranks, tmp = sessions
+    wire = str(tmp / "wire")
+    assert sorted(os.listdir(os.path.join(wire, "bootstrap"))) == \
+        ["step_00000000.npz"]
+    assert len(os.listdir(os.path.join(wire, "records"))) == PUBLISH_STEPS
+    rep = fleet.ServeReplica(wire, device="cpu")
+    rep.sync()
+    assert rep.step == PUBLISH_STEPS
+    want = ranks[0]["publish"]
+    assert sorted(rep.params) == sorted(want)
+    for k, v in rep.params.items():
+        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+    for r in ranks[1:]:
+        assert all(np.array_equal(r["publish"][k], want[k]) for k in want)
+
+
+def test_train_cli_publishes_with_a_coordinator(sessions):
+    """``python -m repro_torch.launch.train --coordinator … --publish-stream
+    DIR --bootstrap-every 1`` on the 4 ranks: a bootstrap every step and
+    one record a step, written once; a replica joins and syncs to the
+    last step."""
+    from repro_torch.launch import fleet
+    _, _, tmp = sessions
+    wire = str(tmp / "cli_wire")
+    assert sorted(os.listdir(os.path.join(wire, "bootstrap"))) == \
+        [f"step_{i:08d}.npz" for i in range(CLI_STEPS + 1)]
+    assert len(os.listdir(os.path.join(wire, "records"))) == CLI_STEPS
+    rep = fleet.ServeReplica(wire, device="cpu")
+    rep.sync()
+    assert rep.step == CLI_STEPS
+    assert all(bool(torch.isfinite(v).all()) for v in rep.params.values())
 
 
 def test_kill_and_resume_under_overlap_is_bit_for_bit(sessions):

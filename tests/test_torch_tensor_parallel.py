@@ -37,6 +37,7 @@ Mamba2 with its shared block in the client pass (with and without
 recompute), and one Mamba2 block on each 'model' pair with its split
 ``out_norm`` and ``conv_w`` gradient, sound and with planted faults.
 """
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -134,6 +135,22 @@ SESSIONS = {"session": SESSION,
                                    tp_pad_heads=0)}
 
 
+# serving at (data 2, model 2): f32, the same params and prompts in both
+# packages; B 4 splits over the 2 data ranks. smollm's 3 smoke heads
+# stay whole on each rank (its d_ff and vocabulary split), granite's 4 q
+# heads split over its 1 kv head (every rank caches the kv head whole),
+# olmoe's experts split and its routing spans the data ranks,
+# falcon-mamba's Mamba1 d_inner split (its in_proj product re-split each
+# token), zamba2's Mamba2 and shared block split
+SERVE_ARCHS = ("smollm-360m", "granite-34b", "olmoe-1b-7b",
+               "falcon-mamba-7b", "zamba2-1.2b")
+SERVE = {"B": 4, "S": 32, "steps": 4}
+# publishing at (data 2, model 2), 1 step: the dense downlink publishes,
+# the compressed one (SESSION's fused_quant4) is refused by the verify
+PUBLISH = {"dense": dict(SESSION, downlink_carrier="dense"),
+           "fused_quant4": SESSION}
+
+
 def _narrow_port():
     """The port's production geometry narrowed to (data 2, model 2)."""
     mesh_lib.PROD_DATA = DP
@@ -183,6 +200,20 @@ def _grad_inputs():
                 2 * DP, 8, cfg.d_model)).astype(np.float32)
         out[name] = {"params": {k: v.numpy() for k, v in params.items()},
                      "batch": batch}
+    return out
+
+
+def _serve_inputs():
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = _cfg(arch)
+        params = pt_model.init_params(
+            cfg, torch.Generator().manual_seed(sum(map(ord, arch))))
+        rng = np.random.RandomState(len(arch))
+        out[arch] = {"params": {k: v.numpy() for k, v in params.items()},
+                     "tokens": rng.randint(0, cfg.vocab_size,
+                                           (SERVE["B"], SERVE["S"]))
+                     .astype(np.int32)}
     return out
 
 
@@ -324,6 +355,89 @@ def _rank_session(workdir, ckpt0, spec_dict):
     return out
 
 
+def _serve_drops(sess, tokens):
+    """Serve ``tokens`` on ``sess`` (SERVE's decode steps), recording each
+    MoE call's dropped assignments among this rank's tokens (under a row
+    split ``dropped_frac`` is this rank's share of the call's)."""
+    from repro_torch.models import moe as pt_moe
+    drops, orig = [], pt_moe.moe_apply
+
+    def moe(p, x, **kw):
+        out, aux = orig(p, x, **kw)
+        split = kw.get("split")
+        n = x.shape[0] * x.shape[1] * kw["k"] * (split.size if split else 1)
+        drops.append(round(float(aux["dropped_frac"]) * n))
+        return out, aux
+    pt_moe.moe_apply = moe
+    try:
+        r = sess.serve(tokens=torch.tensor(tokens),
+                       decode_steps=SERVE["steps"])
+    finally:
+        pt_moe.moe_apply = orig
+    return dict(r, drops=drops)
+
+
+def _rank_serve(inp):
+    """Each serving arch on (data 2, model 2) from the same params and
+    prompts as the reference's: the tokens, cache bytes and MoE drops."""
+    from repro_torch.launch.session import Session
+    out = {}
+    for arch in SERVE_ARCHS:
+        spec = pt_spec.RunSpec.from_dict(dict(SESSION, arch=arch,
+                                              tp_pad_heads=0))
+        sess = Session(spec, device="cpu", dtype="float32")
+        sess.set_serve_params({k: torch.tensor(v) for k, v in
+                               inp["serve"][arch]["params"].items()})
+        r = _serve_drops(sess, inp["serve"][arch]["tokens"])
+        out[arch] = {k: r[k] for k in ("tokens", "cache_bytes",
+                                       "local_cache_bytes", "drops")}
+    return out
+
+
+@contextlib.contextmanager
+def _gather_skipped():
+    """A planted fault: the publishing rank's trees stay its own 'model'
+    shards (the gather into the single-device layout skipped)."""
+    from repro_torch.launch import session as pt_session
+    saved = pt_session.sh.unshard_tree
+    pt_session.sh.unshard_tree = \
+        lambda tree, pspecs, axes: tree if axes.index == 0 else None
+    try:
+        yield
+    finally:
+        pt_session.sh.unshard_tree = saved
+
+
+def _rank_publish(workdir, ckpt0):
+    """One published step of each PUBLISH spec from its initial
+    checkpoint, then the compressed one with the gather planted away:
+    what each raised (None: it published)."""
+    from repro_torch.launch.session import Session
+    out = {}
+    runs = [(name, spec, contextlib.nullcontext())
+            for name, spec in PUBLISH.items()]
+    runs.append(("gather-skipped", PUBLISH["fused_quant4"], _gather_skipped()))
+    for name, spec, fault in runs:
+        sess = Session(pt_spec.RunSpec.from_dict(spec), device="cpu",
+                       dtype="float32")
+        sess.restore_from(ckpt0[spec_key(spec)], allow_spec_mismatch=True)
+        sess.publish_to(os.path.join(workdir, f"wire_{name}"))
+        try:
+            with fault:
+                sess.step_once()
+            out[name] = None
+        except Exception as err:
+            out[name] = (type(err).__name__, str(err), sess.step)
+    out["dir"] = workdir
+    return out
+
+
+def spec_key(spec):
+    """The initial checkpoint a publish spec restores (SESSIONS' key)."""
+    return "session_dense" if spec["downlink_carrier"] == "dense" \
+        else "session"
+
+
 def _mamba2_block(cfg, p, x, tp=None):
     from repro_torch.models import ssm as ssm_lib
     return ssm_lib.mamba2_apply(p, x, cfg, tp=tp)[0]
@@ -427,6 +541,8 @@ def _rank_work(rank, inp_path, workdir, ckpt0):
     for name, spec in SESSIONS.items():
         out[name] = _rank_session(os.path.join(workdir, name), ckpt0[name],
                                   spec)
+    out["serve"] = _rank_serve(inp)
+    out["publish"] = _rank_publish(workdir, ckpt0)
     return out
 
 
@@ -535,6 +651,35 @@ def _reference_main(inp_path, ckpt0, out_path, workdir):
                      "npz": jsess.save(os.path.join(
                          workdir, f"ref_{name}_step_3.npz")),
                      "mesh": dict(jsess.mesh.shape)}
+
+    # serving on the narrowed pod mesh, f32, the port's params and prompts
+    out["serve"] = {}
+    for arch in SERVE_ARCHS:
+        jsess = jax_session.Session(jax_spec.RunSpec.from_dict(
+            dict(SESSION, arch=arch, tp_pad_heads=0)))
+        jsess.cfg = dataclasses.replace(jsess.cfg, dtype="float32")
+        jsess.set_serve_params(jax.tree_util.tree_map(
+            jnp.asarray, _nest(inp["serve"][arch]["params"])))
+        r = jsess.serve(tokens=jnp.asarray(inp["serve"][arch]["tokens"]),
+                        decode_steps=SERVE["steps"])
+        out["serve"][arch] = {"tokens": np.asarray(r["tokens"]),
+                              "cache_bytes": r["cache_bytes"]}
+
+    # one published step of each PUBLISH spec
+    from repro.core import stream as jax_stream
+    out["publish"] = {}
+    for name, spec in PUBLISH.items():
+        jsess = jax_session.Session(jax_spec.RunSpec.from_dict(spec))
+        jsess.cfg = dataclasses.replace(jsess.cfg, dtype="float32")
+        jsess.restore_from(ckpt0[spec_key(spec)], allow_spec_mismatch=True)
+        jsess.publish_to(os.path.join(workdir, f"ref_wire_{name}"))
+        try:
+            jsess.step_once()
+            out["publish"][name] = None
+        except jax_stream.StreamIntegrityError as err:
+            out["publish"][name] = (type(err).__name__, str(err),
+                                    jsess.step)
+    out["publish"]["dir"] = workdir
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
@@ -545,13 +690,14 @@ def world(tmp_path_factory):
     Session at step 0: both packages restore it), then the reference
     subprocess and the 4 ranks side by side."""
     tmp = tmp_path_factory.mktemp("tp")
-    inp = {"grad": _grad_inputs()}
+    inp = {"grad": _grad_inputs(), "serve": _serve_inputs()}
     inp_path = str(tmp / "inputs.pkl")
     with open(inp_path, "wb") as f:
         pickle.dump(inp, f)
     from repro_torch.launch.session import Session
     ckpt0 = {}
-    for name, spec in SESSIONS.items():
+    for name, spec in dict(SESSIONS,
+                           session_dense=PUBLISH["dense"]).items():
         init = Session(pt_spec.RunSpec.from_dict(
             dict(spec, mesh="smoke", clients=DP)), device="cpu",
             dtype="float32")
@@ -616,6 +762,48 @@ def test_param_pspecs_equal_the_reference(arch, tp, pad):
 
 
 # the SSM families' plans at tp 2 and 16: (d_inner, heads, ff)
+class _Mesh:
+    """The reference's cache_pspecs reads a mesh's axis names and sizes
+    alone."""
+    axis_names = ("data", "model")
+    shape = {"data": DP, "model": TP}
+
+
+@pytest.mark.parametrize("B", [4, 3])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_pspecs_split_as_the_reference_s(arch, B):
+    """Each serving cache leaf's split (``shardings.cache_pspecs``, the
+    port's ``init_cache`` slice) against the reference's ``cache_pspecs``
+    on (data 2, model 2): the rows over the data axes where B divides
+    them, the kv heads, d_inner and the SSM heads over 'model' where they
+    split, on the same dims. Where the reference splits a cache's
+    sequence instead (kv heads that do not divide the axis, or rows that
+    do not divide the data axes) the port keeps the slots whole on every
+    rank (ROADMAP: the sequence-split layout remains); a hybrid's conv
+    state splits on the same dim in another order (this rank's d_inner
+    columns, then B and C's whole)."""
+    from repro.configs import base as jax_cb
+    from repro.launch import shardings as jax_sh
+    cfg = cb.get(arch)
+    axes = comm.Axes(("model",), None, TP, 0, (0,))
+    rows = comm.Axes(("data",), None, DP, 0, (0,)) if B % DP == 0 else None
+    got = sh.cache_pspecs(cfg, pt_model.tp_plan(cfg, axes), rows)
+    want = {k: tuple(v) for k, v in
+            jax_sh.cache_pspecs(jax_cb.get(arch), _Mesh(), B).items()}
+    assert sorted(got) == sorted(want)
+    for k, spec in got.items():
+        ref = want[k]
+        assert len(spec) == len(ref), k
+        attn = k.startswith(("k", "v"))
+        for dim, (a, b) in enumerate(zip(spec, ref)):
+            if attn and dim == 2:               # the sequence: whole here
+                assert a is None, k
+            elif dim == 1:                      # the rows
+                assert (a is not None) == (b is not None) == (B % DP == 0)
+            else:
+                assert (a is None) == (b is None), (k, dim, spec, ref)
+
+
 SSM_PLANS = {"falcon-mamba-7b": (True, False, False),
              "zamba2-1.2b": (True, True, True)}
 
@@ -1152,3 +1340,111 @@ def test_zamba2_session_kill_and_resume_is_bit_for_bit(world):
 def test_zamba2_session_npz_has_the_reference_keys_shapes_and_hash(world):
     _, ranks, want = world
     _npz_matches(ranks, want, "session_zamba2")
+
+
+# ---------------------------------------------------------------------------
+# 6. serving and publishing at model 2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_at_model_2_matches_the_reference(world, arch):
+    """Session.serve on (data 2, model 2), f32, the same params and
+    prompts: every rank returns the reference's tokens exactly (B 4: each
+    data rank prefilled and decoded 2 rows on its shards and cache slice,
+    the rows gathered) and the reference's global cache_bytes; this
+    rank's slice holds half the rows and, where the pass splits them, half
+    the kv heads or d_inner. Under MoE every call (the whole prefill, then
+    B tokens a decode step) drops the assignments the port's one-device
+    serve drops, which tests/test_torch_moe.py holds to the reference's:
+    the capacity from the whole call, the queue positions offset by the
+    lower data rank's counts (so the higher rank's assignments queue last
+    and drop first): the two data ranks' drops of a 'model' coordinate sum
+    to the call's."""
+    from repro_torch.launch.session import Session
+    inp, ranks, want = world
+    ref = want["serve"][arch]
+    for r in ranks:
+        got = r["serve"][arch]
+        assert got["tokens"].shape == (SERVE["B"], SERVE["steps"] + 1)
+        np.testing.assert_array_equal(got["tokens"], ref["tokens"])
+        assert got["cache_bytes"] == ref["cache_bytes"]
+        assert got["local_cache_bytes"] < got["cache_bytes"]
+    if arch == "olmoe-1b-7b":
+        one = Session(pt_spec.RunSpec.from_dict(dict(
+            SESSION, arch=arch, tp_pad_heads=0, mesh="smoke", clients=DP)),
+            device="cpu", dtype="float32")
+        one.set_serve_params({k: torch.tensor(v) for k, v in
+                              inp["serve"][arch]["params"].items()})
+        drops = _serve_drops(one, inp["serve"][arch]["tokens"])["drops"]
+        assert len(drops) == 2 * (1 + SERVE["steps"]) and sum(drops) > 0
+        for m in range(TP):
+            by_data = [r["serve"][arch]["drops"] for r in ranks
+                       if r["coord"][1] == m]
+            assert [sum(c) for c in zip(*by_data)] == drops
+
+
+def _records(root):
+    from repro_torch.core import stream as pt_stream
+    log = pt_stream.WireLog(root)
+    out = {}
+    for step, groups in sorted(log.listing().items()):
+        for g in groups:
+            with np.load(log.record_path(step, g)) as z:
+                out[step, g] = {k: z[k] for k in z.files}
+    return out, sorted(os.listdir(log.bootstrap_dir))
+
+
+def test_dense_publish_at_model_2_writes_the_reference_records(world):
+    """One published step with a dense downlink on (data 2, model 2): the
+    first rank publishes the server estimate gathered over 'model', so
+    the record set has the reference's legs, keys, header, shapes and
+    dtypes, and its payload is the reference's within the bar of the two
+    trainers' step-1 state (rtol 1e-4, atol 1e-6); both streams hold the
+    step-0 bootstrap."""
+    _, ranks, want = world
+    assert all(r["publish"]["dense"] is None for r in ranks)
+    assert want["publish"]["dense"] is None
+    got, boot = _records(os.path.join(ranks[0]["publish"]["dir"],
+                                      "wire_dense"))
+    ref, ref_boot = _records(os.path.join(want["publish"]["dir"],
+                                          "ref_wire_dense"))
+    assert boot == ref_boot == ["step_00000000.npz"]
+    assert sorted(got) == sorted(ref) == [(1, 0)]
+    for key, rec in got.items():
+        assert sorted(rec) == sorted(ref[key])
+        assert bytes(rec["__meta__"]) == bytes(ref[key]["__meta__"])
+        for k, v in rec.items():
+            if k == "__meta__":
+                continue
+            assert (v.shape, v.dtype) == (ref[key][k].shape,
+                                          ref[key][k].dtype), k
+            np.testing.assert_allclose(v, ref[key][k], rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_compressed_publish_at_model_2_raises_on_every_rank(world):
+    """With the fused_quant4 downlink the reference's Publisher re-encodes
+    the step's broadcast on the single-device partition, which the
+    per-shard round did not use, and refuses the step; the port's first
+    rank verifies the gathered trees the same way, and every rank raises
+    the same StreamIntegrityError at step 1 (none hangs in a collective).
+    The bootstrap is written and no record."""
+    _, ranks, want = world
+    kind, msg, step = want["publish"]["fused_quant4"]
+    assert (kind, step) == ("StreamIntegrityError", 1)
+    assert "step 1 group '*'" in msg
+    errs = [r["publish"]["fused_quant4"] for r in ranks]
+    assert all(e is not None and e[0] == "StreamIntegrityError"
+               and e[2] == 1 for e in errs), errs
+    assert len({e[1] for e in errs}) == 1 and "step 1 group '*'" in errs[0][1]
+    got, boot = _records(os.path.join(ranks[0]["publish"]["dir"],
+                                      "wire_fused_quant4"))
+    assert got == {} and boot == ["step_00000000.npz"]
+
+
+def test_a_publisher_that_skips_the_gather_is_caught(world):
+    """Planted: the first rank publishes its own 'model' shards. Its
+    re-encode then reproduces the per-shard round, and the step publishes
+    where the reference refuses it: the test above would fail."""
+    _, ranks, _ = world
+    assert ranks[0]["publish"]["gather-skipped"] is None
