@@ -62,10 +62,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      carrier fused, 2 steps, after which the live training tree
      serves one small batch (batch 2, prompt 256, 8 decode steps) whose
      first token must be the argmax of a prefill with the trained params;
-  6b. the resumable path: full-width smollm-360m cut to 16 of its 32
+  6b. the resumable path: full-width smollm-360m cut to 2 of its 32
      layers (RESUME_CUT: the script's time limit), 8 clients,
      bf16 EF state, AdamW at lr 1e-3, fused_quant8 up and fused_quant4
-     down; 2 steps, a save (about 17 GB on disk, in a temporary directory
+     down; 2 steps, a save (about 5.6 GB on disk, in a temporary directory
      that is deleted at the end), per-leaf checksums of params, opt_state and ef_state, step
      3; then a new Session from Session.resume, whose checksums must equal
      the saved ones exactly and whose step 3 must match within rtol 1e-3;
@@ -89,7 +89,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      off and one with it on, each from seed 0 (the batch-0 gradients under
      its own setting): params and every EF state leaf equal bit for bit,
      the peak lower with recompute; each run's step ms and peak, and the
-     client pass alone (median of 3) with its ms and peak;
+     client pass alone (median of 3) with its ms and peak. Phase DR: the
+     dry run of the step with recompute on (``Session.lower``: the
+     Session's own step traced on meta tensors, launch/trace_analysis.py)
+     before it runs: its argument bytes must equal the live state's and
+     the step batch's exactly, its kernel launches the step's
+     ``ops.launches``, and its predicted peak (arguments + the trace's
+     temporaries) must lie within DR_PEAK_TOL of the step's
+     ``torch.cuda.max_memory_allocated``; the trace's seconds, FLOPs and
+     both peaks printed;
   6e. the other configs: h2o-danube-3-4b, granite-34b, gemma2-9b,
      musicgen-medium, olmoe-1b-7b, falcon-mamba-7b, zamba2-1.2b,
      internvl2-76b, grok-1-314b and olmoe on the dense-expert
@@ -109,11 +117,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      steps; D-granite 1 layer, 4 clients, serve batch 8, prompt 1024, 32
      decode steps (K7 in the prefill: 48 query heads on 1 kv head, hd
      128); D-gemma2 2 layers (one [local, global] super-layer), 2
-     clients, serve batch 2, prompt 6144, 32 decode steps; D-musicgen 12
-     layers, 8 clients, a training prefix of 8 zero rows (frontend_proj's
-     params and EF state bit-unchanged after every step: its gradient is
-     exactly zero), serve batch 8, prompt 1024 after a prefix of 64 (K7
-     12 times a prefill); D-olmoe 1 layer of 64 experts (top 8), 8
+     clients, serve batch 2, prompt 6144, 32 decode steps; D-musicgen 6
+     layers (cut from 12 for time), 8 clients, a training prefix of 8 zero rows
+     (frontend_proj's params and EF state bit-unchanged after every step:
+     its gradient is exactly zero), serve batch 8, prompt 1024 after a
+     prefix of 64 (K7 6 times a prefill); D-olmoe 1 layer of 64 experts (top 8), 8
      clients, each step's aux values (every client's dropped_frac) from a
      forward of the step's batch, serve batch 8, prompt 1024 with the
      prefill's and decode's drop fractions; D-falcon-mamba 1 of 64
@@ -173,16 +181,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      K7's kernel row, which must hold its 32 launches;
   F. the wire stream and the serving fleet (core/stream.py,
      launch/transport.py, launch/fleet.py, launch/replica_worker.py):
-     full-width smollm-360m on fused_quant8 up and fused_quant4 down, 8
-     clients, publishes into a temporary stream directory (a bootstrap at
-     step 0, about 27.5 GB, deleted at the end; it needs 40 GB free), then
+     full-width smollm-360m on fused_quant8 up and fused_quant4 down, 2
+     clients (F_CLIENTS: the script's time limit), publishes into a
+     temporary stream directory (a bootstrap at step 0, about 10 GB,
+     deleted at the end; it needs 40 GB free), then
      3 steps, each published (re-encoded, verified bit for bit against the
      step's own h, written as npz; publish ms, of it the npz write, the
      record's bytes against a dense f32 push); two in-process replicas
      (launch/fleet.py ServeReplica, lags 0 and 1) join from the bootstrap
      and after every sync equal the trainer's post-step params at their
      step (torch.equal, all 11 leaves; apply ms); Fleet.run serves 16
-     requests of 1024 tokens, 32 new, decode budget 256, batches of 8
+     requests of 1024 tokens, 8 new, decode budget 64, batches of 8
      (every request completes, each batch's first tokens the argmax of a
      prefill under that replica's params, K7 32 launches a prefill; p50,
      p99, staleness); the trainer takes a step while r0 decodes with
@@ -205,7 +214,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      (its initial state too), its launches the derived counts, and a
      checkpoint's gather_to_first on NCCL; MD4, 4 rank
      processes (launch/multiproc.py::spawn, gloo, the card shared, the
-     kernels built once here), full-width smollm-360m cut to 16 of its 32
+     kernels built once here), full-width smollm-360m cut to 2 of its 32
      layers (MD_CUT: the script's time limit), 2 steps a run:
      results/specs/fused_quant8_overlap.json (mesh pod: data 4, model 1),
      quant8 with the overlap ring and with the blocking gather (the same
@@ -224,7 +233,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      fused and the quant8 wire; parameters put back after every step)
      must each read above MD_TOL on every rank. MD4-publish:
      fused_quant8 up and fused_quant4 down on (data 4, model 1), full
-     width cut to 8 of 32 layers, rank 0 publishing a bootstrap and one
+     width cut as the runs, rank 0 publishing a bootstrap and one
      step's record (its re-encode's and verify's K5 and K4 calls among
      rank 0's, held to their plain versions); a single-device replica
      (launch/fleet.py) joins from the stream in this process, applies the
@@ -233,7 +242,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      record's bytes, the join and apply s.
   6i. phase MT, the 'model' axis: 4 rank processes sharing the card over
      gloo on (data 2, model 2) (the production geometry narrowed in each
-     rank), full-width smollm-360m cut to 16 of its 32 layers
+     rank), full-width smollm-360m cut to 2 of its 32 layers
      (MT_SMOLLM_CUT: the script's time limit), 8 rows of 256 a client, f32
      EF state,
      recompute on, fused_quant8/fused_quant4: 2 steps with tp_pad_heads 2
@@ -257,8 +266,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      planted fault (the f after Mamba1's x_proj sum dropped; the f on
      Mamba2's split out_norm mean square dropped). MT-serve: after
      its step MT-replicated's 4 ranks serve its trained params, batch 8 of
-     1024 prompt tokens and 32 decode steps (4 rows a data rank, K7 on
-     every rank's (4, 1024, 15, 5, 64) once a layer, 16 a prefill), and
+     1024 prompt tokens and 8 decode steps (4 rows a data rank, K7 on
+     every rank's (4, 1024, 15, 5, 64) once a layer, 2 a prefill), and
      so do
      MT-falcon-mamba and MT-zamba2 (8 decode steps; K7 once on the shared
      block's (4, 1024, 16, 16, 64)): tokens equal on every rank; against
@@ -267,7 +276,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      row's largest and every first token equal, the decode tokens that
      agree counted; the prefill's and a decode step's 'model'
      collectives, the times, the global and per-rank cache bytes and the
-     peak. Then granite-34b,
+     peak. Each rank's cache bytes must be its shard in the reference's
+     layout (``shardings.cache_pspecs``): smollm's 5 kv heads do not
+     divide 'model', so its sequence splits over 'model' (5,283,840
+     bytes a rank at 2 layers and 1032 slots; 43,253,760 at 16 layers and
+     1056); then MT-replicated's ranks serve one row
+     (MT_SERVE_B1: B 1 does not divide the data ranks, so every rank
+     serves it and the sequence splits over all four), held to the
+     single-device serve as above. Then granite-34b,
      gemma2-9b, olmoe-1b-7b, falcon-mamba-7b and zamba2-1.2b at smoke size
      on (data 2, model 2), the card within P_TOL of the CPU over 2 steps,
      and each serving a fresh f32 tree of its seed (4 rows, 4 decode
@@ -350,9 +366,12 @@ FLASH_D = [("flash_attention/granite", FLASH_GRANITE, "D-granite"),
            ("flash_attention/internvl2", FLASH_INTERNVL2, "D-internvl2"),
            ("flash_attention/zamba2", FLASH_ZAMBA2, "D-zamba2")]
 # K7 at MT-serve's prefills on (data 2, model 2), bf16: 4 rows a data
-# rank; smollm's 15 heads whole on every rank (they do not split over 2),
-# zamba2's shared block on its 16 of 32 heads: (results key, shape, run)
-FLASH_MT = [("flash_attention/mt_smollm", (4, 1024, 15, 5, 64),
+# rank (the one-row serve: its row on every rank); smollm's 15 heads whole
+# on every rank (they do not split over 2), zamba2's shared block on its 16
+# of 32 heads: (results key, shape, run)
+FLASH_MT = [("flash_attention/mt_smollm_b1", (1, 1024, 15, 5, 64),
+             "MT-replicated B1"),
+            ("flash_attention/mt_smollm", (4, 1024, 15, 5, 64),
              "MT-replicated"),
             ("flash_attention/mt_zamba2", (4, 1024, 16, 16, 64),
              "MT-zamba2")]
@@ -361,12 +380,20 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RESUME_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
                    ef_state_dtype="bfloat16", optimizer="adamw", lr=1e-3)
 # its depth cut, full width (the script's time limit; the
-# save and the restore of 32 layers took 40 and 54 s): 16 of smollm's 32
-# layers, the leaves and the kernels' launches unchanged
-RESUME_CUT = {"num_layers": 16}
+# save and the restore of 32 layers took 40 and 54 s, of 16 layers 24 and
+# 34 s, of 4 layers 11 and 20 s): 2 of smollm's 32 layers, the leaves and
+# the kernels' launches unchanged
+RESUME_CUT = {"num_layers": 2}
 # phases R and D: the fused quantized wire, fused_quant8 up and
 # fused_quant4 down, on fused_quickstart.json
 R_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4")
+# phase DR: the dry run's predicted peak (its arguments and the trace's
+# temporaries, in PyTorch's eager order) against the step's measured
+# max_memory_allocated, as a share of the measured. A sound trace read
+# -0.15 % on an H100 80GB HBM3 (PERF.md, phase DR); the smallest buffer the
+# step holds whole, one client's v or g (1,447,284,480 bytes), is 3.1 % of
+# the peak, so a trace that leaves one out fails.
+DR_PEAK_TOL = 0.01
 D_STEPS = 3
 D_CELLS = [  # (phase, arch, depth cut, clients or None: serve only, serve)
     ("D-danube", "h2o-danube-3-4b", {"num_layers": 2}, 8,
@@ -375,7 +402,8 @@ D_CELLS = [  # (phase, arch, depth cut, clients or None: serve only, serve)
      dict(batch=8, prompt_len=1024, decode_steps=32)),
     ("D-gemma2", "gemma2-9b", {"num_layers": 2}, 2,
      dict(batch=2, prompt_len=6144, decode_steps=32)),
-    ("D-musicgen", "musicgen-medium", {"num_layers": 12}, 8,
+    # 6 of 48 layers (12 before: the script's time limit)
+    ("D-musicgen", "musicgen-medium", {"num_layers": 6}, 8,
      dict(SERVE_FULL)),
     ("D-olmoe", "olmoe-1b-7b", {"num_layers": 1}, 8, dict(SERVE_FULL)),
     # Mamba1, attention-free: no K7
@@ -1349,6 +1377,7 @@ def recompute_phase(Session, spec_lib, ops):
         sess = Session(spec, device="cuda")
         sess.cfg = dataclasses.replace(sess.cfg, remat=on)
         per_step = expected_launches(build_lib.ef_config(spec), sess.params)
+        predicted = dryrun_predict(sess) if on else None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
@@ -1360,6 +1389,8 @@ def recompute_phase(Session, spec_lib, ops):
         out[on] = dict(ops.launches)
         check_launches(out[on], per_step, 1, label)
         peaks[on] = torch.cuda.max_memory_allocated()
+        if predicted is not None:
+            dryrun_check(predicted, out[on], peaks[on])
         retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - \
             retries
         batch = sess.batch_for(sess.step)
@@ -1398,6 +1429,55 @@ def recompute_phase(Session, spec_lib, ops):
         fail(f"R: the peak with recompute {peaks[True]} is not below "
              f"{peaks[False]}")
     return out[True]
+
+
+def dryrun_predict(sess):
+    """Phase DR, before the step: the dry run of this Session's next step
+    (``Session.lower()``, traced on meta tensors on the host) and the
+    bytes the live state and the step's batch hold on the card now (every
+    distinct storage once). The argument bytes must be equal exactly."""
+    from repro_torch.data import pipeline as pipe_lib
+    from repro_torch.launch import trace_analysis as ta
+    t0 = time.time()
+    pred = sess.lower()
+    trace_s = time.time() - t0
+    tr = sess._ensure_train()
+    batch = sess._rank_rows(pipe_lib.with_prefix_embeds(
+        sess.cfg, tr["pipe"].batch(sess.step)))
+    live = {"params": tr["params"], "opt_state": tr["opt_state"],
+            "ef_state": tr["ef_state"], "batch": batch}
+    held = {k: ta.storage_bytes(v) for k, v in live.items()}
+    print(f"DR: Session.lower() traced the step in {trace_s:.1f} s on the "
+          f"host: flops {pred['flops']:.4e}, arguments {pred['arguments']}, "
+          f"temp {pred['memory']['temp_bytes']}, output "
+          f"{pred['memory']['output_bytes']}, alias "
+          f"{pred['memory']['alias_bytes']}, launches "
+          f"{pred['kernel_launches']}; the live state and batch {held}",
+          flush=True)
+    if held != pred["arguments"]:
+        fail(f"DR: the dry run's argument bytes {pred['arguments']} are "
+             f"not the live state's {held}")
+    return pred
+
+
+def dryrun_check(pred, launches, peak) -> None:
+    """Phase DR, after the step: the dry run's launches against the
+    step's, its predicted peak against the measured one."""
+    got = {k: v for k, v in launches.items() if v}
+    if pred["kernel_launches"] != got:
+        fail(f"DR: the dry run launches {pred['kernel_launches']}, the step "
+             f"{got}")
+    predicted = pred["memory"]["argument_bytes"] + \
+        pred["memory"]["temp_bytes"]
+    share = predicted / peak - 1
+    print(f"DR: predicted peak {predicted} bytes (arguments "
+          f"{pred['memory']['argument_bytes']} + temporaries "
+          f"{pred['memory']['temp_bytes']}) against the step's "
+          f"max_memory_allocated {peak}: {share:+.4f} of it (limit "
+          f"±{DR_PEAK_TOL}); launches equal {got}", flush=True)
+    if abs(share) > DR_PEAK_TOL:
+        fail(f"DR: the predicted peak {predicted} is {share:+.4f} of the "
+             f"measured {peak} (limit ±{DR_PEAK_TOL})")
 
 
 def routed_drops(cfg, seen):
@@ -2607,9 +2687,16 @@ def sim_phase(ops):
 # ---------------------------------------------------------------------------
 
 F_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4")
+# its clients (the script's time limit: 8 clients' EF state made a
+# bootstrap of 27.5 GB, saved in 40 s). A depth cut would not reach the
+# worker processes, which build their Session from the stream's spec; the
+# client count is in that spec, and no replica restores a client's state
+F_CLIENTS = 2
 F_STEPS = 3                    # published steps before the serve
-F_SERVE = dict(n=16, prompt_len=1024, max_new_tokens=32)
-F_BUDGET, F_BATCH = 256, 8     # decode budget, max batch (8 x 32 = 256)
+# 8 new tokens a request (32 until the script passed its limit on a slow
+# host: the time limit)
+F_SERVE = dict(n=16, prompt_len=1024, max_new_tokens=8)
+F_BUDGET, F_BATCH = 64, 8      # decode budget, max batch (8 x 8 = 64)
 F_PROC = dict(n=8, rate=4.0, max_batch=4, kill_after_s=1.0)
 # the smoke-size stream served over tcp://: the sparse payload down (K6
 # integrates it)
@@ -2750,7 +2837,7 @@ def _fleet_phase(Session, spec_lib, ops, model_lib, stream_dir):
     from repro_torch.launch import replica_worker as worker_lib
     t_phase = time.time()
     total = {}
-    spec = load_spec(spec_lib, **F_PATH)
+    spec = load_spec(spec_lib, clients=F_CLIENTS, **F_PATH)
     sess = Session(spec, device="cuda")
     n_params = sum(p.numel() for p in sess.params.values())
     efc = build_lib.ef_config(spec)
@@ -2834,7 +2921,7 @@ def _fleet_phase(Session, spec_lib, ops, model_lib, stream_dir):
               f"{len(sess.params)} leaves equal", flush=True)
         prev = {k: v.clone() for k, v in sess.params.items()}
 
-    # 3. serve: 16 requests of 1024 tokens, 32 new, batches of 8
+    # 3. serve: 16 requests of 1024 tokens, 8 new, batches of 8
     served = []
     for rep in fleet.replicas:
         def serve_batch(batch, prompt_len, decode_steps,
@@ -3037,9 +3124,10 @@ MD_PATHS = [  # MD1: (label, fused_quickstart.json overrides)
                                    downlink_carrier="quant4", overlap=True)),
 ]
 MD_RANKS = 4
-# MD4's runs, planted faults and their single-process runs: full width, 16
-# of smollm's 32 layers (the script's time limit)
-MD_CUT = {"num_layers": 16}
+# MD4's runs, planted faults and their single-process runs: full width, 2
+# of smollm's 32 layers (the script's time limit; 16 until the script
+# passed its limit on a slow host)
+MD_CUT = {"num_layers": 2}
 # 2 steps a run (the script's time limit): every planted fault reads
 # above MD_TOL by its second step
 MD_STEPS = 2
@@ -3094,10 +3182,10 @@ MD4_FAULT_STEPS = {"frozen": 1, "pod-unreduced": 1}
 # (the bootstrap, then each step's record); a single-device replica
 # (launch/fleet.py) joins from the stream after the ranks end, applies the
 # record and must hold the trainer's params bit for bit. Full width, cut
-# to 8 of smollm's 32 layers (the bootstrap of 4 clients' f32 state: about
-# 5.6 GB instead of 16; the script's time limit)
+# as MD4's runs (MD_CUT: the bootstrap of 4 clients' f32 state, about
+# 2.7 GB at 2 layers; the script's time limit)
 MD4_PUBLISH = ("MD4-publish", "fused_quant8_overlap",
-               dict(downlink_carrier="fused_quant4"), 1, {"num_layers": 8})
+               dict(downlink_carrier="fused_quant4"), 1, MD_CUT)
 
 
 def _free_port() -> int:
@@ -3786,9 +3874,10 @@ MT_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
 # above it
 MT_GRAD_TOL = 1e-3
 MT_FAULTS = ("f-identity", "replicated-summed")
-# smollm's runs: full width, 16 of its 32 layers (the script's time
-# limit); MT-pod-zero and MT-single take MT-padded's
-MT_SMOLLM_CUT = {"num_layers": 16}
+# smollm's runs: full width, 2 of its 32 layers (the script's time limit;
+# 16 until the script passed its limit on a slow host); MT-pod-zero and
+# MT-single take MT-padded's
+MT_SMOLLM_CUT = {"num_layers": 2}
 MT_RUNS = [  # (label, arch, tp_pad_heads, depth cut, steps, planted faults)
     # 16 heads, 8 a rank: attention split (2 steps: the script's time
     # limit)
@@ -3842,11 +3931,17 @@ MT_POD_CONTROL = ("olmoe-1b-7b pod bf16", "olmoe-1b-7b group bf16")
 MD4_PEAK = 10.51e9               # MD4's peak a rank, measured on four H100s
 # MT-serve: after its steps each of these runs serves on its 4 ranks, (B,
 # prompt, decode steps); B 8 splits over the 2 data ranks (4 rows a rank)
-# and the prompts come from one seed. The SSM runs decode 8 steps (the
-# script's time limit); the CPU rehearsal serves MT_SERVE_SMOKE
-MT_SERVE = {"MT-replicated": (8, 1024, 32), "MT-falcon-mamba": (8, 1024, 8),
+# and the prompts come from one seed. Each decodes 8 steps (the script's
+# time limit; MT-replicated decoded 32 until the script passed its limit on
+# a slow host); the CPU rehearsal serves MT_SERVE_SMOKE
+MT_SERVE = {"MT-replicated": (8, 1024, 8), "MT-falcon-mamba": (8, 1024, 8),
             "MT-zamba2": (8, 1024, 8)}
 MT_SERVE_SMOKE = (4, 64, 4)
+# then MT-replicated's ranks serve one row: B 1 does not divide the data
+# ranks, every rank serves it and the cache's sequence splits over all
+# four (smollm's kv heads do not divide 'model'); 8 decode steps
+MT_SERVE_B1 = {"MT-replicated": (1, 1024, 8)}
+MT_SERVE_B1_SMOKE = (1, 64, 4)
 # the served prefill logits against the single-device serve of the same
 # params and prompts on the card, bf16: each row within this share of its
 # largest magnitude (the first tokens that agree counted: in bf16 a row's
@@ -3956,7 +4051,7 @@ def mt_grad_check(sess, device, faults=()):
 
 def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
            smoke=False, plain=True, faults=(), spec_over=None,
-           grad_check=True, serve=None):
+           grad_check=True, serve=None, serve_b1=None):
     """One MT run on this rank: a Session of ``arch`` on (data 2, model 2)
     with ``tp_pad_heads`` ``pad``, its config cut by ``cut`` before the
     first step; the gradient check (with ``faults``), then
@@ -4071,6 +4166,9 @@ def mt_run(ops, ref, label, arch, pad, cut, steps, device="cuda",
         check_launches(rec["launches"], per_step, steps, label)
     if serve is not None:
         rec["serve"] = mt_serve(sess, ops, label, serve, device)
+    if serve_b1 is not None:
+        rec["serve_b1"] = mt_serve(sess, ops, label + " B1", serve_b1,
+                                   device)
     del sess, m
     gc.collect()
     if cuda and plain:
@@ -4184,6 +4282,10 @@ def mt_serve(sess, ops, label, shape, device="cuda"):
         tp_prefill_ms=marks[0]["tp_seconds"] * 1e3,
         tp_decode=marks[1]["tp_collectives"] - marks[0]["tp_collectives"],
         tp_decode_ms=(marks[1]["tp_seconds"] - marks[0]["tp_seconds"]) * 1e3)
+    rec["shard_bytes"] = reference_shard_bytes(
+        sess.cfg, sess.mesh, B, S + steps,
+        {k: t.element_size() for k, t in model_lib.init_cache(
+            sess.cfg, 1, 1, device="meta").items()})
     rows = sh.serve_rows(sess.mesh, B)
     logits = sh.gather_rows(rows, seen[0].to(device)).cpu()
     saved = dict(ops.launches)
@@ -4230,6 +4332,32 @@ def mt_serve(sess, ops, label, shape, device="cuda"):
     return rec
 
 
+def reference_shard_bytes(cfg, mesh, B, slots, itemsize):
+    """A rank's bytes of a serving cache of ``B`` rows and ``slots`` in
+    the reference's layout (``shardings.cache_pspecs``: each split dim
+    divided by its axes' sizes), the leaves ``itemsize`` bytes an element;
+    a hybrid's conv state in the port's order (its d_inner block, then B
+    and C's 2N columns whole)."""
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import model as model_lib
+    whole = model_lib.init_cache(cfg, B, slots, device="meta")
+    total = 0
+    for key, spec in sh.cache_pspecs(cfg, mesh, B).items():
+        shape = list(whole[key].shape)
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            n = math.prod(mesh.shape[a] for a in ((entry,) if isinstance(
+                entry, str) else entry))
+            if key == "conv" and cfg.family == "hybrid" \
+                    and dim == len(shape) - 1:
+                shape[dim] = cfg.d_inner // n + 2 * cfg.ssm_state
+            else:
+                shape[dim] //= n
+        total += math.prod(shape) * itemsize[key]
+    return total
+
+
 def prefill_f32_logits(model_lib, cfg32, params, tokens, device, tp=None,
                        rows=None):
     """The last position's logits of an f32 prefill of ``tokens`` (this
@@ -4243,16 +4371,20 @@ def prefill_f32_logits(model_lib, cfg32, params, tokens, device, tp=None,
     return lg[:, -1].float()
 
 
-def mt_serve_checks(ranks, label, shape):
+def mt_serve_checks(ranks, label, shape, key="serve"):
     """MT-serve's checks and lines: the tokens equal on every rank and of
     the requested shape; each rank's launches K7 ``flash_layers`` times
     and nothing else (on the card; the CPU runs the plain version,
-    uncounted); rank 0's comparison with the single-device serve: bf16
-    prefill logits within SERVE_BF16_TOL (the first tokens that agree
-    counted, each differing row's top-two gap printed), and an f32
-    prefill of the same params within P_SERVE_TOL, every first token
-    equal. Returns the launches summed over the ranks."""
-    recs = [r["runs"][label]["serve"] for r in ranks]
+    uncounted); each rank's cache bytes its shard in the reference's
+    layout (``reference_shard_bytes``); rank 0's comparison with the
+    single-device serve: bf16 prefill logits within SERVE_BF16_TOL (the
+    first tokens that agree counted, each differing row's top-two gap
+    printed), and an f32 prefill of the same params within P_SERVE_TOL,
+    every first token equal. Returns the launches summed over the
+    ranks."""
+    recs = [r["runs"][label][key] for r in ranks]
+    if key != "serve":                  # the one-row serve
+        label = f"{label} B{shape[0]}"
     B, S, steps = shape
     if any(not np.array_equal(rec["tokens"], recs[0]["tokens"])
            for rec in recs) or recs[0]["tokens"].shape != (B, steps + 1):
@@ -4267,6 +4399,10 @@ def mt_serve_checks(ranks, label, shape):
                  f"expected {want} (K7 once a layer it runs in, in the "
                  "prefill)")
         total = _merged(total, rec["launches"])
+        if rec["local_cache_bytes"] != rec["shard_bytes"]:
+            fail(f"{label} serve rank {rank}: the rank's cache holds "
+                 f"{rec['local_cache_bytes']} bytes, its shard in the "
+                 f"reference's layout {rec['shard_bytes']}")
         print(f"{label} serve rank {rank}: B {B} × {S}, {steps} decode "
               f"steps: prefill {rec['prefill_s'] * 1e3:.1f} ms "
               f"({rec['prefill_tok_s']:.1f} tok/s), decode "
@@ -4366,12 +4502,15 @@ def mt_rank(rank, runs, device="cuda", smoke=False,
         build.build()
     out = {"runs": {}, "smoke": {}, "smoke_pod": {}}
     for label, arch, pad, cut, steps, faults in runs:
-        serve = MT_SERVE.get(label)
+        serve, serve_b1 = MT_SERVE.get(label), MT_SERVE_B1.get(label)
         if serve is not None and smoke:
             serve = MT_SERVE_SMOKE
+        if serve_b1 is not None and smoke:
+            serve_b1 = MT_SERVE_B1_SMOKE
         out["runs"][label] = mt_run(ops, ref, label, arch, pad, cut, steps,
                                     device, smoke, plain=rank == 0,
-                                    faults=faults, serve=serve)
+                                    faults=faults, serve=serve,
+                                    serve_b1=serve_b1)
     if _has_padded(runs):
         _mt_narrow(MT_POD_ZERO_GEOM)
         out["pod_zero"] = mt_run(ops, ref, "MT-pod-zero", "smollm-360m", 2,
@@ -4498,6 +4637,11 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
             shape = MT_SERVE_SMOKE if smoke else MT_SERVE[label]
             serve_launches[label] = mt_serve_checks(ranks, label, shape)
             total = _merged(total, serve_launches[label])
+        if "serve_b1" in recs[0]:
+            shape = MT_SERVE_B1_SMOKE if smoke else MT_SERVE_B1[label]
+            b1 = mt_serve_checks(ranks, label, shape, key="serve_b1")
+            serve_launches[label + " B1"] = b1
+            total = _merged(total, b1)
     if _has_padded(runs):
         total = _merged(total, _mt_pod_zero(ranks, losses))
     else:
@@ -4783,9 +4927,9 @@ def main() -> None:
                                   smoke=False)
     gc.collect()
     torch.cuda.empty_cache()
-    with phase("R: block recompute on the full-width fused_quant8/"
+    with phase("R and DR: block recompute on the full-width fused_quant8/"
                "fused_quant4 path, 8 clients: a step without and one with, "
-               "bit for bit"):
+               "bit for bit; the dry run of the step with, against it"):
         by_phase["R"] = recompute_phase(Session, spec_lib, ops)
     with phase("D smoke: the other dense configs, the frontends, MoE "
                "(both moe_impl) and the SSM families, cuda against cpu "
@@ -4848,16 +4992,16 @@ def main() -> None:
                f"{MD_STEPS} steps "
                "a run: fused_quant8_overlap.json, quant8 with the ring and "
                "the blocking gather, multi_pod with hierarchy_quant4_cross"
-               ".json's hops; MD4-publish (8 layers) and a single-device "
+               f".json's hops; MD4-publish ({MD_CUT}) and a single-device "
                "replica joined from its stream"):
         by_phase["MD4"] = md4_phase(Session, spec_lib, ops)
     gc.collect()
     torch.cuda.empty_cache()
     with phase(f"MT: {MT_RANKS} rank processes on the one card (gloo), "
                "mesh (data 2, model 2), full width tensor-parallel, "
-               "fused_quant8/fused_quant4: smollm-360m (16 layers) with "
-               "tp_pad_heads 2 (attention split) for 2 steps, then 1 step "
-               "unpadded "
+               f"fused_quant8/fused_quant4: smollm-360m ({MT_SMOLLM_CUT}) "
+               "with tp_pad_heads 2 (attention split) for 2 steps, then 1 "
+               "step unpadded "
                "(attention replicated); falcon-mamba-7b (1 layer) and "
                "zamba2-1.2b (6 layers and the shared block), 1 step each; "
                "MT-serve after the unpadded and SSM runs; granite, gemma2, "

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -47,6 +47,12 @@ STATS = {"collectives": 0, "wire_bytes": 0, "staged_bytes": 0,
          "tp_seconds": 0.0, "data_collectives": 0, "data_wire_bytes": 0,
          "data_seconds": 0.0}
 TIMED = False
+# the collectives by kind, the reference analyzer's names (hlo_analysis's
+# COLLECTIVES; the ring's send/recv is its collective-permute): for each,
+# the calls, the operand bytes handed in and the calls by group (its mesh
+# axes joined by '+'), counted where a group of more than one rank runs
+# it, on real and traced runs alike (launch/trace_analysis.py reads them)
+KINDS: Dict[str, Dict[str, Any]] = {}
 # the collectives gloo runs on CUDA tensors as they are
 GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather"})
 
@@ -54,6 +60,18 @@ GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather"})
 def reset_stats() -> None:
     for k in STATS:
         STATS[k] = 0.0 if k.endswith("seconds") else 0
+    KINDS.clear()
+
+
+def _record(kind: str, axes: "Axes", x: torch.Tensor) -> None:
+    """Count one collective of ``kind`` over ``axes`` in KINDS."""
+    if axes.size == 1:
+        return
+    k = KINDS.setdefault(kind, {"calls": 0, "bytes": 0, "groups": {}})
+    k["calls"] += 1
+    k["bytes"] += x.numel() * x.element_size()
+    group = "+".join(axes.names)
+    k["groups"][group] = k["groups"].get(group, 0) + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +113,9 @@ def _back(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return host.to(like.device)
 
 
-def _counted(prefix: str):
-    """Run one collective, counting it, its operand's bytes and its wall
-    time under the ``prefix`` keys of STATS."""
+def _counted(prefix: str, kind: str):
+    """Run one collective of ``kind``, counting it, its operand's bytes and
+    its wall time under the ``prefix`` keys of STATS, and in KINDS."""
     def wrap(fn):
         def run(axes, x, *a, **kw):
             if TIMED and x.is_cuda:
@@ -109,12 +127,10 @@ def _counted(prefix: str):
             STATS[prefix + "seconds"] += time.perf_counter() - t0
             STATS[prefix + "collectives"] += 1
             STATS[prefix + "wire_bytes"] += x.numel() * x.element_size()
+            _record(kind, axes, x)
             return out
         return run
     return wrap
-
-
-_timed = _counted("")
 
 
 def _bytes(x: torch.Tensor) -> torch.Tensor:
@@ -141,14 +157,14 @@ def _sum(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@_timed
+@_counted("", "all-reduce")
 def all_reduce_sum(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     """Σ over the group of an f32 tensor, as a new tensor (every rank gets
     the same bits)."""
     return _sum(axes, x)
 
 
-@_counted("data_")
+@_counted("data_", "all-reduce")
 def share_sum(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     """Σ over a pod client's data group of each member's additive share
     (its loss share, a gradient leaf): summed in f32, cast back to x's
@@ -178,13 +194,13 @@ def _all_gather(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     return _unbytes(out, x.dtype, (axes.size, *x.shape))
 
 
-@_timed
+@_counted("", "all-gather")
 def all_gather(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     """(size, *x.shape): every member's ``x`` stacked in index order."""
     return _all_gather(axes, x)
 
 
-@_timed
+@_counted("", "collective-permute")
 def _ring_step(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     """One ring hop: send ``x`` to the next member, receive the previous
     member's tensor of the same shape and dtype."""
@@ -280,8 +296,9 @@ def _plain(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _plain_counted(prefix: str):
-    """Run one collective inside the client pass, counted under the
+def _plain_counted(prefix: str, kind: str):
+    """Run one collective of ``kind`` inside the client pass, counted under
+    KINDS and the
     ``prefix`` keys of STATS (``tp_``: the tensor-parallel pass's; ``data_``:
     a pod client's data group's). It runs on plain tensors with the
     ``torch.func`` transforms set aside (inside them every operation's
@@ -301,12 +318,14 @@ def _plain_counted(prefix: str):
             STATS[prefix + "seconds"] += time.perf_counter() - t0
             STATS[prefix + "collectives"] += 1
             STATS[prefix + "wire_bytes"] += x.numel() * x.element_size()
+            _record(kind, axes, x)
             return out
         return run
     return wrap
 
 
-_tp_timed = _plain_counted("tp_")
+# the tensor-parallel pass's sums and maxes
+_tp_timed = _plain_counted("tp_", "all-reduce")
 
 
 @_tp_timed
@@ -326,7 +345,7 @@ def _model_all_reduce(axes: Axes, x: torch.Tensor, op=None) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-@_tp_timed
+@_plain_counted("tp_", "all-gather")
 def _resplit_blocks(axes: Axes, x: torch.Tensor, groups: int,
                     to_grouped: bool) -> torch.Tensor:
     """Move the last dim of ``x`` between two splits over ``axes`` (n
@@ -347,12 +366,12 @@ def _resplit_blocks(axes: Axes, x: torch.Tensor, groups: int,
     return torch.cat([blocks[m, ..., s, :] for m, s in want], dim=-1)
 
 
-@_plain_counted("data_")
+@_plain_counted("data_", "all-gather")
 def _gather_plain(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     return _all_gather(axes, x.contiguous())
 
 
-@_tp_timed
+@_plain_counted("tp_", "all-gather")
 def _gather_model(axes: Axes, x: torch.Tensor) -> torch.Tensor:
     return _all_gather(axes, x.contiguous())
 
@@ -442,6 +461,16 @@ class _Max(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, None
+
+
+def seq_all_reduce(axes: Axes, x: torch.Tensor, op: str = "sum"
+                   ) -> torch.Tensor:
+    """The f32 ``op`` ('sum' or 'max') of ``x`` over ``axes``, cast back to
+    x's dtype, without a gradient: a sequence-split decode's softmax merge
+    (models/layers.py ``decode_attention``), counted with the serving
+    pass's collectives."""
+    return _model_all_reduce(axes, x, None if op == "sum"
+                             else _dist().ReduceOp.MAX)
 
 
 def copy_to(axes: Axes, x: torch.Tensor) -> torch.Tensor:

@@ -156,26 +156,23 @@ def sharded_value_and_grad(loss_fn: Callable, params: Tree,
                            c_axes: Tuple[str, ...]
                            ) -> Tuple[torch.Tensor, Tree, Tree]:
     """This rank's client's (loss, aux, grads with a leading axis of 1) on
-    a mesh of many ranks. The client is this rank's index on ``c_axes``
-    and takes its block of the global batch (:func:`client_rows`). Where
-    its data group (``mesh.split_axes``) holds more than one rank, each
-    rank takes its contiguous sub-block of those rows and ``loss_fn``
-    returns an additive share of the client's loss (``train_loss``'s
-    ``split``); the loss and the gradients are then summed over the group
+    a mesh of many ranks, ``batch`` being this rank's rows of the global
+    batch (:func:`rank_rows`). The client is this rank's index on
+    ``c_axes``. Where its data group (``mesh.split_axes``) holds more than
+    one rank, each rank holds its contiguous sub-block of the client's rows
+    and ``loss_fn`` returns an additive share of the client's loss
+    (``train_loss``'s ``split``); the loss and the gradients are then
+    summed over the group
     (:func:`sum_shares`), and the aux values stay this rank's shares (no
     step reads them: a caller that wants the client's sums them over
     ``split``). A data group or a 'model' axis
     above one rank runs without the vmap (:func:`client_value_and_grad`:
     their collectives have no batching rule)."""
-    everyone = mesh.axes(c_axes)
     split = mesh.axes(mesh.split_axes(c_axes))
-    rows = client_rows(batch, everyone.size, everyone.index)
-    if split.size > 1:
-        rows = client_rows(rows, split.size, split.index)
     if split.size > 1 or mesh.shape.get("model", 1) > 1:
-        loss, aux, grads = client_value_and_grad(loss_fn, params, rows)
+        loss, aux, grads = client_value_and_grad(loss_fn, params, batch)
     else:
-        loss, aux, grads = per_client_value_and_grad(loss_fn, params, rows,
+        loss, aux, grads = per_client_value_and_grad(loss_fn, params, batch,
                                                      1)
     if split.size > 1:
         loss = comm.share_sum(split, loss)
@@ -350,6 +347,19 @@ def client_rows(batch: Dict[str, torch.Tensor], n: int, client: int
     return {k: x[client * m:(client + 1) * m] for k, x in batch.items()}
 
 
+def rank_rows(batch: Dict[str, torch.Tensor], mesh,
+              c_axes: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch: its client's block over
+    ``c_axes`` and, where the client's data group (``mesh.split_axes``)
+    holds several ranks, this rank's sub-block of it."""
+    everyone = mesh.axes(c_axes)
+    split = mesh.axes(mesh.split_axes(c_axes))
+    rows = client_rows(batch, everyone.size, everyone.index)
+    if split.size > 1:
+        rows = client_rows(rows, split.size, split.index)
+    return rows
+
+
 def init_ef_state_sharded(efc: EFConfig, params: Tree, mesh,
                           init_grads: Optional[Tree] = None) -> Dict:
     """``init_ef_state`` in the sharded layout: this rank's client state
@@ -513,9 +523,10 @@ def make_train_step(loss_fn: Callable, efc: EFConfig, optimizer, dp: int,
     generator (``rng.round_generator(seed, step)``, or None when no
     compressor draws); the round draws from ``fold_in(rng, 1)``, as the
     reference's ``r_comp``. With a ``mesh`` of more than one rank the step
-    runs sharded: this rank keeps its client's rows of the global batch,
-    its gradients are its client's (:func:`sharded_value_and_grad`: under
-    client granularity 'pod' the sum of its data group's shares), the
+    runs sharded: ``batch`` is this rank's rows of the global batch
+    (:func:`rank_rows`), its gradients are its client's
+    (:func:`sharded_value_and_grad`: under client granularity 'pod' the
+    sum of its data group's shares), the
     round is ``ef_round_sharded`` over ``efc``'s client axes (its gathers
     the ring under ``overlap``), and the loss is the clients' mean
     (all-reduced); g_norm is that of the replicated estimate, the same on

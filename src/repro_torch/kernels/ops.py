@@ -7,8 +7,16 @@ PyTorch version (kernels/ref.py); tensors on a CUDA device launch the
 kernel on the current stream and raise if the launch fails. There is no
 fallback from one to the other.
 
-``launches`` counts kernel launches per wrapper (plain runs do not count),
-so a run can show that its main path went through the kernels.
+A traced call (launch/trace_analysis.py: any input a ``FakeTensor`` or on
+the meta device) takes the card's path up to the launch: the same checks,
+the same outputs allocated (``torch.empty`` of the kernel's shapes), the
+call counted in ``traced_launches``, and nothing launched or computed. No
+real tensor ever takes it, and the plain versions never run in a trace
+(their temporaries are not the card's).
+
+``launches`` counts kernel launches per wrapper, on the card alone (plain
+runs and traced calls do not count), so a run can show that its main path
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -27,6 +35,14 @@ launches: Dict[str, int] = {"block_topk": 0, "ef21_sgdm_update": 0,
                             "ef21_sgdm_topk_quant": 0, "dequant_add": 0,
                             "block_quantize": 0, "block_dequantize": 0,
                             "flash_attention": 0}
+
+# the calls that took the traced branch (fake or meta inputs, nothing
+# launched), by the same names
+traced_launches: Dict[str, int] = dict.fromkeys(launches, 0)
+
+# the dot FLOPs of the traced K7 launches (QK^T and P.V over the causal
+# pairs), which a FLOP counter cannot see in a launch that runs nothing
+traced_flops: Dict[str, int] = {"flash_attention": 0}
 
 _lib_handle: Optional[ctypes.CDLL] = None
 
@@ -63,6 +79,13 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def reset_traced() -> None:
+    for name in traced_launches:
+        traced_launches[name] = 0
+    for name in traced_flops:
+        traced_flops[name] = 0
+
+
 def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
@@ -76,26 +99,41 @@ def _lib() -> ctypes.CDLL:
     return _lib_handle
 
 
-def _launch(name: str, *args) -> None:
-    # the current stream's handle, read without building a Stream object
-    # (torch.cuda.current_stream() costs some 5 us a call, as much as a
-    # narrow codec launch's kernel time)
-    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
-    rc = getattr(_lib(), name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-
-
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True when every tensor is on one CUDA device, False when every tensor
-    is on the CPU; anything else raises."""
+def _route(*tensors: torch.Tensor) -> str:
+    """Where a wrapper's call goes: ``traced`` when a tensor is a
+    ``FakeTensor`` or on the meta device (the call is being traced, not
+    run), else ``card`` when every tensor is on one CUDA device and
+    ``plain`` when every tensor is on the CPU; anything else raises."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if any(isinstance(t, FakeTensor) or t.device.type == "meta"
+           for t in tensors):
+        return "traced"
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     kind = next(iter(devices)).type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {kind!r}")
-    return kind == "cuda"
+    return "card" if kind == "cuda" else "plain"
+
+
+def _launch(route: str, name: str, fn: str, *args) -> None:
+    """On the ``card`` route, launch the library's ``fn`` on ``args``
+    (tensors passed by their data pointers) and count it in
+    ``launches[name]``; on the ``traced`` route launch nothing and count
+    the call in ``traced_launches[name]``."""
+    if route == "traced":
+        traced_launches[name] += 1
+        return
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    # the current stream's handle, read without building a Stream object
+    # (torch.cuda.current_stream() costs some 5 us a call, as much as a
+    # narrow codec launch's kernel time)
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    rc = getattr(_lib(), fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
+    launches[name] += 1
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
@@ -215,7 +253,8 @@ def block_topk(x: torch.Tensor, *, block: int = 1024, k: int = 16
                          f"{sorted(map(str, _TOPK_DTYPES))}")
     if not x.is_contiguous():
         raise ValueError("x: must be contiguous")
-    if not _on_cuda(x):
+    route = _route(x)
+    if route == "plain":
         return ref.block_topk_plain(x, block=block, k=k)
     if block > MAX_WIDTH:
         raise ValueError(f"block {block} > {MAX_WIDTH}: wider rows are not "
@@ -223,9 +262,8 @@ def block_topk(x: torch.Tensor, *, block: int = 1024, k: int = 16
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    _launch("ef_launch_block_topk", x.data_ptr(), out.data_ptr(), x.numel(),
+    _launch(route, "block_topk", "ef_launch_block_topk", x, out, x.numel(),
             block, k, _TOPK_DTYPES[x.dtype])
-    launches["block_topk"] += 1
     return out
 
 
@@ -238,7 +276,8 @@ def ef21_sgdm_update(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *,
     dtype. ``v_out``/``g_out`` receive v'/g' when given (they may be
     ``v``/``g`` themselves: an in-place state update)."""
     rows, width = _check_rows(grad, v, g, v_out, g_out, k)
-    if not _on_cuda(grad, v, g, *_present(v_out, g_out)):
+    route = _route(grad, v, g, *_present(v_out, g_out))
+    if route == "plain":
         vn, gn, c = ref.ef21_sgdm_update_plain(grad, v, g, eta=eta, k=k)
         return _into(vn, v_out), _into(gn, g_out), c
     if width > MAX_WIDTH:
@@ -248,10 +287,9 @@ def ef21_sgdm_update(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *,
     g_out = torch.empty_like(g) if g_out is None else g_out
     c = torch.empty_like(g)
     c1, c2 = ref._coeffs(eta)
-    _launch("ef_launch_ef21_sgdm_update", grad.data_ptr(), v.data_ptr(),
-            g.data_ptr(), v_out.data_ptr(), g_out.data_ptr(), c.data_ptr(),
-            rows, width, c1, c2, k, int(v.dtype == torch.bfloat16))
-    launches["ef21_sgdm_update"] += 1
+    _launch(route, "ef21_sgdm_update", "ef_launch_ef21_sgdm_update", grad, v,
+            g, v_out, g_out, c, rows, width, c1, c2, k,
+            int(v.dtype == torch.bfloat16))
     return v_out, g_out, c
 
 
@@ -269,7 +307,8 @@ def ef21_sgdm_topk_quant(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     _check_bits(bits)
     if bits == 4 and width % 2:
         raise ValueError("uint4 packing needs an even block")
-    if not _on_cuda(grad, v, g, *_present(v_out, g_out)):
+    route = _route(grad, v, g, *_present(v_out, g_out))
+    if route == "plain":
         vn, gn, q, s = ref.ef21_sgdm_topk_quant_plain(grad, v, g, eta=eta,
                                                       k=k, bits=bits)
         return _into(vn, v_out), _into(gn, g_out), q, s
@@ -283,11 +322,9 @@ def ef21_sgdm_topk_quant(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     q = torch.empty((rows, qcols), dtype=qdtype, device=g.device)
     scales = torch.empty((rows,), dtype=torch.float32, device=g.device)
     c1, c2 = ref._coeffs(eta)
-    _launch("ef_launch_ef21_sgdm_topk_quant", grad.data_ptr(), v.data_ptr(),
-            g.data_ptr(), v_out.data_ptr(), g_out.data_ptr(), q.data_ptr(),
-            scales.data_ptr(), rows, width, c1, c2, k, bits,
-            int(v.dtype == torch.bfloat16))
-    launches["ef21_sgdm_topk_quant"] += 1
+    _launch(route, "ef21_sgdm_topk_quant", "ef_launch_ef21_sgdm_topk_quant",
+            grad, v, g, v_out, g_out, q, scales, rows, width, c1, c2, k,
+            bits, int(v.dtype == torch.bfloat16))
     return v_out, g_out, q, scales
 
 
@@ -311,14 +348,13 @@ def dequant_add(q: torch.Tensor, scales: torch.Tensor, base: torch.Tensor, *,
     if not (rows - 1) * block < d <= rows * block:
         raise ValueError(f"base of {d} values does not fill {rows} rows of "
                          f"{block}")
-    if not _on_cuda(q, scales, base):
+    route = _route(q, scales, base)
+    if route == "plain":
         return ref.dequant_add_plain(q, scales, base, block=block, bits=bits,
                                      alpha=alpha)
     out = torch.empty_like(base)
-    _launch("ef_launch_dequant_add", q.data_ptr(), scales.data_ptr(),
-            base.data_ptr(), out.data_ptr(), rows, d, block, bits,
-            float(alpha), int(alpha != 1.0))
-    launches["dequant_add"] += 1
+    _launch(route, "dequant_add", "ef_launch_dequant_add", q, scales, base,
+            out, rows, d, block, bits, float(alpha), int(alpha != 1.0))
     return out
 
 
@@ -334,16 +370,16 @@ def block_quantize(x_rows: torch.Tensor, bits: int
                          f"{tuple(x_rows.shape)}")
     rows, cols = x_rows.shape
     _check("x", x_rows, (rows, cols), torch.float32)
-    if not _on_cuda(x_rows):
+    route = _route(x_rows)
+    if route == "plain":
         return ref.block_quantize_plain(x_rows, bits)
     if rows > _MAX_ROWS:
         raise ValueError(f"{rows} rows > {_MAX_ROWS} in one launch")
     qdtype, qcols = _codec_layout(bits, cols)
     q = torch.empty((rows, qcols), dtype=qdtype, device=x_rows.device)
     scales = torch.empty((rows,), dtype=torch.float32, device=x_rows.device)
-    _launch("ef_launch_block_quantize", x_rows.data_ptr(), q.data_ptr(),
-            scales.data_ptr(), rows, cols, bits)
-    launches["block_quantize"] += 1
+    _launch(route, "block_quantize", "ef_launch_block_quantize", x_rows, q,
+            scales, rows, cols, bits)
     return q, scales
 
 
@@ -359,14 +395,14 @@ def block_dequantize(q: torch.Tensor, scales: torch.Tensor, bits: int,
     qdtype, qcols = _codec_layout(bits, cols)
     _check("q", q, (rows, qcols), qdtype)
     _check("scales", scales, (rows,), torch.float32)
-    if not _on_cuda(q, scales):
+    route = _route(q, scales)
+    if route == "plain":
         return ref.block_dequantize_plain(q, scales, bits=bits, cols=cols)
     if rows > _MAX_ROWS:
         raise ValueError(f"{rows} rows > {_MAX_ROWS} in one launch")
     out = torch.empty((rows, cols), dtype=torch.float32, device=q.device)
-    _launch("ef_launch_block_dequantize", q.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), rows, cols, bits)
-    launches["block_dequantize"] += 1
+    _launch(route, "block_dequantize", "ef_launch_block_dequantize", q,
+            scales, out, rows, cols, bits)
     return out
 
 
@@ -401,18 +437,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in FLASH_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {FLASH_HEAD_DIMS}")
     bf16 = q.dtype == torch.bfloat16
-    if not _on_cuda(q, k, v):
+    route = _route(q, k, v)
+    if route == "plain":
         return ref.flash_attention_plain(q, k, v, causal=causal,
                                          round_p=bf16)
     if B > 65535 or H > 65535:
         raise ValueError(f"B={B}, H={H}: at most 65535 each in one launch")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if route == "card" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on 16-byte boundaries (the "
                          "bf16 route loads them by TMA, the f32 route by "
                          "16-byte copies)")
     out = torch.empty_like(q)
-    _launch("ef_launch_flash_attention", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, S, H, KV, hd, int(bf16),
-            int(causal), float(np.float32(hd ** -0.5)))
-    launches["flash_attention"] += 1
+    if route == "traced":
+        pairs = S * (S + 1) // 2 if causal else S * S
+        traced_flops["flash_attention"] += 4 * B * H * hd * pairs
+    _launch(route, "flash_attention", "ef_launch_flash_attention", q, k, v,
+            out, B, S, H, KV, hd, int(bf16), int(causal),
+            float(np.float32(hd ** -0.5)))
     return out

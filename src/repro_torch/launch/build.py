@@ -308,24 +308,108 @@ def ef_config(spec: RunSpec, n: Optional[int] = None,
 
 def cache_len(prompt_len: int, decode_budget: int, n_prefix: int = 0) -> int:
     """Slots of a serving cache: the prefix, the prompt and the decode
-    budget (the reference's ``_cache_shape``)."""
+    budget (the reference's ``_cache_shape``: a named dry-run shape keeps
+    its exact length, ``decode_budget`` 0)."""
     return n_prefix + prompt_len + decode_budget
 
 
-def build_prefill(cfg, tp=None, split=None):
+def arch_for_shape(cfg, shape):
+    """The reference's per-shape serving override: zamba2's shared
+    attention takes a 4096-slot sliding window at ``long_500k``."""
+    if shape.name == "long_500k" and cfg.family == "hybrid" \
+            and cfg.sliding_window is None:
+        return dataclasses.replace(cfg, sliding_window=4096)
+    return cfg
+
+
+def step_batch(cfg, shape, rows: int, device) -> Dict[str, torch.Tensor]:
+    """One rank's batch of a step at ``shape`` (the reference's
+    ``batch_specs``), ``rows`` of it: int32 tokens (and labels in train)
+    of the shape's sequence (1 in decode), and in train and prefill a
+    frontend's zero prefix padded to ``PREFIX_PAD_SPEC``. Empty tensors:
+    a dry run traces on the meta device."""
+    from repro_torch.data import pipeline as pipe_lib
+    S = 1 if shape.kind == "decode" else shape.seq_len
+    out = {"tokens": torch.empty((rows, S), dtype=torch.int32,
+                                 device=device)}
+    if shape.kind == "train":
+        out["labels"] = torch.empty_like(out["tokens"])
+    if shape.kind == "decode":
+        return out
+    return pipe_lib.with_prefix_embeds(cfg, out,
+                                       pad_to=pipe_lib.PREFIX_PAD_SPEC)
+
+
+def build_step(sess, shape, device="meta"):
+    """(fn, args, order) of one step of ``sess`` at the InputShape
+    ``shape`` on this rank, the reference's ``build_step``: the Session's
+    own train step (its state trees on ``device``, its rows of the batch)
+    for a train shape; else its prefill or decode closure over the
+    serving tree it would cast (``model.cast_matrices`` of its shards),
+    its rows of the prompts and its slice of a cache of the shape's exact
+    length (its rows, 'model' slice and sequence block:
+    ``shardings.cache_pspecs``), decode at the cache's last slot. ``args``
+    maps names to trees and ``order`` gives ``fn``'s positional order."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.data import pipeline as pipe_lib
+    from repro_torch.launch import shardings as sh
+    cfg = arch_for_shape(sess.cfg, shape)
+    mesh, n = sess.mesh, sess.n_clients
+    params = sess._shard(model_lib.init_params(cfg, None, device))
+    if shape.kind == "train":
+        sess._refuse_zero()
+        efc, opt, _, _, step_fn = sess._train_fns(cfg)
+        ef_state = dist.init_ef_state_sharded(efc, params, mesh) \
+            if sess.sharded else dist.init_ef_state(efc, params, n)
+        rows = shape.global_batch
+        if sess.sharded:
+            rows //= sess.client_group.size * sess.data_axes.size
+        args = {"params": params, "opt_state": opt.init(params),
+                "ef_state": ef_state,
+                "batch": step_batch(cfg, shape, rows, device)}
+
+        def train(params, opt_state, ef_state, batch):
+            return step_fn(params, opt_state, ef_state, batch, 0, None)
+        return train, args, ("params", "opt_state", "ef_state", "batch")
+    refusal = sh.serve_refusal(cfg)
+    if refusal is not None:
+        raise ValueError(refusal)
+    B = shape.global_batch
+    rows = sh.serve_rows(mesh, B) if sess.sharded else None
+    seq = sh.seq_axes(cfg, mesh, B) if sess.sharded else None
+    local = B // rows.size if rows is not None else B
+    slots = cache_len(shape.seq_len, 0, pipe_lib.prefix_token_count(
+        cfg, pad_to=pipe_lib.PREFIX_PAD_SPEC))
+    args = {"params": model_lib.cast_matrices(cfg, params),
+            "batch": step_batch(cfg, shape, local, device),
+            "cache": model_lib.init_cache(cfg, local, slots, device=device,
+                                          tp=sess.tp, seq=seq)}
+    if shape.kind == "prefill":
+        return build_prefill(cfg, sess.tp, rows, seq), args, \
+            ("params", "batch", "cache")
+    decode = build_decode(cfg, sess.tp, rows, seq)
+
+    def one_token(params, cache, batch):
+        return decode(params, cache, batch["tokens"], slots - 1)
+    return one_token, args, ("params", "cache", "batch")
+
+
+def build_prefill(cfg, tp=None, split=None, seq=None):
     """fn(params, batch, cache) -> (last-token logits, cache). ``tp``: the
     Session's tensor-parallel plan (``model.tp_plan``); ``split``: the data
-    group the rows are split over (None: this rank serves every row)."""
+    group the rows are split over (None: this rank serves every row);
+    ``seq``: the axes the cache's sequence is split over
+    (``shardings.seq_axes``)."""
     def fn(params, batch, cache):
         return model_lib.prefill(cfg, params, batch, cache, tp=tp,
-                                 split=split)
+                                 split=split, seq=seq)
     return fn
 
 
-def build_decode(cfg, tp=None, split=None):
-    """fn(params, cache, tokens, pos) -> (logits, cache); ``tp`` and
-    ``split`` as in :func:`build_prefill`."""
+def build_decode(cfg, tp=None, split=None, seq=None):
+    """fn(params, cache, tokens, pos) -> (logits, cache); ``tp``,
+    ``split`` and ``seq`` as in :func:`build_prefill`."""
     def fn(params, cache, tokens, pos):
         return model_lib.decode_step(cfg, params, cache, tokens, pos, tp=tp,
-                                     split=split)
+                                     split=split, seq=seq)
     return fn

@@ -194,24 +194,22 @@ class Session:
             global_batch=spec.global_batch, seed=seed,
             dp_groups=self.n_clients, heterogeneity=spec.heterogeneity))
 
-    def _ensure_train(self, template: bool = False) -> Dict[str, Any]:
-        """Build the training bundle. With ``template=True`` the state trees
-        (params, opt_state, ef_state) live on the meta device — their
-        structure, shapes and dtypes without memory, init or the batch-0
-        gradients; ``restore_from`` fills every leaf from a checkpoint."""
-        if self._tr is not None:
-            return self._tr
-        spec, cfg, n = self.spec, self.cfg, self.n_clients
-        sharded = self.sharded
-        if sharded:
-            refusal = sh.zero_refusal(cfg, self.mesh, self.plan)
+    def _refuse_zero(self) -> None:
+        """Raise where the reference's round fails on this mesh's ZeRO
+        state (``shardings.zero_refusal``)."""
+        if self.sharded:
+            refusal = sh.zero_refusal(self.cfg, self.mesh, self.plan)
             if refusal is not None:
                 raise ValueError(refusal)
-        c_axes = self.client_group.names if sharded else None
+
+    def _train_fns(self, cfg: cb.ArchConfig):
+        """(EFConfig, optimizer, the loss of one client's batch, the step)
+        of this Session on ``cfg``: the step a sharded rank runs takes its
+        own rows (``dist.rank_rows``)."""
+        spec, n = self.spec, self.n_clients
+        c_axes = self.client_group.names if self.sharded else None
         efc = build_lib.ef_config(spec, n, client_axes=c_axes)
         opt = opt_lib.make(spec.optimizer, lr=spec.lr)
-        pipe = self._pipe(spec.seed)
-
         tp = self.tp
         split = self.data_axes if self.data_axes.size > 1 else None
 
@@ -222,6 +220,31 @@ class Session:
         def step_loss_fn(p, b):
             return model_lib.train_loss(cfg, p, b, tp=tp, split=split)
 
+        step_fn = dist.make_train_step(
+            step_loss_fn, efc, opt, n, mesh=self.mesh if self.sharded
+            else None, overlap=spec.overlap, pspecs=self.pspecs)
+        return efc, opt, loss_fn, step_loss_fn, step_fn
+
+    def _rank_rows(self, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """The rows of a global batch that this rank's step takes: all of
+        them on one rank."""
+        if not self.sharded:
+            return batch
+        return dist.rank_rows(batch, self.mesh, self.client_group.names)
+
+    def _ensure_train(self, template: bool = False) -> Dict[str, Any]:
+        """Build the training bundle. With ``template=True`` the state trees
+        (params, opt_state, ef_state) live on the meta device — their
+        structure, shapes and dtypes without memory, init or the batch-0
+        gradients; ``restore_from`` fills every leaf from a checkpoint."""
+        if self._tr is not None:
+            return self._tr
+        spec, cfg, n = self.spec, self.cfg, self.n_clients
+        sharded = self.sharded
+        self._refuse_zero()
+        efc, opt, loss_fn, step_loss_fn, step_fn = self._train_fns(cfg)
+        pipe = self._pipe(spec.seed)
         if template:
             params = self._shard(model_lib.init_params(cfg, None, "meta"))
             ef_state = dist.init_ef_state_sharded(efc, params, self.mesh) \
@@ -230,11 +253,13 @@ class Session:
             params = self._shard(model_lib.init_params(
                 cfg, torch.Generator().manual_seed(spec.seed), self.device))
             # Alg 1 line 2: v⁰ᵢ = g⁰ᵢ = the clients' gradients on batch 0
-            b0 = pipe_lib.with_prefix_embeds(cfg, pipe.batch(0, self.device))
+            b0 = sh.to_device(self._rank_rows(pipe_lib.with_prefix_embeds(
+                cfg, pipe.batch(0))), self.device)
             if sharded:
                 # this rank's client: its rows of batch 0, its gradients
                 _, _, g0 = dist.sharded_value_and_grad(
-                    step_loss_fn, params, b0, self.mesh, c_axes)
+                    step_loss_fn, params, b0, self.mesh,
+                    self.client_group.names)
                 ef_state = dist.init_ef_state_sharded(efc, params, self.mesh,
                                                       init_grads=g0)
             else:
@@ -243,10 +268,7 @@ class Session:
                 ef_state = dist.init_ef_state(efc, params, n, init_grads=g0)
         self._tr = {
             "pipe": pipe, "loss_fn": loss_fn, "efc": efc,
-            "step_fn": dist.make_train_step(
-                step_loss_fn, efc, opt, n,
-                mesh=self.mesh if sharded else None,
-                overlap=spec.overlap, pspecs=self.pspecs),
+            "step_fn": step_fn,
             "params": params, "opt_state": opt.init(params),
             "ef_state": ef_state,
         }
@@ -271,9 +293,12 @@ class Session:
             self.cfg, self._ensure_train()["pipe"].batch(step, self.device))
 
     def step_once(self) -> Dict[str, torch.Tensor]:
-        """Advance exactly one training step; returns the step metrics."""
+        """Advance exactly one training step; returns the step metrics. On
+        several ranks the step takes this rank's rows of the global batch,
+        cut on the host: only they reach the device."""
         tr = self._ensure_train()
-        batch = self.batch_for(self.step)
+        batch = sh.to_device(self._rank_rows(pipe_lib.with_prefix_embeds(
+            self.cfg, tr["pipe"].batch(self.step))), self.device)
         # the step's stream, pure in (seed, step): a resumed run replays it
         rng = rng_lib.round_generator(self.spec.seed, self.step, self.device)
         # the step leaves the old h's tensors untouched (the downlink builds
@@ -370,6 +395,30 @@ class Session:
                     self.cfg, pipe.batch(i, self.device)))[0])
                 for i in range(batches)]
         return sum(losses) / max(len(losses), 1)
+
+    # --------------------------------------------------------------- dry run
+    def lower(self, shape_name: Optional[str] = None) -> Dict[str, Any]:
+        """The dry run of one step on this rank (the reference's
+        ``Session.lower``, whose compiled HLO its dry run analyzes): the
+        step at the named InputShape (default ``spec.shape``; None gives
+        the spec's custom train geometry, ``seq_len`` x ``global_batch``)
+        traced once on meta tensors at this rank's coordinate of the mesh,
+        through this Session's own train step or serving closures
+        (``build.build_step``). Returns launch/trace_analysis.py's figures:
+        FLOPs, collectives by kind, kernel launches, the memory of the
+        arguments, outputs and temporaries, and every argument leaf's
+        bytes. A refused ZeRO state or serve raises its ValueError, as the
+        reference's ``lower`` fails there. On a mesh of many ranks the
+        world may be a real one or launch/dryrun.py's fake one."""
+        from repro_torch.launch import trace_analysis as ta
+        name = shape_name if shape_name is not None else self.spec.shape
+        if name is not None:
+            shape = cb.INPUT_SHAPES[name]
+        else:
+            shape = cb.InputShape("train_custom", self.spec.seq_len,
+                                  self.spec.global_batch, "train")
+        fn, args, order = build_lib.build_step(self, shape)
+        return ta.analyze(fn, args, self.mesh.size, order)
 
     # ---------------------------------------------------------- checkpoints
     def _state(self) -> Dict[str, Any]:
@@ -622,7 +671,9 @@ class Session:
         block of the rows over the data axes where B divides them (else
         every row, ``shardings.serve_rows``), on its shards of the params
         and its slice of the cache (``model.init_cache`` under the
-        Session's ``tp``: its kv heads, d_inner or SSM heads). The
+        Session's ``tp``: its kv heads, d_inner or SSM heads, and its
+        block of the slots where the sequence splits, ``shardings.
+        cache_pspecs``, the reference's layout). The
         generated tokens are gathered over the data axes, so every rank
         returns the (B, decode_steps+1) array; the times are the first
         rank's wall clock over the global B; ``cache_bytes`` is the global
@@ -641,12 +692,13 @@ class Session:
         tokens = torch.as_tensor(tokens)
         B, S = tokens.shape
         rows = sh.serve_rows(self.mesh, B) if self.sharded else None
+        seq = sh.seq_axes(cfg, self.mesh, B) if self.sharded else None
         tokens = sh.local_rows(tokens, rows).to(self.device)
         # the production padding of the frontend prefix, as the reference
         pad = pipe_lib.PREFIX_PAD_SPEC
         n_prefix = pipe_lib.prefix_token_count(cfg, pad_to=pad)
-        prefill = build_lib.build_prefill(cfg, self.tp, rows)
-        decode = build_lib.build_decode(cfg, self.tp, rows)
+        prefill = build_lib.build_prefill(cfg, self.tp, rows, seq)
+        decode = build_lib.build_decode(cfg, self.tp, rows, seq)
         params = self.serving_params()
         batch_in = pipe_lib.with_prefix_embeds(cfg, {"tokens": tokens},
                                                pad_to=pad)
@@ -655,7 +707,7 @@ class Session:
                 torch.as_tensor(prompt_lens), rows).to(self.device)
         slots = build_lib.cache_len(S, decode_steps, n_prefix)
         cache = model_lib.init_cache(cfg, tokens.shape[0], slots,
-                                     device=self.device, tp=self.tp)
+                                     device=self.device, tp=self.tp, seq=seq)
 
         self._sync()
         t0 = time.time()
@@ -663,7 +715,7 @@ class Session:
         self._sync()
         t_prefill = time.time() - t0
 
-        tok = logits[:, -1].argmax(-1)[:, None]
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
         out_tokens = [tok]
         t0 = time.time()
         for i in range(decode_steps):
@@ -671,13 +723,12 @@ class Session:
                 decode_hook(i)
                 params = self.serving_params()
             logits, cache = decode(params, cache, tok, n_prefix + S + i)
-            tok = logits[:, -1].argmax(-1)[:, None]
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
             out_tokens.append(tok)
         self._sync()
         t_decode = time.time() - t0
 
-        out = sh.gather_rows(rows, torch.cat(out_tokens, dim=1)
-                             .to(torch.int32))
+        out = sh.gather_rows(rows, torch.cat(out_tokens, dim=1))
         if self.sharded:
             t_prefill, t_decode = comm.broadcast_object(
                 self.world, (t_prefill, t_decode))

@@ -41,8 +41,11 @@ tree between the two layouts, a leaf at a time.
 Serving (the reference's ``batch_pspecs`` and ``cache_pspecs``): the
 prompt rows split over the data axes where B divides them
 (:func:`serve_rows`, :func:`local_rows`, :func:`gather_rows`), each
-rank's cache its rows and its slice of the 'model' axis
-(:func:`cache_pspecs`); :func:`serve_refusal` names what serving refuses.
+rank's cache its rows, its slice of the 'model' axis and, where the kv
+heads do not split over 'model' (or the rows over the data axes), its
+block of the sequence (:func:`cache_pspecs`, :func:`seq_axes`; the block
+``models/layers.py::slot_range``); :func:`serve_refusal` names what
+serving refuses.
 """
 from __future__ import annotations
 
@@ -177,29 +180,62 @@ def gather_rows(rows: Optional[comm.Axes], x: torch.Tensor) -> torch.Tensor:
     return comm.all_gather(rows, x.contiguous()).flatten(0, 1)
 
 
-def cache_pspecs(cfg, tp, rows: Optional[comm.Axes]) -> Dict[str, Spec]:
-    """Each cache leaf's split in the port's layout (``model.init_cache``
-    under ``tp``), as the reference's ``cache_pspecs``: 'data' on the batch
-    dim where ``serve_rows`` splits it, 'model' on the kv heads where the
-    pass splits them, on an SSM state's d_inner or heads, and on a hybrid
-    conv state (this rank's d_inner columns, then B and C's 2N whole). The
-    reference splits a cache's sequence over 'model' (or every axis)
-    where the kv heads (or the rows) do not split; the port keeps the
-    slots whole there (ROADMAP Queue 1): a memory layout, the same
-    result."""
-    b = "data" if rows is not None else None
-    kv = "model" if tp is not None and tp.kv else None
-    di = "model" if tp is not None and tp.d_inner else None
-    attn = (None, b, None, kv, None)
+def cache_pspecs(cfg, mesh, global_batch: int) -> Dict[str, Spec]:
+    """Each serving cache leaf's split, the reference's ``cache_pspecs``
+    as tuples. The rows split over the data axes where ``global_batch``
+    divides them; the kv heads over 'model' where ``num_kv_heads`` divides
+    it. Where the kv heads do not split, the sequence splits over 'model';
+    where the rows do not split, it splits over the data axes and 'model'
+    (the data axes alone when the kv heads split). An SSM state splits its
+    d_inner (Mamba2: its heads) over 'model', a conv state its last dim.
+    The port's hybrid conv state splits that dim in another order (this
+    rank's d_inner columns, then B and C's 2N whole: ``ssm.mamba2_apply``'s
+    split), so its slice holds d_inner/n + 2N columns where the
+    reference's holds (d_inner + 2N)/n."""
+    d_ax = mesh.client_axes("group")
+    tp = mesh.shape.get("model", 1)
+    dp = 1
+    for a in d_ax:
+        dp *= mesh.shape[a]
+    b_ok = global_batch % dp == 0
+    # a PartitionSpec entry: one axis by its name, several as a tuple
+    d_ent = d_ax[0] if len(d_ax) == 1 else d_ax
+    b = d_ent if b_ok else None
+    kv = "model" if cfg.num_kv_heads and cfg.num_kv_heads % tp == 0 \
+        else None
+    if b_ok:
+        s = None if kv else "model"
+    else:
+        s = (*d_ax, "model") if not kv else d_ent
+    attn = (None, b, s, kv, None)
+    di = "model" if cfg.d_inner % tp == 0 else None
     if cfg.family == "ssm":
         return {"ssm": (None, b, di, None), "conv": (None, b, None, di)}
     if cfg.family == "hybrid":
-        return {"ssm": (None, b, di, None, None), "conv": (None, b, None, di),
+        nh = cfg.d_inner // cfg.ssm_head_dim
+        conv_d = cfg.d_inner + 2 * cfg.ssm_state
+        return {"ssm": (None, b, "model" if nh % tp == 0 else None, None,
+                        None),
+                "conv": (None, b, None, "model" if conv_d % tp == 0
+                         else None),
                 "k_attn": attn, "v_attn": attn}
     if cfg.local_global:
         return {k: attn for k in ("k_local", "v_local", "k_global",
                                   "v_global")}
     return {"k": attn, "v": attn}
+
+
+def seq_axes(cfg, mesh, global_batch: int) -> Optional[comm.Axes]:
+    """The axes a serving cache's sequence splits over
+    (:func:`cache_pspecs`), resolved for this rank, or None where the
+    slots stay whole on every rank (no attention cache, a group of one)."""
+    specs = cache_pspecs(cfg, mesh, global_batch)
+    key = next((k for k in ("k", "k_local", "k_attn") if k in specs), None)
+    if key is None or specs[key][2] is None:
+        return None
+    s = specs[key][2]
+    axes = mesh.axes((s,) if isinstance(s, str) else tuple(s))
+    return axes if axes.size > 1 else None
 
 
 def params_pspecs(cfg, mesh) -> Dict[str, Spec]:

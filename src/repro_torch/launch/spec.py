@@ -24,6 +24,13 @@ pads the attention heads for the ``model`` axis, as the reference's does.
 ``compressor_kw`` and ``method_kw`` must map names to JSON
 scalars; which names the compressor and the method take is checked where
 they are built (launch/build.py).
+
+The flag surface is the reference's (``_FLAGS`` in its order, with its
+choices and help; ``RunSpec.to_flags``/``from_flags`` round-trip), and so
+is the emitter: ``python -m repro_torch.launch.spec --print`` (or ``--out
+FILE``) prints the canonical JSON byte for byte as the reference's does,
+and ``--regen-goldens --goldens-dir DIR`` writes ``GOLDEN_SPECS``, the
+definitions of ``results/specs/*.json``.
 """
 from __future__ import annotations
 
@@ -706,6 +713,31 @@ class RunSpec:
                 "— use carrier='quant8'/'quant4'")
         return errs
 
+    def plan(self) -> Tuple[str, str]:
+        """(execution plan, degradation reason) of this spec's carrier
+        (:func:`plan_preview`)."""
+        block = self.compressor_kw.get("block") \
+            if isinstance(self.compressor_kw, dict) else None
+        return plan_preview(self.method, self.compressor, self.carrier,
+                            block if isinstance(block, int) else None)
+
+    def downlink_plan(self) -> Tuple[str, str]:
+        """(execution plan, degradation reason) of the downlink broadcast
+        (:func:`downlink_plan_preview`)."""
+        return downlink_plan_preview(self.compressor, self.downlink_carrier)
+
+    def train_kind(self) -> str:
+        """'train' | 'prefill' | 'decode' of the named shape (a custom
+        geometry is always a train shape)."""
+        if self.shape is not None:
+            return cb.INPUT_SHAPES[self.shape].kind
+        return "train"
+
+    def train_batch(self) -> int:
+        if self.shape is not None:
+            return cb.INPUT_SHAPES[self.shape].global_batch
+        return self.global_batch
+
     def n_clients_preview(self) -> int:
         """The paper's n for this spec (the reference's preview): the
         emulated clients on the one-device smoke mesh, else the production
@@ -764,6 +796,41 @@ class RunSpec:
                 out.append(f"{f.name}: {a!r} != {b!r}")
         return out
 
+    def to_flags(self) -> List[str]:
+        """CLI flags rebuilding this spec:
+        ``RunSpec.from_flags(s.to_flags()) == s``."""
+        out: List[str] = []
+        for flag, field, kind in _FLAGS:
+            val = getattr(self, field)
+            if val == getattr(_DEFAULT, field):
+                continue
+            if kind == "bool":
+                if val:
+                    out.append(flag)
+            else:
+                out.extend([flag, _FORMATS.get(kind, str)(val)])
+        return out
+
+    @classmethod
+    def from_flags(cls, argv: Optional[List[str]] = None) -> "RunSpec":
+        ap = argparse.ArgumentParser(add_help=False)
+        add_flags(ap)
+        return cls.from_args(ap.parse_args(argv))
+
+    @classmethod
+    def from_args(cls, args: argparse.Namespace) -> "RunSpec":
+        """A spec from parsed flags: ``--spec FILE`` (when in the namespace)
+        is the base, and every flag passed overrides its field (an unset
+        flag parses as None and never does)."""
+        base = cls()
+        spec_file = getattr(args, "spec_file", None)
+        if spec_file:
+            with open(spec_file) as f:
+                base = cls.from_json(f.read())
+        overrides = {field: getattr(args, field) for _, field, _ in _FLAGS
+                     if getattr(args, field, None) is not None}
+        return dataclasses.replace(base, **overrides) if overrides else base
+
 
 def _fused_block_errors(where: str, kw, carriers) -> List[str]:
     """The fused kernels' block limits, for a compressor_kw whose carriers
@@ -783,62 +850,254 @@ def _fused_block_errors(where: str, kw, carriers) -> List[str]:
 _DEFAULT = RunSpec()            # the defaults spec_hash leaves out
 
 
-# (flag, field, type) — the reference's flag names for the fields this
-# slice runs; dest is the field name
-_FLAGS = [
-    ("--arch", "arch", str), ("--smoke", "smoke", bool),
-    ("--seq", "seq_len", int), ("--global-batch", "global_batch", int),
-    ("--ef-state-dtype", "ef_state_dtype", str),
-    ("--clients", "clients", int), ("--method", "method", str),
-    ("--compressor", "compressor", str),
-    ("--ratio", "ratio", float), ("--eta", "eta", float),
-    ("--carrier", "carrier", str),
-    ("--downlink-carrier", "downlink_carrier", str),
-    ("--downlink-ratio", "downlink_ratio", float),
-    ("--schedule", "groups", parse_schedule_flag),
-    ("--participation", "participation", parse_participation_flag),
-    ("--hops", "hops", parse_hops_flag),
-    ("--method-kw", "method_kw", json.loads),
-    ("--compressor-kw", "compressor_kw", json.loads),
-    ("--moe-impl", "moe_impl", str),
-    ("--tp-pad-heads", "tp_pad_heads", int),
-    ("--mesh", "mesh", str), ("--overlap", "overlap", bool),
-    ("--granularity", "client_granularity", str),
-    ("--state-sharding", "state_sharding", str),
-    ("--optimizer", "optimizer", str),
-    ("--lr", "lr", float), ("--heterogeneity", "heterogeneity", float),
-    ("--seed", "seed", int),
-    ("--ckpt-dir", "ckpt_dir", str), ("--ckpt-every", "ckpt_every", int),
+# (flag, field, kind): the reference's flag surface in its order; dest is
+# always the field name, so an argparse namespace maps onto RunSpec fields
+_FLAGS: List[Tuple[str, str, str]] = [
+    ("--arch", "arch", "str"),
+    ("--smoke", "smoke", "bool"),
+    ("--shape", "shape", "str"),
+    ("--seq", "seq_len", "int"),
+    ("--global-batch", "global_batch", "int"),
+    ("--mesh", "mesh", "str"),
+    ("--granularity", "client_granularity", "str"),
+    ("--state-sharding", "state_sharding", "str"),
+    ("--ef-state-dtype", "ef_state_dtype", "str"),
+    ("--clients", "clients", "int"),
+    ("--method", "method", "str"),
+    ("--compressor", "compressor", "str"),
+    ("--ratio", "ratio", "float"),
+    ("--eta", "eta", "float"),
+    ("--carrier", "carrier", "str"),
+    ("--downlink-carrier", "downlink_carrier", "str"),
+    ("--downlink-ratio", "downlink_ratio", "float"),
+    ("--schedule", "groups", "schedule"),
+    ("--overlap", "overlap", "bool"),
+    ("--participation", "participation", "participation"),
+    ("--hops", "hops", "hops"),
+    ("--method-kw", "method_kw", "json"),
+    ("--compressor-kw", "compressor_kw", "json"),
+    ("--tp-pad-heads", "tp_pad_heads", "int"),
+    ("--moe-impl", "moe_impl", "str"),
+    ("--optimizer", "optimizer", "str"),
+    ("--lr", "lr", "float"),
+    ("--heterogeneity", "heterogeneity", "float"),
+    ("--seed", "seed", "int"),
+    ("--ckpt-dir", "ckpt_dir", "str"),
+    ("--ckpt-every", "ckpt_every", "int"),
 ]
+
+_FLAG_HELP = {
+    "--smoke": "reduced per-arch config (CPU-sized)",
+    "--shape": "named production InputShape for lower()/dryrun",
+    "--carrier": "wire carrier for the EF sync (core/carriers.py): dense "
+                 "all-reduce, sparse (values,indices) all-gather, the fused "
+                 "client update kernel, block-quantized wires, or the "
+                 "one-launch fused quantized wires (fused_quant8/4)",
+    "--overlap": "comm/compute overlap: ring-transport gather-wire "
+                 "aggregations on the sharded runtime, decoding each chunk "
+                 "while the next is in flight; bit-identical to the "
+                 "blocking gather",
+    "--downlink-carrier": "wire carrier for the server → client broadcast: "
+                          "'dense' keeps the implicit dense f32 broadcast; "
+                          "sparse/quant8/quant4 add the EF21 server memory h "
+                          "and ship C(g − h) as that carrier's wire",
+    "--downlink-ratio": "compression budget of the downlink compressor (the "
+                        "uplink compressor class, re-budgeted; like --ratio "
+                        "it only applies to ratio-bearing compressors — "
+                        "others reuse their compressor-kw budget unchanged)",
+    "--schedule": "per-parameter-group compression schedule: "
+                  "'pattern=carrier[:ratio][@compressor],…' entries matched "
+                  "first-match-wins against param leaf paths, last must be "
+                  "the catch-all '*' — e.g. "
+                  "'norm|bias=dense,embed=quant4:0.05,*=sparse:0.02'; a JSON "
+                  "[...] list unlocks per-group downlink / state-dtype knobs",
+    "--participation": "partial participation: 'mode[:fraction[:seed]]' — "
+                       "'full' (every client, every round), 'sampled:0.25:7' "
+                       "(a seeded cohort of max(1, round(fraction·n)) "
+                       "clients per round; non-sampled clients' EF state "
+                       "stays frozen), or a JSON {...} dict; 'async' names "
+                       "the event-driven simulator (core/participation.py) "
+                       "and refuses the synchronous drivers",
+    "--hops": "two-tier hierarchical aggregation: "
+              "'pods=<int>,cross=carrier[:ratio]' — clients aggregate over "
+              "the fast intra-pod links on the spec's carrier/schedule, "
+              "then each pod's aggregator error-feeds one compressed "
+              "innovation per round across the slow cross-pod links, e.g. "
+              "'pods=2,cross=quant4:0.05'; 'cross=dense' (or pods=1) is "
+              "bit-identical to the flat path; a JSON {...} dict also "
+              "round-trips",
+    "--clients": "emulated EF clients on the single-device mesh",
+    "--method-kw": "JSON dict of extra Method kwargs (e.g. "
+                   "'{\"gamma\": 0.01}')",
+    "--compressor-kw": "JSON dict of extra Compressor kwargs (e.g. "
+                       "'{\"block\": 1024, \"k_per_block\": 16}')",
+}
+
+_FLAG_CHOICES = {
+    "--shape": sorted(cb.INPUT_SHAPES),
+    "--mesh": list(MESHES),
+    "--granularity": list(GRANULARITIES),
+    "--state-sharding": list(STATE_SHARDINGS),
+    "--ef-state-dtype": ["bfloat16"],
+    "--method": sorted(METHODS),
+    "--compressor": sorted(COMPRESSORS),
+    "--carrier": sorted(CARRIERS),
+    "--downlink-carrier": sorted(DOWN_CARRIERS),
+    "--moe-impl": list(MOE_IMPLS),
+    "--optimizer": sorted(OPTIMIZERS),
+}
+
+_TYPES = {"int": int, "float": float, "str": str, "json": json.loads,
+          "schedule": parse_schedule_flag,
+          "participation": parse_participation_flag,
+          "hops": parse_hops_flag}
+_FORMATS = {"json": lambda v: json.dumps(v, sort_keys=True),
+            "schedule": format_schedule_flag,
+            "participation": format_participation_flag,
+            "hops": format_hops_flag}
 
 
 def add_flags(ap: argparse.ArgumentParser) -> None:
-    """The RunSpec flags; unset flags parse as None and never override."""
+    """The RunSpec flags, with the reference's help and choices. Every
+    default is None, so an unset flag never overrides a ``--spec`` file."""
     ap.add_argument("--spec", dest="spec_file", default=None, metavar="FILE",
-                    help="JSON RunSpec used as the base; flags override it")
+                    help="JSON RunSpec file used as the base; explicit flags "
+                         "override its fields")
     for flag, field, kind in _FLAGS:
-        if kind is bool:
-            ap.add_argument(flag, dest=field, action="store_true",
-                            default=None)
+        kw: Dict[str, Any] = {"dest": field, "default": None,
+                              "help": _FLAG_HELP.get(flag)}
+        if kind == "bool":
+            kw["action"] = "store_true"
             # --no-<flag> sets a truthy bool of a --spec file back to False
             ap.add_argument(flag.replace("--", "--no-", 1), dest=field,
-                            action="store_false", default=None)
+                            action="store_false", default=None,
+                            help=f"negate {flag}")
         else:
-            ap.add_argument(flag, dest=field, type=kind, default=None)
+            kw["type"] = _TYPES[kind]
+            if flag in _FLAG_CHOICES:
+                kw["choices"] = _FLAG_CHOICES[flag]
+        ap.add_argument(flag, **kw)
 
 
 def explicit_fields(args: argparse.Namespace, ignore=()) -> List[str]:
     """The RunSpec fields set on the command line (an unset flag parses as
-    None, so a flag equal to its default still counts)."""
-    return [field for _, field, _ in _FLAGS
-            if field not in ignore and getattr(args, field, None) is not None]
+    None, so a flag equal to its default still counts), and ``spec_file``
+    when ``--spec`` was given."""
+    out = [field for _, field, _ in _FLAGS
+           if field not in ignore and getattr(args, field, None) is not None]
+    if getattr(args, "spec_file", None):
+        out.append("spec_file")
+    return out
 
 
 def from_args(args: argparse.Namespace) -> RunSpec:
-    base = RunSpec()
-    if getattr(args, "spec_file", None):
-        with open(args.spec_file) as f:
-            base = RunSpec.from_json(f.read())
-    overrides = {field: getattr(args, field)
-                 for field in explicit_fields(args)}
-    return dataclasses.replace(base, **overrides) if overrides else base
+    """:meth:`RunSpec.from_args`."""
+    return RunSpec.from_args(args)
+
+
+# ---------------------------------------------------------------------------
+# the golden fixtures (results/specs/*.json): their definitions, the
+# reference's, so the files are written mechanically (``--regen-goldens``)
+# ---------------------------------------------------------------------------
+
+GOLDEN_SPECS: Dict[str, Dict[str, Any]] = {
+    "train_smoke_ef21_sgdm": {"smoke": True},
+    "fused_quickstart": {"carrier": "fused", "eta": 0.2,
+                         "compressor_kw": {"block": 1024, "k_per_block": 16}},
+    "dryrun_sparse_pod": {"arch": "gemma2-9b", "carrier": "sparse",
+                          "compressor": "topk", "ratio": 0.01, "mesh": "pod",
+                          "shape": "train_4k"},
+    "quant4_multipod_zero": {"arch": "grok-1-314b", "carrier": "quant4",
+                             "mesh": "multi_pod", "shape": "train_4k",
+                             "client_granularity": "pod",
+                             "state_sharding": "zero",
+                             "ef_state_dtype": "bfloat16"},
+    "bidir_quant4_down": {"smoke": True, "carrier": "quant4", "clients": 4,
+                          "global_batch": 8, "seq_len": 64,
+                          "downlink_carrier": "quant4",
+                          "downlink_ratio": 0.02},
+    # a mixed 3-group schedule: dense norms and biases, quant4 embeddings,
+    # sparse everything else with a quant4 downlink on the catch-all
+    "mixed_schedule": {"smoke": True, "clients": 4, "global_batch": 8,
+                       "seq_len": 64,
+                       "groups": [
+                           {"pattern": "norm|bias", "carrier": "dense"},
+                           {"pattern": "embed", "carrier": "quant4",
+                            "ratio": 0.05},
+                           {"pattern": "*", "carrier": "sparse",
+                            "ratio": 0.02, "downlink_carrier": "quant4",
+                            "downlink_ratio": 0.05},
+                       ]},
+    # the one-launch fused quantized wire with overlap on a production mesh
+    "fused_quant8_overlap": {"carrier": "fused_quant8", "mesh": "pod",
+                             "shape": "train_4k", "eta": 0.2,
+                             "overlap": True,
+                             "compressor_kw": {"block": 1024,
+                                               "k_per_block": 16}},
+    # a seeded quarter cohort a round (``--participation sampled:0.25:7``)
+    "sampled_quarter": {"smoke": True, "clients": 4, "global_batch": 8,
+                        "seq_len": 64,
+                        "participation": {"mode": "sampled",
+                                          "fraction": 0.25, "seed": 7}},
+    # two pods of 4 clients: a dense intra hop, a quant4 cross-pod hop
+    # (``--hops pods=2,cross=quant4:0.05``)
+    "hierarchy_quant4_cross": {"smoke": True, "clients": 8, "global_batch": 8,
+                               "seq_len": 64,
+                               "hops": {"pods": 2,
+                                        "cross_carrier": "quant4",
+                                        "cross_ratio": 0.05}},
+}
+
+
+def regen_goldens(out_dir: str) -> List[str]:
+    """Write every golden fixture of GOLDEN_SPECS into ``out_dir`` at the
+    current schema, as the reference writes them; returns the paths."""
+    import os
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for name in sorted(GOLDEN_SPECS):
+        path = os.path.join(out_dir, f"{name}.json")
+        with open(path, "w") as f:
+            f.write(RunSpec(**GOLDEN_SPECS[name]).to_json(indent=1) + "\n")
+        paths.append(path)
+    return paths
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    """Validate a RunSpec and print or write its canonical JSON:
+
+      python -m repro_torch.launch.spec --print --arch gemma2-9b --carrier sparse
+      python -m repro_torch.launch.spec --out sweep/cell_017.json --method ef21_sgd
+      python -m repro_torch.launch.spec --regen-goldens --goldens-dir /tmp/specs
+    """
+    ap = argparse.ArgumentParser(
+        "repro_torch.launch.spec",
+        description="validate and print/write a RunSpec as canonical JSON")
+    add_flags(ap)
+    ap.add_argument("--print", dest="do_print", action="store_true",
+                    help="print the canonical JSON to stdout")
+    ap.add_argument("--out", default=None, help="write the JSON to a file")
+    ap.add_argument("--regen-goldens", dest="regen_goldens",
+                    action="store_true",
+                    help="write the golden fixtures of GOLDEN_SPECS under "
+                         "--goldens-dir at the current schema, then exit")
+    ap.add_argument("--goldens-dir", default="results/specs",
+                    help="target directory for --regen-goldens")
+    args = ap.parse_args(argv)
+    if args.regen_goldens:
+        for path in regen_goldens(args.goldens_dir):
+            print(path)
+        return
+    spec = RunSpec.from_args(args)
+    text = spec.to_json(indent=1)
+    if args.out:
+        import os
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    if args.do_print or not args.out:
+        print(text)
+
+
+if __name__ == "__main__":
+    main()

@@ -113,12 +113,16 @@ def rope_tables(hd: int, theta: float, length: int, device
     or above ``length``, cached per (hd, theta, device, L). Each entry is
     the computation :func:`rope` makes for that position, element by
     element (an exact integer times the same f32 frequencies, then cos and
-    sin), so a gathered row equals the direct computation bit for bit."""
+    sin), so a gathered row equals the direct computation bit for bit.
+    Meta tables (a dry run's trace) are built anew each call, so that
+    every traced step allocates them as a first step does."""
     n = 1 << max(int(length) - 1, 0).bit_length()
     key = (hd, float(theta), str(torch.device(device)), n)
     if key not in _ROPE_TABLES:
         ang = torch.arange(n, device=device).float()[:, None] * \
             _rope_freqs(hd, theta, device)
+        if torch.device(device).type == "meta":
+            return torch.cos(ang), torch.sin(ang)
         _ROPE_TABLES[key] = (torch.cos(ang), torch.sin(ang))
     return _ROPE_TABLES[key]
 
@@ -186,26 +190,64 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
+def slot_range(slots: int, seq: Optional[comm.Axes]) -> Tuple[int, int]:
+    """[lo, hi): the slots of a cache of ``slots`` that this rank holds
+    under a sequence split over ``seq`` (its contiguous block, the
+    reference's sharding of the sequence dim); all of them without one.
+    A split that does not divide the slots raises, as the reference's
+    ``NamedSharding.shard_shape`` does."""
+    if seq is None or seq.size == 1:
+        return 0, slots
+    if slots % seq.size:
+        raise ValueError(
+            f"a cache of {slots} slots splits its sequence over {seq.names}"
+            f" ({seq.size} ranks), which does not divide it; the "
+            "reference's NamedSharding.shard_shape raises there too "
+            "(the tiling factors should evenly divide the shape)")
+    n = slots // seq.size
+    return seq.index * n, (seq.index + 1) * n
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int, *,
                      window: Optional[int] = None,
-                     cap: Optional[float] = None) -> torch.Tensor:
+                     cap: Optional[float] = None,
+                     seq: Optional[comm.Axes] = None) -> torch.Tensor:
     """One-token attention against a cache. q: (B,1,H,hd); caches
     (B,S,KV,hd); ``pos`` is the new token's position. A full cache holds
     position p at slot p and attends to the slots <= pos; a sliding-window
     cache is a ring of S slots holding p at slot p % S, every slot valid
     once pos >= S. Scores and softmax in f32 (soft-capped by ``cap``), P
-    rounded to the cache's dtype before P.V (the reference's ``_gqa_out``)."""
+    rounded to the cache's dtype before P.V (the reference's ``_gqa_out``).
+
+    ``seq``: the caches are this rank's block of a sequence split over
+    those axes (:func:`slot_range`), and the softmax runs in two passes
+    over the split: the scores' max all-reduced (max), the local sums of
+    exp(s − max) all-reduced (sum), P = exp(s − max) / sum rounded to the
+    cache's dtype as without a split, and the P·V partials summed in f32
+    over the axes. Each P is then the whole cache's up to the order of one
+    sum."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     s = _gqa_scores(q.reshape(B, 1, KV, H // KV, hd), k_cache, cap)
-    slot = torch.arange(S, device=q.device)
+    n = 1 if seq is None else seq.size
+    lo = slot_range(S * n, seq)[0]
+    slot = lo + torch.arange(S, device=q.device)
     valid = slot <= pos
-    if window is not None and pos >= S:     # a full ring: every slot
+    if window is not None and pos >= S * n:     # a full ring: every slot
         valid = torch.ones_like(valid)
     bias = torch.where(valid, 0.0, -1e30)
-    p = torch.softmax(s + bias, dim=-1).to(v_cache.dtype)
-    o = torch.einsum("bngqk,bknd->bqngd", p, v_cache)
+    if n == 1:
+        p = torch.softmax(s + bias, dim=-1).to(v_cache.dtype)
+        o = torch.einsum("bngqk,bknd->bqngd", p, v_cache)
+        return o.reshape(B, 1, H, hd)
+    s = s + bias
+    m = comm.seq_all_reduce(seq, s.amax(-1, keepdim=True), "max")
+    e = torch.exp(s - m)
+    total = comm.seq_all_reduce(seq, e.sum(-1, keepdim=True), "sum")
+    p = (e / total).to(v_cache.dtype)
+    o = torch.einsum("bngqk,bknd->bqngd", p.float(), v_cache.float())
+    o = comm.seq_all_reduce(seq, o, "sum").to(v_cache.dtype)
     return o.reshape(B, 1, H, hd)
 
 
@@ -221,7 +263,8 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                chunk: int, window: Optional[int] = None,
                cap: Optional[float] = None, cache: Optional[Cache] = None,
                pos: Optional[int] = None,
-               tp: Optional[TensorParallel] = None) -> torch.Tensor:
+               tp: Optional[TensorParallel] = None,
+               seq: Optional[comm.Axes] = None) -> torch.Tensor:
     """Pre-norm attention sub-block; returns the residual delta.
     ``rope_cs``: the cos and sin of x's positions (:func:`rope_at`);
     ``window``: the layer's sliding window; ``cap``: its score soft cap.
@@ -245,6 +288,14 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     projection (Megatron's column- and row-parallel pair). A cache holds
     this rank's kv heads where ``tp.kv`` splits them, else every kv head:
     then all of them are written and the local q heads read theirs.
+
+    ``seq``: the cache holds this rank's block of the slots of a sequence
+    split over those axes (``shardings.cache_pspecs``): only the rank
+    that owns a slot writes it, and decode merges the ranks' partial
+    softmax sums (:func:`decode_attention`). Where the q heads split and
+    the kv heads do not, q is gathered over 'model' first: each rank
+    computes every head over its slots and keeps its own heads' rows, and
+    no rank gathers the cache.
     """
     h = rms_norm(x, p["norm"], eps)
     split = tp is not None and tp.heads
@@ -259,6 +310,7 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
     kl, vl = k[:, :, sel], v[:, :, sel]        # the kv heads q reads
+    n = 1 if seq is None else seq.size
     if cache is None:
         out = chunked_attention(q, kl, vl, chunk=chunk, window=window,
                                 cap=cap)
@@ -271,21 +323,37 @@ def attn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
         else:
             out = chunked_attention(q, kl, vl, chunk=chunk, window=window,
                                     cap=cap)
-        S, slots = k.shape[1], cache[0].shape[1]
+        S, slots = k.shape[1], cache[0].shape[1] * n
+        lo, hi = slot_range(slots, seq)
         if window is not None and S > slots:
             # the last `slots` keys, position p at slot p % slots
             for c, t in zip(cache, (k, v)):
-                c.copy_(torch.roll(t[:, -slots:], S % slots, dims=1))
-        else:
-            n = min(S, slots)           # as the reference: k[:, :slots]
-            cache[0][:, :n] = k[:, :n]
-            cache[1][:, :n] = v[:, :n]
+                c.copy_(torch.roll(t[:, -slots:], S % slots,
+                                   dims=1)[:, lo:hi])
+        elif min(S, slots) > lo:
+            m = min(S, slots, hi)      # as the reference: k[:, :slots]
+            cache[0][:, :m - lo] = k[:, lo:m]
+            cache[1][:, :m - lo] = v[:, lo:m]
     else:
-        slot = pos if window is None else pos % cache[0].shape[1]
-        cache[0][:, slot] = k[:, 0]
-        cache[1][:, slot] = v[:, 0]
-        out = decode_attention(q, cache[0][:, :, sel], cache[1][:, :, sel],
-                               pos, window=window, cap=cap)
+        slots = cache[0].shape[1] * n
+        slot = pos if window is None else pos % slots
+        lo, hi = slot_range(slots, seq)
+        if lo <= slot < hi:
+            cache[0][:, slot - lo] = k[:, 0]
+            cache[1][:, slot - lo] = v[:, 0]
+        if n > 1 and split and not tp.kv:
+            # every head over this rank's slots; its own heads' rows kept
+            h_local = q.shape[2]
+            q_all = comm.gather_last(tp.axes, q.reshape(*q.shape[:2], -1))
+            out = decode_attention(
+                q_all.reshape(*q.shape[:2], -1, q.shape[-1]), cache[0],
+                cache[1], pos, window=window, cap=cap, seq=seq)
+            out = out[:, :, tp.axes.index * h_local:
+                      (tp.axes.index + 1) * h_local]
+        else:
+            out = decode_attention(q, cache[0][:, :, sel],
+                                   cache[1][:, :, sel], pos, window=window,
+                                   cap=cap, seq=seq)
     out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(out.dtype))
     return comm.reduce_from(tp.axes, out) if split else out
 

@@ -328,7 +328,7 @@ def _embed(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     if cfg.name.startswith("gemma"):
         # sqrt(d_model) rounded to the activation dtype first, as the
         # reference's jnp.asarray(..., adt): 59.75 in bf16 at d 3584
-        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=adt, device=h.device)
+        h = h * torch.full((), cfg.d_model ** 0.5, dtype=adt, device=h.device)
     if prefix_embeds is None:
         return h, 0
     pe = torch.einsum("bpd,de->bpe", prefix_embeds.to(adt),
@@ -376,7 +376,8 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                cache: Optional[Dict[str, torch.Tensor]] = None,
                pos: Optional[int] = None, train: bool = False,
                tp: Optional[L.TensorParallel] = None,
-               split: Optional[comm.Axes] = None
+               split: Optional[comm.Axes] = None,
+               seq: Optional[comm.Axes] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The layers, one after another, for training (no cache), prefill
     (cache, no ``pos``) and decode (cache and ``pos``); see
@@ -389,10 +390,12 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     values leaving the block beside h; a recomputed block replays its f/g
     collectives in the backward, every rank in the same order. ``tp``: the
     tensor-parallel pass over this rank's shards; ``split``: a pod
-    client's data group, which MoE routes over (models/moe.py). The SSM
-    families run :func:`_run_ssm_stack`."""
+    client's data group, which MoE routes over (models/moe.py); ``seq``:
+    the axes a serving cache's sequence is split over (``layers.attn_apply``).
+    The SSM families run :func:`_run_ssm_stack`."""
     if cfg.family in ("ssm", "hybrid"):
-        h = _run_ssm_stack(cfg, params, h, positions, cache, pos, train, tp)
+        h = _run_ssm_stack(cfg, params, h, positions, cache, pos, train, tp,
+                           seq)
         return h, {k: torch.zeros((), device=h.device)
                    for k in moe_lib.AUX_KEYS}
     length = h.shape[1] if pos is None else pos + 1
@@ -426,7 +429,7 @@ def _run_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                 chunk=cfg.attn_chunk, window=layer_window(cfg, i),
                 cap=cfg.logit_softcap,
                 cache=None if cache is None else _layer_cache(cfg, cache, i),
-                pos=pos, tp=tp)
+                pos=pos, tp=tp, seq=seq)
             if moe_fn is None:
                 h = h + L.mlp_apply(sub(p, "mlp/"), h, cfg.norm_eps, tp=tp)
             else:
@@ -468,7 +471,8 @@ def _run_ssm_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                    h: torch.Tensor, positions: torch.Tensor,
                    cache: Optional[Dict[str, torch.Tensor]],
                    pos: Optional[int], train: bool,
-                   tp: Optional[L.TensorParallel] = None) -> torch.Tensor:
+                   tp: Optional[L.TensorParallel] = None,
+                   seq: Optional[comm.Axes] = None) -> torch.Tensor:
     """The ``ssm`` stack (one Mamba1 block a layer) or the ``hybrid`` one
     (G groups of ``hybrid_attn_every`` Mamba2 blocks, each group followed
     by the shared attention and MLP block, with the group's slot of
@@ -477,7 +481,8 @@ def _run_ssm_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     place (prefill: S > 1 from the cache's states; decode: S = 1). With
     ``train`` and ``cfg.remat`` each mamba block is recomputed in the
     backward, replaying its collectives there. ``tp``: every block, the
-    shared one too, runs over this rank's shards."""
+    shared one too, runs over this rank's shards; ``seq``: the axes the
+    shared block's cache sequence is split over."""
     apply = functools.partial(
         ssm_lib.mamba1_apply if cfg.ssm_variant == "mamba1"
         else ssm_lib.mamba2_apply, tp=tp)
@@ -520,7 +525,8 @@ def _run_ssm_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
             attn, h, rope_cs, eps=cfg.norm_eps, chunk=cfg.attn_chunk,
             window=cfg.sliding_window, cap=cfg.logit_softcap,
             cache=None if cache is None else
-            (cache["k_attn"][g], cache["v_attn"][g]), pos=pos, tp=tp)
+            (cache["k_attn"][g], cache["v_attn"][g]), pos=pos, tp=tp,
+            seq=seq)
         h = h + L.mlp_apply(mlp, h, cfg.norm_eps, tp=tp)
     for i in range(G * k, cfg.num_layers):
         h = mamba(i, h)
@@ -613,7 +619,8 @@ def train_loss(cfg: ArchConfig, params: Dict[str, torch.Tensor],
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device="cpu",
-               tp: Optional[L.TensorParallel] = None
+               tp: Optional[L.TensorParallel] = None,
+               seq: Optional[comm.Axes] = None
                ) -> Dict[str, torch.Tensor]:
     """Zero cache, bfloat16 by default as in the reference. The attention
     families: k and v (L, B, S, KV, hd), S = min(max_seq, window) under a
@@ -633,7 +640,10 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
     conv state holds this rank's d_inner columns, then the 2N columns of
     B and C whole (the order ``ssm.mamba2_apply`` splits it in).
     ``batch_size`` is the rows this rank serves (launch/shardings.py
-    ``serve_rows``)."""
+    ``serve_rows``). ``seq``: the axes the attention caches' sequence is
+    split over (``shardings.seq_axes``): each holds this rank's block of
+    its slots (``layers.slot_range``), a ring's and a global cache's
+    alike."""
     _check_family(cfg)
     n_tp = 1 if tp is None else tp.axes.size
     KV, hd = cfg.num_kv_heads, cfg.head_dim_
@@ -644,7 +654,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
         else max_seq
 
     def zeros(n, S):
-        return torch.zeros((n, batch_size, S, KV, hd), dtype=dtype,
+        lo, hi = L.slot_range(S, seq)
+        return torch.zeros((n, batch_size, hi - lo, KV, hd), dtype=dtype,
                            device=device)
     if cfg.family in ("ssm", "hybrid"):
         n, Di, N = cfg.num_layers, cfg.d_inner // di_split, cfg.ssm_state
@@ -674,7 +685,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
 def prefill(cfg: ArchConfig, params: Dict[str, torch.Tensor],
             batch: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor],
             tp: Optional[L.TensorParallel] = None,
-            split: Optional[comm.Axes] = None
+            split: Optional[comm.Axes] = None,
+            seq: Optional[comm.Axes] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the whole prompt; returns (last-token logits (B,1,V) f32,
     the cache with slots [0, S) filled, or a ring with the last positions
@@ -691,13 +703,14 @@ def prefill(cfg: ArchConfig, params: Dict[str, torch.Tensor],
     slice (:func:`init_cache`); the logits come out whole on every rank.
     ``split``: the data group the batch's rows are split over, the batch
     this rank's contiguous block of them; MoE routes over the whole
-    call's tokens (models/moe.py)."""
+    call's tokens (models/moe.py). ``seq``: the axes the cache's sequence
+    is split over (:func:`init_cache`); each rank stores its slots."""
     h, n_prefix = _embed(cfg, params, batch["tokens"],
                          batch.get("prefix_embeds"), tp=tp)
     B, T = h.shape[:2]
     positions = torch.arange(T, device=h.device)[None].expand(B, T)
     h, _ = _run_stack(cfg, params, h, positions, cache=cache, tp=tp,
-                      split=split)
+                      split=split, seq=seq)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     lens = batch.get("prompt_lens")
     if lens is None:
@@ -712,23 +725,25 @@ def prefill(cfg: ArchConfig, params: Dict[str, torch.Tensor],
 def _decode_stack(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                   h: torch.Tensor, pos: int, cache: Dict[str, torch.Tensor],
                   tp: Optional[L.TensorParallel] = None,
-                  split: Optional[comm.Axes] = None) -> torch.Tensor:
+                  split: Optional[comm.Axes] = None,
+                  seq: Optional[comm.Axes] = None) -> torch.Tensor:
     positions = torch.full((h.shape[0], 1), pos, device=h.device)
     return _run_stack(cfg, params, h, positions, cache=cache, pos=pos,
-                      tp=tp, split=split)[0]
+                      tp=tp, split=split, seq=seq)[0]
 
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Dict[str, torch.Tensor],
                 cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 pos: int, tp: Optional[L.TensorParallel] = None,
-                split: Optional[comm.Axes] = None
+                split: Optional[comm.Axes] = None,
+                seq: Optional[comm.Axes] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. tokens: (B,1); pos: the tokens' absolute position.
     Returns (logits (B,1,V) f32, the cache with slot ``pos`` written).
-    ``tp`` and ``split`` as in :func:`prefill` (MoE's capacity from the
-    step's B tokens over the data group)."""
+    ``tp``, ``split`` and ``seq`` as in :func:`prefill` (MoE's capacity
+    from the step's B tokens over the data group)."""
     h, _ = _embed(cfg, params, tokens, tp=tp)
-    h = _decode_stack(cfg, params, h, pos, cache, tp, split)
+    h = _decode_stack(cfg, params, h, pos, cache, tp, split, seq)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _serve_logits(cfg, params["embed"].to(h.dtype), h, tp), cache

@@ -110,7 +110,7 @@ def test_the_d_phases_launch_their_stated_counts():
     frontend_proj, or olmoe's five MoE leaves in place of the MLP's four);
     K7 once a layer of the prefill only where the layer has no window, no
     soft cap and hd 32, 64 or 128: every layer of smollm-360m (32),
-    granite-34b (1), musicgen-medium (12 of hd 64), olmoe-1b-7b and
+    granite-34b (1), musicgen-medium (6 of hd 64), olmoe-1b-7b and
     internvl2-76b (1 of hd 128), none of h2o-danube-3-4b (windows, hd 120)
     or gemma2-9b (windows and caps, hd 256); once an application of
     zamba2-1.2b's shared block (2 groups of 6 of its 13 layers), never in
@@ -118,7 +118,7 @@ def test_the_d_phases_launch_their_stated_counts():
     are 12 stacked Mamba2 leaves and the shared block's 9). The
     serve-only D-internvl2 takes no step."""
     leaves = {"D-musicgen": 12, "D-olmoe": 12, "D-zamba2": 23}
-    flash = {"R": 32, "D-granite": 1, "D-musicgen": 12, "D-olmoe": 1,
+    flash = {"R": 32, "D-granite": 1, "D-musicgen": 6, "D-olmoe": 1,
              "D-internvl2": 1, "D-zamba2": 2}
     cells = [("R", "smollm-360m", {}, 8)] + [
         (name, arch, cut, clients)
@@ -144,7 +144,7 @@ def test_the_d_phases_launch_their_stated_counts():
 
 
 @pytest.mark.parametrize("name,params,cache_bytes,prefill", [
-    ("D-musicgen", 458_528_256, 660_602_880, CS.FLASH_MUSICGEN),
+    ("D-musicgen", 232_017_408, 330_301_440, CS.FLASH_MUSICGEN),
     ("D-olmoe", 522_590_208, 69_206_016, CS.FLASH_OLMOE),
     ("D-internvl2", 1_973_444_608, 42_991_616, CS.FLASH_INTERNVL2),
     ("D-falcon-mamba", 371_646_464, 4_587_520, None),
@@ -753,7 +753,9 @@ def test_phase_mt_spawns_its_ranks_and_checks(monkeypatch, capsys):
     (pod 2, data 1, model 2)) bit for bit MT-padded's first step; then
     MT-single on one device. MT-serve: the unpadded smollm and the SSM
     runs serve on their 4 ranks after their step, against the
-    single-device serve of the same params."""
+    single-device serve of the same params, each rank's cache its shard
+    in the reference's layout; the unpadded smollm also serves one row
+    (the sequence split over all four ranks)."""
     cs = _importable_chip_smoke(monkeypatch)
     _, losses, served = cs.mt_phase(ops, device="cpu", smoke=True,
                                     smoke_archs=(), smoke_pod=())
@@ -782,7 +784,16 @@ def test_phase_mt_spawns_its_ranks_and_checks(monkeypatch, capsys):
         for rank in range(4):
             assert f"{label} serve rank {rank}: B {B} × {S}, {steps} " \
                 "decode steps" in out
-    assert sorted(served) == sorted(cs.MT_SERVE)      # none on the CPU
+    # MT-replicated's one-row serve: the sequence split over all four
+    # ranks, each rank's cache its shard (mt_serve_checks fails otherwise)
+    B, S, steps = cs.MT_SERVE_B1_SMOKE
+    for label in cs.MT_SERVE_B1:
+        assert f"{label} B1 serve: tokens equal on every rank" in out
+        for rank in range(4):
+            assert f"{label} B1 serve rank {rank}: B {B} × {S}, " \
+                f"{steps} decode steps" in out
+    assert sorted(served) == sorted(
+        [*cs.MT_SERVE, *(label + " B1" for label in cs.MT_SERVE_B1)])
     assert losses["MT-pod-zero"] == losses["MT-padded"][:1]
     assert "MT-pod-zero: pod clients with state sharding 'zero' on " \
         "{'pod': 2, 'data': 1, 'model': 2}" in out

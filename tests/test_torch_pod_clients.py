@@ -262,7 +262,7 @@ def _rank_moe(inp):
                                   dtype="float32", moe_impl=impl)
         loss, aux, g = pt_dist.sharded_value_and_grad(
             lambda p, b: pt_model.train_loss(cfg, p, b, split=group),
-            params, batch, mesh, c_axes)
+            params, pt_dist.rank_rows(batch, mesh, c_axes), mesh, c_axes)
         out[impl] = (float(loss),
                      {k: float(comm.share_sum(group, v))
                       for k, v in aux.items()},

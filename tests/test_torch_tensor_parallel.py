@@ -145,6 +145,10 @@ SESSIONS = {"session": SESSION,
 SERVE_ARCHS = ("smollm-360m", "granite-34b", "olmoe-1b-7b",
                "falcon-mamba-7b", "zamba2-1.2b")
 SERVE = {"B": 4, "S": 32, "steps": 4}
+# one row (B 1 does not divide the 2 data ranks): the cache's sequence
+# splits over all four ranks, every rank serving the row; gemma2's prompt
+# passes its 128-slot window, so its local layers' ring wraps and splits
+SERVE_B1 = {"smollm-360m": 32, "granite-34b": 32, "gemma2-9b": 160}
 # publishing at (data 2, model 2), 1 step: the dense downlink publishes,
 # the compressed one (SESSION's fused_quant4) is refused by the verify
 PUBLISH = {"dense": dict(SESSION, downlink_carrier="dense"),
@@ -214,6 +218,15 @@ def _serve_inputs():
                      "tokens": rng.randint(0, cfg.vocab_size,
                                            (SERVE["B"], SERVE["S"]))
                      .astype(np.int32)}
+    for arch, S in SERVE_B1.items():
+        cfg = _cfg(arch)
+        params = pt_model.init_params(
+            cfg, torch.Generator().manual_seed(len(arch)))
+        rng = np.random.RandomState(S)
+        out[arch + "/B1"] = {
+            "params": {k: v.numpy() for k, v in params.items()},
+            "tokens": rng.randint(0, cfg.vocab_size, (1, S))
+            .astype(np.int32)}
     return out
 
 
@@ -382,15 +395,18 @@ def _rank_serve(inp):
     prompts as the reference's: the tokens, cache bytes and MoE drops."""
     from repro_torch.launch.session import Session
     out = {}
-    for arch in SERVE_ARCHS:
-        spec = pt_spec.RunSpec.from_dict(dict(SESSION, arch=arch,
-                                              tp_pad_heads=0))
+    for name in (*SERVE_ARCHS, *(a + "/B1" for a in SERVE_B1)):
+        spec = pt_spec.RunSpec.from_dict(dict(
+            SESSION, arch=name.split("/")[0], tp_pad_heads=0))
         sess = Session(spec, device="cpu", dtype="float32")
         sess.set_serve_params({k: torch.tensor(v) for k, v in
-                               inp["serve"][arch]["params"].items()})
-        r = _serve_drops(sess, inp["serve"][arch]["tokens"])
-        out[arch] = {k: r[k] for k in ("tokens", "cache_bytes",
+                               inp["serve"][name]["params"].items()})
+        comm.reset_stats()
+        r = _serve_drops(sess, inp["serve"][name]["tokens"])
+        out[name] = {k: r[k] for k in ("tokens", "cache_bytes",
                                        "local_cache_bytes", "drops")}
+        out[name]["kinds"] = {k: dict(v, groups=dict(v["groups"]))
+                              for k, v in comm.KINDS.items()}
     return out
 
 
@@ -652,18 +668,44 @@ def _reference_main(inp_path, ckpt0, out_path, workdir):
                          workdir, f"ref_{name}_step_3.npz")),
                      "mesh": dict(jsess.mesh.shape)}
 
-    # serving on the narrowed pod mesh, f32, the port's params and prompts
+    # serving on the narrowed pod mesh, f32, the port's params and prompts;
+    # a device's bytes of the cache: each leaf's shard_shape under the
+    # reference's cache_pspecs
+    from jax.sharding import NamedSharding
+    from repro.data import pipeline as jax_pipe
+    from repro.launch import shardings as jax_sh
+    from repro.models import model as jax_model
     out["serve"] = {}
-    for arch in SERVE_ARCHS:
+    for name in (*SERVE_ARCHS, *(a + "/B1" for a in SERVE_B1)):
+        arch = name.split("/")[0]
         jsess = jax_session.Session(jax_spec.RunSpec.from_dict(
             dict(SESSION, arch=arch, tp_pad_heads=0)))
         jsess.cfg = dataclasses.replace(jsess.cfg, dtype="float32")
         jsess.set_serve_params(jax.tree_util.tree_map(
-            jnp.asarray, _nest(inp["serve"][arch]["params"])))
-        r = jsess.serve(tokens=jnp.asarray(inp["serve"][arch]["tokens"]),
+            jnp.asarray, _nest(inp["serve"][name]["params"])))
+        tokens = inp["serve"][name]["tokens"]
+        r = jsess.serve(tokens=jnp.asarray(tokens),
                         decode_steps=SERVE["steps"])
-        out["serve"][arch] = {"tokens": np.asarray(r["tokens"]),
-                              "cache_bytes": r["cache_bytes"]}
+        B, S = tokens.shape
+        slots = jax_pipe.prefix_token_count(
+            jsess.cfg, pad_to=jax_pipe.PREFIX_PAD_SPEC) + S + SERVE["steps"]
+        # the cache's leaves as the prefill leaves them (an f32 state
+        # promotes a bf16 conv cache, as the serve's cache_bytes counts)
+        jparams = jax.tree_util.tree_map(
+            jnp.asarray, _nest(inp["serve"][name]["params"]))
+        shapes = jax.eval_shape(
+            lambda c: jax_model.prefill(jsess.cfg, jparams,
+                                        {"tokens": jnp.asarray(tokens)},
+                                        c)[1],
+            jax.eval_shape(lambda: jax_model.init_cache(jsess.cfg, B,
+                                                        slots)))
+        specs = jax_sh.cache_pspecs(jsess.cfg, jsess.mesh, B)
+        shard = {k: int(np.prod(NamedSharding(jsess.mesh, specs[k])
+                                .shard_shape(x.shape))) * x.dtype.itemsize
+                 for k, x in shapes.items()}
+        out["serve"][name] = {"tokens": np.asarray(r["tokens"]),
+                              "cache_bytes": r["cache_bytes"],
+                              "shard_bytes": shard}
 
     # one published step of each PUBLISH spec
     from repro.core import stream as jax_stream
@@ -773,35 +815,43 @@ class _Mesh:
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cache_pspecs_split_as_the_reference_s(arch, B):
     """Each serving cache leaf's split (``shardings.cache_pspecs``, the
-    port's ``init_cache`` slice) against the reference's ``cache_pspecs``
-    on (data 2, model 2): the rows over the data axes where B divides
-    them, the kv heads, d_inner and the SSM heads over 'model' where they
-    split, on the same dims. Where the reference splits a cache's
-    sequence instead (kv heads that do not divide the axis, or rows that
-    do not divide the data axes) the port keeps the slots whole on every
-    rank (ROADMAP: the sequence-split layout remains); a hybrid's conv
-    state splits on the same dim in another order (this rank's d_inner
-    columns, then B and C's whole)."""
+    port's ``init_cache`` slice) equals the reference's ``cache_pspecs``
+    on (data 2, model 2), entry by entry: the rows over the data axes
+    where B divides them, the kv heads, d_inner and the SSM heads over
+    'model' where they split, and the sequence over 'model' where the kv
+    heads do not split (over the data axes and 'model', or the data axes
+    alone, where the rows do not). A hybrid's conv state splits on the
+    same dim in another order (this rank's d_inner columns, then B and
+    C's whole); ``init_cache`` holds this rank's block of the slots
+    (``slot_range``)."""
     from repro.configs import base as jax_cb
     from repro.launch import shardings as jax_sh
     cfg = cb.get(arch)
-    axes = comm.Axes(("model",), None, TP, 0, (0,))
-    rows = comm.Axes(("data",), None, DP, 0, (0,)) if B % DP == 0 else None
-    got = sh.cache_pspecs(cfg, pt_model.tp_plan(cfg, axes), rows)
+    mesh = mesh_lib.Mesh((DP, TP), ("data", "model"))
+    got = sh.cache_pspecs(cfg, mesh, B)
     want = {k: tuple(v) for k, v in
             jax_sh.cache_pspecs(jax_cb.get(arch), _Mesh(), B).items()}
-    assert sorted(got) == sorted(want)
-    for k, spec in got.items():
-        ref = want[k]
-        assert len(spec) == len(ref), k
-        attn = k.startswith(("k", "v"))
-        for dim, (a, b) in enumerate(zip(spec, ref)):
-            if attn and dim == 2:               # the sequence: whole here
-                assert a is None, k
-            elif dim == 1:                      # the rows
-                assert (a is not None) == (b is not None) == (B % DP == 0)
-            else:
-                assert (a is None) == (b is None), (k, dim, spec, ref)
+    assert got == want
+    seq = sh.seq_axes(cfg, mesh, B)
+    attn = got.get("k", got.get("k_local", got.get("k_attn")))
+    if attn is None or attn[2] is None:
+        assert seq is None
+    else:
+        names = (attn[2],) if isinstance(attn[2], str) else attn[2]
+        assert seq.names == tuple(names)
+        assert seq.size == DP ** ("data" in names) * TP ** ("model" in names)
+
+
+def test_slot_range_splits_or_raises_as_the_reference_shard_shape():
+    """Rank i of n holds the i-th contiguous block of the slots; a count
+    the split does not divide raises, as the reference's
+    ``NamedSharding.shard_shape`` raises for an uneven tiling."""
+    from repro_torch.models import layers as pt_layers
+    seq = comm.Axes(("data", "model"), None, 4, 2, (0,))
+    assert pt_layers.slot_range(36, seq) == (18, 27)
+    assert pt_layers.slot_range(36, None) == (0, 36)
+    with pytest.raises(ValueError, match="does not divide"):
+        pt_layers.slot_range(38, seq)
 
 
 SSM_PLANS = {"falcon-mamba-7b": (True, False, False),
@@ -1369,6 +1419,7 @@ def test_serve_at_model_2_matches_the_reference(world, arch):
         np.testing.assert_array_equal(got["tokens"], ref["tokens"])
         assert got["cache_bytes"] == ref["cache_bytes"]
         assert got["local_cache_bytes"] < got["cache_bytes"]
+        assert got["local_cache_bytes"] == _ref_shard_bytes(arch, ref)
     if arch == "olmoe-1b-7b":
         one = Session(pt_spec.RunSpec.from_dict(dict(
             SESSION, arch=arch, tp_pad_heads=0, mesh="smoke", clients=DP)),
@@ -1381,6 +1432,48 @@ def test_serve_at_model_2_matches_the_reference(world, arch):
             by_data = [r["serve"][arch]["drops"] for r in ranks
                        if r["coord"][1] == m]
             assert [sum(c) for c in zip(*by_data)] == drops
+
+
+def _ref_shard_bytes(arch, ref):
+    """A device's cache bytes under the reference's layout, in the port's
+    terms: the reference's shard of every leaf, except a hybrid's conv
+    state, whose 'model' split the port takes in another order (d_inner/n
+    columns, then B and C's 2N whole, where the reference's slice is
+    (d_inner + 2N)/n columns)."""
+    total = sum(ref["shard_bytes"].values())
+    cfg = _cfg(arch)
+    if cfg.family == "hybrid":
+        conv = ref["shard_bytes"]["conv"]
+        di, two_n = cfg.d_inner, 2 * cfg.ssm_state
+        total += conv * (di // TP + two_n) // ((di + two_n) // TP) - conv
+    return total
+
+
+@pytest.mark.parametrize("arch", sorted(SERVE_B1))
+def test_one_row_serve_splits_the_sequence_over_every_rank(world, arch):
+    """B 1 at (data 2, model 2): the row does not divide the data ranks,
+    so every rank serves it and the cache's sequence splits over ('data',
+    'model') (the kv heads do not split: smollm's 1 of 3, granite's 1 of
+    4 under split q heads; gemma2's 2 kv heads do split over 'model', so
+    its sequence splits over 'data' alone); each rank holds a quarter of
+    the cache (gemma2: half of every layer's slots, its ring's too, and
+    half its kv heads), and the decode merges the ranks' softmax sums. The tokens equal the reference's on the same
+    mesh, and each rank's cache bytes its shard's. Decode makes 3
+    all-reduces a layer a step over the sequence axes (max, sum, P·V)."""
+    inp, ranks, want = world
+    name = arch + "/B1"
+    ref = want["serve"][name]
+    for r in ranks:
+        got = r["serve"][name]
+        assert got["tokens"].shape == (1, SERVE["steps"] + 1)
+        np.testing.assert_array_equal(got["tokens"], ref["tokens"])
+        assert got["cache_bytes"] == ref["cache_bytes"]
+        assert got["local_cache_bytes"] == _ref_shard_bytes(arch, ref)
+        assert got["local_cache_bytes"] * N == got["cache_bytes"]
+        cfg = _cfg(arch)
+        seq = "data" if arch == "gemma2-9b" else "data+model"
+        merges = got["kinds"]["all-reduce"]["groups"].get(seq, 0)
+        assert merges == 3 * cfg.num_layers * SERVE["steps"], got["kinds"]
 
 
 def _records(root):
