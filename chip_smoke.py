@@ -34,7 +34,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      inf/NaN inputs, then timed where the main paths run them (A's two
      sparse payloads, B's dense payload both ways, the fused path's K6 up
      and K5 down), by CUDA events around the wrapper and by the profiler's
-     kernel rows;
+     kernel rows; and the wide route of K1-K3 (rows wider than 1024,
+     csrc/wide.cuh), bit for bit: K2 and K3 (bits 8 and 4, f32 and bf16
+     state) on rows of 2048, 3000, 65,536 and 1,048,576 (the last two
+     past one CTA's shared memory), K1 at blocks 2048, 4097 (ragged),
+     65,536 and 1,048,576, each on the layout the launcher names
+     (``ops.ef_layout``, ``ops.topk_layout``), and all three on the
+     8-client w_up stack in rows of 4096 (k 64), timed there against
+     their bounds (K1 beside torch.topk + scatter);
   2b. the K1 path: the public wrapper ops.block_topk (the reference's
      ops.block_topk, which its kernel bench drives; nothing in training
      calls it) on the 8-client w_up stack, one launch;
@@ -71,8 +78,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      the saved ones exactly and whose step 3 must match within rtol 1e-3;
      prints step ms, peak bytes, the EF state's bytes (exactly half of
      f32's), the checkpoint's bytes and the save and restore seconds;
-  6c. the grouped, sampled and two-tier rounds at full width (32 layers,
-     d_model 960, weights from seed 0), 3 steps each, each printing what it
+  6c. the grouped, sampled and two-tier rounds at full width (d_model
+     960, weights from seed 0; cut to 8 of the 32 layers, GMSH_CUT, to
+     make room for W), 3 steps each, each printing what it
      adds (the resolved group table with its wire words, the cohort, the
      cross-pod and flat words a round): G, fused_quickstart's 8 clients
      with the norms dense and the embedding and the matrices on
@@ -83,7 +91,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      bit-unchanged on the card (a bit-sum per client and leaf before and
      after the step), every sampled one moved; H,
      hierarchy_quant4_cross.json with smoke off (8 clients, 2 pods, the
-     quant4 cross hop);
+     quant4 cross hop); W, fused_quickstart's 8 clients at Block-TopK
+     block 4096 (k 64: K3 on the wide route, the downlink's K5 and K4 on
+     rows of 4096), fused_quant8 up and fused_quant4 down, recompute on, 2
+     steps, every K3-K6 call of the steps held bit for bit against its
+     plain version on random inputs of its shapes;
   6d. phase R, block recompute: full-width smollm-360m, 8 clients,
      fused_quant8 up and fused_quant4 down, one step with ``cfg.remat``
      off and one with it on, each from seed 0 (the batch-0 gradients under
@@ -313,7 +325,7 @@ from its EF config by ``expected_launches``: per group of a schedule, per
 leaf its plans, per pod its cross hop), that losses, parameters and logits
 are finite, and prints its times, peak memory and step breakdown. Then the
 script prints a ``kernels`` JSON line (each kernel's launches on the main
-path and, under ``launches_by_phase``, on phases G, M, S, H, R, the D
+path and, under ``launches_by_phase``, on phases G, M, S, H, W, R, the D
 phases, each cell of P, F, MD1, MD4 and MT (summed over ranks)), the card
 line, and the final ``{"ok": true, ...}`` line. Imports nothing of JAX or
 of src/repro.
@@ -434,6 +446,27 @@ G_GROUPS = [{"pattern": "norm|bias", "carrier": "dense"},
             {"pattern": "*", "carrier": "fused_quant8",
              "downlink_carrier": "fused_quant4"}]
 CKPT_FREE_BYTES = 40e9         # a full-width checkpoint is about 30 GB
+# phase W: a Block-TopK block wider than the warp routes' 1024 (K3 on the
+# wide route, csrc/wide.cuh), fused_quant8 up and fused_quant4 down
+W_BLOCK, W_K = 4096, 64
+W_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4",
+              compressor_kw={"block": W_BLOCK, "k_per_block": W_K})
+W_STEPS = 2
+# phases G, M, S and H cut in depth to make room for W (the script's time
+# limit; at 32 layers G, S and H took 9.2, 9.2 and 11.0 s, at 16 layers
+# G, S and H 5.0, 5.2 and 5.7 s): 8 of smollm's 32 layers, the leaves and
+# the launches unchanged
+GMSH_CUT = {"num_layers": 8}
+# the wide route's checks (phase 2): (rows, width, layout) of K2/K3, the
+# last two past one CTA's shared memory (28,672 values); the 8-client w_up
+# stack at W_BLOCK is checked and timed apart
+WIDE_EF = [(20_000, 2048, "wide_shared"), (12_000, 3000, "wide_shared"),
+           (64, 65_536, "wide_global"), (2, 1_048_576, "wide_global")]
+# K1's: (values, block, layout): a ragged 4097, past shared memory (57,344)
+WIDE_TOPK = [(20_000 * 2048 - 333, 2048, "wide_shared"),
+             (9_000 * 4097 - 1000, 4097, "wide_shared"),
+             (64 * 65_536 + 77, 65_536, "wide_global"),
+             (2 * 1_048_576, 1_048_576, "wide_global")]
 # phase P: the paper's simulator at the experiments' published shapes
 P_FIG1 = dict(gamma=1e-3, steps=8000, seeds=2, ns=(1, 8))
 P_EXP1 = dict(n=10, m_per_client=6000, l=784, c=10)       # MNIST's shape
@@ -590,6 +623,7 @@ def kernel_checks(ops, ref, results):
                 grad, v16, g16, eta=eta, k=k, bits=bits), 2),
             "library_ms": None}
     del grad, v, g, v16, g16
+    wide_ef_checks(ops, ref, results, gen)
 
     # K4 at the downlinks' shapes: one copy of the leaf, in rows of 1024
     # (fused_quant4's block-dense payload) and of 256 (path B's dense
@@ -631,6 +665,141 @@ def kernel_checks(ops, ref, results):
         print(f"kernel {name}: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) library_ms "
               f"{r['library_ms']} max_abs_err {r['max_abs_err']}", flush=True)
+
+
+def _check_wide(ops, name, fn, plain, args, kw, layout):
+    """One wide-route call (K2 or K3) against its plain version, bit for
+    bit, on the layout the launcher names."""
+    got = fn(*args, **kw)
+    if ops.ef_layout(*args, *got[:3]) != layout:
+        fail(f"{name}: rows of {args[0].shape[1]} take "
+             f"{ops.ef_layout(*args, *got[:3])}, not {layout}")
+    want = plain(*args, **kw)
+    check_equal(name, got, want)
+    err = max_abs_err(got, want)
+    del got, want
+    return err
+
+
+def wide_ef_checks(ops, ref, results, gen):
+    """Phase 2, K2 and K3 on rows wider than 1024 (the wide route,
+    csrc/wide.cuh), f32 and bf16 state, bits 8 and 4: bit-identical to the
+    plain versions at WIDE_EF's widths and on the 8-client w_up stack in
+    rows of W_BLOCK (k W_K), where each is timed against its bound (the
+    same bytes as the rows of 1024)."""
+    eta = 0.2
+    for rows, width, layout in WIDE_EF:
+        k = max(16, width // 64)
+        grad, v, g = (torch.randn(rows, width, generator=gen, device="cuda")
+                      for _ in range(3))
+        grad[1], v[1], g[1] = 0.0, 0.0, 0.0         # an all-zero row
+        for state in (torch.float32, torch.bfloat16):
+            args = (grad, v.to(state), g.to(state))
+            tag = f"width {width} {str(state)[6:]} state"
+            _check_wide(ops, f"ef21_sgdm_update {tag}", ops.ef21_sgdm_update,
+                        ref.ef21_sgdm_update_plain, args, dict(eta=eta, k=k),
+                        layout)
+            for bits in (8, 4):
+                _check_wide(ops, f"ef21_sgdm_topk_quant bits={bits} {tag}",
+                            ops.ef21_sgdm_topk_quant,
+                            ref.ef21_sgdm_topk_quant_plain, args,
+                            dict(eta=eta, k=k, bits=bits), layout)
+        print(f"wide route, K2 and K3 (bits 8, 4; f32 and bf16 state) on "
+              f"{rows} rows of {width} ({layout}): bit-identical to the "
+              "plain versions", flush=True)
+        del grad, v, g, args
+    rows = CLIENTS * math.prod(W_UP) // W_BLOCK
+    n = rows * W_BLOCK
+    grad, v, g = (torch.randn(rows, W_BLOCK, generator=gen, device="cuda")
+                  for _ in range(3))
+    for x in (grad, v, g):
+        x[5] = 0.0
+    ops_per_elem = 3 + 2 + 2 * 26 + 2
+    for state, sfx, state_bytes in ((torch.float32, "", 4),
+                                    (torch.bfloat16, "/bf16", 2)):
+        args = (grad, v.to(state), g.to(state))
+        kw = dict(eta=eta, k=W_K)
+        for bits in (0, 8, 4):
+            if bits == 0:
+                fn, plain, key = (ops.ef21_sgdm_update,
+                                  ref.ef21_sgdm_update_plain,
+                                  f"ef21_sgdm_update{sfx}/w{W_BLOCK}")
+                n_bytes = n * (4 + 5 * state_bytes)
+                n_ops = n * ops_per_elem
+                bkw = kw
+            else:
+                fn, plain = (ops.ef21_sgdm_topk_quant,
+                             ref.ef21_sgdm_topk_quant_plain)
+                key = f"ef21_sgdm_topk_quant/{bits}{sfx}/w{W_BLOCK}"
+                n_bytes = n * (4 + 4 * state_bytes + bits / 8) + rows * 4
+                n_ops = n * (ops_per_elem + 6)
+                bkw = dict(kw, bits=bits)
+            err = _check_wide(ops, key, fn, plain, args, bkw, "wide_shared")
+            b_ms, b_by = bound(n_bytes, n_ops)
+            results[key] = {
+                "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: fn(*args, **bkw), 5),
+                "plain_ms": time_ms(lambda: plain(*args, **bkw), 2),
+                "library_ms": None}
+    del grad, v, g, args
+
+
+def wide_topk_checks(ops, ref, results, gen):
+    """Phase 2, K1 on blocks wider than 1024 (the wide route): bit for bit
+    at WIDE_TOPK's widths (ragged last rows, f32 and bf16) and on the
+    8-client w_up stack in rows of W_BLOCK (k W_K, a tie across k), timed
+    there beside torch.topk + scatter (a yardstick, another tie rule)."""
+    for n, block, layout in WIDE_TOPK:
+        if ops.topk_layout(block) != layout:
+            fail(f"block_topk: rows of {block} take "
+                 f"{ops.topk_layout(block)}, not {layout}")
+        y = torch.randn(n, generator=gen, device="cuda")
+        y[:block] = 0.0                             # an all-zero row
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = y.to(dtype)
+            k = max(16, block // 64)
+            got = ops.block_topk(inp, block=block, k=k)
+            want = ref.block_topk_plain(inp, block=block, k=k)
+            check_equal(f"block_topk block {block} {dtype}", [got], [want])
+            del got, want
+        print(f"block_topk wide route ({n} values, block {block}, "
+              f"{layout}, f32 and bf16): bit-identical to the plain "
+              "version", flush=True)
+        del y, inp
+    x = torch.randn(CLIENTS, *W_UP, generator=gen, device="cuda")
+    xb = x.view(-1, W_BLOCK)
+    xb[5] = 0.0
+    xb[9, :W_K + 4] = 4.5                           # ties across k
+    if ops.topk_layout(W_BLOCK) != "wide_shared":
+        fail(f"block_topk: rows of {W_BLOCK} off the wide route")
+    got = ops.block_topk(x, block=W_BLOCK, k=W_K)
+    want = ref.block_topk_plain(x, block=W_BLOCK, k=W_K)
+    check_equal(f"block_topk block {W_BLOCK}", [got], [want])
+    if int((got.view(-1, W_BLOCK)[9] != 0).sum()) < W_K + 4:
+        fail("block_topk dropped a tie at the threshold on the wide route")
+    err = max_abs_err([got], [want])
+    del got, want
+    n = x.numel()
+    b_ms, b_by = bound(n * 8, n * (2 + 26 + 1))
+
+    def topk_scatter():
+        idx = torch.topk(xb.abs(), W_K, dim=1).indices
+        return torch.zeros_like(xb).scatter_(1, idx, xb.gather(1, idx))
+    key = f"block_topk/w{W_BLOCK}"
+    results[key] = {
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+        "ms": time_ms(lambda: ops.block_topk(x, block=W_BLOCK, k=W_K), 20),
+        "plain_ms": time_ms(lambda: ref.block_topk_plain(
+            x, block=W_BLOCK, k=W_K), 2),
+        "library_ms": None,
+        "yardstick_topk_scatter_ms": time_ms(topk_scatter, 5)}
+    del x, xb
+    r = results[key]
+    print(f"kernel {key} [{n // W_BLOCK} rows of {W_BLOCK}, k {W_K}]: ms "
+          f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}); torch.topk + scatter "
+          f"(yardstick, another tie rule) "
+          f"{r['yardstick_topk_scatter_ms']:.4f} ms", flush=True)
 
 
 def topk_checks(ops, ref, results):
@@ -687,6 +856,7 @@ def topk_checks(ops, ref, results):
           f"(yardstick, another tie rule) "
           f"{r['yardstick_topk_scatter_ms']:.4f} ms", flush=True)
     del x, xb
+    wide_topk_checks(ops, ref, results, gen)
 
 
 def topk_path(ops):
@@ -4906,25 +5076,32 @@ def main() -> None:
         resumed = resume_path(Session, spec_lib, ops)
     by_phase = {}
     with phase("G: groups on the fused wire (norms dense, embed on bf16 "
-               "state), 8 clients, 3 steps"):
-        by_phase["G"] = main_path(Session, spec_lib, ops, 3,
+               f"state), 8 clients, {GMSH_CUT}, 3 steps"):
+        by_phase["G"] = main_path(Session, spec_lib, ops, 3, cut=GMSH_CUT,
                                   groups=G_GROUPS)
-    with phase("M: mixed_schedule.json at full width, 4 clients, 3 steps"):
-        by_phase["M"] = main_path(Session, spec_lib, ops, 3,
+    with phase(f"M: mixed_schedule.json at full width, 4 clients, "
+               f"{GMSH_CUT}, 3 steps"):
+        by_phase["M"] = main_path(Session, spec_lib, ops, 3, cut=GMSH_CUT,
                                   spec_name="mixed_schedule", smoke=False)
     with phase("S: sampled participation 0.25 on carrier fused, 8 clients, "
-               "3 steps"):
+               f"{GMSH_CUT}, 3 steps"):
         from repro_torch.core import participation as part_lib
         from repro_torch.launch import build as build_lib
         by_phase["S"] = main_path(
-            Session, spec_lib, ops, 3,
+            Session, spec_lib, ops, 3, cut=GMSH_CUT,
             step_hook=frozen_check(part_lib, build_lib),
             participation={"mode": "sampled", "fraction": 0.25, "seed": 7})
     with phase("H: hierarchy_quant4_cross.json at full width, 8 clients, "
-               "2 pods, 3 steps"):
-        by_phase["H"] = main_path(Session, spec_lib, ops, 3,
+               f"2 pods, {GMSH_CUT}, 3 steps"):
+        by_phase["H"] = main_path(Session, spec_lib, ops, 3, cut=GMSH_CUT,
                                   spec_name="hierarchy_quant4_cross",
                                   smoke=False)
+    with phase(f"W: a Block-TopK block of {W_BLOCK} (k {W_K}), "
+               "fused_quant8 up and fused_quant4 down, 8 clients, "
+               f"{W_STEPS} steps; every K3-K6 call held to its plain "
+               "version"):
+        by_phase["W"] = main_path(Session, spec_lib, ops, W_STEPS,
+                                  plain_check=True, **W_PATH)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("R and DR: block recompute on the full-width fused_quant8/"
@@ -5063,6 +5240,24 @@ def main() -> None:
                            for k in keys}
     kernels[2]["bits4_bf16_state"] = {
         k: results["ef21_sgdm_topk_quant/4/bf16"][k] for k in keys}
+    # rows of W_BLOCK on the wide route (csrc/wide.cuh): K3 on phase W's
+    # path, K1 and K2 on none
+    wide = f"wide_{W_BLOCK}"
+    for i, name, variants in (
+            (0, "block_topk", (("", ""),)),
+            (1, "ef21_sgdm_update", (("", ""), ("_bf16_state", "/bf16"))),
+            (2, "ef21_sgdm_topk_quant", (
+                ("", "/8"), ("_bits4", "/4"), ("_bf16_state", "/8/bf16"),
+                ("_bits4_bf16_state", "/4/bf16")))):
+        for suffix, key in variants:
+            row = results[f"{name}{key}/w{W_BLOCK}"]
+            # phase W runs f32 state and 8-bit mantissas up
+            kernels[i][wide + suffix] = dict(
+                {k: row[k] for k in keys}, route="cuda",
+                source=f"{csrc}/wide.cuh",
+                launches=by_phase["W"][name] if key in ("", "/8") else 0)
+    kernels[0][wide]["yardstick_topk_scatter_ms"] = \
+        results[f"block_topk/w{W_BLOCK}"]["yardstick_topk_scatter_ms"]
     kernels[2]["design"] = (
         "the staged row walk shared with K2 (staged.cuh), quantizing "
         "epilogue: a warp walks rows; the next row's grad, v, g "

@@ -1,7 +1,8 @@
 // Shared device code of the EF client kernels and the standalone Block-TopK:
 // the threshold bisection of src/repro/kernels/topk_compress.py::
 // _bisect_threshold, run by a group of G lanes on one row held in registers
-// (G = 32, a whole warp, for the rows of K2/K3 and rows of K1 wider than 32).
+// (G = 32, a whole warp, for the rows of K2/K3 and rows of K1 wider than 32,
+// up to 1024; wider rows run the same loop across a CTA, wide.cuh).
 //
 // Layouts: `bisect_threshold` takes a row of `width` <= G*PER values spread
 // over the G lanes of its group, lane l holding elements l, l+G, l+2G, ...
@@ -63,6 +64,7 @@ namespace efk {
 constexpr int kBisectIters = 26;  // BISECT_ITERS of the reference
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 4;  // one warp per row, four rows per CTA
+// the widest row of the warp routes; wider rows take wide.cuh's CTA a row
 constexpr int kMaxWidth = 32 * kWarp;
 
 // f32 views of the element types: exact widenings

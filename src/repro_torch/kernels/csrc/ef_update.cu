@@ -16,8 +16,8 @@
 // bf16 state, and a few hundred integer and float operations per row, far
 // below the card's compute rate.
 //
-// Design. Rows whose width is a multiple of 8, from bases on 16-byte
-// boundaries (every carrier row), take the staged row walk of staged.cuh,
+// Design. Rows up to 1024 wide whose width is a multiple of 8, from bases
+// on 16-byte boundaries (every carrier row of a block up to 1024), take the staged row walk of staged.cuh,
 // the one K3 runs: a warp walks rows over a grid that fills the card once,
 // the next row's grad, v and g arrive in shared memory by cp.async.bulk
 // while the row bisects, and each lane holds runs of 16 bytes, so every
@@ -26,12 +26,16 @@
 // there) and stores c and g' = g + c as 16-byte runs. On the fused path's
 // rows it reads about 85 % of its bound (PERF.md); shared memory sets its
 // residency (12 warps an SM with f32 state, 20 with bf16).
-// Rows of any other width keep the strided kernel below: one warp a row
-// with the row in registers (up to 32 values a lane), 4-byte loads
-// consecutive across the warp. Both stop the bisection early
-// (bisect.cuh) and make the same roundings, so both are bit-identical to
+// Rows of any other width up to 1024 keep the strided kernel below: one
+// warp a row with the row in registers (up to 32 values a lane), 4-byte
+// loads consecutive across the warp. Rows wider than 1024 (any wider
+// Block-TopK block) take the wide route of wide.cuh: one CTA a row, d and g
+// kept in shared memory (rows up to 28,672 values) or recomputed from the
+// unchanged inputs each pass (wider rows), with UpdateWideEpilogue below.
+// All three stop the bisection early (bisect.cuh) and make the same
+// roundings, so all are bit-identical to
 // kernels/ref.py::ef21_sgdm_update_plain.
-#include "staged.cuh"
+#include "wide.cuh"
 
 namespace efk {
 
@@ -128,13 +132,47 @@ static void launch_staged_state(const float* grad, const void* v,
                                       static_cast<S*>(c_out)}, s);
 }
 
+// The wide route's last pass: c and g' = g + c, element by element
+template <typename S>
+struct UpdateWideEpilogue {
+  S* g_out;
+  S* c_out;
+
+  template <typename Row>
+  __device__ __forceinline__ void operator()(long long, long long base,
+                                             float t, const Row& r,
+                                             CtaReduce&) const {
+#pragma unroll 4
+    for (int j = threadIdx.x; j < r.in.width; j += kWideThreads) {
+      float d, gj;
+      r.last(j, d, gj);
+      const float c = fabsf(d) >= t ? d : 0.f;
+      c_out[base + j] = from_f32<S>(c);
+      g_out[base + j] = from_f32<S>(__fadd_rn(gj, c));
+    }
+  }
+};
+
+template <typename S>
+static void launch_wide_state(const float* grad, const void* v,
+                              const void* g, void* v_out, void* g_out,
+                              void* c_out, long long rows, int width,
+                              float c1, float c2, int k, cudaStream_t s) {
+  const StagedRows<S> in{grad, static_cast<const S*>(v),
+                         static_cast<const S*>(g), static_cast<S*>(v_out),
+                         rows, width, c1, c2, k};
+  launch_wide(in, UpdateWideEpilogue<S>{static_cast<S*>(g_out),
+                                        static_cast<S*>(c_out)}, s);
+}
+
 }  // namespace efk
 
 // Returns the cudaError_t of the launch (0 on success). v, g and the outputs
 // are f32 (state_bf16 = 0) or bfloat16 (state_bf16 = 1); grad is f32.
 // Outputs may alias the inputs of the same element (in-place EF state
-// update). Rows of a multiple of 8 values with every base 16-byte aligned
-// take the staged kernel, any other rows the strided one.
+// update). Rows up to 1024 wide of a multiple of 8 values with every base
+// 16-byte aligned take the staged kernel, other rows up to 1024 the strided
+// one, wider rows the wide route.
 extern "C" int ef_launch_ef21_sgdm_update(
     const void* grad, const void* v, const void* g, void* v_out, void* g_out,
     void* c_out, long long rows, int width, float c1, float c2, int k,
@@ -142,28 +180,36 @@ extern "C" int ef_launch_ef21_sgdm_update(
   using namespace efk;
   auto gr = static_cast<const float*>(grad);
   auto s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || width <= 0 || width > kMaxWidth || k < 1)
+  const int wide = wide_layout(width, kEfWideBytes);
+  if (rows <= 0 || width <= 0 || k < 1 || (wide && rows > 0x7fffffffLL))
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[6] = {grad, v, g, v_out, g_out, c_out};
-  const bool staged = staged_fits(width, ptrs, 6);
+  const bool staged = !wide && staged_fits(width, ptrs, 6);
 #define EFK_UPDATE_STATE(S)                                                  \
-  (staged ? launch_staged_state<S>(gr, v, g, v_out, g_out, c_out, rows,     \
-                                   width, c1, c2, k, s)                     \
-          : launch_state<S>(gr, v, g, v_out, g_out, c_out, rows, width, c1, \
-                            c2, k, s))
+  (wide ? launch_wide_state<S>(gr, v, g, v_out, g_out, c_out, rows, width,  \
+                               c1, c2, k, s)                                \
+   : staged ? launch_staged_state<S>(gr, v, g, v_out, g_out, c_out, rows,   \
+                                     width, c1, c2, k, s)                   \
+            : launch_state<S>(gr, v, g, v_out, g_out, c_out, rows, width,   \
+                              c1, c2, k, s))
   if (state_bf16) EFK_UPDATE_STATE(__nv_bfloat16);
   else EFK_UPDATE_STATE(float);
 #undef EFK_UPDATE_STATE
   return static_cast<int>(cudaGetLastError());
 }
 
-// 1 when rows of `width` from these bases take the staged kernel of K2 and
-// K3 (the launchers' own rule), 0 when they take the strided one.
-extern "C" int ef_staged_rows(const void* grad, const void* v, const void* g,
+// The layout K2 and K3 run rows of `width` from these bases on (the
+// launchers' own rule): 0 the strided kernel, 1 the staged one, 2 the wide
+// route with the row in shared memory, 3 the wide route recomputing the
+// row from device memory each pass.
+extern "C" int ef_rows_layout(const void* grad, const void* v, const void* g,
                               const void* v_out, const void* g_out,
                               const void* c_out, int width) {
+  using namespace efk;
+  const int wide = wide_layout(width, kEfWideBytes);
+  if (wide) return 1 + wide;
   const void* ptrs[6] = {grad, v, g, v_out, g_out, c_out};
-  return efk::staged_fits(width, ptrs, 6) ? 1 : 0;
+  return staged_fits(width, ptrs, 6) ? 1 : 0;
 }
 
 // The staged K2 launch's dynamic shared memory (bytes, into *smem) and

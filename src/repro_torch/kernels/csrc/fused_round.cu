@@ -26,13 +26,20 @@
 // another width keep the strided warp-per-row kernel below (ef_update.cu's
 // layout, the row and g in registers, 4-byte loads); it takes the early
 // exit too. On the fused path's rows the staged kernel reads about 80 % of
-// its bound (PERF.md).
+// its bound (PERF.md). Rows wider than 1024 (any wider Block-TopK block)
+// take the wide route of wide.cuh (one CTA a row, d and g kept in shared
+// memory up to 28,672 values, recomputed from the unchanged inputs each
+// pass above) with QuantWideEpilogue below: the row's scale is the kept
+// set's absmax over the whole row (a CTA-wide max), and at bits 4 a thread
+// quantizes both elements of a pair and stores their byte.
 //
 // dequant_add replaces fused_round.py::dequant_add (_dequant_add_kernel):
 //     out = base + alpha*(q*scale)      (alpha applied only when != 1)
-// over a flat base of d values laid out as rows of `block`. Bound: memory,
-// a 4-byte read and a 4-byte write an element plus bits/8 bytes of mantissa.
-// Design: one CTA per row, threads striding over the row's columns.
+// over a flat base of d values laid out as rows of `block` (any width; at
+// bits 4 a row holds ceil(block/2) bytes, an odd row's last low nibble
+// unused, the layout of block_quantize). Bound: memory, a 4-byte read and a
+// 4-byte write an element plus bits/8 bytes of mantissa. Design: one CTA
+// per row, threads striding over the row's columns.
 //
 // Arithmetic: IEEE division for c / safe (__fdiv_rn; never
 // --use_fast_math), rounding half to even (rintf), no contraction to FMA
@@ -40,7 +47,7 @@
 // multiplies by the f32 reciprocal of qmax, which is what the reference's
 // `absmax / qmax` compiles to under XLA — what the plain PyTorch versions
 // in kernels/ref.py compute, bit for bit.
-#include "staged.cuh"
+#include "wide.cuh"
 
 namespace efk {
 
@@ -103,7 +110,7 @@ __global__ void dequant_add_kernel(const uint8_t* q, const float* scales,
     if constexpr (BITS == 8) {
       val = static_cast<float>(static_cast<int8_t>(q[i]));
     } else {
-      const uint8_t p = q[r * (block / 2) + col / 2];
+      const uint8_t p = q[r * ((block + 1) / 2) + col / 2];
       val = __fsub_rn(static_cast<float>((col % 2) ? (p & 0xF) : (p >> 4)),
                       8.f);
     }
@@ -241,6 +248,76 @@ static void launch_uplink_staged(const float* grad, const void* v,
                                            s_out, width}, s);
 }
 
+// ---- the wide route (wide.cuh) with the quantizing epilogue -----------
+
+// The last passes of a wide row: the kept set's absmax over the row (one
+// CTA-wide max), then q, g' = g + q*scale and the mantissas; at bits 4 a
+// thread takes the pair (2p, 2p+1) and stores its byte (+8 offset, the even
+// element in the high nibble).
+template <int BITS, typename S>
+struct QuantWideEpilogue {
+  S* g_out;
+  uint8_t* q_out;
+  float* s_out;
+
+  template <typename Row>
+  __device__ __forceinline__ void operator()(long long row, long long base,
+                                             float t, const Row& r,
+                                             CtaReduce& red) const {
+    const int width = r.in.width;
+    // c = where(|d| >= t, d, 0), non-finite -> 0 (the codec guard)
+    auto kept = [&](float d) {
+      const float c = fabsf(d) >= t ? d : 0.f;
+      return isfinite(c) ? c : 0.f;
+    };
+    float amax = 0.f;
+#pragma unroll 4
+    for (int j = threadIdx.x; j < width; j += kWideThreads)
+      amax = fmaxf(amax, fabsf(kept(r.delta(j))));
+    constexpr float qmax = BITS == 8 ? 127.f : 7.f;
+    constexpr float qmax_recip = 1.f / qmax;   // rounded once, at compile time
+    const float scale = __fmul_rn(red.max(amax), qmax_recip);
+    const float safe = scale > 0.f ? scale : 1.f;
+    // element j's mantissa, with g' stored
+    auto quantize = [&](int j) {
+      float d, gj;
+      r.last(j, d, gj);
+      const float q =
+          fminf(fmaxf(rintf(__fdiv_rn(kept(d), safe)), -qmax), qmax);
+      g_out[base + j] = from_f32<S>(__fadd_rn(gj, __fmul_rn(q, scale)));
+      return static_cast<int>(q);
+    };
+    if constexpr (BITS == 8) {
+#pragma unroll 4
+      for (int j = threadIdx.x; j < width; j += kWideThreads)
+        q_out[base + j] = static_cast<uint8_t>(static_cast<int8_t>(
+            quantize(j)));
+    } else {
+      const int pairs = width / 2;
+#pragma unroll 4
+      for (int p = threadIdx.x; p < pairs; p += kWideThreads) {
+        const int hi = quantize(2 * p) + 8;
+        const int lo = quantize(2 * p + 1) + 8;
+        q_out[row * pairs + p] = static_cast<uint8_t>((hi << 4) | lo);
+      }
+    }
+    if (threadIdx.x == 0) s_out[row] = scale;
+  }
+};
+
+template <int BITS, typename S>
+static void launch_uplink_wide(const float* grad, const void* v,
+                               const void* g, void* v_out, void* g_out,
+                               uint8_t* q_out, float* s_out, long long rows,
+                               int width, float c1, float c2, int k,
+                               cudaStream_t s) {
+  const StagedRows<S> in{grad, static_cast<const S*>(v),
+                         static_cast<const S*>(g), static_cast<S*>(v_out),
+                         rows, width, c1, c2, k};
+  launch_wide(in, QuantWideEpilogue<BITS, S>{static_cast<S*>(g_out), q_out,
+                                              s_out}, s);
+}
+
 }  // namespace efk
 
 // Returns the cudaError_t of the launch (0 on success). v, g, v_out and
@@ -251,22 +328,26 @@ extern "C" int ef_launch_ef21_sgdm_topk_quant(
     void* q_out, void* s_out, long long rows, int width, float c1, float c2,
     int k, int bits, int state_bf16, void* stream) {
   using namespace efk;
-  if (rows <= 0 || width <= 0 || width > kMaxWidth || k < 1 ||
-      (bits != 8 && bits != 4) || (bits == 4 && width % 2))
+  const int wide = wide_layout(width, kEfWideBytes);
+  if (rows <= 0 || width <= 0 || k < 1 || (bits != 8 && bits != 4) ||
+      (bits == 4 && width % 2) || (wide && rows > 0x7fffffffLL))
     return static_cast<int>(cudaErrorInvalidValue);
   auto gr = static_cast<const float*>(grad);
   auto qo = static_cast<uint8_t*>(q_out);
   auto so = static_cast<float*>(s_out);
   auto s = static_cast<cudaStream_t>(stream);
-  // rows of a multiple of 8 values, every base 16-byte aligned: the staged
-  // kernel; any other width: the strided one
+  // rows up to 1024 of a multiple of 8 values, every base 16-byte aligned:
+  // the staged kernel; other widths up to 1024: the strided one; wider
+  // rows: the wide route
   const void* ptrs[6] = {grad, v, g, v_out, g_out, q_out};
-  const bool staged = staged_fits(width, ptrs, 6);
+  const bool staged = !wide && staged_fits(width, ptrs, 6);
 #define EFK_UPLINK_STATE(BITS, S)                                            \
-  (staged ? launch_uplink_staged<BITS, S>(gr, v, g, v_out, g_out, qo, so,    \
-                                          rows, width, c1, c2, k, s)         \
-          : launch_uplink_bits<BITS, S>(gr, v, g, v_out, g_out, qo, so,      \
-                                        rows, width, c1, c2, k, s))
+  (wide ? launch_uplink_wide<BITS, S>(gr, v, g, v_out, g_out, qo, so, rows, \
+                                      width, c1, c2, k, s)                  \
+   : staged ? launch_uplink_staged<BITS, S>(gr, v, g, v_out, g_out, qo, so, \
+                                            rows, width, c1, c2, k, s)      \
+            : launch_uplink_bits<BITS, S>(gr, v, g, v_out, g_out, qo, so,   \
+                                          rows, width, c1, c2, k, s))
   if (bits == 8 && state_bf16) EFK_UPLINK_STATE(8, __nv_bfloat16);
   else if (bits == 8) EFK_UPLINK_STATE(8, float);
   else if (state_bf16) EFK_UPLINK_STATE(4, __nv_bfloat16);
@@ -281,8 +362,7 @@ extern "C" int ef_launch_dequant_add(const void* q, const void* scales,
                                      int bits, float alpha, int apply_alpha,
                                      void* stream) {
   using namespace efk;
-  if (rows <= 0 || d <= 0 || block <= 0 || (bits != 8 && bits != 4) ||
-      (bits == 4 && block % 2))
+  if (rows <= 0 || d <= 0 || block <= 0 || (bits != 8 && bits != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = block < 256 ? ((block + 31) / 32) * 32 : 256;
   auto qq = static_cast<const uint8_t*>(q);

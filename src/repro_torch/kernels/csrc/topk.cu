@@ -19,7 +19,13 @@
 // the last row is never materialised: a value past d is read as 0 and takes
 // part in the counts, as the reference's padded zeros do, and is not
 // stored.
-#include "bisect.cuh"
+//
+// Rows wider than 1024 (any wider block) take the wide route of wide.cuh:
+// one CTA of 256 threads a row, the row's x kept in shared memory as f32
+// (rows up to 57,344 values) or read again from device memory each pass
+// (wider rows), the counts summed across the CTA, the early exit decided
+// for the whole CTA. The ragged last row reads as zeros past d, as above.
+#include "wide.cuh"
 
 namespace efk {
 
@@ -67,6 +73,69 @@ static void launch_topk(const void* x, void* out, long long d, long long rows,
       static_cast<const T*>(x), static_cast<T*>(out), d, rows, block, k);
 }
 
+// A wide row: one CTA, x kept as f32 in shared memory when STAGED, else
+// read again from device memory in every pass (x is never written).
+template <bool STAGED, typename T>
+__global__ void __launch_bounds__(kWideThreads)
+block_topk_wide_kernel(const T* __restrict__ x, T* __restrict__ out,
+                       long long d, int block, int k) {
+  extern __shared__ __align__(16) float wide_smem[];
+  EFK_WIDE_REDUCE(red);
+  const long long base = static_cast<long long>(blockIdx.x) * block;
+  auto load = [&](int j) {
+    const long long flat = base + j;
+    return flat < d ? to_f32(x[flat]) : 0.f;      // the pad reads as 0
+  };
+  auto value = [&](int j) {
+    if constexpr (STAGED) return wide_smem[j];
+    else return load(j);
+  };
+  float m = 0.f;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < block; j += kWideThreads) {
+    const float a = load(j);
+    if constexpr (STAGED) wide_smem[j] = a;
+    m = max_nan(m, fabsf(a));
+  }
+  const float hi = red.max(m);                  // the row staged, too
+  const float t = wide_bisect(hi, block, k, red, [&](float mid) {
+    int c = 0;
+#pragma unroll 4
+    for (int j = threadIdx.x; j < block; j += kWideThreads)
+      c += fabsf(value(j)) >= mid ? 1 : 0;
+    return c;
+  });
+#pragma unroll 4
+  for (int j = threadIdx.x; j < block; j += kWideThreads) {
+    const long long flat = base + j;
+    if (flat < d) {
+      const float a = value(j);
+      out[flat] = from_f32<T>(fabsf(a) >= t ? a : 0.f);
+    }
+  }
+}
+
+template <typename T>
+static void launch_topk_wide(const void* x, void* out, long long d,
+                             long long rows, int block, int k,
+                             cudaStream_t s) {
+  const unsigned grid = static_cast<unsigned>(rows);
+  auto xx = static_cast<const T*>(x);
+  auto oo = static_cast<T*>(out);
+  if (wide_layout(block, kTopkWideBytes) == 1) {
+    auto kernel = block_topk_wide_kernel<true, T>;
+    const int smem = block * kTopkWideBytes;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess)
+      return;                                   // reported by the caller
+    kernel<<<grid, kWideThreads, smem, s>>>(xx, oo, d, block, k);
+  } else {
+    block_topk_wide_kernel<false, T><<<grid, kWideThreads, 0, s>>>(
+        xx, oo, d, block, k);
+  }
+}
+
 template <typename T>
 static void launch_topk_width(const void* x, void* out, long long d,
                               long long rows, int block, int k,
@@ -82,7 +151,8 @@ static void launch_topk_width(const void* x, void* out, long long d,
   else if (block <= 128) EFK_TOPK(4, 32);
   else if (block <= 256) EFK_TOPK(8, 32);
   else if (block <= 512) EFK_TOPK(16, 32);
-  else EFK_TOPK(32, 32);
+  else if (block <= kMaxWidth) EFK_TOPK(32, 32);
+  else launch_topk_wide<T>(x, out, d, rows, block, k, s);
 #undef EFK_TOPK
 }
 
@@ -94,10 +164,10 @@ extern "C" int ef_launch_block_topk(const void* x, void* out, long long d,
                                     int block, int k, int dtype,
                                     void* stream) {
   using namespace efk;
-  if (d <= 0 || block <= 0 || block > kMaxWidth || k < 1 || k > block ||
-      dtype < 0 || dtype > 2)
+  const long long rows = block > 0 ? (d + block - 1) / block : 0;
+  if (d <= 0 || block <= 0 || k < 1 || k > block || dtype < 0 ||
+      dtype > 2 || (block > kMaxWidth && rows > 0x7fffffffLL))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = (d + block - 1) / block;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     launch_topk_width<float>(x, out, d, rows, block, k, s);
@@ -106,4 +176,11 @@ extern "C" int ef_launch_block_topk(const void* x, void* out, long long d,
   else
     launch_topk_width<__half>(x, out, d, rows, block, k, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The route rows of `block` values take: 0 the lane groups and warps of
+// rows up to 1024, 1 the wide route with the row in shared memory, 2 the
+// wide route reading the row from device memory each pass.
+extern "C" int ef_topk_layout(long long block) {
+  return efk::wide_layout(block, efk::kTopkWideBytes);
 }

@@ -28,9 +28,6 @@ import torch
 
 from repro_torch.kernels import ref
 
-# widest row the warp-per-row kernels hold in registers (bisect.cuh)
-MAX_WIDTH = 1024
-
 launches: Dict[str, int] = {"block_topk": 0, "ef21_sgdm_update": 0,
                             "ef21_sgdm_topk_quant": 0, "dequant_add": 0,
                             "block_quantize": 0, "block_dequantize": 0,
@@ -58,7 +55,8 @@ _SIGNATURES = {
     "ef_launch_block_quantize": [_P, _P, _P, _L, _I, _I, _P],
     "ef_launch_block_dequantize": [_P, _P, _P, _L, _I, _I, _P],
     "ef_codec_mapping": [_P, _P, _I],
-    "ef_staged_rows": [_P, _P, _P, _P, _P, _P, _I],
+    "ef_rows_layout": [_P, _P, _P, _P, _P, _P, _I],
+    "ef_topk_layout": [_L],
     "ef_staged_update_occupancy": [_I, _I, _P],
     "ef_flash_f32_occupancy": [_I, _I, _P, _P],
     "ef_launch_flash_attention":
@@ -175,14 +173,25 @@ def codec_mapping(src: torch.Tensor, dst: torch.Tensor, cols: int) -> str:
 def ef_layout(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
               v_out: torch.Tensor, g_out: torch.Tensor,
               third: torch.Tensor) -> str:
-    """The layout, ``staged`` or ``strided``, that the card's K2 (``third``
-    its c) or K3 (``third`` its mantissas) runs rows of these tensors on:
-    staged for widths that are a multiple of 8 with every base on a 16-byte
-    boundary. The launchers' own rule (csrc/staged.cuh), asked of the built
-    library; it needs the card."""
+    """The layout that the card's K2 (``third`` its c) or K3 (``third`` its
+    mantissas) runs rows of these tensors on: for rows up to 1024,
+    ``staged`` for widths that are a multiple of 8 with every base on a
+    16-byte boundary (csrc/staged.cuh), else ``strided``; wider rows take
+    the wide route (csrc/wide.cuh), ``wide_shared`` with the row kept in
+    shared memory (up to 28,672 values) and ``wide_global`` beyond. The
+    launchers' own rule, asked of the built library; it needs the card."""
     ptrs = [t.data_ptr() for t in (grad, v, g, v_out, g_out, third)]
-    staged = _lib().ef_staged_rows(*ptrs, grad.shape[1])
-    return "staged" if staged else "strided"
+    code = _lib().ef_rows_layout(*ptrs, grad.shape[1])
+    return ("strided", "staged", "wide_shared", "wide_global")[code]
+
+
+def topk_layout(block: int) -> str:
+    """The route of the card's K1 for rows of ``block``: ``lanes`` (a lane
+    group or a warp a row, up to 1024), ``wide_shared`` (a CTA a
+    row kept in shared memory, up to 57,344 values) or ``wide_global``. The
+    launcher's own rule, asked of the built library; it needs the card."""
+    return ("lanes", "wide_shared", "wide_global")[
+        _lib().ef_topk_layout(block)]
 
 
 def staged_occupancy(width: int, bf16: bool) -> Tuple[int, int]:
@@ -243,7 +252,8 @@ def block_topk(x: torch.Tensor, *, block: int = 1024, k: int = 16
                ) -> torch.Tensor:
     """K1, Block-TopK by threshold bisection (the reference's public
     ``ops.block_topk``): x of any shape, f32, bf16 or f16, flattened and
-    zero-padded to rows of ``block`` (at most 1024 on the card); per row
+    zero-padded to rows of ``block`` (any width: rows wider than 1024
+    take the card's wide route, :func:`topk_layout`); per row
     keeps x where |x| >= the 26-step threshold. Returns a new tensor of x's
     shape and dtype."""
     if not 1 <= k <= block:
@@ -256,9 +266,6 @@ def block_topk(x: torch.Tensor, *, block: int = 1024, k: int = 16
     route = _route(x)
     if route == "plain":
         return ref.block_topk_plain(x, block=block, k=k)
-    if block > MAX_WIDTH:
-        raise ValueError(f"block {block} > {MAX_WIDTH}: wider rows are not "
-                         "supported by the CUDA kernel")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -272,17 +279,15 @@ def ef21_sgdm_update(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *,
                      g_out: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2, the fused EF21-SGDM client update on (rows, block) rows, grad f32
-    and the state v, g f32 or bfloat16: returns (v', g', c) in the state's
-    dtype. ``v_out``/``g_out`` receive v'/g' when given (they may be
-    ``v``/``g`` themselves: an in-place state update)."""
+    and the state v, g f32 or bfloat16, any block (:func:`ef_layout` names
+    the card's route): returns (v', g', c) in the state's dtype.
+    ``v_out``/``g_out`` receive v'/g' when given (they may be ``v``/``g``
+    themselves: an in-place state update)."""
     rows, width = _check_rows(grad, v, g, v_out, g_out, k)
     route = _route(grad, v, g, *_present(v_out, g_out))
     if route == "plain":
         vn, gn, c = ref.ef21_sgdm_update_plain(grad, v, g, eta=eta, k=k)
         return _into(vn, v_out), _into(gn, g_out), c
-    if width > MAX_WIDTH:
-        raise ValueError(f"block {width} > {MAX_WIDTH}: wider rows are not "
-                         "supported by the CUDA kernel")
     v_out = torch.empty_like(v) if v_out is None else v_out
     g_out = torch.empty_like(g) if g_out is None else g_out
     c = torch.empty_like(g)
@@ -300,7 +305,8 @@ def ef21_sgdm_topk_quant(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """K3, the one-launch uplink on (rows, block) rows, grad f32 and the
-    state v, g f32 or bfloat16: returns (v', g', q, scales) with g' = g +
+    state v, g f32 or bfloat16, any block (an even one at 4 bits):
+    returns (v', g', q, scales) with g' = g +
     dequantize(q, scales), v' and g' in the state's dtype. ``v_out`` /
     ``g_out`` as for :func:`ef21_sgdm_update`."""
     rows, width = _check_rows(grad, v, g, v_out, g_out, k)
@@ -312,9 +318,6 @@ def ef21_sgdm_topk_quant(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
         vn, gn, q, s = ref.ef21_sgdm_topk_quant_plain(grad, v, g, eta=eta,
                                                       k=k, bits=bits)
         return _into(vn, v_out), _into(gn, g_out), q, s
-    if width > MAX_WIDTH:
-        raise ValueError(f"block {width} > {MAX_WIDTH}: wider rows are not "
-                         "supported by the CUDA kernel")
     v_out = torch.empty_like(v) if v_out is None else v_out
     g_out = torch.empty_like(g) if g_out is None else g_out
     qdtype, qcols = (torch.int8, width) if bits == 8 else (torch.uint8,
@@ -331,17 +334,15 @@ def ef21_sgdm_topk_quant(grad: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
 def dequant_add(q: torch.Tensor, scales: torch.Tensor, base: torch.Tensor, *,
                 block: int, bits: int, alpha: float = 1.0) -> torch.Tensor:
     """K4, ``base + alpha * dequantize(q, scales)`` in one launch. ``base`` is
-    a flat f32 (d,) holding the first d of q's rows*block decoded slots;
-    returns a new (d,) f32 tensor."""
+    a flat f32 (d,) holding the first d of q's rows*block decoded slots; q
+    has K5's layout (at 4 bits an odd block's rows end in a pad nibble).
+    Returns a new (d,) f32 tensor."""
     _check_bits(bits)
-    if bits == 4 and block % 2:
-        raise ValueError("uint4 packing needs an even block")
     if q.dim() != 2 or base.dim() != 1:
         raise ValueError(f"q must be (rows, cols) and base flat, got "
                          f"{tuple(q.shape)} and {tuple(base.shape)}")
     rows, d = q.shape[0], base.numel()
-    qdtype, qcols = (torch.int8, block) if bits == 8 else (torch.uint8,
-                                                           block // 2)
+    qdtype, qcols = _codec_layout(bits, block)
     _check("q", q, (rows, qcols), qdtype)
     _check("scales", scales, (rows,), torch.float32)
     _check("base", base, (d,), torch.float32)

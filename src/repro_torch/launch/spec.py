@@ -60,7 +60,6 @@ DOWN_CARRIERS = CARRIERS - {"fused"}
 OPTIMIZERS = frozenset({"sgd", "adamw"})
 EF_STATE_DTYPES = (None, "bfloat16")
 MOE_IMPLS = ("dispatch", "dense")
-MAX_FUSED_BLOCK = 1024    # widest row of the fused kernels (kernels/ops.py)
 _JSON_SCALARS = (bool, int, float, str, type(None))
 
 # the keys one ``groups`` entry may carry, the per-group EF-state dtypes
@@ -491,15 +490,7 @@ class RunSpec:
                     for k, v in kw.items()):
                 errs.append(f"{kw_name} must map str keys to JSON scalars, "
                             f"got {kw!r}")
-        errs.extend(_fused_block_errors(
-            "", self.compressor_kw, {self.carrier, self.downlink_carrier}))
-        groups_errs = self._validate_groups()
-        errs.extend(groups_errs)
-        if not groups_errs and self.groups:
-            for i, g in enumerate(resolved_groups(self)):
-                errs.extend(_fused_block_errors(
-                    f"groups[{i}]: ", g["compressor_kw"],
-                    {g["carrier"], g["downlink_carrier"]}))
+        errs.extend(self._validate_groups())
         errs.extend(self._validate_participation())
         errs.extend(self._validate_hops())
         if self.seq_len <= 0 or self.global_batch <= 0 or self.clients < 1:
@@ -519,6 +510,24 @@ class RunSpec:
                         f"global batch {batch} not divisible by the {n} EF "
                         f"clients of mesh={self.mesh!r} "
                         f"granularity={self.client_granularity!r}")
+        # the fused misconfiguration of the spec's own carrier (the
+        # reference's construction check; each group's is in
+        # _validate_groups)
+        if self.carrier in CARRIERS and self.method in METHODS \
+                and self.compressor in COMPRESSORS:
+            plan, reason = self.plan()
+            if self.carrier == "fused" and plan != "fused":
+                errs.append(
+                    "carrier='fused' would silently run the UNFUSED dense "
+                    f"plan: {reason}. Pick carrier='dense' or 'sparse' for "
+                    f"method={self.method!r} compressor={self.compressor!r}")
+            if self.carrier in FUSED_WIRE_CARRIERS and plan != "fused_wire":
+                errs.append(
+                    f"carrier={self.carrier!r} would silently run a "
+                    f"DEGRADED plan ({plan!r}): {reason}. Pick "
+                    "carrier='quant8'/'quant4' (the unfused quantized wire) "
+                    f"for method={self.method!r} "
+                    f"compressor={self.compressor!r}")
         if not 0.0 < self.eta <= 1.0:
             errs.append(f"eta must be in (0, 1], got {self.eta}")
         for field in ("ratio", "downlink_ratio"):
@@ -830,21 +839,6 @@ class RunSpec:
         overrides = {field: getattr(args, field) for _, field, _ in _FLAGS
                      if getattr(args, field, None) is not None}
         return dataclasses.replace(base, **overrides) if overrides else base
-
-
-def _fused_block_errors(where: str, kw, carriers) -> List[str]:
-    """The fused kernels' block limits, for a compressor_kw whose carriers
-    (uplink, downlink) include a fused one."""
-    fused = set(carriers) & FUSED_CARRIERS
-    if not isinstance(kw, dict) or not fused:
-        return []
-    block = kw.get("block", 1024)
-    if not isinstance(block, int) or not 1 <= block <= MAX_FUSED_BLOCK:
-        return [f"{where}block {block!r}: the fused kernels take blocks of "
-                f"1..{MAX_FUSED_BLOCK}"]
-    if block % 2 and "fused_quant4" in fused:
-        return [f"{where}uint4 packing needs an even BlockTopK block"]
-    return []
 
 
 _DEFAULT = RunSpec()            # the defaults spec_hash leaves out

@@ -50,6 +50,7 @@ PATHS = [
     pytest.param("fused_quickstart", {"participation": {
         "mode": "sampled", "fraction": 0.25, "seed": 7}}, id="S"),
     pytest.param("hierarchy_quant4_cross", {}, id="H"),
+    pytest.param("fused_quickstart", CS.W_PATH, id="W"),
     *[pytest.param("fused_quickstart", dict(CS.R_PATH, arch=arch,
                                             clients=clients), id=name)
       for name, arch, _, clients, _ in CS.D_CELLS if clients],
@@ -85,9 +86,12 @@ def test_expected_launches_equal_the_wrapper_calls(monkeypatch, name,
 
 def test_the_full_width_phases_launch_their_stated_counts():
     """G: K3, K6, K5 and K4 8 a step (the embedding and 7 matrices); M: K5
-    and K6 8 a step; S: K2 11; H: K5 and K6 2 pods x 11 leaves."""
+    and K6 8 a step; S: K2 11; H: K5 and K6 2 pods x 11 leaves; W: K3, K6,
+    K5 and K4 11 (every leaf, at block 4096)."""
     want = {"G": {"ef21_sgdm_topk_quant": 8, "block_dequantize": 8,
                   "block_quantize": 8, "dequant_add": 8},
+            "W": {"ef21_sgdm_topk_quant": 11, "block_dequantize": 11,
+                  "block_quantize": 11, "dequant_add": 11},
             "M": {"block_quantize": 8, "block_dequantize": 8},
             "S": {"ef21_sgdm_update": 11},
             "H": {"block_quantize": 22, "block_dequantize": 22}}

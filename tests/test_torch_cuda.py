@@ -379,6 +379,124 @@ def test_cuda_block_topk_matches_plain(cuda_device, dtype, shape, block, k):
     assert torch.equal(got, want)
 
 
+# rows wider than 1024: the wide route (csrc/wide.cuh), a CTA a row, kept
+# in shared memory up to 28,672 values (K2/K3) or 57,344 (K1), recomputed
+# from device memory each pass beyond; (rows, width, k, layout)
+WIDE_EF = [(37, 1025, 16, "wide_shared"), (33, 2048, 32, "wide_shared"),
+           (19, 3000, 47, "wide_shared"), (41, 4096, 64, "wide_shared"),
+           (9, 28_672, 448, "wide_shared"), (7, 28_674, 448, "wide_global"),
+           (3, 65_536, 1024, "wide_global"),
+           (1, 1_048_576, 16_384, "wide_global")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [0, 8, 4])
+@pytest.mark.parametrize("rows,width,k,layout", WIDE_EF)
+def test_cuda_wide_rows_match_plain(cuda_device, rows, width, k, layout,
+                                    bits, state_dtype, in_place):
+    """K2 (bits 0) and K3 on rows wider than 1024, bit for bit against the
+    plain versions: an all-zero row, an inf, a NaN, ties across the k-th
+    value; in place as the carriers call them (the route that keeps
+    nothing must store v' only after its last read of the row)."""
+    if bits == 4 and width % 2:
+        return                              # uint4 packing: even rows only
+    grad, v, g = _ef_rows(max(rows, 8), width, state_dtype, cuda_device,
+                          width + bits)
+    kw = dict(eta=0.2, k=k)
+    plain = ref.ef21_sgdm_update_plain if bits == 0 else \
+        ref.ef21_sgdm_topk_quant_plain
+    kernel = ops.ef21_sgdm_update if bits == 0 else ops.ef21_sgdm_topk_quant
+    if bits:
+        kw["bits"] = bits
+    want = plain(grad, v, g, **kw)
+    ops.reset_launches()
+    if in_place:
+        got = kernel(grad, v, g, v_out=v, g_out=g, **kw)
+        assert got[0] is v and got[1] is g
+    else:
+        got = kernel(grad, v, g, **kw)
+    torch.cuda.synchronize()
+    assert sum(ops.launches.values()) == 1
+    assert ops.ef_layout(grad, v, g, got[0], got[1], got[2]) == layout
+    for a, b in zip(got, want):
+        assert _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [0, 8])
+@pytest.mark.parametrize("width", [1025, 3001, 4096])
+def test_cuda_wide_rows_off_16_bytes_match_plain(cuda_device, width, bits,
+                                                 state_dtype):
+    """The wide route takes odd widths and bases off a 16-byte boundary
+    (the strided rule's inputs), K2 and K3 at 8 bits."""
+    grad, v, g = _ef_rows(9, width, state_dtype, cuda_device, 3 + width)
+    grad, v = _unaligned(grad), _unaligned(v)
+    if bits == 0:
+        got = ops.ef21_sgdm_update(grad, v, g, eta=0.2, k=20)
+        want = ref.ef21_sgdm_update_plain(grad, v, g, eta=0.2, k=20)
+    else:
+        got = ops.ef21_sgdm_topk_quant(grad, v, g, eta=0.2, k=20, bits=8)
+        want = ref.ef21_sgdm_topk_quant_plain(grad, v, g, eta=0.2, k=20,
+                                              bits=8)
+    torch.cuda.synchronize()
+    assert ops.ef_layout(grad, v, g, *got[:3]) == "wide_shared"
+    for a, b in zip(got, want):
+        assert _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,block,k,layout", [
+    (5 * 1025 + 3, 1025, 16, "wide_shared"), (7 * 2048, 2048, 32,
+                                              "wide_shared"),
+    (9 * 4097 - 1000, 4097, 64, "wide_shared"),
+    (3 * 57_344, 57_344, 896, "wide_shared"),
+    (2 * 65_536 + 17, 65_536, 1024, "wide_global"),
+    (1_048_576, 1_048_576, 16_384, "wide_global")])
+def test_cuda_block_topk_wide_matches_plain(cuda_device, dtype, n, block, k,
+                                            layout):
+    """K1 on the wide route: a ragged last row read as zeros and not
+    stored, an all-zero row, ties, a NaN row; bit for bit."""
+    gen = torch.Generator(device="cpu").manual_seed(block + k)
+    x = torch.randn(n, generator=gen).to(dtype)
+    x[:block] = 0.0
+    if n >= 2 * block:
+        x[block:block + k + 5] = 2.0                     # a tie across k
+    x[-3] = float("nan")
+    x = x.to(cuda_device)
+    ops.reset_launches()
+    got = ops.block_topk(x, block=block, k=k)
+    torch.cuda.synchronize()
+    assert ops.launches["block_topk"] == 1
+    assert ops.topk_layout(block) == layout
+    want = ref.block_topk_plain(x, block=block, k=k)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1023, 51])
+def test_cuda_dequant_add_odd_block_4_bits_matches_plain(cuda_device, block):
+    """K4 at 4 bits on an odd block (fused_quant4's downlink at an odd
+    Block-TopK block): rows of ceil(block/2) bytes, K5's layout."""
+    nb, d = 53, 53 * block - 7
+    gen = torch.Generator(device="cpu").manual_seed(block)
+    q = torch.randint(0, 256, (nb, (block + 1) // 2), generator=gen).to(
+        torch.uint8).to(cuda_device)
+    scales = torch.rand(nb, generator=gen).to(cuda_device)
+    base = torch.randn(d, generator=gen).to(cuda_device)
+    for alpha in (1.0, -0.5):
+        got = ops.dequant_add(q, scales, base, block=block, bits=4,
+                              alpha=alpha)
+        want = ref.dequant_add_plain(q, scales, base, block=block, bits=4,
+                                     alpha=alpha)
+        assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,k", [(1024, 16), (1024, 51), (1000, 50),
                                      (128, 5)])

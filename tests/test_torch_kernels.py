@@ -77,7 +77,24 @@ CASES = [
                  (), id="single_block_960"),
     pytest.param(100, *FusedPallasCarrier._kernel_geom(BlockTopK(0.05), 100)[1:],
                  (), id="single_block_100"),
+    # blocks wider than 1024 (the card's wide route, csrc/wide.cuh), a few
+    # rows each, a ragged d and an all-zero row among them
+    pytest.param(3 * 2048 - 77, 2048, 32, (1,), id="wide_2048"),
+    pytest.param(2 * 3000 - 5, 3000, 47, (), id="wide_3000"),
+    pytest.param(2 * 4096, 4096, 64, (0,), id="wide_4096"),
 ]
+# an odd wide block: K2 and K3 at 8 bits (uint4 packing needs an even block)
+ODD_CASES = [pytest.param(3 * 1025 - 11, 1025, 16, (2,), id="wide_odd_1025")]
+
+
+def _with_bits(cases, bits):
+    """(d, block, k, zero_rows, bits) cells, named case-bits."""
+    return [pytest.param(*c.values, b, id=f"{c.id}-{b}") for c in cases
+            for b in bits]
+
+
+# K3's cells: every case at 8 and 4 bits, the odd block at 8
+K3_CASES = _with_bits(CASES, (8, 4)) + _with_bits(ODD_CASES, (8,))
 
 
 def test_single_block_geometry_rounds_to_lanes():
@@ -86,7 +103,7 @@ def test_single_block_geometry_rounds_to_lanes():
     assert FusedPallasCarrier._kernel_geom(BlockTopK(0.05), 4096) == (4, 1024, 51)
 
 
-@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+@pytest.mark.parametrize("d,block,k,zero_rows", CASES + ODD_CASES)
 def test_bisect_threshold_matches_pallas_helper(d, block, k, zero_rows):
     grad, _, _ = _inputs(d, 1, zero_rows, block)
     nb = -(-d // block)
@@ -162,7 +179,7 @@ def _run_k2(d, block, k, zero_rows, eta, seed):
     return [_unrows(t, d) for t in got], [np.asarray(x) for x in want]
 
 
-@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+@pytest.mark.parametrize("d,block,k,zero_rows", CASES + ODD_CASES)
 def test_ef21_sgdm_update_matches_pallas(d, block, k, zero_rows):
     (vt, gt, ct), (vj, gj, cj) = _run_k2(d, block, k, zero_rows, 0.5, 2)
     np.testing.assert_array_equal(ct, cj)
@@ -172,7 +189,7 @@ def test_ef21_sgdm_update_matches_pallas(d, block, k, zero_rows):
         assert not ct[r * block:(r + 1) * block].any()
 
 
-@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+@pytest.mark.parametrize("d,block,k,zero_rows", CASES + ODD_CASES)
 def test_ef21_sgdm_update_at_main_path_eta(d, block, k, zero_rows):
     (vt, gt, ct), (vj, gj, cj) = _run_k2(d, block, k, zero_rows, 0.2, 4)
     np.testing.assert_array_equal(ct != 0, cj != 0)
@@ -200,8 +217,7 @@ def _decode(q, s, bits, block):
     return ref.block_dequantize_plain(q, s, bits=bits, cols=block).numpy()
 
 
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+@pytest.mark.parametrize("d,block,k,zero_rows,bits", K3_CASES)
 def test_ef21_sgdm_topk_quant_matches_pallas(d, block, k, zero_rows, bits):
     (vt, gt, qt, st), (vj, gj, qj, sj) = _run_k3(d, block, k, zero_rows, 0.5,
                                                  3 + bits, bits)
@@ -214,8 +230,7 @@ def test_ef21_sgdm_topk_quant_matches_pallas(d, block, k, zero_rows, bits):
         assert not _decode(qt[r:r + 1], st[r:r + 1], bits, block).any()
 
 
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+@pytest.mark.parametrize("d,block,k,zero_rows,bits", K3_CASES)
 def test_ef21_sgdm_topk_quant_at_main_path_eta(d, block, k, zero_rows, bits):
     (vt, gt, qt, st), (vj, gj, qj, sj) = _run_k3(d, block, k, zero_rows, 0.2,
                                                  5 + bits, bits)
@@ -334,6 +349,12 @@ TOPK_CASES = [
     pytest.param((999,), 13, 3, np.float32, id="narrow_odd_13"),
     pytest.param((40, 51), 51, 3, np.float32, id="block_51"),
     pytest.param((4129,), 256, 5, jnp.bfloat16, id="bf16_256"),
+    # wider than 1024 (the card's wide route): ragged last rows, odd widths
+    pytest.param((3 * 1025 - 9,), 1025, 16, np.float32, id="wide_1025"),
+    pytest.param((5, 1000), 2048, 32, np.float32, id="wide_2048"),
+    pytest.param((2 * 3000 + 7,), 3000, 47, jnp.bfloat16, id="wide_3000"),
+    pytest.param((3, 4096), 4096, 64, np.float32, id="wide_4096"),
+    pytest.param((3 * 4097 - 100,), 4097, 64, np.float32, id="wide_4097"),
 ]
 
 
@@ -413,7 +434,7 @@ def _run_bf16(kernel, d, block, k, zero_rows, eta, seed, **kw):
                  if i < n_state else np.asarray(x) for i, x in enumerate(want)]
 
 
-@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+@pytest.mark.parametrize("d,block,k,zero_rows", CASES + ODD_CASES)
 def test_ef21_sgdm_update_bf16_state_matches_pallas(d, block, k, zero_rows):
     """η = 0.5: every product exact, one f32 rounding of each sum in both
     packages, then one bf16 rounding: v', g' and c equal bit for bit."""
@@ -424,7 +445,7 @@ def test_ef21_sgdm_update_bf16_state_matches_pallas(d, block, k, zero_rows):
     np.testing.assert_array_equal(gt, gj)
 
 
-@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+@pytest.mark.parametrize("d,block,k,zero_rows", CASES + ODD_CASES)
 def test_ef21_sgdm_update_bf16_state_at_main_path_eta(d, block, k,
                                                       zero_rows):
     """η = 0.2: the reference's fused multiply-add moves the f32 v' by up to
@@ -439,8 +460,7 @@ def test_ef21_sgdm_update_bf16_state_at_main_path_eta(d, block, k,
 
 
 @pytest.mark.parametrize("eta", [0.5, 0.2])
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("d,block,k,zero_rows", CASES)
+@pytest.mark.parametrize("d,block,k,zero_rows,bits", K3_CASES)
 def test_ef21_sgdm_topk_quant_bf16_state_matches_pallas(d, block, k,
                                                         zero_rows, bits,
                                                         eta):
@@ -534,18 +554,26 @@ def _adversarial_rows(case: str, k: int) -> torch.Tensor:
     elif case == "padded_last_row":                   # K1: a leaf padded
         flat = x.reshape(-1)[:64 * 1024 - 617]        # with counted zeros
         x = ref._flat_rows(torch.tensor(flat), 1024).numpy()
+    elif case == "wide_4097":                         # the wide route's rows
+        x = rng.randn(16, 4097).astype(np.float32)    # (a CTA a row), ties
+        x[0, :k + 3] = 7.0                            # across k, a zero row
+        x[1] = 0.0
     return torch.tensor(x)
 
 
 @pytest.mark.parametrize("k", [16, 51])
 @pytest.mark.parametrize("case", [
     "gaussian", "all_zero", "ties_at_max", "k_above_width",
-    "zeros_and_subnormals", "near_kth", "ragged_1000", "padded_last_row"])
+    "zeros_and_subnormals", "near_kth", "ragged_1000", "padded_last_row",
+    "wide_4097"])
 def test_bisect_early_exit_keeps_the_26_step_set(case, k):
     """The early exit keeps, mask for mask, the set that the full 26-step
     bisection keeps (ref.bisect_threshold_plain, as block_topk_plain and
     the EF kernels' plain versions use it), and never takes more than 26
-    passes; on Gaussian rows it stops after about 8-10."""
+    passes; on Gaussian rows it stops after about 8-10. The rule is a row's
+    own: a warp decides it for its row, and on rows wider than 1024 a CTA
+    decides it for its row on the CTA's summed counts (csrc/wide.cuh), so
+    this emulation holds both."""
     x = _adversarial_rows(case, k)
     ab = x.abs()
     want = ab >= ref.bisect_threshold_plain(ab, k)[:, None]

@@ -96,7 +96,6 @@ def test_spec_reads_the_reference_golden_file():
     {"state_sharding": "zeros"}, {"optimizer": "lion"},
     {"client_granularity": "rack"},
     {"ef_state_dtype": "float16"},
-    {"carrier": "fused", "compressor_kw": {"block": 2048}},
     {"global_batch": 12},
 ])
 def test_spec_rejects_what_this_slice_does_not_run(bad):
