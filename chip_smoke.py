@@ -122,8 +122,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      prefill (after a frontend's prefix) and 8 decode steps: the chosen
      experts equal, greedy tokens equal, prefill logits within rtol
      1e-4); then each D cell at full width cut in depth and clients (the
-     Session's config replaced before the first step), 3 steps of
-     fused_quant8/fused_quant4 and a serve of the trained model:
+     Session's config replaced before the first step), D_STEPS (2) steps
+     of fused_quant8/fused_quant4 and a serve of the trained model:
      D-danube 2 layers, 8 clients, serve batch 2, prompt 6144 (past the
      4096 window: the banded prefill and the ring cache wrap), 32 decode
      steps; D-granite 1 layer, 4 clients, serve batch 8, prompt 1024, 32
@@ -165,16 +165,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      kernel at the widths, k and row counts the run gives it):
      P-fig1 (Theorem 1's
      quadratic, Top-1, n 1 and 8, EF21-SGD and EF21-SGDM, 8000 steps, 2
-     seeds; Figure 1's inequalities must hold), P-exp1 (logistic
+     seeds at n 1 and 1 at n 8; Figure 1's inequalities must hold),
+     P-exp1 (logistic
      regression at MNIST's shape, EF21-SGDM with BlockTopK(1024, 1) on
      carriers fused and quant4 at B 1 and 128, 500 steps), P-async
      (run_async on P-exp1's problem, heavy-tailed arrivals, 20 rounds: the
      events equal a CPU run's and beat the barrier), P-exp3 (Algorithm 2's
      quadratics at n 100, d 1000, EF14 and EF21-SGDM, TopK 50, 1000 steps),
      P-exp4 (the MLP at CIFAR-10's width and d 10,510,346 on fused_quant8
-     up and fused_quant4 down, B 32, 200 steps), and the simulator free of
+     up and fused_quant4 down, B 32, 100 steps), and the simulator free of
      randomness on card and CPU (fused, fused_quant8/fused_quant4, quant4;
-     50 steps within rtol 1e-3);
+     50 steps within rtol 1e-3); then phase P-rates: the paper's Tables
+     1-2 (experiments/complexity_check.py at Ts 500/2000/8000, 66,000
+     rounds): the log-log slopes of EF21-SGDM's running-average ‖∇f‖²
+     against T with σ 0 and σ 1, both claims must hold;
   7. serving, card against CPU at smoke size (f32 activations, the same
      fresh weights): the greedy tokens must be equal and the prefill
      logits agree within rtol 1e-4;
@@ -295,7 +299,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      1056); then MT-replicated's ranks serve one row
      (MT_SERVE_B1: B 1 does not divide the data ranks, so every rank
      serves it and the sequence splits over all four), held to the
-     single-device serve as above. Then granite-34b,
+     single-device serve as above. Each MT-serve run prints the
+     yardstick, one device's bf16 prefill against its f32 prefill; the
+     dense runs the split's own rounding (:func:`f32_partials`: the
+     prefill again on the 4 ranks with each rank's MLP w_down partial
+     product summed in f32, against one device). Then granite-34b,
      gemma2-9b, olmoe-1b-7b, falcon-mamba-7b and zamba2-1.2b at smoke size
      on (data 2, model 2), the card within P_TOL of the CPU over 2 steps,
      and each serving a fresh f32 tree of its seed (4 rows, 4 decode
@@ -406,7 +414,8 @@ R_PATH = dict(carrier="fused_quant8", downlink_carrier="fused_quant4")
 # step holds whole, one client's v or g (1,447,284,480 bytes), is 3.1 % of
 # the peak, so a trace that leaves one out fails.
 DR_PEAK_TOL = 0.01
-D_STEPS = 3
+# 2 steps (3 before phase P-rates: the script's time limit)
+D_STEPS = 2
 D_CELLS = [  # (phase, arch, depth cut, clients or None: serve only, serve)
     ("D-danube", "h2o-danube-3-4b", {"num_layers": 2}, 8,
      dict(batch=2, prompt_len=6144, decode_steps=32)),
@@ -468,13 +477,17 @@ WIDE_TOPK = [(20_000 * 2048 - 333, 2048, "wide_shared"),
              (64 * 65_536 + 77, 65_536, "wide_global"),
              (2 * 1_048_576, 1_048_576, "wide_global")]
 # phase P: the paper's simulator at the experiments' published shapes
-P_FIG1 = dict(gamma=1e-3, steps=8000, seeds=2, ns=(1, 8))
+# seeds a client count: 2 at n 1 (Figure 1a's inequalities), 1 at n 8
+# (Figure 1b's EF21-SGD ending above twice its start, a margin of 10x on
+# an H100; 2 before phase P-rates: the script's time limit)
+P_FIG1 = dict(gamma=1e-3, steps=8000, seeds={1: 2, 8: 1}, ns=(1, 8))
 P_EXP1 = dict(n=10, m_per_client=6000, l=784, c=10)       # MNIST's shape
 P_EXP1_STEPS = 500
 P_EXP3 = dict(n=100, d=1000)                              # Algorithm 2's
 P_EXP3_STEPS = 1000
 P_EXP4 = dict(n=5, m_per_client=10000, in_dim=3072, hidden=2048, c=10)
-P_EXP4_STEPS = 200
+# 100 steps (200 before phase P-rates: the script's time limit)
+P_EXP4_STEPS = 100
 P_ASYNC_ROUNDS = 20
 P_TOL = 1e-3                   # card against CPU, as phase 3's smoke paths
 P_PROFILED = 5                 # rounds a P run times and profiles after it
@@ -2661,7 +2674,7 @@ def p_fig1(ops, problems, runs):
     total, ends, starts = {}, {}, {}
     for _, label, m, cfg in runs:
         curves = []
-        for seed in range(P_FIG1["seeds"]):
+        for seed in range(P_FIG1["seeds"][cfg.n]):
             out, launches = sim_run(ops, f"P-fig1 {label} seed {seed}", prob,
                                     m, cfg, seed)
             _add(total, launches)
@@ -2849,6 +2862,34 @@ def sim_phase(ops):
           f"{ {c: {k: v for k, v in n.items() if v} for c, n in cells.items()} }",
           flush=True)
     return cells
+
+
+def rates_phase(ops):
+    """P-rates: the paper's Tables 1–2 check
+    (``experiments/complexity_check.py``) at its full horizons on the
+    card: the log-log slope of EF21-SGDM's running-average ‖∇f‖² against
+    T on QuadraticT1, σ 0 (about −1) and σ 1 with η ∝ T^−1/2 (about −1/2).
+    Fails unless both claims hold; returns its launches (none: TopK(1)
+    runs no kernel)."""
+    from repro_torch.experiments import complexity_check as cc
+    ops.reset_launches()
+    t0 = time.time()
+    out = cc.run(device="cuda")
+    seconds = time.time() - t0
+    rounds = cc.DET_SEEDS * max(cc.TS) + cc.STOCH_SEEDS * sum(cc.TS)
+    launches = {k: v for k, v in ops.launches.items() if v}
+    det, st = out["deterministic"], out["stochastic"]
+    print(f"P-rates: Ts {list(cc.TS)}: σ 0 slope {det['slope']:.4f} "
+          f"(theory −1; values {det['vals']}), σ 1 slope {st['slope']:.4f} "
+          f"(theory −1/2; values {st['vals']}); claims {out['claims']}; "
+          f"{rounds} rounds in {seconds:.1f} s "
+          f"({seconds / rounds * 1e3:.3f} ms a round); launches {launches}",
+          flush=True)
+    if not all(out["claims"].values()):
+        fail(f"P-rates: a claim of the paper's rates fails: "
+             f"{out['claims']} (slopes {det['slope']:.4f}, "
+             f"{st['slope']:.4f})")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4402,6 +4443,39 @@ def serve_record(drops=None):
         model_lib._serve_logits, moe_lib.moe_apply = orig, orig_moe
 
 
+@contextlib.contextmanager
+def f32_partials():
+    """Within: each MLP's row-parallel ``w_down`` product under a 'model'
+    split summed over the axis in f32 and rounded to the activation dtype
+    once, as one device rounds the whole product; as served, each rank's
+    partial product is rounded to bf16 before the f32 sum
+    (``comm._model_all_reduce``), as the reference's compiled prefill
+    rounds it (tests/test_torch_tensor_parallel.py)."""
+    import torch.nn.functional as F
+    from repro_torch.core import comm
+    from repro_torch.models import layers
+    orig = layers.mlp_apply
+
+    def mlp(p, x, eps, tp=None):
+        if tp is None or not tp.ff:
+            return orig(p, x, eps, tp)
+        h = comm.copy_to(tp.axes, layers.rms_norm(x, p["norm"], eps))
+        act = (F.silu(h @ p["w_gate"].to(h.dtype))
+               * (h @ p["w_up"].to(h.dtype)))
+        out = act.float() @ p["w_down"].float()
+        return comm.reduce_from(tp.axes, out).to(x.dtype)
+    layers.mlp_apply = mlp
+    try:
+        yield
+    finally:
+        layers.mlp_apply = orig
+
+
+def _moved(got, want) -> float:
+    """The share of the logits that differ at all."""
+    return float((got != want).float().mean())
+
+
 def _row_rel(got, want) -> float:
     """The largest |got − want| of a row over the row's largest |want|."""
     return float(((got - want).abs().amax(-1)
@@ -4418,7 +4492,10 @@ def mt_serve(sess, ops, label, shape, device="cuda"):
     of each data coordinate gathers the params over 'model' and rank 0
     serves them on one device (the smoke mesh) on the same prompts: the
     prefill logits' largest row-relative gap, the first tokens, and how
-    many decode tokens agree."""
+    many decode tokens agree. The yardstick: one device's bf16 prefill
+    against its f32 prefill. Where the family is dense and 'model' splits
+    the MLP, the split's own rounding: the prefill again on the 4 ranks
+    under :func:`f32_partials`, against one device."""
     from repro_torch.core import comm
     from repro_torch.launch import shardings as sh
     from repro_torch.launch.session import Session
@@ -4463,6 +4540,11 @@ def mt_serve(sess, ops, label, shape, device="cuda"):
     logits32 = sh.gather_rows(rows, prefill_f32_logits(
         model_lib, cfg32, sess.params, sh.local_rows(tokens, rows), device,
         sess.tp, rows)).cpu()
+    partials32 = None
+    if sess.cfg.family == "dense" and sess.tp.ff:
+        with f32_partials(), serve_record() as seen_op:
+            sess.serve(tokens=tokens, decode_steps=0)
+        partials32 = sh.gather_rows(rows, seen_op[0].to(device)).cpu()
     if sess.mesh.coordinate()["data"] == 0:
         whole = sh.unshard_tree(sess.params, sess.pspecs, sess.model_axes)
         if sess.mesh.rank == 0:
@@ -4481,6 +4563,12 @@ def mt_serve(sess, ops, label, shape, device="cuda"):
             top = seen1[0].topk(2, dim=-1).values
             rec["single"] = dict(
                 rel=_row_rel(logits, seen1[0]),
+                moved=_moved(logits, seen1[0]),
+                partials32=None if partials32 is None else (
+                    _row_rel(partials32, seen1[0]),
+                    _moved(partials32, seen1[0])),
+                # what bf16 costs one device: its prefill against f32's
+                yardstick=_row_rel(seen1[0], want32),
                 first_equal=int(first.sum()),
                 # a differing row's top-two gap in the single-device
                 # logits, over the row's largest magnitude
@@ -4601,6 +4689,20 @@ def mt_serve_checks(ranks, label, shape, key="serve"):
           f"decode tokens equal; f32 prefill logits within "
           f"{one['rel32']:.3e} (limit {P_SERVE_TOL}), every first token "
           "equal", flush=True)
+    print(f"{label} serve: the yardstick, one device's bf16 prefill "
+          f"against its f32 prefill: {one['yardstick']:.3e} of each row's "
+          "largest", flush=True)
+    if one["partials32"] is not None:
+        rel, moved = one["partials32"]
+        print(f"{label} serve: the split's own rounding, each rank's MLP "
+              "w_down partial product rounded to bf16 before the f32 sum "
+              "over 'model' (comm._model_all_reduce; the reference rounds "
+              "it alike): summed in f32 and rounded once (f32_partials), "
+              "the prefill logits differ from one device's in a share "
+              f"{moved:.4f} (as served {one['moved']:.4f}), within "
+              f"{rel:.3e} of a row's largest (as served {one['rel']:.3e}); "
+              "the rest of the gap is bf16 rounding spread over the ops, "
+              "no one op (tools/bf16_upcast.py --serve)", flush=True)
     return total
 
 
@@ -4850,8 +4952,10 @@ def mt_phase(ops, runs=MT_RUNS, device="cuda", smoke=False,
                  f"{gaps[control]:.3e}: the split adds to bf16's rounding")
         print(f"MT smoke {run}: card against CPU {gaps[run]:.3e}, within "
               f"the larger of P_TOL {P_TOL} and the gap of its control "
-              f"{control} without the split, {gaps[control]:.3e}",
-              flush=True)
+              f"{control} without the split, {gaps[control]:.3e}; the "
+              "control's gap is the MoE layer's bf16, its router input "
+              "included, and a drop count flips at a router near tie "
+              "(tools/bf16_upcast.py --pod reads both)", flush=True)
     worst, served = {}, {}
     for arch in smoke_archs:
         runs_ = ranks[0]["smoke"][arch]
@@ -5142,6 +5246,10 @@ def main() -> None:
     with phase("P: the paper's simulator on the card (fig1, exp1, async, "
                "exp3, exp4 at the experiments' shapes; card against cpu)"):
         by_phase.update(sim_phase(ops))
+    with phase("P-rates: the paper's Tables 1-2 rate exponents "
+               "(complexity_check at Ts 500/2000/8000, 66,000 rounds) on "
+               "the card"):
+        by_phase["P-rates"] = rates_phase(ops)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("serving, cuda against cpu (smoke size)"):

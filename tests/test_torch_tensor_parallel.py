@@ -30,7 +30,13 @@ and read the same numpy inputs, written by the test process. Bars:
   within rtol 1e-4 of the reference's Session on the same mesh, the padded
   heads' slices unmoved, the replicated parts bit for bit among the ranks
   of a 'model' coordinate, kill-and-resume bit for bit, and the npz with
-  the reference's keys, shapes and spec_hash; the same of zamba2 smoke.
+  the reference's keys, shapes and spec_hash; the same of zamba2 smoke;
+- serving: tokens, cache bytes and MoE drops the reference's in f32; in
+  bf16 (smollm) the prefill logits against the reference's on the same
+  mesh and each package's split against its own one device, the share
+  of logits the split moves and its rms gap the reference's (both round
+  each rank's row-parallel partial product to bf16 before the sum), two
+  planted faults outside those bands.
 
 The SSM families ride the same world: falcon-mamba's Mamba1 and zamba2's
 Mamba2 with its shared block in the client pass (with and without
@@ -149,6 +155,16 @@ SERVE = {"B": 4, "S": 32, "steps": 4}
 # splits over all four ranks, every rank serving the row; gemma2's prompt
 # passes its 128-slot window, so its local layers' ring wraps and splits
 SERVE_B1 = {"smollm-360m": 32, "granite-34b": 32, "gemma2-9b": 160}
+# serving in bf16 (the spec's activation dtype) on (data 2, model 2) and
+# on one device, in both packages, from the same params (bf16 values) and
+# prompts: the prefill's last-position logits. smollm's d_ff and
+# vocabulary split, so each MLP's row-parallel w_down product leaves every
+# rank as a partial sum
+SERVE_BF16 = "smollm-360m"
+SERVE_BF16_TOL = 2e-2       # of each row's largest magnitude, as serving's
+# the port's split against its one device as the reference's against its
+# own: the share of logits moved within 0.1, the rms gap within 25 %
+SPLIT_MOVED, SPLIT_RMS = 0.1, 0.25
 # publishing at (data 2, model 2), 1 step: the dense downlink publishes,
 # the compressed one (SESSION's fused_quant4) is refused by the verify
 PUBLISH = {"dense": dict(SESSION, downlink_carrier="dense"),
@@ -227,6 +243,13 @@ def _serve_inputs():
             "params": {k: v.numpy() for k, v in params.items()},
             "tokens": rng.randint(0, cfg.vocab_size, (1, S))
             .astype(np.int32)}
+    # bf16 values, so neither package's cast of a matrix rounds
+    params = pt_model.init_params(_cfg(SERVE_BF16),
+                                  torch.Generator().manual_seed(16))
+    out[SERVE_BF16 + "/bf16"] = {
+        "params": {k: v.to(torch.bfloat16).float().numpy()
+                   for k, v in params.items()},
+        "tokens": out[SERVE_BF16]["tokens"]}
     return out
 
 
@@ -407,6 +430,78 @@ def _rank_serve(inp):
                                        "local_cache_bytes", "drops")}
         out[name]["kinds"] = {k: dict(v, groups=dict(v["groups"]))
                               for k, v in comm.KINDS.items()}
+    out[SERVE_BF16 + "/bf16"] = _rank_serve_bf16(inp)
+    return out
+
+
+# planted faults of the MLP's row-parallel w_down product under a 'model'
+# split, where both packages round each rank's partial product to bf16
+# once before the f32 sum over 'model': "fewer" keeps the partial in f32
+# through the sum and rounds once after it; "more" sums the partial's
+# blocks of PLANTED_BLOCK of the rank's d_ff rows in bf16, rounding the
+# running sum at each block (a blocked product with a bf16 accumulator)
+PLANTED_PARTIALS = ("fewer", "more")
+PLANTED_BLOCK = 8
+
+
+@contextlib.contextmanager
+def _planted_partials(fault):
+    """Within: the port's MLP with the PLANTED_PARTIALS ``fault``."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    orig = layers.mlp_apply
+
+    def mlp(p, x, eps, tp=None):
+        if tp is None or not tp.ff:
+            return orig(p, x, eps, tp)
+        h = comm.copy_to(tp.axes, layers.rms_norm(x, p["norm"], eps))
+        act = F.silu(h @ p["w_gate"].to(h.dtype)) * (h @ p["w_up"].to(h.dtype))
+        w = p["w_down"].to(act.dtype)
+        if fault == "fewer":
+            out = act.float() @ w.float()
+        else:
+            out = 0
+            for a, b in zip(act.split(PLANTED_BLOCK, -1),
+                            w.split(PLANTED_BLOCK, 0)):
+                out = out + a @ b
+        return comm.reduce_from(tp.axes, out).to(x.dtype)
+    layers.mlp_apply = mlp
+    try:
+        yield
+    finally:
+        layers.mlp_apply = orig
+
+
+def _rank_serve_bf16(inp):
+    """SERVE_BF16 served in the spec's bf16 on (data 2, model 2): the
+    tokens and this rank's rows' prefill logits at the last position, as
+    the port runs it and with each PLANTED_PARTIALS fault."""
+    from repro_torch.launch.session import Session
+    name = SERVE_BF16 + "/bf16"
+    out, orig = {}, pt_model._serve_logits
+    for run, ctx in (("logits", contextlib.nullcontext()),
+                     *((f, _planted_partials(f)) for f in PLANTED_PARTIALS)):
+        sess = Session(pt_spec.RunSpec.from_dict(dict(
+            SESSION, arch=SERVE_BF16, tp_pad_heads=0)), device="cpu")
+        assert sess.cfg.activation_dtype == torch.bfloat16
+        sess.set_serve_params({k: torch.tensor(v) for k, v in
+                               inp["serve"][name]["params"].items()})
+        seen = []
+
+        def logits(*a, **kw):
+            lg = orig(*a, **kw)
+            seen.append(lg[:, -1].numpy().copy())
+            return lg
+        pt_model._serve_logits = logits
+        try:
+            with ctx:
+                r = sess.serve(tokens=torch.tensor(
+                    inp["serve"][name]["tokens"]),
+                    decode_steps=SERVE["steps"])
+        finally:
+            pt_model._serve_logits = orig
+        out[run] = seen[0]
+        out.setdefault("tokens", r["tokens"])
     return out
 
 
@@ -566,6 +661,47 @@ def _rank_work(rank, inp_path, workdir, ckpt0):
 # the reference, in one subprocess on 4 forced host devices
 # ---------------------------------------------------------------------------
 
+def _reference_serve_bf16(inp):
+    """The reference's SERVE_BF16 in the spec's bf16, in the reference
+    subprocess: the prefill's last-position logits under the mesh (the
+    jitted prefill serve() built, run again on its placement of the
+    params, the prompts and a fresh cache) and on one device (the same
+    prefill jitted without a mesh), and the served tokens."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch import mesh as jax_mesh
+    from repro.launch import session as jax_session
+    from repro.launch import spec as jax_spec
+    from repro.models import model as jax_model
+    from test_torch_ef_round import _nest
+    name = SERVE_BF16 + "/bf16"
+    jsess = jax_session.Session(jax_spec.RunSpec.from_dict(
+        dict(SESSION, arch=SERVE_BF16, tp_pad_heads=0)))
+    assert jsess.cfg.activation_dtype == jnp.bfloat16
+    jparams = jax.tree_util.tree_map(jnp.asarray,
+                                     _nest(inp["serve"][name]["params"]))
+    jsess.set_serve_params(jparams)
+    tokens = inp["serve"][name]["tokens"]
+    B, S = tokens.shape
+    r = jsess.serve(tokens=jnp.asarray(tokens), decode_steps=SERVE["steps"])
+    prefill, _, _, b_spec, c_spec, _ = jsess._serve_cache[
+        (B, S, SERVE["steps"])]
+    shard_of = lambda tree: jax.tree_util.tree_map(    # noqa: E731
+        lambda s: s.sharding, tree)
+    cache = jax_model.init_cache(jsess.cfg, B, S + SERVE["steps"])
+    with jax_mesh.mesh_context(jsess.mesh):
+        mesh_logits, _ = prefill(
+            jsess._serve_params[1],
+            dict(jax.device_put({"tokens": jnp.asarray(tokens)},
+                                shard_of(b_spec))),
+            jax.device_put(cache, shard_of(c_spec)))
+    one_logits, _ = jax.jit(lambda p, t, c: jax_model.prefill(
+        jsess.cfg, p, {"tokens": t}, c))(jparams, jnp.asarray(tokens), cache)
+    return {"tokens": np.asarray(r["tokens"]),
+            "logits": np.asarray(mesh_logits[:, -1], np.float32),
+            "one_logits": np.asarray(one_logits[:, -1], np.float32)}
+
+
 def _reference_main(inp_path, ckpt0, out_path, workdir):
     """Run in the subprocess (XLA_FLAGS set before jax loads)."""
     import jax
@@ -706,6 +842,8 @@ def _reference_main(inp_path, ckpt0, out_path, workdir):
         out["serve"][name] = {"tokens": np.asarray(r["tokens"]),
                               "cache_bytes": r["cache_bytes"],
                               "shard_bytes": shard}
+
+    out["serve"][SERVE_BF16 + "/bf16"] = _reference_serve_bf16(inp)
 
     # one published step of each PUBLISH spec
     from repro.core import stream as jax_stream
@@ -1432,6 +1570,108 @@ def test_serve_at_model_2_matches_the_reference(world, arch):
             by_data = [r["serve"][arch]["drops"] for r in ranks
                        if r["coord"][1] == m]
             assert [sum(c) for c in zip(*by_data)] == drops
+
+
+def _row_rel(got, want):
+    """The largest |got - want| of a row over the row's largest |want|."""
+    return float((np.abs(got - want).max(-1)
+                  / np.abs(want).max(-1)).max())
+
+
+def bf16_serve_readings(world):
+    """SERVE_BF16's bf16 prefill logits: the port's on (data 2, model 2)
+    (each data rank's rows, equal on the two ranks of a data coordinate;
+    as it runs and with each PLANTED_PARTIALS fault), the reference's
+    under the same mesh, and each package's on one device. Returns the
+    gaps between them, each the largest over the rows of
+    :func:`_row_rel`, and of each split against its package's own
+    one-device logits the share of the logits it moves ("moved") and
+    the root mean square of its gap over each row's largest ("rms")."""
+    inp, ranks, want = world
+    name = SERVE_BF16 + "/bf16"
+    ref = want["serve"][name]
+    rows = SERVE["B"] // DP
+    many = {run: np.zeros_like(ref["logits"])
+            for run in ("logits", *PLANTED_PARTIALS)}
+    for r in ranks:
+        got = r["serve"][name]
+        np.testing.assert_array_equal(got["tokens"],
+                                      ranks[0]["serve"][name]["tokens"])
+        d = r["coord"][0]
+        for run, logits in many.items():
+            if r["coord"][1] == 0:
+                logits[d * rows:(d + 1) * rows] = got[run]
+            else:
+                np.testing.assert_array_equal(got[run], next(
+                    o["serve"][name][run] for o in ranks
+                    if o["coord"] == (d, 0)))
+    cfg = cb.get_smoke(SERVE_BF16)
+    params = pt_model.cast_matrices(cfg, {
+        k: torch.tensor(v) for k, v in inp["serve"][name]["params"].items()})
+    tokens = torch.tensor(inp["serve"][name]["tokens"])
+    cache = pt_model.init_cache(cfg, *tokens.shape)
+    one = pt_model.prefill(cfg, params, {"tokens": tokens},
+                           cache)[0][:, -1].numpy()
+
+    def rms(got, want):
+        return float(np.sqrt((((got - want) / np.abs(want).max(
+            -1, keepdims=True)) ** 2).mean()))
+    out = {
+        "port": _row_rel(many["logits"], one),
+        "reference": _row_rel(ref["logits"], ref["one_logits"]),
+        "port vs reference, split": _row_rel(many["logits"], ref["logits"]),
+        "port vs reference, one device": _row_rel(one, ref["one_logits"]),
+        "moved, reference": float((ref["logits"]
+                                   != ref["one_logits"]).mean()),
+        "rms, reference": rms(ref["logits"], ref["one_logits"])}
+    for run in ("logits", *PLANTED_PARTIALS):
+        key = "port" if run == "logits" else f"planted {run}"
+        out[f"moved, {key}"] = float((many[run] != one).mean())
+        out[f"rms, {key}"] = rms(many[run], one)
+    return out
+
+
+def test_bf16_serve_at_model_2_matches_the_reference(world):
+    """SERVE_BF16 served in bf16 on (data 2, model 2) from the same params
+    and prompts in both packages.
+
+    One device: the packages' logits within SERVE_BF16_TOL of each row's
+    largest (tests/test_torch_serve.py's bar; the reference's XLA-CPU
+    rounds each step of SiLU to bf16, the port once). The split: the
+    port's logits within that one-device gap plus SERVE_BF16_TOL of the
+    reference's on the same mesh, and each package's split within
+    SERVE_BF16_TOL of its own one device (chip_smoke.py's MT-serve bar).
+
+    Where the split rounds: both packages round each rank's row-parallel
+    partial product to bf16 before the f32 sum over 'model' (the
+    reference's compiled prefill converts the w_down product to bf16 and
+    back before its all-reduce, then rounds the sum). So the port's split
+    moves the reference's share of the logits off one device within
+    SPLIT_MOVED (0.7529 against 0.7744 at smoke size), and its rms gap
+    within SPLIT_RMS of the reference's (1.085 times). Each
+    PLANTED_PARTIALS fault leaves one of the bands: the partial kept in
+    f32 moves 0.1543 at 0.34 times the rms; the blocked bf16 accumulator
+    moves 0.8613 at 1.72 times. One extra rounding of a partial, of the
+    size of the one both packages make, stays inside the bands: the
+    split's first perturbation has grown to the bf16 floor of the next
+    layer by the logits, which so tell rounding from none and a growing
+    accumulator's error from one rounding, not one rounding from two."""
+    got = bf16_serve_readings(world)
+    print(f"bf16 serve on (data 2, model 2), readings: {got}")
+    one = got["port vs reference, one device"]
+    assert one <= SERVE_BF16_TOL, got
+    assert got["port vs reference, split"] <= one + SERVE_BF16_TOL, got
+    assert got["port"] <= SERVE_BF16_TOL, got
+    assert got["reference"] <= SERVE_BF16_TOL, got
+
+    def as_reference(key):
+        return (abs(got[f"moved, {key}"] - got["moved, reference"])
+                <= SPLIT_MOVED
+                and abs(got[f"rms, {key}"] / got["rms, reference"] - 1)
+                <= SPLIT_RMS)
+    assert as_reference("port"), got
+    for fault in PLANTED_PARTIALS:
+        assert not as_reference(f"planted {fault}"), (fault, got)
 
 
 def _ref_shard_bytes(arch, ref):
